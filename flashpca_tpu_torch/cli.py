@@ -79,6 +79,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "float64 on cpu)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the GPU (default) or the CPU path")
+    p.add_argument("--opmode", default="auto",
+                   choices=["auto", "wide", "tall"],
+                   help="decompose X X^T (wide), X^T X (tall, for "
+                        "N >> p), or pick automatically")
     p.add_argument("--polish", default="contract",
                    choices=["contract", "fast"],
                    help="float32 accuracy/speed knob: 'contract' "
@@ -169,6 +173,9 @@ def main(argv=None) -> int:
         return _die("--tol can't be zero or negative")
     if args.precision is not None and args.precision <= 1:
         return _die("output --precision too low")
+    if args.opmode != "auto" and mode != "pca":
+        return _die("--opmode applies to PCA mode only (the other modes "
+                    "run the wide operator)")
     if args.polish != "contract" and mode != "pca":
         return _die("--polish applies to PCA mode only")
 
@@ -230,7 +237,7 @@ def main(argv=None) -> int:
                 maxiter=args.maxiter, tol=args.tol, seed=args.seed,
                 block_size=block_size, do_loadings=bool(args.outload),
                 dtype=args.dtype, device=args.device, verbose=args.verbose,
-                polish=args.polish)
+                operator_mode=args.opmode, polish=args.polish)
             print(timestamp() + "PCA done")
             save_text(res.values.reshape(-1, 1), out["val"], precision=prec)
             ucol = ["FID" + TXT_SEP + "IID"] + [

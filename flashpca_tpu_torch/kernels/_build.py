@@ -1,9 +1,10 @@
 """Build and load the hand-written Hopper kernels (kernels/csrc/*.cu).
 
 Each source compiles with ``nvcc`` into its own shared library with a
-plain C interface, loaded through ``ctypes``.  The build happens at
-first use, never at import (the CPU tests import every module, and the
-CPU has no ``nvcc``), into ``kernels/build/<hash>/`` -- a directory that
+plain C interface, loaded through ``ctypes``; a source may hold several
+kernels (matvec_ff.cu holds B4 and B5), each with its own C entry.  The
+build happens at first use, never at import (the CPU tests import every
+module, and the CPU has no ``nvcc``), into ``kernels/build/<hash>/`` -- a directory that
 ``.gitignore`` lists.  The hash covers every source, header and flag,
 so an edited source builds anew; the sources compile in parallel, one
 ``nvcc`` each.
@@ -26,7 +27,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 HEADERS = ("common.cuh",)
 
-# library name -> (source, C entry point, argument types)
+# kernel name -> (source, C entry point, argument types)
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
@@ -39,6 +40,8 @@ KERNELS = {
                      [_P] * 5 + [_I64, _I64, _I32, _P]),
     "matvec_ff": ("matvec_ff.cu", "fp_matvec_ff",
                   [_P] * 6 + [_I64, _I64, _I32, _P]),
+    "matvec_ff_novl": ("matvec_ff.cu", "fp_matvec_ff_novl",
+                       [_P] * 5 + [_I64, _I64, _I32, _P]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -57,9 +60,18 @@ def _nvcc() -> str:
     return path
 
 
+def sources() -> list[str]:
+    """The distinct sources, one shared library each."""
+    return sorted({src for src, _, _ in KERNELS.values()})
+
+
+def _lib_stem(src: str) -> str:
+    return os.path.splitext(src)[0]
+
+
 def _build_dir() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted({src for src, _, _ in KERNELS.values()}) + list(HEADERS):
+    for name in sources() + list(HEADERS):
         with open(os.path.join(CSRC, name), "rb") as fh:
             h.update(name.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16])
@@ -69,12 +81,13 @@ def build_all() -> str:
     """Compile every kernel library that is not built yet (all ``nvcc``
     processes started together) and return the build directory.  The
     compiler's register/shared-memory report (``-Xptxas -v``) is kept
-    beside each library as ``<name>.log``."""
+    beside each library as ``<source stem>.log``."""
     out_dir = _build_dir()
     os.makedirs(out_dir, exist_ok=True)
     nvcc = None
     procs = []
-    for name, (src, _, _) in KERNELS.items():
+    for src in sources():
+        name = _lib_stem(src)
         lib = os.path.join(out_dir, f"lib{name}.so")
         if os.path.exists(lib):
             continue
@@ -111,9 +124,11 @@ def kernel(name: str):
         with _lock:
             if not _funcs:
                 out_dir = build_all()
-                for kname, (_, sym, argtypes) in KERNELS.items():
-                    lib = ctypes.CDLL(os.path.join(out_dir, f"lib{kname}.so"))
-                    f = getattr(lib, sym)
+                libs = {src: ctypes.CDLL(os.path.join(
+                            out_dir, f"lib{_lib_stem(src)}.so"))
+                        for src in sources()}
+                for kname, (src, sym, argtypes) in KERNELS.items():
+                    f = getattr(libs[src], sym)
                     f.argtypes = argtypes
                     f.restype = ctypes.c_int
                     _funcs[kname] = f

@@ -1,19 +1,25 @@
-// B4: the two-float (y_hi, y_err) of y = W^T (v_hi + v_lo), with
-// W = W_hi + W_lo the exact float64 standardized matrix split into a
-// float32 pair.
+// B4 and B5: the two-float (y_hi, y_err) of y = W^T (v_hi [+ v_lo]),
+// with W = W_hi + W_lo the exact float64 standardized matrix split into
+// a float32 pair.
 //
-// Replaces flashpca_tpu/kernels/packed_matvec.py::_matvec_ff_kernel
-// (= _matvec_ff_kernel_for(True)).
+// Replaces flashpca_tpu/kernels/packed_matvec.py::_matvec_ff_kernel_for:
+//   B4 = _matvec_ff_kernel      (_matvec_ff_kernel_for(True)),  HAS_VL=true
+//   B5 = _matvec_ff_kernel_novl (_matvec_ff_kernel_for(False)), HAS_VL=false
+// B5 is stage 1 of the tall compensated gram, whose input panel is a
+// plain float32 v: it has no v_lo operand, so its instantiation stages
+// no v_lo tile and issues no v_lo W_hi FMA -- one product in three less
+// than B4 called with a zero v_lo.
 //
-// Bound: float32 FMAs on the CUDA cores -- three products per genotype
-// and column (v_hi W_hi, v_hi W_lo, v_lo W_hi), 6*KC*p*n4 operations.
+// Bound: float32 FMAs on the CUDA cores -- per genotype and column,
+// three products for B4 (v_hi W_hi, v_hi W_lo, v_lo W_hi), two for B5:
+// 6*KC*p*n4 and 4*KC*p*n4 operations.
 //
 // Design: as matvec.cu (one block = TB packed bytes x all KC columns,
 // walking the whole SNP axis; no atomics, no split-K), with the exact
 // LUT-select decode of crossprod_ff.cu.  v_hi W_hi is accumulated per
 // chunk of CR rows and folded into the running sum with TwoSum; the
-// TwoSum errors and the eps-sized v_hi W_lo + v_lo W_hi partials go
-// into the err half, which is written out beside the sum.
+// TwoSum errors and the eps-sized cross terms go into the err half,
+// which is written out beside the sum.
 #include "common.cuh"
 
 namespace {
@@ -22,7 +28,7 @@ constexpr int TB = 64;
 constexpr int NT = 4 * TB;
 constexpr int CR = 64;
 
-template <int KC>
+template <int KC, bool HAS_VL>
 __global__ void __launch_bounds__(NT)
 matvec_ff_kernel(const uint8_t* __restrict__ packed,
                  const float* __restrict__ lut6, const float* __restrict__ vh,
@@ -30,7 +36,8 @@ matvec_ff_kernel(const uint8_t* __restrict__ packed,
                  float* __restrict__ yl, long long p, long long nb) {
   __shared__ __align__(16) uint8_t ptile[CR][TB];
   __shared__ __align__(16) float vhtile[CR][KC];
-  __shared__ __align__(16) float vltile[CR][KC];
+  // B5 keeps a one-element placeholder: no v_lo tile is staged or read
+  __shared__ __align__(16) float vltile[HAS_VL ? CR : 1][HAS_VL ? KC : 4];
   __shared__ float ltile[CR][6];
   constexpr int V4 = KC / 4;
 
@@ -64,13 +71,13 @@ matvec_ff_kernel(const uint8_t* __restrict__ packed,
       const int q = idx % V4;
       const long long gr = r0 + r;
       float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      float4 b = a;
-      if (gr < p) {
-        a = reinterpret_cast<const float4*>(vh + gr * KC)[q];
-        b = reinterpret_cast<const float4*>(vl + gr * KC)[q];
-      }
+      if (gr < p) a = reinterpret_cast<const float4*>(vh + gr * KC)[q];
       reinterpret_cast<float4*>(&vhtile[r][0])[q] = a;
-      reinterpret_cast<float4*>(&vltile[r][0])[q] = b;
+      if constexpr (HAS_VL) {
+        float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (gr < p) b = reinterpret_cast<const float4*>(vl + gr * KC)[q];
+        reinterpret_cast<float4*>(&vltile[r][0])[q] = b;
+      }
     }
     for (int idx = tid; idx < CR * 6; idx += NT) {
       const int r = idx / 6;
@@ -85,19 +92,24 @@ matvec_ff_kernel(const uint8_t* __restrict__ packed,
       const float wh = fp::decode_lut(code, ltile[r][0], ltile[r][1], ltile[r][2]);
       const float wl = fp::decode_lut(code, ltile[r][3], ltile[r][4], ltile[r][5]);
       const float4* ah = reinterpret_cast<const float4*>(&vhtile[r][0]);
-      const float4* al = reinterpret_cast<const float4*>(&vltile[r][0]);
 #pragma unroll
       for (int q = 0; q < V4; ++q) {
         const float4 h = ah[q];
-        const float4 l = al[q];
         acc[4 * q + 0] = fmaf(h.x, wh, acc[4 * q + 0]);
         acc[4 * q + 1] = fmaf(h.y, wh, acc[4 * q + 1]);
         acc[4 * q + 2] = fmaf(h.z, wh, acc[4 * q + 2]);
         acc[4 * q + 3] = fmaf(h.w, wh, acc[4 * q + 3]);
-        accl[4 * q + 0] = fmaf(l.x, wh, fmaf(h.x, wl, accl[4 * q + 0]));
-        accl[4 * q + 1] = fmaf(l.y, wh, fmaf(h.y, wl, accl[4 * q + 1]));
-        accl[4 * q + 2] = fmaf(l.z, wh, fmaf(h.z, wl, accl[4 * q + 2]));
-        accl[4 * q + 3] = fmaf(l.w, wh, fmaf(h.w, wl, accl[4 * q + 3]));
+        accl[4 * q + 0] = fmaf(h.x, wl, accl[4 * q + 0]);
+        accl[4 * q + 1] = fmaf(h.y, wl, accl[4 * q + 1]);
+        accl[4 * q + 2] = fmaf(h.z, wl, accl[4 * q + 2]);
+        accl[4 * q + 3] = fmaf(h.w, wl, accl[4 * q + 3]);
+        if constexpr (HAS_VL) {
+          const float4 l = reinterpret_cast<const float4*>(&vltile[r][0])[q];
+          accl[4 * q + 0] = fmaf(l.x, wh, accl[4 * q + 0]);
+          accl[4 * q + 1] = fmaf(l.y, wh, accl[4 * q + 1]);
+          accl[4 * q + 2] = fmaf(l.z, wh, accl[4 * q + 2]);
+          accl[4 * q + 3] = fmaf(l.w, wh, accl[4 * q + 3]);
+        }
       }
     }
     __syncthreads();
@@ -126,13 +138,10 @@ matvec_ff_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
-}  // namespace
-
-// packed (p, nb) u8; lut6 (6, p) f32; vh, vl (p, kc) f32;
-// yh, yl (4*nb, kc) f32.
-extern "C" int fp_matvec_ff(const void* packed, const void* lut6,
-                            const void* vh, const void* vl, void* yh, void* yl,
-                            long long p, long long nb, int kc, void* stream) {
+template <bool HAS_VL>
+int launch(const void* packed, const void* lut6, const void* vh,
+           const void* vl, void* yh, void* yl, long long p, long long nb,
+           int kc, void* stream) {
   if (p <= 0 || nb <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((nb + TB - 1) / TB));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -143,11 +152,29 @@ extern "C" int fp_matvec_ff(const void* packed, const void* lut6,
   auto* oh = static_cast<float*>(yh);
   auto* ol = static_cast<float*>(yl);
   switch (kc) {
-    case 8: matvec_ff_kernel<8><<<grid, NT, 0, st>>>(pk, lt, a, b, oh, ol, p, nb); break;
-    case 16: matvec_ff_kernel<16><<<grid, NT, 0, st>>>(pk, lt, a, b, oh, ol, p, nb); break;
-    case 24: matvec_ff_kernel<24><<<grid, NT, 0, st>>>(pk, lt, a, b, oh, ol, p, nb); break;
-    case 32: matvec_ff_kernel<32><<<grid, NT, 0, st>>>(pk, lt, a, b, oh, ol, p, nb); break;
+    case 8: matvec_ff_kernel<8, HAS_VL><<<grid, NT, 0, st>>>(pk, lt, a, b, oh, ol, p, nb); break;
+    case 16: matvec_ff_kernel<16, HAS_VL><<<grid, NT, 0, st>>>(pk, lt, a, b, oh, ol, p, nb); break;
+    case 24: matvec_ff_kernel<24, HAS_VL><<<grid, NT, 0, st>>>(pk, lt, a, b, oh, ol, p, nb); break;
+    case 32: matvec_ff_kernel<32, HAS_VL><<<grid, NT, 0, st>>>(pk, lt, a, b, oh, ol, p, nb); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// B4. packed (p, nb) u8; lut6 (6, p) f32; vh, vl (p, kc) f32;
+// yh, yl (4*nb, kc) f32.
+extern "C" int fp_matvec_ff(const void* packed, const void* lut6,
+                            const void* vh, const void* vl, void* yh, void* yl,
+                            long long p, long long nb, int kc, void* stream) {
+  return launch<true>(packed, lut6, vh, vl, yh, yl, p, nb, kc, stream);
+}
+
+// B5: as B4 without the v_lo operand.
+extern "C" int fp_matvec_ff_novl(const void* packed, const void* lut6,
+                                 const void* vh, void* yh, void* yl,
+                                 long long p, long long nb, int kc,
+                                 void* stream) {
+  return launch<false>(packed, lut6, vh, nullptr, yh, yl, p, nb, kc, stream);
 }

@@ -2,7 +2,7 @@
 plain PyTorch versions.
 
 The genotype matrix W (p SNPs x n4 permuted samples) lives on the card
-as raw PLINK packed bytes, SNP-major ``(p, nbytes)`` uint8.  The four
+as raw PLINK packed bytes, SNP-major ``(p, nbytes)`` uint8.  The five
 hand-written CUDA kernels (kernels/csrc/) decode tiles of it to
 standardized float32 in registers and contract them at once, so the
 decoded matrix never reaches device memory:
@@ -12,7 +12,12 @@ B1    crossprod.cu        z = W x        (n4, k) -> (p, k)
 B2    matvec.cu           y = W^T v      (p, k) -> (n4, k)
 B3    crossprod_ff.cu     two-float (z_hi, z_err) of W x
 B4    matvec_ff.cu        two-float (y_hi, y_err) of W^T (v_hi + v_lo)
+B5    matvec_ff.cu        two-float (y_hi, y_err) of W^T v (no v_lo)
 ====  ==================  ============================================
+
+The wide gram W^T W runs B1 then B2 (B3 then B4 in two-float); the
+tall gram W M W^T (M the valid-sample mask) runs B2 then B1, and in
+two-float B5, then B3 plus B1 on the eps-sized low half.
 
 Layout: permuted sample space (ops/genotypes.py) -- position
 ``s*nbytes + b`` holds sample ``4b + s`` -- so an (n4, k) panel is four
@@ -46,7 +51,7 @@ KC_WIDTHS = (8, 16, 24, 32)
 MAX_KC = KC_WIDTHS[-1]
 
 launch_counts = {"crossprod": 0, "matvec": 0, "crossprod_ff": 0,
-                 "matvec_ff": 0}
+                 "matvec_ff": 0, "matvec_ff_novl": 0}
 _launch_log: list | None = None
 
 
@@ -189,11 +194,10 @@ def crossprod_ff_plain(packed, lut6, xp):
 
 def matvec_ff_plain(packed, lut6, vh, vl):
     """(y_hi, y_err) of W^T (vh + vl): vh W_hi TwoSum-folded per SNP-row
-    chunk, vh W_lo + vl W_hi added into err."""
+    chunk, vh W_lo + vl W_hi added into err (``vl=None``: no vl W_hi)."""
     p, nb = packed.shape
     k = vh.shape[1]
     vh = vh.to(torch.float32)
-    vl = vl.to(torch.float32)
     y = torch.zeros((4, nb, k), dtype=torch.float32, device=vh.device)
     err = torch.zeros_like(y)
     rc = _row_chunk(nb)
@@ -202,16 +206,24 @@ def matvec_ff_plain(packed, lut6, vh, vl):
         lh = [lut6[i, r0: r0 + rc] for i in (0, 1, 2)]
         ll = [lut6[i, r0: r0 + rc] for i in (3, 4, 5)]
         a = vh[r0: r0 + rc]
-        b = vl[r0: r0 + rc]
         ts, cs = [], []
         for s in range(4):
             wh = _decode_plane_lut(blk, s, *lh).T
             wl = _decode_plane_lut(blk, s, *ll).T
             ts.append(wh @ a)
-            cs.append(wl @ a + wh @ b)
+            c = wl @ a
+            if vl is not None:
+                c = c + wh @ vl[r0: r0 + rc].to(torch.float32)
+            cs.append(c)
         y, e = twosum(y, torch.stack(ts))
         err = err + e + torch.stack(cs)
     return y.reshape(4 * nb, k), err.reshape(4 * nb, k)
+
+
+def matvec_ff_novl_plain(packed, lut6, vh):
+    """(y_hi, y_err) of W^T vh: the fold of :func:`matvec_ff_plain`
+    without the vl W_hi term."""
+    return matvec_ff_plain(packed, lut6, vh, None)
 
 
 # ---------------------------------------------------------------------------
@@ -320,6 +332,14 @@ def _launch_matvec_ff(packed, lut6, vh, vl, kc):
     return yh, yl
 
 
+def _launch_matvec_ff_novl(packed, lut6, vh, kc):
+    p, nb = packed.shape
+    yh = torch.empty((4 * nb, kc), dtype=torch.float32, device=packed.device)
+    yl = torch.empty_like(yh)
+    _run("matvec_ff_novl", packed, lut6, vh, yh, yl, p, nb, kc)
+    return yh, yl
+
+
 def _check_shapes(rows, x, what):
     if x.ndim != 2 or x.shape[0] != rows:
         raise ValueError(f"{what}: expected ({rows}, k), got "
@@ -398,6 +418,19 @@ def matvec_ff_p(packed, lut6, vh, vl):
     return _cat_pairs(outs, w)
 
 
+def matvec_ff_novl_p(packed, lut6, vh):
+    """(y_hi, y_err) of W^T vh: (p, k) -> 2 x (n4, k).  B5 on CUDA."""
+    _check_shapes(packed.shape[0], vh, "matvec_ff_novl_p")
+    if vh.device.type == "cpu":
+        return matvec_ff_novl_plain(packed, lut6, vh)
+    _check_cuda(packed, vh, lut6)
+    _check_lut6(packed, lut6)
+    w = _widths(vh.shape[1])
+    outs = [_launch_matvec_ff_novl(packed, lut6, _padded(vh, c0, c1, kc), kc)
+            for c0, c1, kc in w]
+    return _cat_pairs(outs, w)
+
+
 def _cat_pairs(outs, widths):
     hs = [o[0][:, : c1 - c0] for o, (c0, c1, _) in zip(outs, widths)]
     ls = [o[1][:, : c1 - c0] for o, (c0, c1, _) in zip(outs, widths)]
@@ -423,4 +456,47 @@ def gram_ff_p(packed, lut_hi, lut_lo, xp):
         zh, zl = _launch_crossprod_ff(packed, lut6, _padded(xp, c0, c1, kc),
                                       kc)
         outs.append(_launch_matvec_ff(packed, lut6, zh, zl, kc))
+    return _cat_pairs(outs, w)
+
+
+def gram_tall_ff_plain(packed, lut_hi, lut_lo, mean, invsd, v, valid):
+    """Plain version of :func:`gram_tall_ff_p` (any device): the plain
+    versions of B5, B3 and B1 with the mask between the stages."""
+    lut6 = lut_rows(lut_hi, lut_lo)
+    m = valid.to(torch.float32)[:, None]
+    yh, yl = matvec_ff_novl_plain(packed, lut6, v)
+    zh, zl = crossprod_ff_plain(packed, lut6, yh * m)
+    return zh, zl + crossprod_plain(packed, mean, invsd, yl * m)
+
+
+def gram_tall_ff_p(packed, lut_hi, lut_lo, mean, invsd, v, valid):
+    """(z_hi, z_lo) of the SNP-space gram W M W^T v in two-float
+    arithmetic, M = diag(valid) the valid-sample mask (n4,): B5, the
+    mask on both halves, B3 on y_hi, and B1 on y_lo added into z_lo.
+
+    The eps-sized correction W y_lo rides the plain kernel B1 with its
+    factored-cubic decode, as in the JAX package: that decode differs
+    from the exact hi table by ~eps, which lands at eps^2 of the
+    result."""
+    _check_shapes(packed.shape[0], v, "gram_tall_ff_p")
+    if tuple(valid.shape) != (4 * packed.shape[1],):
+        raise ValueError(
+            f"gram_tall_ff_p: valid must be ({4 * packed.shape[1]},), got "
+            f"{tuple(valid.shape)}")
+    if v.device.type == "cpu":
+        return gram_tall_ff_plain(packed, lut_hi, lut_lo, mean, invsd, v,
+                                  valid)
+    lut6 = lut_rows(lut_hi, lut_lo)
+    m = valid.to(torch.float32)[:, None]
+    coeffs = coeff_rows(mean, invsd)
+    _check_cuda(packed, v, lut6, m, *coeffs)
+    _check_lut6(packed, lut6)
+    w = _widths(v.shape[1])
+    outs = []
+    for c0, c1, kc in w:
+        yh, yl = _launch_matvec_ff_novl(packed, lut6, _padded(v, c0, c1, kc),
+                                        kc)
+        zh, zl = _launch_crossprod_ff(packed, lut6, yh.mul_(m), kc)
+        zl += _launch_crossprod(packed, coeffs, yl.mul_(m), kc)
+        outs.append((zh, zl))
     return _cat_pairs(outs, w)

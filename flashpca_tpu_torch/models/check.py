@@ -18,8 +18,8 @@ import numpy as np
 import torch
 
 from ..io.plink import PlinkDataset
-from ..ops.operator import (PackedOperator, build_packed_operator,
-                            check_operator_conflicts)
+from ..ops.operator import (PackedOperator, TallPackedOperator,
+                            build_packed_operator, check_operator_conflicts)
 from ._common import not_ported
 from ._common import resolve_divisor as _div
 
@@ -61,6 +61,11 @@ def check(data, evec, eval_, *, stand: str | None = None,
 
     if isinstance(data, str):
         data = PlinkDataset.open(data)
+    if isinstance(data, TallPackedOperator):
+        raise ValueError(
+            "check() verifies the WIDE decomposition X X^T U = U d "
+            "(randompca.cpp:663-703); a tall operator exposes X^T X -- "
+            "pass the PLINK data (or a wide operator) instead")
     if not isinstance(data, (PlinkDataset, PackedOperator)):
         raise not_ported("check() on a numeric matrix",
                          "A12 'Dense and matrix inputs'")

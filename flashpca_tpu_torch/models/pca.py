@@ -12,11 +12,12 @@ with identical post-processing:
 plus the dimension cap ``ndim <= (min(N, p) - 1) / 2``
 (flashpca.cpp:614-633).
 
-This package ports the wide, device-resident, single-device path: a
-PLINK fileset or a prebuilt :class:`PackedOperator`.  The tall path,
-streaming, multi-GPU, dense matrix input, ``batch=True`` and mid-run
-checkpoints raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+This package ports the device-resident, single-device paths: a PLINK
+fileset, a prebuilt :class:`PackedOperator` (the wide gram X X^T) or a
+prebuilt :class:`TallPackedOperator` (the tall gram X^T X, taken by
+``operator_mode="auto"`` when n > 2p).  Streaming, multi-GPU, dense
+matrix input, ``batch=True`` and mid-run checkpoints raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ import numpy as np
 import torch
 
 from ..io.plink import PlinkDataset
-from ..ops.operator import (PackedOperator, build_packed_operator,
-                            check_operator_conflicts)
+from ..ops.operator import (PackedOperator, TallPackedOperator,
+                            build_packed_operator, check_operator_conflicts)
 from ..solvers.block_lanczos import eigsh_block, polish_subspace
 from ..utils.device import host64
 from ._common import not_ported
@@ -84,7 +85,10 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
     """Compute the top ``ndim`` principal components.
 
     ``data`` is a PLINK root path / :class:`PlinkDataset` or a prebuilt
-    :class:`PackedOperator` (e.g. genotypes generated on the card).
+    :class:`PackedOperator` / :class:`TallPackedOperator` (e.g.
+    genotypes generated on the card).  ``operator_mode`` picks the gram
+    for PLINK input: ``"wide"`` (X X^T), ``"tall"`` (X^T X, for n >> p)
+    or ``"auto"`` (tall when n > 2p).
     ``device`` defaults to ``cuda`` and raises without a GPU; pass
     ``device="cpu"`` for the PyTorch CPU path (float64 by default).
 
@@ -97,8 +101,10 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
       accepts under 7e-9, deepens by one more refinement if missed, and
       falls back to the full adaptive solve if still missed -- meeting
       the reference's ``--check`` contract (mse < 1e-8) measurably.  The
-      fixed schedule applies for ndim <= 32; larger ndim runs the
-      adaptive schedule with 8 buffer pairs.
+      fixed schedule applies on the wide path for ndim <= 32; larger
+      ndim runs the adaptive schedule with 8 buffer pairs, and the tall
+      path keeps the adaptive schedule and one compensated polish
+      throughout.
     * ``"fast"``: plain float32 solve + float32 subspace polish, about
       half the data passes; the residual floors at the float32
       product-noise level.
@@ -107,8 +113,9 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
 
     ``device_results=True`` keeps vectors/projection/loadings as device
     tensors.  ``state_out`` writes an .npz restart checkpoint (the Ritz
-    panel in sample space) after the solve; ``state_in`` warm-starts
-    from one (the JAX package's checkpoint format).
+    panel of the solved gram: n sample rows on the wide path, p SNP rows
+    on the tall one) after the solve; ``state_in`` warm-starts from one
+    (the JAX package's checkpoint format).
     """
     if polish not in ("contract", "fast"):
         raise ValueError(
@@ -127,48 +134,43 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
     if isinstance(data, str):
         data = PlinkDataset.open(data)
 
-    if isinstance(data, PackedOperator):
+    if isinstance(data, (PackedOperator, TallPackedOperator)):
         check_operator_conflicts(data, dtype=dtype, streaming=streaming,
                                  memory_mb=memory_mb, block_size=block_size,
                                  device=device)
-        if operator_mode == "tall":
+        # the decomposition shape is fixed by the operator class too
+        if operator_mode != "auto" and (operator_mode == "tall") != (
+                isinstance(data, TallPackedOperator)):
             raise ValueError(
-                "operator_mode='tall' conflicts with the prebuilt "
-                "PackedOperator (a wide operator)")
+                f"operator_mode={operator_mode!r} conflicts with the "
+                f"prebuilt {type(data).__name__}; build the matching "
+                "operator class instead")
         _check_ndim(ndim, data.n_samples, data.n_snps)
-        return _pca_operator(
-            data, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
-            data.center, data.scale, panel=panel,
-            device_results=device_results, state_in=state_in,
-            state_out=state_out, verbose=verbose, polish=polish)
-
-    if isinstance(data, PlinkDataset):
+        op = data
+    elif isinstance(data, PlinkDataset):
         if stand not in ("binom", "binom2"):
             raise ValueError(
                 "When using PLINK data, you must use stand='binom' or "
                 "'binom2'")
         n, p = data.n_samples, data.n_snps
         _check_ndim(ndim, n, p)
-        if operator_mode == "tall" or (operator_mode == "auto" and n > 2 * p):
-            raise not_ported(
-                f"the tall path (X^T X; chosen for n={n} > 2p={2 * p} "
-                "or operator_mode='tall'); pass operator_mode='wide' to "
-                "decompose X X^T instead", "A16 'Tall path'")
         # one host pass yields (mean, sd) AND the exact per-SNP sum of
         # squares, so trace/pve cost no device data pass
         mean, sd, sumsq = data.snp_stats(stand, with_sumsq=True)
+        # n >> p: decompose the p x p gram X^T X instead of X X^T
         op = build_packed_operator(
-            data, mean, sd, streaming=streaming, memory_mb=memory_mb,
-            block_size=block_size, dtype=dtype, device=device,
-            snp_sumsq=sumsq)
-        return _pca_operator(
-            op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv, mean,
-            sd, panel=panel, device_results=device_results,
-            state_in=state_in, state_out=state_out, verbose=verbose,
-            polish=polish)
+            data, mean, sd, tall=operator_mode == "tall" or (
+                operator_mode == "auto" and n > 2 * p),
+            streaming=streaming, memory_mb=memory_mb, block_size=block_size,
+            dtype=dtype, device=device, snp_sumsq=sumsq)
+    else:
+        raise not_ported("pca() on a numeric matrix",
+                         "A12 'Dense and matrix inputs'")
 
-    raise not_ported("pca() on a numeric matrix",
-                     "A12 'Dense and matrix inputs'")
+    run = _pca_tall if isinstance(op, TallPackedOperator) else _pca_operator
+    return run(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
+               panel=panel, device_results=device_results, state_in=state_in,
+               state_out=state_out, verbose=verbose, polish=polish)
 
 
 def _solver_v0(op, native_len, seed, state_in):
@@ -249,7 +251,7 @@ def _gate_convergence(res, ndim, tol):
 
 
 def _pca_operator(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
-                  mean, sd, panel=16, device_results=False, state_in=None,
+                  panel=16, device_results=False, state_in=None,
                   state_out=None, verbose=False,
                   polish="contract") -> PCAResult:
     n, p = op.n_samples, op.n_snps
@@ -372,12 +374,93 @@ def _pca_operator(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
         projection=Px,
         pve=pve,
         trace=trace,
-        center=np.asarray(mean, dtype=np.float64),
-        scale=np.asarray(sd, dtype=np.float64),
+        center=op.center,
+        scale=op.scale,
         loadings=loadings,
         converged=converged,
         n_ops=res.n_ops + n_ops_extra,
         n_restarts=res.n_restarts,
         residuals=resid_out,
         gate_mse=mse_est,
+    )
+
+
+def _pca_tall(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
+              panel=16, device_results=False, state_in=None,
+              state_out=None, verbose=False,
+              polish="contract") -> PCAResult:
+    """Tall path: eigenpairs of X^T X, with the wide path's outputs:
+    lambda(X^T X) = lambda(X X^T) on the top spectrum,
+    U = X V_s Lambda^{-1/2}, and the loadings V equal V_s exactly
+    (V = X^T U diag(1/sqrt(d))/sqrt(div) = V_s, randompca.cpp:151-152).
+    The schedule is the adaptive one (no cap, no gate) with one
+    compensated polish, as in the JAX package."""
+    n, p = op.n_samples, op.n_snps
+    dtype = op.dtype
+    div = _resolve_divisor(divisor, n, p)
+    v0 = _solver_v0(op, p, seed, state_in)
+
+    f32 = dtype == torch.float32
+    use_ff = f32 and op.supports_ff and polish == "contract"
+    if polish == "contract" and f32 and not use_ff:
+        from ..utils.logging import log
+
+        log("note: this tall operator has no compensated (ff) kernel "
+            "support; the f32 result floors at plain precision "
+            "(check mse ~2e-8 at biobank scale, above the mse < 1e-8 "
+            "contract) -- build the operator with use_kernels=True for "
+            "contract-grade accuracy")
+    max_dim = int((min(n, p) - 1) / 2.0)
+    extra = min(8, max(0, max_dim - ndim)) if use_ff else 0
+    extra = _clamp_buffer(extra, ndim, ncv, panel)
+    nev_solve = ndim + extra
+    if use_ff and ncv is None:
+        ncv = nev_solve + max(72, (3 * nev_solve) // 2)
+        ncv, extra, nev_solve = _clamp_auto_ncv(
+            ncv, ndim, extra, panel, op.op_dim)
+    solver_tol = max(tol, 1e-4) if use_ff else tol
+    mv = op.gram_permuted
+
+    res = eigsh_block(mv, op.op_dim, nev_solve, block=panel, ncv=ncv,
+                      maxiter=maxiter, tol=solver_tol, dtype=dtype,
+                      device=op.device, seed=seed, v0=v0, verbose=verbose)
+    _save_solver_state(op, res, state_out)
+    converged = _gate_convergence(res, ndim, tol)
+
+    lam = res.eigenvalues
+    V_dev = res.eigenvectors
+    if f32:
+        lam, V_dev = polish_subspace(
+            mv, V_dev, iters=2,
+            ff_gram=op.gram_ff_permuted if use_ff else None)
+    lam = lam[:ndim]
+    V_dev = V_dev[:, :ndim]
+    d = lam / div
+    trace = op.trace / div
+    pve = d / trace
+
+    Vs_dev = op.unpermute(V_dev)
+    if device_results:
+        Vs = Vs_dev
+        U = op.prod(Vs_dev) * torch.as_tensor(
+            1.0 / np.sqrt(lam), device=op.device).to(dtype)[None, :]
+        Px = U * torch.as_tensor(np.sqrt(d), device=op.device).to(dtype)
+    else:
+        U = host64(op.prod(Vs_dev)) / np.sqrt(lam)[None, :]
+        Px = U * np.sqrt(d)[None, :]
+        Vs = host64(Vs_dev) if do_loadings else None
+
+    return PCAResult(
+        values=d,
+        vectors=U,
+        projection=Px,
+        pve=pve,
+        trace=trace,
+        center=op.center,
+        scale=op.scale,
+        loadings=Vs if do_loadings else None,
+        converged=converged,
+        n_ops=res.n_ops,
+        n_restarts=res.n_restarts,
+        residuals=res.residuals[:ndim],
     )

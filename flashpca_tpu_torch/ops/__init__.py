@@ -15,7 +15,9 @@ from .genotypes import (
 )
 from .operator import (
     PackedOperator,
+    TallPackedOperator,
     build_packed_operator,
     check_operator_conflicts,
     packed_operator_from_numpy,
+    tall_operator_from_numpy,
 )

@@ -35,6 +35,20 @@ from ..utils.device import host64
 from .lanczos import EigshResult, eigsh
 
 
+# right-hand-side columns per triangular solve: on an H100 (PyTorch
+# 2.11, CUDA 12.8) one solve_triangular of a 16 x 16 factor against
+# 1,003,520 columns took 7.3 s where 501,760 took 0.2 ms, so long
+# panels are solved in column blocks (each column's result is the same)
+_TRSM_COLS = 1 << 18
+
+
+def _solve_lower(L, B):
+    """L^{-1} B for a small lower-triangular L and a wide B (b, n)."""
+    return torch.cat([torch.linalg.solve_triangular(
+        L, B[:, c: c + _TRSM_COLS], upper=False)
+        for c in range(0, B.shape[1], _TRSM_COLS)], dim=1)
+
+
 def _panel_orth(W, rank_tol, abs_floor2=0.0):
     """Rank-revealing orthonormalization: W = Q R with Q^T Q = I on the
     numerically independent directions and ZERO columns elsewhere.
@@ -69,7 +83,7 @@ def _panel_orth(W, rank_tol, abs_floor2=0.0):
     W2 = W * good[None, :]
     G2 = W2.T @ W2
     L = torch.linalg.cholesky_ex(G2 + floor * eye).L
-    Q = torch.linalg.solve_triangular(L, W2.T, upper=False).T * good[None, :]
+    Q = _solve_lower(L, W2.T).T * good[None, :]
     nq = torch.linalg.norm(Q, dim=0)
     Q = Q / torch.where(nq > 0, nq, torch.ones_like(nq))[None, :]
     # R as the exact projection of the ORIGINAL panel onto the final

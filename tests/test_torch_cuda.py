@@ -79,6 +79,37 @@ def test_kernels_match_plain(cuda, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 16, 28])
+@pytest.mark.parametrize("n", [1001, 4096])
+def test_tall_kernels_match_plain(cuda, k, n):
+    """B5 and the tall two-float gram (B5, mask, B3, B1) against their
+    plain versions; the gram's hi halves at the gram bar of
+    tests/test_torch_kernels.py (two compounded contractions)."""
+    from flashpca_tpu_torch.ops.genotypes import valid_mask_permuted
+
+    packed, mean, invsd, nb = _operands(cuda, n, 333)
+    p = packed.shape[0]
+    v = torch.randn((p, k), device=cuda)
+    lh = torch.randn(p, 4, device=cuda)
+    ll = torch.randn(p, 4, device=cuda) * 1e-8
+    lut6 = tpk.lut_rows(lh, ll)
+    tpk.reset_launch_counts()
+    yh, yl = tpk.matvec_ff_novl_p(packed, lut6, v)
+    assert tpk.launch_counts["matvec_ff_novl"] == 1
+    assert tpk.launch_counts["matvec_ff"] == 0
+    qh, ql = tpk.matvec_ff_novl_p(packed.cpu(), lut6.cpu(), v.cpu())
+    _close(yh, qh)
+    _close_pair(yh, yl, qh, ql)
+    valid = valid_mask_permuted(n, nb, torch.float32, cuda)
+    zh, zl = tpk.gram_tall_ff_p(packed, lh, ll, mean, invsd, v, valid)
+    ph, pl = tpk.gram_tall_ff_p(packed.cpu(), lh.cpu(), ll.cpu(),
+                                mean.cpu(), invsd.cpu(), v.cpu(),
+                                valid.cpu())
+    _close(zh, ph, rtol=2e-4, atol=2e-3)
+    _close_pair(zh, zl, ph, pl)
+
+
+@pytest.mark.cuda
 def test_kernels_count_launches_and_refuse_float64(cuda):
     packed, mean, invsd, nb = _operands(cuda, 100, 40)
     tpk.reset_launch_counts()
@@ -112,3 +143,27 @@ def test_pca_on_card_matches_cpu_float64(cuda, tmp_path):
     dots = np.abs(np.sum(r32.vectors * r64.vectors, axis=0))
     assert np.all(dots > 1 - 1e-6)
     assert check(ds, r32.vectors, r32.values, device=cuda).mse < 1e-8
+
+
+@pytest.mark.cuda
+def test_tall_pca_on_card_matches_cpu_float64(cuda, tmp_path):
+    from flashpca_tpu_torch import PlinkDataset, pca
+    from flashpca_tpu_torch.io.plink import write_bed
+
+    rng = np.random.default_rng(6)
+    n, p, pops = 2003, 300, 4
+    freq = np.clip(rng.uniform(0.05, 0.5, p)[:, None]
+                   + rng.normal(0, 0.15, (p, pops)), 0.02, 0.98)
+    geno = rng.binomial(2, freq[:, np.arange(n) % pops].T).astype(float)
+    geno[rng.uniform(size=geno.shape) < 0.01] = np.nan
+    root = str(tmp_path / "t")
+    write_bed(root, geno)
+    ds = PlinkDataset.open(root)
+    tpk.reset_launch_counts()
+    r32 = pca(ds, 5, device=cuda)                    # n > 2p: the tall path
+    assert all(tpk.launch_counts[k] > 0 for k in
+               ("crossprod", "matvec", "crossprod_ff", "matvec_ff_novl"))
+    r64 = pca(ds, 5, device="cpu", operator_mode="tall")
+    assert np.allclose(r32.values, r64.values, rtol=1e-6)
+    dots = np.abs(np.sum(r32.vectors * r64.vectors, axis=0))
+    assert np.all(dots > 1 - 1e-6)

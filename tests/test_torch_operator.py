@@ -26,6 +26,7 @@ from flashpca_tpu.ops.operator import PackedOperator as JPackedOperator
 from flashpca_tpu_torch.io.plink import PlinkDataset as TPlinkDataset
 from flashpca_tpu_torch.ops.genotypes import dense_standardized_np
 from flashpca_tpu_torch.ops.operator import (PackedOperator,
+                                             TallPackedOperator,
                                              build_packed_operator,
                                              packed_operator_from_numpy)
 
@@ -174,9 +175,13 @@ def test_build_packed_operator_resident_only(data):
     ds = TPlinkDataset.open(data["root"])
     op = build_packed_operator(ds, data["mean"], data["sd"], device="cpu")
     assert isinstance(op, PackedOperator) and op.dtype == torch.float64
-    with pytest.raises(NotImplementedError, match="A15"):
-        build_packed_operator(ds, data["mean"], data["sd"], streaming=True,
-                              device="cpu")
+    top = build_packed_operator(ds, data["mean"], data["sd"], tall=True,
+                                device="cpu")
+    assert isinstance(top, TallPackedOperator) and top.op_dim == data["p"]
+    for tall in (False, True):
+        with pytest.raises(NotImplementedError, match="A15"):
+            build_packed_operator(ds, data["mean"], data["sd"], tall=tall,
+                                  streaming=True, device="cpu")
     with pytest.raises(NotImplementedError, match="A18"):
         build_packed_operator(ds, data["mean"], data["sd"], mesh=object(),
                               device="cpu")
@@ -189,4 +194,5 @@ def test_build_packed_operator_resident_only(data):
     stats = op.stats()
     assert stats["packed_bytes"] == data["packed"].size
     assert set(stats["kernel_launches"]) == {"crossprod", "matvec",
-                                             "crossprod_ff", "matvec_ff"}
+                                             "crossprod_ff", "matvec_ff",
+                                             "matvec_ff_novl"}

@@ -161,3 +161,24 @@ def test_eigsh_block_rejects_bad_arguments():
         tbl.eigsh_block(lambda Q: Q, 40, 3, maxiter=0, device="cpu")
     with pytest.raises(ValueError):
         tlz.eigsh(lambda v: v, 40, 0, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_panel_orth_solves_long_panels_in_column_blocks(monkeypatch, dtype):
+    """The panel factor is applied in blocks of columns (one long
+    solve_triangular is pathologically slow on the card); the blocks
+    give the single solve's result and _panel_orth the JAX one's."""
+    rng = np.random.default_rng(4)
+    W = rng.standard_normal((203, 6))
+    G = W.T @ W + 0.1 * np.eye(6)
+    L = torch.as_tensor(np.linalg.cholesky(G), dtype=dtype)
+    B = torch.as_tensor(W.T, dtype=dtype)
+    whole = torch.linalg.solve_triangular(L, B, upper=False)
+    monkeypatch.setattr(tbl, "_TRSM_COLS", 7)
+    assert torch.equal(tbl._solve_lower(L, B), whole)
+    Q, _, good = tbl._panel_orth(torch.as_tensor(W, dtype=dtype), 1e-10)
+    Qj, _, _ = jbl._panel_orth(jnp.asarray(W, dtype=jnp.dtype(
+        str(dtype).split(".")[1])), 1e-10)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert bool(good.all())
+    assert _vec_err(Q.numpy(), np.asarray(Qj)) < tol
