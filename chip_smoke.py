@@ -6,11 +6,15 @@
 Phases, all in this one process; any failure raises and exits nonzero:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the hand-written kernels B1-B5 from kernels/csrc (timed set-up);
+2. build the hand-written kernels from kernels/csrc, eleven entries in
+   six libraries: B1-B5, the kernel sweep's tile entries of B1 and B2,
+   and its variants V1-V4 of B1 (timed set-up);
 3. hold each kernel against its plain PyTorch version on the card, at
    full width (501,760 samples) on a 4,096-SNP slice and on a small odd
    case (n % 4 != 0, some inv_sd == 0), panels k in {3, 16, 24}, and
-   each against a float64 product.  B5 and the tall two-float gram (B5,
+   each against a float64 product; there also V1-V4 (V3 within 5e-5 of
+   float64, the others 1e-5), B1's tile entries bit-equal to B1 and B2's
+   against B2's plain version.  B5 and the tall two-float gram (B5,
    mask, B3, B1) likewise on those cases and at the tall width (2,048
    SNPs x 1,003,520 samples), panels k in {3, 16, 28}, and there B1-B3
    at k in {16, 28}; the gram within 1.5e-7 of float64, which the plain
@@ -26,7 +30,14 @@ Phases, all in this one process; any failure raises and exits nonzero:
    run; then B1-B4 timed at the headline shapes beside their bounds,
    their plain versions and the torch.matmul calls on the same block
    decoded to float32;
-6. the tall headline: 1,003,520 x 50,176 generated the same way, held
+6. the kernel sweep (flashpca_tpu_torch.tools.kernel_sweep) at the wide
+   headline's shape, 100,352 x 501,760, k=16, after the headline's
+   operator is freed: V1-V4 against B1 on a 512-SNP slice, B1/B2 at each
+   tile, B1 at k in {8, 16, 32, 64}, and V1-V4 timed beside their plain
+   versions and bounds; launch counts reset just before it and read just
+   after (V1-V4 and the tile entries must have launched; none of them is
+   on the main path, whose count of each is 0);
+7. the tall headline: 1,003,520 x 50,176 generated the same way, held
    by a ``TallPackedOperator``; ``pca(op, 20)`` with
    ``polish="contract"`` at float32 on the tall path (counts reset just
    before, read just after: B1, B2, B3 and B5 must have run), then the
@@ -39,7 +50,8 @@ Phases, all in this one process; any failure raises and exits nonzero:
    between the paths 3.6e-5 both ways); then B5 (and B1-B3 at their
    tall widths) timed at the tall shapes.
 
-The line before the last is the JSON ``{"kernels": [...]}``; the last
+The line before the last is the JSON ``{"kernels": [...]}`` (B1-B5 from
+the headlines, V1-V4 from the sweep); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside it, the script exits nonzero and prints no
 result.
@@ -80,15 +92,44 @@ TPU_KERNEL = {
     "crossprod_ff": "flashpca_tpu/kernels/packed_matvec.py:336",
     "matvec_ff": "flashpca_tpu/kernels/packed_matvec.py:369",
     "matvec_ff_novl": "flashpca_tpu/kernels/packed_matvec.py:415",
+    "crossprod_stacked": ".claude/skills/verify/kernel_sweep.py:50",
+    "crossprod_intsub": ".claude/skills/verify/kernel_sweep.py:128",
+    "crossprod_split3": ".claude/skills/verify/kernel_sweep.py:209",
+    "crossprod_nocomp": ".claude/skills/verify/kernel_sweep.py:261",
 }
 _CSRC = "flashpca_tpu_torch/kernels/csrc/"
 SOURCE = {"crossprod": _CSRC + "crossprod.cu", "matvec": _CSRC + "matvec.cu",
           "crossprod_ff": _CSRC + "crossprod_ff.cu",
           "matvec_ff": _CSRC + "matvec_ff.cu",
-          "matvec_ff_novl": _CSRC + "matvec_ff.cu"}
-# float32 dots per genotype and panel column
+          "matvec_ff_novl": _CSRC + "matvec_ff.cu",
+          "crossprod_stacked": _CSRC + "crossprod_variants.cu",
+          "crossprod_intsub": _CSRC + "crossprod_variants.cu",
+          "crossprod_split3": _CSRC + "crossprod_split3.cu",
+          "crossprod_nocomp": _CSRC + "crossprod_variants.cu"}
+# float32 dots per genotype and panel column (V3's products are bf16:
+# SPLIT3_BF16_DOTS of them, and its decode is bounded apart)
 DOTS = {"crossprod": 1, "matvec": 1, "crossprod_ff": 2, "matvec_ff": 3,
-        "matvec_ff_novl": 2}
+        "matvec_ff_novl": 2, "crossprod_stacked": 1, "crossprod_intsub": 1,
+        "crossprod_nocomp": 1}
+SPLIT3_BF16_DOTS = 3
+PEAK_BF16_FLOPS = 989e12      # dense tensor-core rate, H100 SXM
+# V3's CUDA-core work per genotype, counted from crossprod_split3.cu:
+# code to float, the factored cubic's sub, 2 muls, 2 adds and mul
+# (unfused, as its plain version rounds them), the split's sub and one
+# paired bf16 conversion per piece (half an instruction per value each)
+# -- 9 instructions, at one per lane and clock, 33.5e12/s
+SPLIT3_OPS_PER_GENOTYPE = 9
+PEAK_FP32_INSTR = PEAK_FP32_FLOPS / 2
+# the kernel sweep's variants (kernels/crossprod_variants.py), and V3's
+# bars: against its plain version three float32 contractions' worth of
+# plain_bar (tensor-core sums are not IEEE add sequences), against
+# float64 5e-5 (its dropped lo*lo term: 4.5-4.7e-6 on the CPU)
+VARIANTS = ("crossprod_stacked", "crossprod_intsub", "crossprod_split3",
+            "crossprod_nocomp")
+SWEEP_PATH = VARIANTS + ("crossprod_tiled", "matvec_tiled")
+F64_BAR = {"crossprod_stacked": 1e-5, "crossprod_intsub": 1e-5,
+           "crossprod_split3": 5e-5, "crossprod_nocomp": 1e-5}
+SWEEP_K = 16
 # the kernels each main path must launch
 WIDE_PATH = ("crossprod", "matvec", "crossprod_ff", "matvec_ff")
 TALL_PATH = ("crossprod", "matvec", "crossprod_ff", "matvec_ff_novl")
@@ -239,13 +280,16 @@ def hold(tag, got, plain, ref, bar, f64_bar, sums=False):
 
 def check_kernels(dev):
     """Each kernel against its plain version and against a float64
-    product, on a full-width slice and a small odd case.  Returns
-    {kernel: max abs err against the plain version}."""
+    product, on a full-width slice and a small odd case: B1-B4, the
+    sweep's V1-V4 (sharing B1's float64 product), B1's tile entries
+    (bit-equal to B1) and B2's.  Returns {kernel: max abs err against
+    the plain version}."""
     import torch
 
+    from flashpca_tpu_torch.kernels import crossprod_variants as cv
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
 
-    worst = {name: 0.0 for name in WIDE_PATH}
+    worst = {name: 0.0 for name in WIDE_PATH + SWEEP_PATH}
     for label, p, n, seed in KERNEL_CASES:
         packed, mean, invsd, lut6, nb, _ = random_operands(p, n, seed, dev)
         g = torch.Generator(device=dev).manual_seed(seed + 100)
@@ -275,12 +319,36 @@ def check_kernels(dev):
                               tpk.matvec_ff_plain(packed, lut6, v, vl),
                               ref_yy, bar_y, 5e-6),
             }
+            for name in VARIANTS:
+                wrapper, plain = cv.VARIANTS[name]
+                outs[name] = (wrapper(packed, mean, invsd, x),
+                              plain(packed, mean, invsd, x), ref_z,
+                              plain_bar(4 * nb * (SPLIT3_BF16_DOTS if name
+                                                  == "crossprod_split3"
+                                                  else 1)),
+                              F64_BAR[name])
+            # the tile entries: B1's bit-equal to production B1 (each
+            # thread walks the same chunks whatever the rows per block),
+            # B2's against B2's plain version (its fold points move)
+            z = outs["crossprod"][0]
+            for tm in cv.TILE_TM:
+                zt = cv.crossprod_tiled_p(packed, mean, invsd, x, tm)
+                if not torch.equal(zt, z):
+                    raise AssertionError(
+                        f"crossprod_tiled tm={tm} {label} k={k}: not "
+                        f"bit-equal to crossprod_p (max diff "
+                        f"{float((zt - z).abs().max()):.3e})")
+            for cr in cv.TILE_CR:
+                outs[f"matvec_tiled/{cr}"] = (
+                    cv.matvec_tiled_p(packed, mean, invsd, v, cr),
+                    outs["matvec"][1], ref_y, bar_y, 1e-5)
             errs, rels = {}, {}
             for name, (got, plain, ref, bar, f64_bar) in outs.items():
                 errs[name], rels[name] = hold(f"{name} {label} k={k}", got,
                                               plain, ref, bar, f64_bar)
             for name, e in errs.items():
-                worst[name] = max(worst[name], e)
+                key = name.split("/")[0]
+                worst[key] = max(worst[key], e)
             say(f"   {label} k={k}: max abs err vs plain "
                 + ", ".join(f"{n_}={e:.2e}" for n_, e in errs.items())
                 + "; kernel vs float64 rel "
@@ -757,7 +825,7 @@ def tall_headline(dev, n, p, k, seed=8):
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: kernel times at the headline shapes
+# Phase 5, end: kernel times at the headline shapes
 # ---------------------------------------------------------------------------
 
 def event_ms(fn, reps):
@@ -905,6 +973,74 @@ def time_kernels(op, widths, launches, worst, slices):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the kernel sweep (V1-V4 and the tile axis)
+# ---------------------------------------------------------------------------
+
+def kernel_sweep(dev, p, n, worst, b1_library_ms, main_launches):
+    """The sweep tool's four steps at p x n, k = SWEEP_K, then V1-V4's
+    plain versions timed at that shape; one row of the ``kernels`` JSON
+    per variant (library_ms: B1's torch.matmul time at the same shape,
+    passed in, since it computes the same z = W x; launches: the sweep's,
+    beside the main path's ``main_launches``).  Returns (rows, the
+    sweep's readings)."""
+    import torch
+
+    from flashpca_tpu_torch.kernels import crossprod_variants as cv
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+    from flashpca_tpu_torch.tools import kernel_sweep as ks
+
+    nb, k = (n + 3) // 4, SWEEP_K
+    n4 = 4 * nb
+    with Phase(f"kernel sweep: {p} x {n4}, k={k}") as ph:
+        # the sweep's launches: counts set to 0 just before, read just
+        # after (none of these kernels is on the main path)
+        tpk.reset_launch_counts()
+        out, data = ks.run(p, nb, k, dev)
+        launches = dict(tpk.launch_counts)
+        require_launched(launches, SWEEP_PATH, "kernel sweep")
+        for name, rel in out["correctness"].items():
+            if not rel < F64_BAR[name]:
+                raise AssertionError(f"sweep: {name} vs B1 rel {rel:.2e} "
+                                     f"(bar {F64_BAR[name]})")
+        pk, m, iv, xp = (data[key] for key in ("packed", "mean", "invsd",
+                                               "xp"))
+        t_bytes = ((p * nb + n4 * k * 4 + 3 * p * 4 + p * k * 4)
+                   / PEAK_BYTES_S * 1e3)
+        rows = []
+        for name in VARIANTS:
+            plain = cv.VARIANTS[name][1]
+            plain_ms = ks.event_ms(lambda: plain(pk, m, iv, xp), reps=1)
+            if name == "crossprod_split3":
+                t_ops = max(
+                    SPLIT3_BF16_DOTS * 2.0 * k * p * n4 / PEAK_BF16_FLOPS,
+                    SPLIT3_OPS_PER_GENOTYPE * p * n4 / PEAK_FP32_INSTR) * 1e3
+            else:
+                t_ops = 2.0 * DOTS[name] * k * p * n4 / PEAK_FP32_FLOPS * 1e3
+            bound = max(t_ops, t_bytes)
+            ms = out["variants_ms"][name]
+            say(f"   {name:17s} k={k}: kernel {ms:.2f} ms, plain "
+                f"{plain_ms:.2f} ms, torch.matmul (B1's) {b1_library_ms:.2f}"
+                f" ms, bound {bound:.2f} ms "
+                f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
+                f"{launches[name]} sweep launches, {main_launches[name]} on "
+                "the main path")
+            rows.append({
+                "name": name, "route": "cuda", "source": SOURCE[name],
+                "replaces": TPU_KERNEL[name], "launches": launches[name],
+                "launches_from": "kernel sweep",
+                "main_path_launches": main_launches[name],
+                "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": b1_library_ms, "k": k, "shape": [p, n4],
+            })
+        del data, pk, m, iv, xp
+    out.update(launches={nm: launches[nm] for nm in SWEEP_PATH},
+               seconds=ph.seconds)
+    return rows, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=501_760)
@@ -939,11 +1075,12 @@ def main(argv=None) -> int:
         with open(os.path.join(build_dir,
                                f"{os.path.splitext(src)[0]}.log")) as fh:
             for line in fh:   # nvcc -Xptxas -v: registers, smem, spills
+                # template arguments in order: kc, then TM / CR / HAS_VL
                 m = re.search(r"Compiling entry function '\w*?\d([a-z_]+"
-                              r"_kernel)ILi(\d+)E(?:Lb([01])E)?", line)
+                              r"_kernel)I((?:L[a-z]\d+E)+)E", line)
                 if m:
-                    fn = f"{m.group(1)} kc={m.group(2)}" + (
-                        f" has_vl={m.group(3)}" if m.group(3) else "")
+                    targs = re.findall(r"L[a-z](\d+)E", m.group(2))
+                    fn = f"{m.group(1)}<{', '.join(targs)}>"
                 m = re.search(r"(Used \d+ registers.*)", line)
                 if m:
                     say(f"   {src} {fn}: {m.group(1).strip()}")
@@ -967,6 +1104,10 @@ def main(argv=None) -> int:
                  ("matvec_ff", 24)], head["launches"], worst, slices=32)
     del op
     torch.cuda.empty_cache()
+    sweep_rows, sweep = kernel_sweep(dev, args.p, args.n, worst,
+                                     kernels[0]["library_ms"],
+                                     head["launches"])
+    torch.cuda.empty_cache()
     top, tall = tall_headline(dev, TALL_N, TALL_P, args.k)
     torch.cuda.empty_cache()
     with Phase("kernel times at the tall shapes"):
@@ -977,6 +1118,7 @@ def main(argv=None) -> int:
                   ("crossprod", 32), ("crossprod_ff", 32)],
             tall["launches"], worst, slices=64)
     kernels.append(tall_rows[0])
+    kernels.extend(sweep_rows)
     say(json.dumps({"summary": {
         "card": smi, "n": args.n, "p": args.p, "k": args.k,
         "build_s": build_s, "mid": mid,
@@ -984,6 +1126,7 @@ def main(argv=None) -> int:
         "gram_tall_ff_max_abs_err": worst["gram_tall_ff"],
         "tall": {"n": TALL_N, "p": TALL_P, **tall,
                  "kernels": tall_rows},
+        "sweep": sweep,
         "total_s": time.time() - t_start}}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -2,9 +2,11 @@
 
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded through ``ctypes``; a source may hold several
-kernels (matvec_ff.cu holds B4 and B5), each with its own C entry.  The
-build happens at first use, never at import (the CPU tests import every
-module, and the CPU has no ``nvcc``), into ``kernels/build/<hash>/`` -- a directory that
+kernels (matvec_ff.cu holds B4 and B5), each with its own C entry.
+Eleven entries in six libraries: B1-B5, the sweep's tile entries of B1
+and B2, and its variants V1-V4.  The build happens at first use, never
+at import (the CPU tests import every module, and the CPU has no
+``nvcc``), into ``kernels/build/<hash>/`` -- a directory that
 ``.gitignore`` lists.  The hash covers every source, header and flag,
 so an edited source builds anew; the sources compile in parallel, one
 ``nvcc`` each.
@@ -42,6 +44,20 @@ KERNELS = {
                   [_P] * 6 + [_I64, _I64, _I32, _P]),
     "matvec_ff_novl": ("matvec_ff.cu", "fp_matvec_ff_novl",
                        [_P] * 5 + [_I64, _I64, _I32, _P]),
+    # the kernel sweep (tools/kernel_sweep.py): B1/B2 at another tile
+    # (tm / cr before kc) and the measurement variants V1-V4 of B1
+    "crossprod_tiled": ("crossprod.cu", "fp_crossprod_tiled",
+                        [_P] * 6 + [_I64, _I64, _I32, _I32, _P]),
+    "matvec_tiled": ("matvec.cu", "fp_matvec_tiled",
+                     [_P] * 6 + [_I64, _I64, _I32, _I32, _P]),
+    "crossprod_stacked": ("crossprod_variants.cu", "fp_crossprod_stacked",
+                          [_P] * 6 + [_I64, _I64, _I32, _P]),
+    "crossprod_intsub": ("crossprod_variants.cu", "fp_crossprod_intsub",
+                         [_P] * 6 + [_I64, _I64, _I32, _P]),
+    "crossprod_nocomp": ("crossprod_variants.cu", "fp_crossprod_nocomp",
+                         [_P] * 6 + [_I64, _I64, _I32, _P]),
+    "crossprod_split3": ("crossprod_split3.cu", "fp_crossprod_split3",
+                         [_P] * 6 + [_I64, _I64, _I32, _P]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

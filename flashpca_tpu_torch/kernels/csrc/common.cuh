@@ -6,6 +6,7 @@
 // from contracting or reassociating the error terms.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -26,6 +27,48 @@ __device__ __forceinline__ float decode_cubic(uint32_t code, float b0,
                                               float b1, float b2) {
   const float t = static_cast<float>(code);
   return (t - 1.0f) * fmaf(t, fmaf(t, b2, b1), b0);
+}
+
+// decode_cubic with each multiply and add rounded on its own, in the order
+// of the plain versions' (and the Pallas kernels') elementwise arithmetic
+// (t - 1) * (b0 + t * (b1 + t * b2)), so the value is bit-identical to
+// theirs.  V3 needs that: a one-ulp change in w can move its bf16 split,
+// and with it the ~2^-18 error that the dropped lo * lo term leaves.
+__device__ __forceinline__ float decode_cubic_rn(uint32_t code, float b0,
+                                                 float b1, float b2) {
+  const float t = static_cast<float>(code);
+  return __fmul_rn(__fsub_rn(t, 1.0f),
+                   __fadd_rn(b0, __fmul_rn(t, __fadd_rn(b1, __fmul_rn(t, b2)))));
+}
+
+// Integer-shifted decode: u = code - 1 in int, then u (g0 + u (g1 + u g2))
+// with the quadratic through q(u) = w(u) / u at u = -1, 1, 2.  Missing
+// (code 1) gives u == 0, so it decodes to exactly zero.
+__device__ __forceinline__ float decode_intsub(uint32_t code, float g0,
+                                               float g1, float g2) {
+  const float u = static_cast<float>(static_cast<int>(code) - 1);
+  return u * fmaf(u, fmaf(u, g2, g1), g0);
+}
+
+// bf16 hi/lo split, round-to-nearest-even at both steps: hi = rn(a),
+// lo = rn(a - hi).  hi + lo carries a to ~2^-16 relative, and a product
+// of two bf16 pieces is exact in float32.
+__device__ __forceinline__ void split_bf16(float a, __nv_bfloat16& hi,
+                                           __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(a);
+  lo = __float2bfloat16_rn(__fsub_rn(a, __bfloat162float(hi)));
+}
+
+// split_bf16 of two values at once, packed as the mma.sync fragments want
+// them (a in the low half): one paired conversion per piece.  Each half
+// is bit-identical to split_bf16 of its value.
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(
+      __fsub_rn(a, __low2float(h)), __fsub_rn(b, __high2float(h)));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // Exact per-code select from one SNP's table row (codes 0, 2, 3; code 1

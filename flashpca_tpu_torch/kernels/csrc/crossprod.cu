@@ -19,15 +19,21 @@
 // chunk's plain float32 partial is folded into a running (sum, err)
 // pair with TwoSum, so the accumulated error stays ~eps of the result
 // instead of growing with the 5e5-long contraction.
+//
+// TM, the rows per block, is the tile axis of the kernel sweep
+// (tools/kernel_sweep.py; the JAX sweep's tile_p): production runs
+// TM = 256 through fp_crossprod, and fp_crossprod_tiled takes TM in
+// {128, 256, 512}.  Each thread owns one row and walks the same CB-byte
+// chunks whatever TM is, so every TM gives bit-identical results.
 #include "common.cuh"
 
 namespace {
 
-constexpr int TM = 256;           // SNP rows per block == threads per block
+constexpr int TM_PROD = 256;      // production SNP rows per block == threads per block
 constexpr int CB = 32;            // packed bytes per chunk (128 samples)
 constexpr int PSTRIDE = CB + 4;   // shared row stride: 9 words, odd -> no bank conflicts
 
-template <int KC>
+template <int KC, int TM>
 __global__ void __launch_bounds__(TM)
 crossprod_kernel(const uint8_t* __restrict__ packed,
                  const float* __restrict__ cf0, const float* __restrict__ cf1,
@@ -122,6 +128,21 @@ crossprod_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
+template <int TM>
+int launch(const uint8_t* pk, const float* c0, const float* c1, const float* c2,
+           const float* xx, float* zz, long long p, long long nb, int kc,
+           cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned>((p + TM - 1) / TM));
+  switch (kc) {
+    case 8: crossprod_kernel<8, TM><<<grid, TM, 0, st>>>(pk, c0, c1, c2, xx, zz, p, nb); break;
+    case 16: crossprod_kernel<16, TM><<<grid, TM, 0, st>>>(pk, c0, c1, c2, xx, zz, p, nb); break;
+    case 24: crossprod_kernel<24, TM><<<grid, TM, 0, st>>>(pk, c0, c1, c2, xx, zz, p, nb); break;
+    case 32: crossprod_kernel<32, TM><<<grid, TM, 0, st>>>(pk, c0, c1, c2, xx, zz, p, nb); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // packed (p, nb) u8; cf0..cf2 (p,) f32; x (4*nb, kc) f32; z (p, kc) f32.
@@ -130,20 +151,31 @@ extern "C" int fp_crossprod(const void* packed, const void* cf0,
                             void* z, long long p, long long nb, int kc,
                             void* stream) {
   if (p <= 0 || nb <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((p + TM - 1) / TM));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return launch<TM_PROD>(
+      static_cast<const uint8_t*>(packed), static_cast<const float*>(cf0),
+      static_cast<const float*>(cf1), static_cast<const float*>(cf2),
+      static_cast<const float*>(x), static_cast<float*>(z), p, nb, kc,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The sweep's tile entry: fp_crossprod at TM = tm rows per block,
+// tm in {128, 256, 512}.
+extern "C" int fp_crossprod_tiled(const void* packed, const void* cf0,
+                                  const void* cf1, const void* cf2,
+                                  const void* x, void* z, long long p,
+                                  long long nb, int tm, int kc, void* stream) {
+  if (p <= 0 || nb <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto* pk = static_cast<const uint8_t*>(packed);
   const auto* c0 = static_cast<const float*>(cf0);
   const auto* c1 = static_cast<const float*>(cf1);
   const auto* c2 = static_cast<const float*>(cf2);
   const auto* xx = static_cast<const float*>(x);
   auto* zz = static_cast<float*>(z);
-  switch (kc) {
-    case 8: crossprod_kernel<8><<<grid, TM, 0, st>>>(pk, c0, c1, c2, xx, zz, p, nb); break;
-    case 16: crossprod_kernel<16><<<grid, TM, 0, st>>>(pk, c0, c1, c2, xx, zz, p, nb); break;
-    case 24: crossprod_kernel<24><<<grid, TM, 0, st>>>(pk, c0, c1, c2, xx, zz, p, nb); break;
-    case 32: crossprod_kernel<32><<<grid, TM, 0, st>>>(pk, c0, c1, c2, xx, zz, p, nb); break;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (tm) {
+    case 128: return launch<128>(pk, c0, c1, c2, xx, zz, p, nb, kc, st);
+    case 256: return launch<256>(pk, c0, c1, c2, xx, zz, p, nb, kc, st);
+    case 512: return launch<512>(pk, c0, c1, c2, xx, zz, p, nb, kc, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -15,15 +15,21 @@
 // consecutive bytes of one row (no bank conflicts) and broadcasts the v
 // row into KC FMAs.  Each chunk's partial is folded into a running
 // (sum, err) pair with TwoSum, as in crossprod.cu.
+//
+// CR, the SNP rows per chunk, is the tile axis of the kernel sweep
+// (tools/kernel_sweep.py; the JAX sweep's tile_p): production runs
+// CR = 64 through fp_matvec, and fp_matvec_tiled takes CR in
+// {32, 64, 128}.  CR moves the fold points, so other CRs agree with
+// production to rounding, not bit for bit.
 #include "common.cuh"
 
 namespace {
 
 constexpr int TB = 64;            // packed bytes per block
 constexpr int NT = 4 * TB;        // threads: 4 sample planes x TB bytes
-constexpr int CR = 64;            // SNP rows per chunk
+constexpr int CR_PROD = 64;       // production SNP rows per chunk
 
-template <int KC>
+template <int KC, int CR>
 __global__ void __launch_bounds__(NT)
 matvec_kernel(const uint8_t* __restrict__ packed,
               const float* __restrict__ cf0, const float* __restrict__ cf1,
@@ -112,6 +118,21 @@ matvec_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
+template <int CR>
+int launch(const uint8_t* pk, const float* c0, const float* c1, const float* c2,
+           const float* vv, float* yy, long long p, long long nb, int kc,
+           cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned>((nb + TB - 1) / TB));
+  switch (kc) {
+    case 8: matvec_kernel<8, CR><<<grid, NT, 0, st>>>(pk, c0, c1, c2, vv, yy, p, nb); break;
+    case 16: matvec_kernel<16, CR><<<grid, NT, 0, st>>>(pk, c0, c1, c2, vv, yy, p, nb); break;
+    case 24: matvec_kernel<24, CR><<<grid, NT, 0, st>>>(pk, c0, c1, c2, vv, yy, p, nb); break;
+    case 32: matvec_kernel<32, CR><<<grid, NT, 0, st>>>(pk, c0, c1, c2, vv, yy, p, nb); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // packed (p, nb) u8; cf0..cf2 (p,) f32; v (p, kc) f32; y (4*nb, kc) f32.
@@ -119,20 +140,31 @@ extern "C" int fp_matvec(const void* packed, const void* cf0, const void* cf1,
                          const void* cf2, const void* v, void* y, long long p,
                          long long nb, int kc, void* stream) {
   if (p <= 0 || nb <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((nb + TB - 1) / TB));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return launch<CR_PROD>(
+      static_cast<const uint8_t*>(packed), static_cast<const float*>(cf0),
+      static_cast<const float*>(cf1), static_cast<const float*>(cf2),
+      static_cast<const float*>(v), static_cast<float*>(y), p, nb, kc,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The sweep's tile entry: fp_matvec at CR = cr SNP rows per chunk,
+// cr in {32, 64, 128}.
+extern "C" int fp_matvec_tiled(const void* packed, const void* cf0,
+                               const void* cf1, const void* cf2, const void* v,
+                               void* y, long long p, long long nb, int cr,
+                               int kc, void* stream) {
+  if (p <= 0 || nb <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto* pk = static_cast<const uint8_t*>(packed);
   const auto* c0 = static_cast<const float*>(cf0);
   const auto* c1 = static_cast<const float*>(cf1);
   const auto* c2 = static_cast<const float*>(cf2);
   const auto* vv = static_cast<const float*>(v);
   auto* yy = static_cast<float*>(y);
-  switch (kc) {
-    case 8: matvec_kernel<8><<<grid, NT, 0, st>>>(pk, c0, c1, c2, vv, yy, p, nb); break;
-    case 16: matvec_kernel<16><<<grid, NT, 0, st>>>(pk, c0, c1, c2, vv, yy, p, nb); break;
-    case 24: matvec_kernel<24><<<grid, NT, 0, st>>>(pk, c0, c1, c2, vv, yy, p, nb); break;
-    case 32: matvec_kernel<32><<<grid, NT, 0, st>>>(pk, c0, c1, c2, vv, yy, p, nb); break;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (cr) {
+    case 32: return launch<32>(pk, c0, c1, c2, vv, yy, p, nb, kc, st);
+    case 64: return launch<64>(pk, c0, c1, c2, vv, yy, p, nb, kc, st);
+    case 128: return launch<128>(pk, c0, c1, c2, vv, yy, p, nb, kc, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -50,8 +50,13 @@ from ..ops.compensated import twosum
 KC_WIDTHS = (8, 16, 24, 32)
 MAX_KC = KC_WIDTHS[-1]
 
-launch_counts = {"crossprod": 0, "matvec": 0, "crossprod_ff": 0,
-                 "matvec_ff": 0, "matvec_ff_novl": 0}
+# the kernels the operators launch (B1-B5), and the kernel sweep's
+# entries (kernels/crossprod_variants.py), which no operator launches
+OPERATOR_KERNELS = ("crossprod", "matvec", "crossprod_ff", "matvec_ff",
+                    "matvec_ff_novl")
+SWEEP_KERNELS = ("crossprod_tiled", "matvec_tiled", "crossprod_stacked",
+                 "crossprod_intsub", "crossprod_split3", "crossprod_nocomp")
+launch_counts = dict.fromkeys(OPERATOR_KERNELS + SWEEP_KERNELS, 0)
 _launch_log: list | None = None
 
 

@@ -249,9 +249,10 @@ class _ResidentPacked:
 
     def stats(self) -> dict:
         """Observability counters: operator products dispatched, packed
-        bytes resident, per-pass decode volume, and the kernel launches
-        so far (process-wide counts of kernels/packed_matvec.py)."""
-        from ..kernels.packed_matvec import launch_counts
+        bytes resident, per-pass decode volume, and the operators'
+        kernel launches so far (process-wide counts of
+        kernels/packed_matvec.py)."""
+        from ..kernels.packed_matvec import OPERATOR_KERNELS, launch_counts
 
         nbytes = self.n_snps * self.nbytes
         itemsize = torch.finfo(self.dtype).bits // 8
@@ -262,7 +263,8 @@ class _ResidentPacked:
             "use_kernels": self.use_kernels,
             "device": str(self.device),
             "block_size": self.block_size,
-            "kernel_launches": dict(launch_counts),
+            "kernel_launches": {k: launch_counts[k]
+                                for k in OPERATOR_KERNELS},
         }
 
 

@@ -167,3 +167,34 @@ def test_tall_pca_on_card_matches_cpu_float64(cuda, tmp_path):
     assert np.allclose(r32.values, r64.values, rtol=1e-6)
     dots = np.abs(np.sum(r32.vectors * r64.vectors, axis=0))
     assert np.all(dots > 1 - 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 16, 24, 40])
+@pytest.mark.parametrize("n", [1001, 1024])
+def test_sweep_kernels_match_plain(cuda, k, n):
+    """The kernel sweep's V1-V4 against their plain versions at the
+    bars above (V3's three products at sqrt(3) x the atol; its
+    tensor-core sums are not IEEE add sequences), and each launching
+    once per column chunk; B1's tile entries bit-equal to production B1,
+    B2's against its plain version."""
+    from flashpca_tpu_torch.kernels import crossprod_variants as cv
+
+    packed, mean, invsd, nb = _operands(cuda, n, 333)
+    p = packed.shape[0]
+    x = torch.randn((4 * nb, k), device=cuda)
+    v = torch.randn((p, k), device=cuda)
+    cpu = (packed.cpu(), mean.cpu(), invsd.cpu())
+    chunks = len(tpk._widths(k))
+    for name, (wrapper, plain) in cv.VARIANTS.items():
+        tpk.reset_launch_counts()
+        got = wrapper(packed, mean, invsd, x)
+        assert tpk.launch_counts[name] == chunks
+        atol = 2e-4 * (3 ** 0.5 if name == "crossprod_split3" else 1.0)
+        _close(got, plain(*cpu, x.cpu()), atol=atol)
+    z = tpk.crossprod_p(packed, mean, invsd, x)
+    for tm in cv.TILE_TM:
+        assert torch.equal(cv.crossprod_tiled_p(packed, mean, invsd, x, tm), z)
+    for cr in cv.TILE_CR:
+        _close(cv.matvec_tiled_p(packed, mean, invsd, v, cr),
+               tpk.matvec_p(*cpu, v.cpu()))
