@@ -6,17 +6,21 @@
 Phases, all in this one process; any failure raises and exits nonzero:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the hand-written kernels from kernels/csrc, eleven entries in
-   six libraries: B1-B5, the kernel sweep's tile entries of B1 and B2,
-   and its variants V1-V4 of B1 (timed set-up);
+2. build the hand-written kernels from kernels/csrc, thirteen entries
+   in seven libraries: B1-B5, the kernel sweep's tile entries of B1 and
+   B2 and its variants V1-V4 of B1, B5's thread-tile entry (C columns
+   per thread) and B5's first design (timed set-up); each
+   instantiation's registers and spills (ptxas), and the instruction mix
+   of B5's inner loop, both designs (cuobjdump);
 3. hold each kernel against its plain PyTorch version on the card, at
    full width (501,760 samples) on a 4,096-SNP slice and on a small odd
    case (n % 4 != 0, some inv_sd == 0), panels k in {3, 16, 24}, and
    each against a float64 product; there also V1-V4 (V3 within 5e-5 of
    float64, the others 1e-5), B1's tile entries bit-equal to B1 and B2's
-   against B2's plain version.  B5 and the tall two-float gram (B5,
-   mask, B3, B1) likewise on those cases and at the tall width (2,048
-   SNPs x 1,003,520 samples), panels k in {3, 16, 28}, and there B1-B3
+   against B2's plain version.  B5 (also at each thread tile, and its
+   first design) and the tall two-float gram (B5, mask, B3, B1)
+   likewise on those cases and at the tall width (2,048 SNPs x
+   1,003,520 samples), panels k in {3, 16, 28}, and there B1-B3
    at k in {16, 28}; the gram within 1.5e-7 of float64, which the plain
    float32 gram (B2, mask, B1) must miss at the tall width;
 4. a mid-size PLINK fileset (8,001 x 4,096, written by the port's
@@ -47,11 +51,14 @@ Phases, all in this one process; any failure raises and exits nonzero:
    2e-6 of the largest of each other and of a float64 eigendecomposition
    of X^T X / p formed on the card (p x p float64, 20 GB, ~100 s), save
    that in the Marchenko-Pastur bulk the bar below is 3.6e-5 (and
-   between the paths 3.6e-5 both ways); then B5 (and B1-B3 at their
-   tall widths) timed at the tall shapes.
+   between the paths 3.6e-5 both ways); then B5 at kc 32 and 24 (and
+   B1-B3 at their tall widths) timed at the tall shapes, and beside B5,
+   on the same inputs, its thread tiles C in {4, 8} and its first
+   design.
 
 The line before the last is the JSON ``{"kernels": [...]}`` (B1-B5 from
-the headlines, V1-V4 from the sweep); the last
+the headlines, B5's first design from the tall timing phase, V1-V4 from
+the sweep); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside it, the script exits nonzero and prints no
 result.
@@ -92,6 +99,7 @@ TPU_KERNEL = {
     "crossprod_ff": "flashpca_tpu/kernels/packed_matvec.py:336",
     "matvec_ff": "flashpca_tpu/kernels/packed_matvec.py:369",
     "matvec_ff_novl": "flashpca_tpu/kernels/packed_matvec.py:415",
+    "matvec_ff_novl_v1": "flashpca_tpu/kernels/packed_matvec.py:415",
     "crossprod_stacked": ".claude/skills/verify/kernel_sweep.py:50",
     "crossprod_intsub": ".claude/skills/verify/kernel_sweep.py:128",
     "crossprod_split3": ".claude/skills/verify/kernel_sweep.py:209",
@@ -101,7 +109,8 @@ _CSRC = "flashpca_tpu_torch/kernels/csrc/"
 SOURCE = {"crossprod": _CSRC + "crossprod.cu", "matvec": _CSRC + "matvec.cu",
           "crossprod_ff": _CSRC + "crossprod_ff.cu",
           "matvec_ff": _CSRC + "matvec_ff.cu",
-          "matvec_ff_novl": _CSRC + "matvec_ff.cu",
+          "matvec_ff_novl": _CSRC + "matvec_ff_novl.cu",
+          "matvec_ff_novl_v1": _CSRC + "matvec_ff.cu",
           "crossprod_stacked": _CSRC + "crossprod_variants.cu",
           "crossprod_intsub": _CSRC + "crossprod_variants.cu",
           "crossprod_split3": _CSRC + "crossprod_split3.cu",
@@ -109,8 +118,8 @@ SOURCE = {"crossprod": _CSRC + "crossprod.cu", "matvec": _CSRC + "matvec.cu",
 # float32 dots per genotype and panel column (V3's products are bf16:
 # SPLIT3_BF16_DOTS of them, and its decode is bounded apart)
 DOTS = {"crossprod": 1, "matvec": 1, "crossprod_ff": 2, "matvec_ff": 3,
-        "matvec_ff_novl": 2, "crossprod_stacked": 1, "crossprod_intsub": 1,
-        "crossprod_nocomp": 1}
+        "matvec_ff_novl": 2, "matvec_ff_novl_v1": 2,
+        "crossprod_stacked": 1, "crossprod_intsub": 1, "crossprod_nocomp": 1}
 SPLIT3_BF16_DOTS = 3
 PEAK_BF16_FLOPS = 989e12      # dense tensor-core rate, H100 SXM
 # V3's CUDA-core work per genotype, counted from crossprod_split3.cu:
@@ -141,6 +150,64 @@ KERNEL_CASES = (("full width 4096 x 501760", 4096, 501_760, 21),
 TALL_CASE = ("tall width 2048 x 1003520", 2048, 1_003_520, 23)
 # the tall headline: the JAX package's tall bench shape (bench.py)
 TALL_N, TALL_P = 1_003_520, 50_176
+
+
+def kernel_name(text):
+    """"kernel<template args>" of the first mangled ``..._kernel<...>``
+    symbol in ``text`` (template arguments in order: kc, then TM / CR /
+    HAS_VL / C), or None."""
+    m = re.search(r"\w*?\d([a-z_]+_kernel)I((?:L[a-z]\d+E)+)E", text)
+    if not m:
+        return None
+    targs = re.findall(r"L[a-z](\d+)E", m.group(2))
+    return f"{m.group(1)}<{', '.join(targs)}>"
+
+
+def ptxas_usage(lines):
+    """(kernel<template args>, "Used N registers, ...; S bytes spill
+    stores, L bytes spill loads") for each instantiation in an ``nvcc
+    -Xptxas -v`` log: registers, shared memory and spills."""
+    fn, spills = "?", ""
+    for line in lines:
+        name = "Compiling entry function" in line and kernel_name(line)
+        if name:
+            fn, spills = name, ""
+        m = re.search(r"(\d+ bytes spill stores, \d+ bytes spill loads)",
+                      line)
+        if m:
+            spills = f"; {m.group(1)}"
+        m = re.search(r"(Used \d+ registers.*)", line)
+        if m:
+            yield fn, m.group(1).strip() + spills
+
+
+def sass_hot_loops(sass):
+    """{kernel<template args>: Counter of opcodes} of the innermost hot
+    loop of each function in a ``cuobjdump -sass`` listing: the loop
+    (a backward branch) with the most FFMA, the shortest of those."""
+    from collections import Counter
+
+    out = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        fn = kernel_name(part.split("\n", 1)[0])
+        if not fn:
+            continue
+        ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)([^;]*);", part)
+        at = {int(a, 16): i for i, (a, _, _) in enumerate(ins)}
+        best = None
+        for i, (_, op, args) in enumerate(ins):
+            t = re.search(r"0x([0-9a-f]+)", args)
+            j = at.get(int(t.group(1), 16)) if t else None
+            if not op.startswith("BRA") or j is None or j >= i:
+                continue
+            c = Counter(o.split(".")[0] for _, o, _ in ins[j: i + 1])
+            key = (c["FFMA"], j - i)
+            if best is None or key > best[0]:
+                best = (key, c)
+        if best is not None:
+            out[fn] = best[1]
+    return out
 
 
 def say(msg: str) -> None:
@@ -379,6 +446,8 @@ def check_tall_kernels(dev):
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
     from flashpca_tpu_torch.ops.genotypes import valid_mask_permuted
 
+    from flashpca_tpu_torch.kernels.packed_matvec import NOVL_TILE_C
+
     worst = {}
     for label, p, n, seed in KERNEL_CASES + (TALL_CASE,):
         packed, mean, invsd, lut6, nb, luts = random_operands(p, n, seed,
@@ -392,13 +461,19 @@ def check_tall_kernels(dev):
             ref_z = f64_product(packed, lut6, my, transpose=False)
             abs_z = f64_product(packed, lut6.abs(), my.abs(),
                                 transpose=False)
+            plain_y = tpk.matvec_ff_novl_plain(packed, lut6, v)
             outs = {
                 # name: (kernel, plain, float64, plain bar, float64 bar,
                 #        compare the pairs' sums (else hi halves))
                 "matvec_ff_novl": (
-                    tpk.matvec_ff_novl_p(packed, lut6, v),
-                    tpk.matvec_ff_novl_plain(packed, lut6, v),
+                    tpk.matvec_ff_novl_p(packed, lut6, v), plain_y,
                     ref_y, plain_bar(p), 5e-6, False),
+                "matvec_ff_novl_v1": (
+                    tpk.matvec_ff_novl_v1_p(packed, lut6, v), plain_y,
+                    ref_y, plain_bar(p), 5e-6, False),
+                **{f"matvec_ff_novl_tiled/{c}": (
+                    tpk.matvec_ff_novl_tiled_p(packed, lut6, v, c), plain_y,
+                    ref_y, plain_bar(p), 5e-6, False) for c in NOVL_TILE_C},
                 "gram_tall_ff": (
                     tpk.gram_tall_ff_p(packed, *luts, mean, invsd, v, valid),
                     tpk.gram_tall_ff_plain(packed, *luts, mean, invsd, v,
@@ -428,7 +503,8 @@ def check_tall_kernels(dev):
             for name, (got, plain, ref, bar, f64_bar, sums) in outs.items():
                 tag = f"{name} {label} k={k}"
                 e, rels[name] = hold(tag, got, plain, ref, bar, f64_bar, sums)
-                worst[name] = max(worst.get(name, 0.0), e)
+                key = name.split("/")[0]
+                worst[key] = max(worst.get(key, 0.0), e)
                 msg.append(f"{name} {e:.2e} (kernel vs float64 "
                            f"{rels[name]:.1e})")
             # the gram's tight float64 bar, and its control
@@ -973,6 +1049,38 @@ def time_kernels(op, widths, launches, worst, slices):
     return rows
 
 
+def time_novl(op, kcs):
+    """B5 beside its thread tiles (C columns per thread) and its first
+    design at ``op``'s shapes, on the same inputs, in turns: each in
+    order, then each in reverse order, one median of 5 launches after a
+    warm-up per turn.  Returns {"name/kc": [ms, ms]}."""
+    import torch
+
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    g = torch.Generator(device=op.device).manual_seed(98)
+    pk = op.packed
+    lut6 = tpk.lut_rows(*op._ff_luts())
+    out = {}
+    for kc in kcs:
+        v = torch.randn((pk.shape[0], kc), generator=g, device=op.device)
+        fns = {"matvec_ff_novl": lambda: tpk.matvec_ff_novl_p(pk, lut6, v),
+               **{f"matvec_ff_novl_tiled/C={c}":
+                  (lambda c=c: tpk.matvec_ff_novl_tiled_p(pk, lut6, v, c))
+                  for c in tpk.NOVL_TILE_C},
+               "matvec_ff_novl_v1": lambda: tpk.matvec_ff_novl_v1_p(pk, lut6,
+                                                                    v)}
+        times = {}
+        for name in list(fns) + list(fns)[::-1]:
+            times.setdefault(name, []).append(event_ms(fns[name], reps=5))
+        for name, ts in times.items():
+            say(f"   {name:24s} kc={kc}: " + ", ".join(f"{t:.2f}" for t in ts)
+                + " ms (turns)")
+            out[f"{name}/{kc}"] = ts
+        del v
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: the kernel sweep (V1-V4 and the tile axis)
 # ---------------------------------------------------------------------------
@@ -1071,19 +1179,30 @@ def main(argv=None) -> int:
     build_s = ph.seconds
     say(f"   built into {os.path.relpath(build_dir)}")
     for src in _build.sources():
-        fn = "?"
         with open(os.path.join(build_dir,
                                f"{os.path.splitext(src)[0]}.log")) as fh:
-            for line in fh:   # nvcc -Xptxas -v: registers, smem, spills
-                # template arguments in order: kc, then TM / CR / HAS_VL
-                m = re.search(r"Compiling entry function '\w*?\d([a-z_]+"
-                              r"_kernel)I((?:L[a-z]\d+E)+)E", line)
-                if m:
-                    targs = re.findall(r"L[a-z](\d+)E", m.group(2))
-                    fn = f"{m.group(1)}<{', '.join(targs)}>"
-                m = re.search(r"(Used \d+ registers.*)", line)
-                if m:
-                    say(f"   {src} {fn}: {m.group(1).strip()}")
+            for fn, usage in ptxas_usage(fh):
+                say(f"   {src} {fn}: {usage}")
+    # B5's instruction mix: the FFMA share of its inner loop's
+    # instructions, for the current design and the first (cuobjdump, which
+    # the CUDA toolkit ships beside nvcc)
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass_mix = {}
+    for src in ("matvec_ff_novl.cu", "matvec_ff.cu"):
+        lib = os.path.join(build_dir, f"lib{os.path.splitext(src)[0]}.so")
+        if not os.path.exists(cuobjdump):
+            say(f"   {src}: no cuobjdump beside nvcc; SASS mix not read")
+            break
+        sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                              text=True).stdout
+        for fn, c in sorted(sass_hot_loops(sass).items()):
+            if "novl" in fn or fn.endswith(", 0>"):
+                share = c["FFMA"] / sum(c.values())
+                sass_mix[fn] = {"ffma": c["FFMA"], "instructions":
+                                sum(c.values()), "ffma_share": share}
+                say(f"   {src} {fn} inner loop: {c['FFMA']} FFMA of "
+                    f"{sum(c.values())} instructions ({share:.1%}); "
+                    + ", ".join(f"{o} {n}" for o, n in c.most_common(6)))
     with Phase("kernels against their plain versions"):
         worst = check_kernels(dev)
     torch.cuda.empty_cache()
@@ -1111,21 +1230,32 @@ def main(argv=None) -> int:
     top, tall = tall_headline(dev, TALL_N, TALL_P, args.k)
     torch.cuda.empty_cache()
     with Phase("kernel times at the tall shapes"):
-        # B5 at the polish width (nev 28 -> kc 32); B1-B3 at their tall
-        # widths (B1/B2 the solver panel, B1/B3 the polish)
+        # B5 at the polish widths (nev 28 -> kc 32, and kc 24); B1-B3 at
+        # their tall widths (B1/B2 the solver panel, B1/B3 the polish)
         tall_rows = time_kernels(
-            top, [("matvec_ff_novl", 32), ("crossprod", 16), ("matvec", 16),
-                  ("crossprod", 32), ("crossprod_ff", 32)],
+            top, [("matvec_ff_novl", 32), ("matvec_ff_novl", 24),
+                  ("crossprod", 16), ("matvec", 16), ("crossprod", 32),
+                  ("crossprod_ff", 32)],
             tall["launches"], worst, slices=64)
-    kernels.append(tall_rows[0])
+        novl = time_novl(top, (32, 24))
+    # B5's first design: the same function at the same shape, so the
+    # bound, plain and library times are B5's row's; its own time from
+    # the turns above, and its launches on the main path (0)
+    b5 = tall_rows[0]
+    v1 = "matvec_ff_novl_v1"
+    kernels.extend([
+        dict(b5, design="current"),
+        dict(b5, name=v1, source=SOURCE[v1], replaces=TPU_KERNEL[v1],
+             launches=tall["launches"][v1], max_abs_err=worst[v1],
+             ms=float(np.median(novl[f"{v1}/32"])), design="first")])
     kernels.extend(sweep_rows)
     say(json.dumps({"summary": {
         "card": smi, "n": args.n, "p": args.p, "k": args.k,
-        "build_s": build_s, "mid": mid,
+        "build_s": build_s, "b5_sass_mix": sass_mix, "mid": mid,
         **{key: val for key, val in head.items()},
         "gram_tall_ff_max_abs_err": worst["gram_tall_ff"],
         "tall": {"n": TALL_N, "p": TALL_P, **tall,
-                 "kernels": tall_rows},
+                 "kernels": tall_rows, "b5_turns_ms": novl},
         "sweep": sweep,
         "total_s": time.time() - t_start}}))
     say(json.dumps({"kernels": kernels}))

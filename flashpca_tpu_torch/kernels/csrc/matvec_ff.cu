@@ -8,7 +8,9 @@
 // B5 is stage 1 of the tall compensated gram, whose input panel is a
 // plain float32 v: it has no v_lo operand, so its instantiation stages
 // no v_lo tile and issues no v_lo W_hi FMA -- one product in three less
-// than B4 called with a zero v_lo.
+// than B4 called with a zero v_lo.  Production B5 is matvec_ff_novl.cu;
+// this instantiation stays as fp_matvec_ff_novl_v1, the first design,
+// for a same-run comparison (no operator launches it).
 //
 // Bound: float32 FMAs on the CUDA cores -- per genotype and column,
 // three products for B4 (v_hi W_hi, v_hi W_lo, v_lo W_hi), two for B5:
@@ -171,10 +173,10 @@ extern "C" int fp_matvec_ff(const void* packed, const void* lut6,
   return launch<true>(packed, lut6, vh, vl, yh, yl, p, nb, kc, stream);
 }
 
-// B5: as B4 without the v_lo operand.
-extern "C" int fp_matvec_ff_novl(const void* packed, const void* lut6,
-                                 const void* vh, void* yh, void* yl,
-                                 long long p, long long nb, int kc,
-                                 void* stream) {
+// B5's first design: as B4 without the v_lo operand.
+extern "C" int fp_matvec_ff_novl_v1(const void* packed, const void* lut6,
+                                    const void* vh, void* yh, void* yl,
+                                    long long p, long long nb, int kc,
+                                    void* stream) {
   return launch<false>(packed, lut6, vh, nullptr, yh, yl, p, nb, kc, stream);
 }

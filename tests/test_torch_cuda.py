@@ -79,16 +79,19 @@ def test_kernels_match_plain(cuda, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [3, 16, 28])
-@pytest.mark.parametrize("n", [1001, 4096])
-def test_tall_kernels_match_plain(cuda, k, n):
+@pytest.mark.parametrize("k", [3, 5, 16, 28])
+@pytest.mark.parametrize("p,n", [(333, 1001), (333, 4096), (133, 771)])
+def test_tall_kernels_match_plain(cuda, k, p, n):
     """B5 and the tall two-float gram (B5, mask, B3, B1) against their
     plain versions; the gram's hi halves at the gram bar of
-    tests/test_torch_kernels.py (two compounded contractions)."""
+    tests/test_torch_kernels.py (two compounded contractions).  B5's
+    thread tiles and its first design against B5 through the pairs'
+    float64 sums.  133 x 771 is ragged on both of B5's tile axes: p =
+    2 x 64 + 5 SNP rows (two full chunks and five rows), 193 bytes =
+    3 x 64 + 1 (three full blocks and one byte)."""
     from flashpca_tpu_torch.ops.genotypes import valid_mask_permuted
 
-    packed, mean, invsd, nb = _operands(cuda, n, 333)
-    p = packed.shape[0]
+    packed, mean, invsd, nb = _operands(cuda, n, p)
     v = torch.randn((p, k), device=cuda)
     lh = torch.randn(p, 4, device=cuda)
     ll = torch.randn(p, 4, device=cuda) * 1e-8
@@ -97,9 +100,19 @@ def test_tall_kernels_match_plain(cuda, k, n):
     yh, yl = tpk.matvec_ff_novl_p(packed, lut6, v)
     assert tpk.launch_counts["matvec_ff_novl"] == 1
     assert tpk.launch_counts["matvec_ff"] == 0
+    assert tpk.launch_counts["matvec_ff_novl_v1"] == 0
     qh, ql = tpk.matvec_ff_novl_p(packed.cpu(), lut6.cpu(), v.cpu())
     _close(yh, qh)
     _close_pair(yh, yl, qh, ql)
+    others = [("matvec_ff_novl_v1", tpk.matvec_ff_novl_v1_p(packed, lut6, v))]
+    others += [("matvec_ff_novl_tiled",
+                tpk.matvec_ff_novl_tiled_p(packed, lut6, v, c))
+               for c in tpk.NOVL_TILE_C]
+    assert tpk.launch_counts["matvec_ff_novl_v1"] == 1
+    assert tpk.launch_counts["matvec_ff_novl_tiled"] == len(tpk.NOVL_TILE_C)
+    assert tpk.launch_counts["matvec_ff_novl"] == 1
+    for _, (oh, ol) in others:
+        _close_pair(oh, ol, yh, yl)
     valid = valid_mask_permuted(n, nb, torch.float32, cuda)
     zh, zl = tpk.gram_tall_ff_p(packed, lh, ll, mean, invsd, v, valid)
     ph, pl = tpk.gram_tall_ff_p(packed.cpu(), lh.cpu(), ll.cpu(),
