@@ -6,23 +6,25 @@
 Phases, all in this one process; any failure raises and exits nonzero:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the hand-written kernels from kernels/csrc, thirteen entries
-   in seven libraries: B1-B5, the kernel sweep's tile entries of B1 and
-   B2 and its variants V1-V4 of B1, B5's thread-tile entry (C columns
-   per thread) and B5's first design (timed set-up); each
-   instantiation's registers and spills (ptxas), and the instruction mix
-   of B5's inner loop, both designs (cuobjdump);
+2. build the hand-written kernels from kernels/csrc, fourteen entries
+   in eight libraries: B1-B5, the kernel sweep's tile entries of B1 and
+   B2 and its variants V1-V4 of B1, and B5's comparison entries -- its
+   first design and its design at C = 4 columns per thread or CR = 128
+   rows per chunk (timed set-up); each instantiation's registers and
+   spills (ptxas), and the instruction mix of B5's inner loop in each
+   (cuobjdump);
 3. hold each kernel against its plain PyTorch version on the card, at
    full width (501,760 samples) on a 4,096-SNP slice and on a small odd
    case (n % 4 != 0, some inv_sd == 0), panels k in {3, 16, 24}, and
    each against a float64 product; there also V1-V4 (V3 within 5e-5 of
    float64, the others 1e-5), B1's tile entries bit-equal to B1 and B2's
-   against B2's plain version.  B5 (also at each thread tile, and its
-   first design) and the tall two-float gram (B5, mask, B3, B1)
-   likewise on those cases and at the tall width (2,048 SNPs x
-   1,003,520 samples), panels k in {3, 16, 28}, and there B1-B3
-   at k in {16, 28}; the gram within 1.5e-7 of float64, which the plain
-   float32 gram (B2, mask, B1) must miss at the tall width;
+   against B2's plain version.  B5 (and its comparison entries) and the
+   tall two-float gram (B5, mask, B3, B1) likewise on those cases and at
+   the tall width (2,048 SNPs x 1,003,520 samples), panels k in {3, 16,
+   24, 28}, and there B1-B3 at k in {16, 24, 28}; the gram within
+   1.5e-7 of float64, which the plain float32 gram (B2, mask, B1) must
+   miss at the tall width (the gram with B5 at CR = 128 is measured
+   against float64 beside it);
 4. a mid-size PLINK fileset (8,001 x 4,096, written by the port's
    write_bed) through ``pca(root, 10)`` and ``check()``, against a
    float64 dense eigendecomposition;
@@ -53,8 +55,7 @@ Phases, all in this one process; any failure raises and exits nonzero:
    that in the Marchenko-Pastur bulk the bar below is 3.6e-5 (and
    between the paths 3.6e-5 both ways); then B5 at kc 32 and 24 (and
    B1-B3 at their tall widths) timed at the tall shapes, and beside B5,
-   on the same inputs, its thread tiles C in {4, 8} and its first
-   design.
+   on the same inputs, its comparison entries.
 
 The line before the last is the JSON ``{"kernels": [...]}`` (B1-B5 from
 the headlines, B5's first design from the tall timing phase, V1-V4 from
@@ -427,9 +428,13 @@ def check_kernels(dev):
 def check_tall_kernels(dev):
     """B5 and the tall two-float gram against their plain versions and
     against float64 products, on the kernel-check cases and at the tall
-    width; there B1, B2 and B3 too, at the tall path's widths.  Returns
-    {name: max abs err vs plain}: of the hi half for B5, of the pair's
-    float64 sum for the gram and for B3.
+    width; there B1, B2 and B3 too, at the tall path's widths.  B5's
+    comparison entries likewise (its first design, C = 4 and CR = 128),
+    and the tall gram with the CR = 128 entry in B5's place against
+    float64, measured but not held to GRAM_F64_BAR.  Returns ({name: max
+    abs err vs plain}: of the hi half for B5, of the pair's float64 sum
+    for CR = 128, the gram and B3; {name: max relative err of the
+    kernel vs float64}).
 
     The gram's bar is componentwise, |kernel - plain| <= 2e-5 |plain| +
     4 eps32 (|W| |M y|): its second stage contracts n4 samples of
@@ -446,15 +451,15 @@ def check_tall_kernels(dev):
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
     from flashpca_tpu_torch.ops.genotypes import valid_mask_permuted
 
-    from flashpca_tpu_torch.kernels.packed_matvec import NOVL_TILE_C
-
-    worst = {}
+    worst, f64_rel = {}, {}
     for label, p, n, seed in KERNEL_CASES + (TALL_CASE,):
         packed, mean, invsd, lut6, nb, luts = random_operands(p, n, seed,
                                                               dev)
         valid = valid_mask_permuted(n, nb, torch.float32, dev)
+        m = valid[:, None]
         g = torch.Generator(device=dev).manual_seed(seed + 200)
-        for k in (3, 16, 28):
+        # k 24 and 28 run B5 at kc 24 and 32, the tall pca()'s widths
+        for k in (3, 16, 24, 28):
             v = torch.randn((p, k), generator=g, device=dev)
             ref_y = f64_product(packed, lut6, v, transpose=True)
             my = ref_y * valid.double()[:, None]
@@ -471,15 +476,27 @@ def check_tall_kernels(dev):
                 "matvec_ff_novl_v1": (
                     tpk.matvec_ff_novl_v1_p(packed, lut6, v), plain_y,
                     ref_y, plain_bar(p), 5e-6, False),
-                **{f"matvec_ff_novl_tiled/{c}": (
-                    tpk.matvec_ff_novl_tiled_p(packed, lut6, v, c), plain_y,
-                    ref_y, plain_bar(p), 5e-6, False) for c in NOVL_TILE_C},
+                "matvec_ff_novl_c4": (
+                    tpk.matvec_ff_novl_c4_p(packed, lut6, v), plain_y,
+                    ref_y, plain_bar(p), 5e-6, False),
+                # folds every 128 rows: by the pairs' sums
+                "matvec_ff_novl_cr128": (
+                    tpk.matvec_ff_novl_cr128_p(packed, lut6, v), plain_y,
+                    ref_y, plain_bar(p), 5e-6, True),
                 "gram_tall_ff": (
                     tpk.gram_tall_ff_p(packed, *luts, mean, invsd, v, valid),
                     tpk.gram_tall_ff_plain(packed, *luts, mean, invsd, v,
                                            valid),
                     ref_z, (2e-5, 4 * EPS32 * abs_z), 5e-6, True),
             }
+            # the tall gram with B5 at CR = 128 in B5's place (measured,
+            # not held to GRAM_F64_BAR: production folds at 64)
+            yh, yl = outs["matvec_ff_novl_cr128"][0]
+            zh, zl = tpk.crossprod_ff_p(packed, lut6, yh * m)
+            zl = zl + tpk.crossprod_p(packed, mean, invsd, yl * m)
+            rel128 = rel_err(zh.double() + zl.double(), ref_z)
+            f64_rel["gram_tall_ff_cr128"] = max(
+                f64_rel.get("gram_tall_ff_cr128", 0.0), rel128)
             if label == TALL_CASE[0] and k > 3:
                 # B1-B3 at the tall width and the tall path's panels (the
                 # solver's 16, the polish's nev 28 -> kc 32); B3 by its
@@ -503,8 +520,8 @@ def check_tall_kernels(dev):
             for name, (got, plain, ref, bar, f64_bar, sums) in outs.items():
                 tag = f"{name} {label} k={k}"
                 e, rels[name] = hold(tag, got, plain, ref, bar, f64_bar, sums)
-                key = name.split("/")[0]
-                worst[key] = max(worst.get(key, 0.0), e)
+                worst[name] = max(worst.get(name, 0.0), e)
+                f64_rel[name] = max(f64_rel.get(name, 0.0), rels[name])
                 msg.append(f"{name} {e:.2e} (kernel vs float64 "
                            f"{rels[name]:.1e})")
             # the gram's tight float64 bar, and its control
@@ -513,7 +530,8 @@ def check_tall_kernels(dev):
                 packed, mean, invsd,
                 tpk.matvec_p(packed, mean, invsd, v) * valid[:, None]),
                 ref_z)
-            msg.append(f"plain float32 gram vs float64 {ctl:.1e}")
+            msg.append(f"gram with B5 at CR=128 vs float64 {rel128:.1e}; "
+                       f"plain float32 gram vs float64 {ctl:.1e}")
             if not rel < GRAM_F64_BAR:
                 raise AssertionError(
                     f"gram_tall_ff {label} k={k}: vs float64 rel {rel:.2e} "
@@ -524,8 +542,8 @@ def check_tall_kernels(dev):
                     f"reads {ctl:.2e} against float64, inside the two-float "
                     f"bar {GRAM_F64_BAR}: the bar cannot tell them apart")
             say(f"   {label} k={k}: max abs err vs plain " + "; ".join(msg))
-        del packed, mean, invsd, lut6, luts, valid
-    return worst
+        del packed, mean, invsd, lut6, luts, valid, m
+    return worst, f64_rel
 
 
 # ---------------------------------------------------------------------------
@@ -1050,8 +1068,8 @@ def time_kernels(op, widths, launches, worst, slices):
 
 
 def time_novl(op, kcs):
-    """B5 beside its thread tiles (C columns per thread) and its first
-    design at ``op``'s shapes, on the same inputs, in turns: each in
+    """B5 beside its comparison entries (C = 4, CR = 128, the first
+    design) at ``op``'s shapes, on the same inputs, in turns: each in
     order, then each in reverse order, one median of 5 launches after a
     warm-up per turn.  Returns {"name/kc": [ms, ms]}."""
     import torch
@@ -1064,12 +1082,8 @@ def time_novl(op, kcs):
     out = {}
     for kc in kcs:
         v = torch.randn((pk.shape[0], kc), generator=g, device=op.device)
-        fns = {"matvec_ff_novl": lambda: tpk.matvec_ff_novl_p(pk, lut6, v),
-               **{f"matvec_ff_novl_tiled/C={c}":
-                  (lambda c=c: tpk.matvec_ff_novl_tiled_p(pk, lut6, v, c))
-                  for c in tpk.NOVL_TILE_C},
-               "matvec_ff_novl_v1": lambda: tpk.matvec_ff_novl_v1_p(pk, lut6,
-                                                                    v)}
+        fns = {name: (lambda f=getattr(tpk, name + "_p"): f(pk, lut6, v))
+               for name in ("matvec_ff_novl",) + tpk.NOVL_KERNELS}
         times = {}
         for name in list(fns) + list(fns)[::-1]:
             times.setdefault(name, []).append(event_ms(fns[name], reps=5))
@@ -1184,11 +1198,12 @@ def main(argv=None) -> int:
             for fn, usage in ptxas_usage(fh):
                 say(f"   {src} {fn}: {usage}")
     # B5's instruction mix: the FFMA share of its inner loop's
-    # instructions, for the current design and the first (cuobjdump, which
-    # the CUDA toolkit ships beside nvcc)
+    # instructions, for the current design, its other tiles and the first
+    # design (cuobjdump, which the CUDA toolkit ships beside nvcc)
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass_mix = {}
-    for src in ("matvec_ff_novl.cu", "matvec_ff.cu"):
+    for src in ("matvec_ff_novl.cu", "matvec_ff_novl_variants.cu",
+                "matvec_ff.cu"):
         lib = os.path.join(build_dir, f"lib{os.path.splitext(src)[0]}.so")
         if not os.path.exists(cuobjdump):
             say(f"   {src}: no cuobjdump beside nvcc; SASS mix not read")
@@ -1207,7 +1222,8 @@ def main(argv=None) -> int:
         worst = check_kernels(dev)
     torch.cuda.empty_cache()
     with Phase("tall kernels against their plain versions"):
-        for name, e in check_tall_kernels(dev).items():
+        tall_worst, tall_f64 = check_tall_kernels(dev)
+        for name, e in tall_worst.items():
             worst[name] = max(worst.get(name, 0.0), e)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1254,6 +1270,7 @@ def main(argv=None) -> int:
         "build_s": build_s, "b5_sass_mix": sass_mix, "mid": mid,
         **{key: val for key, val in head.items()},
         "gram_tall_ff_max_abs_err": worst["gram_tall_ff"],
+        "tall_kernels_f64_rel": tall_f64,
         "tall": {"n": TALL_N, "p": TALL_P, **tall,
                  "kernels": tall_rows, "b5_turns_ms": novl},
         "sweep": sweep,

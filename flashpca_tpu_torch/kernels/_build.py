@@ -3,12 +3,13 @@
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded through ``ctypes``; a source may hold several
 kernels (matvec_ff.cu holds B4 and B5's first design), each with its own
-C entry.  Thirteen entries in seven libraries: B1-B5, the sweep's tile
-entries of B1 and B2 and its variants V1-V4, B5's thread-tile entry
-and B5's first design (``matvec_ff_novl_v1``), kept for comparison.
-The build happens at first use, never at import (the CPU tests import every module, and the CPU has no
-``nvcc``), into ``kernels/build/<hash>/`` -- a directory that
-``.gitignore`` lists.  The hash covers every source, header and flag,
+C entry.  Fourteen entries in eight libraries: B1-B5, the sweep's tile
+entries of B1 and B2 and its variants V1-V4, and B5's comparison
+entries -- its first design (``matvec_ff_novl_v1``) and two other tiles
+(``matvec_ff_novl_c4``, ``matvec_ff_novl_cr128``).  The build happens
+at first use, never at import (the CPU tests import every module, and
+the CPU has no ``nvcc``), into ``kernels/build/<hash>/`` -- a directory
+that ``.gitignore`` lists.  The hash covers every source, header and flag,
 so an edited source builds anew; the sources compile in parallel, one
 ``nvcc`` each.
 
@@ -45,12 +46,16 @@ KERNELS = {
                   [_P] * 6 + [_I64, _I64, _I32, _P]),
     "matvec_ff_novl": ("matvec_ff_novl.cu", "fp_matvec_ff_novl",
                        [_P] * 5 + [_I64, _I64, _I32, _P]),
-    # B5 at c columns per thread (c before kc), and B5's first design:
-    # timed beside production B5, launched by no operator
-    "matvec_ff_novl_tiled": ("matvec_ff_novl.cu", "fp_matvec_ff_novl_tiled",
-                             [_P] * 5 + [_I64, _I64, _I32, _I32, _P]),
+    # B5's first design and B5 at two other tiles: timed beside
+    # production B5, launched by no operator
     "matvec_ff_novl_v1": ("matvec_ff.cu", "fp_matvec_ff_novl_v1",
                           [_P] * 5 + [_I64, _I64, _I32, _P]),
+    "matvec_ff_novl_c4": ("matvec_ff_novl_variants.cu",
+                          "fp_matvec_ff_novl_c4",
+                          [_P] * 5 + [_I64, _I64, _I32, _P]),
+    "matvec_ff_novl_cr128": ("matvec_ff_novl_variants.cu",
+                             "fp_matvec_ff_novl_cr128",
+                             [_P] * 5 + [_I64, _I64, _I32, _P]),
     # the kernel sweep (tools/kernel_sweep.py): B1/B2 at another tile
     # (tm / cr before kc) and the measurement variants V1-V4 of B1
     "crossprod_tiled": ("crossprod.cu", "fp_crossprod_tiled",

@@ -37,10 +37,13 @@
 //   shared memory (4 * C floats a thread, laid out thread-fastest), read
 //   and written once per chunk by the fold: with sum in registers too,
 //   ptxas spilled at the 128-register cap.  __launch_bounds__ asks for
-//   512 threads per SM, i.e. at most 128 registers, so 16 warps share an
-//   SM at every KC (the first design: 208 registers at KC = 32, 8
-//   warps).  Shared memory: 61,440 bytes a block at KC = 32 (two stages
-//   and the sums), dynamic, so two blocks fit an SM.
+//   512 threads per SM where the block size divides it: at KC = 8, 16
+//   and 32 that caps a thread at 128 registers and 16 warps share an SM
+//   (the first design: 208 registers at KC = 32, 8 warps).  At KC = 24 a
+//   block is 192 threads and asks for two blocks per SM, 12 warps (cap
+//   170 registers; three blocks would allow at most 112).  Shared
+//   memory: 61,440 bytes a block at KC = 32 and CR = 64 (two stages and
+//   the sums), dynamic, so two blocks fit an SM.
 // * Staging: double-buffered with cp.async (16-byte cp.async.cg for the
 //   byte tile and the v_h rows, 4-byte cp.async.ca to scatter the table
 //   rows into their pairs): the copies of chunk i+1 are in flight while
@@ -51,16 +54,17 @@
 //   loop is unrolled 16 rows deep (chip_smoke.py prints its SASS mix:
 //   per row 64 FFMA, 7 LDS, 4 SHF and 4 LOP3).
 //
-// C is a template parameter: production runs C_PROD through
-// fp_matvec_ff_novl; fp_matvec_ff_novl_tiled takes C in {4, 8} for the
-// timing comparison in chip_smoke.py.
+// C and CR are template parameters: production runs (C_PROD, CR_PROD)
+// through fp_matvec_ff_novl.  matvec_ff_novl_variants.cu includes this
+// file with MATVEC_FF_NOVL_NO_ENTRY defined and builds the other tiles
+// that chip_smoke.py compares, in a library of their own.
 #include "common.cuh"
 
 namespace {
 
 constexpr int TB = 64;       // packed bytes per block (x 4 sample planes)
-constexpr int CR = 64;       // SNP rows per chunk: one stage, one fold
 constexpr int C_PROD = 8;    // columns per thread in production
+constexpr int CR_PROD = 64;  // SNP rows per chunk: one stage, one fold
 constexpr int LW = 8;        // staged table row: (hi, lo) for codes 0..3
 
 __device__ __forceinline__ unsigned smem_addr(const void* ptr) {
@@ -87,7 +91,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // One stage of the double buffer: a chunk's byte tile, v_h rows and
 // table rows.
-template <int KC>
+template <int KC, int CR>
 struct Stage {
   uint8_t bytes[CR][TB];
   float v[CR][KC];
@@ -95,9 +99,9 @@ struct Stage {
 };
 
 // Start the copies of chunk rows [r0, r0 + CR) into stage ``sg``.
-template <int KC, int NT>
+template <int KC, int NT, int CR>
 __device__ __forceinline__ void stage_chunk(
-    Stage<KC>& sg, const uint8_t* __restrict__ packed,
+    Stage<KC, CR>& sg, const uint8_t* __restrict__ packed,
     const float* __restrict__ lut6, const float* __restrict__ vh, long long p,
     long long nb, long long byte0, long long r0, bool bytes16, bool v16,
     int tid) {
@@ -147,28 +151,30 @@ __device__ __forceinline__ void stage_chunk(
 }
 
 // Threads per block, the blocks per SM that __launch_bounds__ asks for
-// (512 threads per SM, at most 128 registers a thread), and the dynamic
-// shared memory: two stages and the running sums.
-template <int KC, int C>
+// (as many as fit in 512 threads: 128 registers a thread where NT
+// divides 512, 170 at KC / C = 3), and the dynamic shared memory: two
+// stages and the running sums.
+template <int KC, int C, int CR>
 struct Tile {
   static constexpr int NT = TB * (KC / C);
   static constexpr int MIN_BLOCKS = 512 / NT > 0 ? 512 / NT : 1;
-  static constexpr int SMEM = 2 * sizeof(Stage<KC>) + 4 * C * NT * 4;
+  static constexpr int SMEM = 2 * sizeof(Stage<KC, CR>) + 4 * C * NT * 4;
 };
 
-template <int KC, int C>
-__global__ void __launch_bounds__(Tile<KC, C>::NT, Tile<KC, C>::MIN_BLOCKS)
+template <int KC, int C, int CR>
+__global__ void __launch_bounds__(Tile<KC, C, CR>::NT,
+                                  Tile<KC, C, CR>::MIN_BLOCKS)
 matvec_ff_novl_kernel(const uint8_t* __restrict__ packed,
                       const float* __restrict__ lut6,
                       const float* __restrict__ vh, float* __restrict__ yh,
                       float* __restrict__ yl, long long p, long long nb,
                       bool bytes16, bool v16) {
   static_assert(KC % C == 0 && C % 4 == 0, "C must divide KC, 4 | C");
-  constexpr int NT = Tile<KC, C>::NT;
+  constexpr int NT = Tile<KC, C, CR>::NT;
   extern __shared__ __align__(16) unsigned char smem[];
-  Stage<KC>* sg = reinterpret_cast<Stage<KC>*>(smem);
+  Stage<KC, CR>* sg = reinterpret_cast<Stage<KC, CR>*>(smem);
   // sum[s][c] of thread tid at ssum[(s * C + c) * NT + tid]
-  float* ssum = reinterpret_cast<float*>(smem + 2 * sizeof(Stage<KC>));
+  float* ssum = reinterpret_cast<float*>(smem + 2 * sizeof(Stage<KC, CR>));
 
   const int tid = threadIdx.x;
   const int bb = tid % TB;
@@ -192,8 +198,8 @@ matvec_ff_novl_kernel(const uint8_t* __restrict__ packed,
   }
 
   const long long nchunk = (p + CR - 1) / CR;
-  stage_chunk<KC, NT>(sg[0], packed, lut6, vh, p, nb, byte0, 0, bytes16, v16,
-                      tid);
+  stage_chunk<KC, NT, CR>(sg[0], packed, lut6, vh, p, nb, byte0, 0, bytes16,
+                          v16, tid);
   cp_async_commit();
   for (long long i = 0; i < nchunk; ++i) {
     // chunk i has landed for every thread, and every thread is done
@@ -201,11 +207,11 @@ matvec_ff_novl_kernel(const uint8_t* __restrict__ packed,
     cp_async_wait_all();
     __syncthreads();
     if (i + 1 < nchunk)
-      stage_chunk<KC, NT>(sg[(i + 1) & 1], packed, lut6, vh, p, nb, byte0,
-                          (i + 1) * CR, bytes16, v16, tid);
+      stage_chunk<KC, NT, CR>(sg[(i + 1) & 1], packed, lut6, vh, p, nb,
+                              byte0, (i + 1) * CR, bytes16, v16, tid);
     cp_async_commit();
 
-    const Stage<KC>& cur = sg[i & 1];
+    const Stage<KC, CR>& cur = sg[i & 1];
 #pragma unroll 16
     for (int r = 0; r < CR; ++r) {
       const uint32_t byte = cur.bytes[r][bb];
@@ -263,22 +269,22 @@ matvec_ff_novl_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
-template <int KC, int C>
+template <int KC, int C, int CR>
 int launch_kc(const uint8_t* pk, const float* lt, const float* a, float* oh,
               float* ol, long long p, long long nb, bool bytes16, bool v16,
               cudaStream_t st) {
-  using T = Tile<KC, C>;
+  using T = Tile<KC, C, CR>;
   const cudaError_t rc = cudaFuncSetAttribute(
-      matvec_ff_novl_kernel<KC, C>,
+      matvec_ff_novl_kernel<KC, C, CR>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid(static_cast<unsigned>((nb + TB - 1) / TB));
-  matvec_ff_novl_kernel<KC, C><<<grid, T::NT, T::SMEM, st>>>(
+  matvec_ff_novl_kernel<KC, C, CR><<<grid, T::NT, T::SMEM, st>>>(
       pk, lt, a, oh, ol, p, nb, bytes16, v16);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int C>
+template <int C, int CR>
 int launch(const void* packed, const void* lut6, const void* vh, void* yh,
            void* yl, long long p, long long nb, int kc, void* stream) {
   if (p <= 0 || nb <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -295,34 +301,27 @@ int launch(const void* packed, const void* lut6, const void* vh, void* yh,
     return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kc) {
-    case 8: return launch_kc<8, C>(pk, lt, a, oh, ol, p, nb, bytes16, v16, st);
-    case 16: return launch_kc<16, C>(pk, lt, a, oh, ol, p, nb, bytes16, v16, st);
-    case 24: return launch_kc<24, C>(pk, lt, a, oh, ol, p, nb, bytes16, v16, st);
-    case 32: return launch_kc<32, C>(pk, lt, a, oh, ol, p, nb, bytes16, v16, st);
+    case 8:
+      return launch_kc<8, C, CR>(pk, lt, a, oh, ol, p, nb, bytes16, v16, st);
+    case 16:
+      return launch_kc<16, C, CR>(pk, lt, a, oh, ol, p, nb, bytes16, v16, st);
+    case 24:
+      return launch_kc<24, C, CR>(pk, lt, a, oh, ol, p, nb, bytes16, v16, st);
+    case 32:
+      return launch_kc<32, C, CR>(pk, lt, a, oh, ol, p, nb, bytes16, v16, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
+#ifndef MATVEC_FF_NOVL_NO_ENTRY
 // B5. packed (p, nb) u8; lut6 (6, p) f32; vh (p, kc) f32;
 // yh, yl (4*nb, kc) f32.
 extern "C" int fp_matvec_ff_novl(const void* packed, const void* lut6,
                                  const void* vh, void* yh, void* yl,
                                  long long p, long long nb, int kc,
                                  void* stream) {
-  return launch<C_PROD>(packed, lut6, vh, yh, yl, p, nb, kc, stream);
+  return launch<C_PROD, CR_PROD>(packed, lut6, vh, yh, yl, p, nb, kc, stream);
 }
-
-// B5 at c columns per thread, c in {4, 8}: the thread-tile axis that
-// chip_smoke.py times (production runs C_PROD).
-extern "C" int fp_matvec_ff_novl_tiled(const void* packed, const void* lut6,
-                                       const void* vh, void* yh, void* yl,
-                                       long long p, long long nb, int c,
-                                       int kc, void* stream) {
-  switch (c) {
-    case 4: return launch<4>(packed, lut6, vh, yh, yl, p, nb, kc, stream);
-    case 8: return launch<8>(packed, lut6, vh, yh, yl, p, nb, kc, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
+#endif

@@ -15,10 +15,11 @@ B4    matvec_ff.cu        two-float (y_hi, y_err) of W^T (v_hi + v_lo)
 B5    matvec_ff_novl.cu   two-float (y_hi, y_err) of W^T v (no v_lo)
 ====  ==================  ============================================
 
-B5 has two comparison entries that no operator launches: its thread
-tile at C columns per thread (``matvec_ff_novl_tiled_p``) and its first
+B5 has three comparison entries that no operator launches: its first
 design, the ``HAS_VL=false`` instantiation of matvec_ff.cu
-(``matvec_ff_novl_v1_p``); chip_smoke.py times both beside it.
+(``matvec_ff_novl_v1_p``), and its design at two other tiles in
+matvec_ff_novl_variants.cu (``matvec_ff_novl_c4_p``,
+``matvec_ff_novl_cr128_p``); chip_smoke.py times them beside it.
 
 The wide gram W^T W runs B1 then B2 (B3 then B4 in two-float); the
 tall gram W M W^T (M the valid-sample mask) runs B2 then B1, and in
@@ -62,8 +63,8 @@ OPERATOR_KERNELS = ("crossprod", "matvec", "crossprod_ff", "matvec_ff",
 SWEEP_KERNELS = ("crossprod_tiled", "matvec_tiled", "crossprod_stacked",
                  "crossprod_intsub", "crossprod_split3", "crossprod_nocomp")
 # B5's comparison entries, which no operator launches either
-NOVL_KERNELS = ("matvec_ff_novl_tiled", "matvec_ff_novl_v1")
-NOVL_TILE_C = (4, 8)          # B5 columns per thread; production 8
+NOVL_KERNELS = ("matvec_ff_novl_v1", "matvec_ff_novl_c4",
+                "matvec_ff_novl_cr128")
 launch_counts = dict.fromkeys(OPERATOR_KERNELS + SWEEP_KERNELS + NOVL_KERNELS,
                               0)
 _launch_log: list | None = None
@@ -350,13 +351,12 @@ def _launch_matvec_ff_novl(packed, lut6, vh, kc):
     return _launch_novl("matvec_ff_novl", packed, lut6, vh, kc)
 
 
-def _launch_novl(name, packed, lut6, vh, kc, *extra):
-    """Launch B5 or one of its comparison entries (``extra`` goes
-    before kc: the tile entry's c)."""
+def _launch_novl(name, packed, lut6, vh, kc):
+    """Launch B5 or one of its comparison entries."""
     p, nb = packed.shape
     yh = torch.empty((4 * nb, kc), dtype=torch.float32, device=packed.device)
     yl = torch.empty_like(yh)
-    _run(name, packed, lut6, vh, yh, yl, p, nb, *extra, kc)
+    _run(name, packed, lut6, vh, yh, yl, p, nb, kc)
     return yh, yl
 
 
@@ -443,14 +443,6 @@ def matvec_ff_novl_p(packed, lut6, vh):
     return _novl_p("matvec_ff_novl", packed, lut6, vh)
 
 
-def matvec_ff_novl_tiled_p(packed, lut6, vh, c):
-    """B5 at ``c`` columns per thread (NOVL_TILE_C); the function of
-    :func:`matvec_ff_novl_p`, :func:`matvec_ff_novl_plain` on the CPU."""
-    if c not in NOVL_TILE_C:
-        raise ValueError(f"c must be one of {NOVL_TILE_C}, got {c}")
-    return _novl_p("matvec_ff_novl_tiled", packed, lut6, vh, c)
-
-
 def matvec_ff_novl_v1_p(packed, lut6, vh):
     """B5's first design (matvec_ff.cu, ``HAS_VL=false``); the function
     of :func:`matvec_ff_novl_p`, :func:`matvec_ff_novl_plain` on the
@@ -458,15 +450,27 @@ def matvec_ff_novl_v1_p(packed, lut6, vh):
     return _novl_p("matvec_ff_novl_v1", packed, lut6, vh)
 
 
-def _novl_p(name, packed, lut6, vh, *extra):
+def matvec_ff_novl_c4_p(packed, lut6, vh):
+    """B5 at 4 columns per thread (production: 8); the function of
+    :func:`matvec_ff_novl_p`, :func:`matvec_ff_novl_plain` on the CPU."""
+    return _novl_p("matvec_ff_novl_c4", packed, lut6, vh)
+
+
+def matvec_ff_novl_cr128_p(packed, lut6, vh):
+    """B5 folding every 128 SNP rows (production: 64); the function of
+    :func:`matvec_ff_novl_p` up to the fold's rounding,
+    :func:`matvec_ff_novl_plain` on the CPU."""
+    return _novl_p("matvec_ff_novl_cr128", packed, lut6, vh)
+
+
+def _novl_p(name, packed, lut6, vh):
     _check_shapes(packed.shape[0], vh, f"{name}_p")
     if vh.device.type == "cpu":
         return matvec_ff_novl_plain(packed, lut6, vh)
     _check_cuda(packed, vh, lut6)
     _check_lut6(packed, lut6)
     w = _widths(vh.shape[1])
-    outs = [_launch_novl(name, packed, lut6, _padded(vh, c0, c1, kc), kc,
-                         *extra)
+    outs = [_launch_novl(name, packed, lut6, _padded(vh, c0, c1, kc), kc)
             for c0, c1, kc in w]
     return _cat_pairs(outs, w)
 

@@ -79,16 +79,18 @@ def test_kernels_match_plain(cuda, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [3, 5, 16, 28])
+@pytest.mark.parametrize("k", [3, 5, 16, 24, 28])
 @pytest.mark.parametrize("p,n", [(333, 1001), (333, 4096), (133, 771)])
 def test_tall_kernels_match_plain(cuda, k, p, n):
     """B5 and the tall two-float gram (B5, mask, B3, B1) against their
     plain versions; the gram's hi halves at the gram bar of
     tests/test_torch_kernels.py (two compounded contractions).  B5's
-    thread tiles and its first design against B5 through the pairs'
-    float64 sums.  133 x 771 is ragged on both of B5's tile axes: p =
-    2 x 64 + 5 SNP rows (two full chunks and five rows), 193 bytes =
-    3 x 64 + 1 (three full blocks and one byte)."""
+    comparison entries (its first design, C = 4, CR = 128) against B5
+    through the pairs' float64 sums.  k runs B5 at every KC (5 -> 8, 16,
+    24, 28 -> 32).  133 x 771 is ragged on both of B5's tile axes: p =
+    2 x 64 + 5 SNP rows (two full 64-row chunks, or one 128-row chunk,
+    and five rows), 193 bytes = 3 x 64 + 1 (three full blocks and one
+    byte)."""
     from flashpca_tpu_torch.ops.genotypes import valid_mask_permuted
 
     packed, mean, invsd, nb = _operands(cuda, n, p)
@@ -104,15 +106,11 @@ def test_tall_kernels_match_plain(cuda, k, p, n):
     qh, ql = tpk.matvec_ff_novl_p(packed.cpu(), lut6.cpu(), v.cpu())
     _close(yh, qh)
     _close_pair(yh, yl, qh, ql)
-    others = [("matvec_ff_novl_v1", tpk.matvec_ff_novl_v1_p(packed, lut6, v))]
-    others += [("matvec_ff_novl_tiled",
-                tpk.matvec_ff_novl_tiled_p(packed, lut6, v, c))
-               for c in tpk.NOVL_TILE_C]
-    assert tpk.launch_counts["matvec_ff_novl_v1"] == 1
-    assert tpk.launch_counts["matvec_ff_novl_tiled"] == len(tpk.NOVL_TILE_C)
-    assert tpk.launch_counts["matvec_ff_novl"] == 1
-    for _, (oh, ol) in others:
+    for name in tpk.NOVL_KERNELS:
+        oh, ol = getattr(tpk, name + "_p")(packed, lut6, v)
+        assert tpk.launch_counts[name] == 1
         _close_pair(oh, ol, yh, yl)
+    assert tpk.launch_counts["matvec_ff_novl"] == 1
     valid = valid_mask_permuted(n, nb, torch.float32, cuda)
     zh, zl = tpk.gram_tall_ff_p(packed, lh, ll, mean, invsd, v, valid)
     ph, pl = tpk.gram_tall_ff_p(packed.cpu(), lh.cpu(), ll.cpu(),

@@ -6,9 +6,10 @@ what runs here is what surrounds them: every entry of
 ``_build.KERNELS`` names a source that exists and a C function of that
 source whose parameter count matches its ctypes argument list; the
 build directory's hash moves with every source; every entry has a
-launch count; B5's comparison wrappers take B5's plain version on CPU
-tensors, bit for bit; and chip_smoke.py has the rows its timing phase
-reads and parses the compiler's register report.
+launch count; production B5's library holds no comparison entry; B5's
+comparison wrappers exist and take B5's plain version on CPU tensors,
+bit for bit; and chip_smoke.py has the rows its timing phase reads and
+parses the compiler's register report.
 """
 
 import importlib.util
@@ -36,8 +37,11 @@ def _chip_smoke():
 
 @pytest.mark.parametrize("name,src,entry", [
     ("matvec_ff_novl", "matvec_ff_novl.cu", "fp_matvec_ff_novl"),
-    ("matvec_ff_novl_tiled", "matvec_ff_novl.cu", "fp_matvec_ff_novl_tiled"),
     ("matvec_ff_novl_v1", "matvec_ff.cu", "fp_matvec_ff_novl_v1"),
+    ("matvec_ff_novl_c4", "matvec_ff_novl_variants.cu",
+     "fp_matvec_ff_novl_c4"),
+    ("matvec_ff_novl_cr128", "matvec_ff_novl_variants.cu",
+     "fp_matvec_ff_novl_cr128"),
     ("matvec_ff", "matvec_ff.cu", "fp_matvec_ff"),
 ])
 def test_b5_entries_map_to_their_sources(name, src, entry):
@@ -68,9 +72,22 @@ def test_build_dir_hash_covers_each_source(src, tmp_path, monkeypatch):
 
 
 def test_b5_is_built_from_its_new_source():
-    assert "matvec_ff_novl.cu" in _build.sources()
-    assert len(_build.sources()) == 7
-    assert len(_build.KERNELS) == 13
+    assert {"matvec_ff_novl.cu", "matvec_ff_novl_variants.cu"} <= set(
+        _build.sources())
+
+
+def test_production_b5_library_holds_only_b5():
+    """The comparison tiles are built into their own library: B5's
+    source defines one C entry, and the variants' source includes it
+    with that entry switched off."""
+    with open(os.path.join(_build.CSRC, "matvec_ff_novl.cu")) as fh:
+        prod = fh.read()
+    with open(os.path.join(_build.CSRC, "matvec_ff_novl_variants.cu")) as fh:
+        var = fh.read()
+    assert re.findall(r'extern "C" int (\w+)\(', prod) == ["fp_matvec_ff_novl"]
+    assert re.search(r"#ifndef MATVEC_FF_NOVL_NO_ENTRY\s+// B5\.", prod)
+    assert var.index("#define MATVEC_FF_NOVL_NO_ENTRY") < var.index(
+        '#include "matvec_ff_novl.cu"')
 
 
 def test_launch_counts_cover_every_entry():
@@ -90,30 +107,22 @@ def novl_operands():
     return packed, lut6, rng
 
 
-@pytest.mark.parametrize("k", [3, 5, 28, 40])
-@pytest.mark.parametrize("which", ["current", "v1", "c4", "c8"])
-def test_novl_wrappers_on_cpu_equal_plain(novl_operands, which, k):
+@pytest.mark.parametrize("name", ("matvec_ff_novl",) + tpk.NOVL_KERNELS)
+def test_novl_wrapper_exists_for_each_entry(name):
+    """chip_smoke.time_novl reaches each entry through ``<name>_p``."""
+    assert callable(getattr(tpk, name + "_p"))
+
+
+@pytest.mark.parametrize("name", tpk.NOVL_KERNELS)
+def test_novl_comparison_wrapper_on_cpu_is_plain(novl_operands, name):
     packed, lut6, rng = novl_operands
     v = torch.from_numpy(
-        rng.standard_normal((packed.shape[0], k)).astype(np.float32))
-    wrapper = {"current": tpk.matvec_ff_novl_p,
-               "v1": tpk.matvec_ff_novl_v1_p,
-               "c4": lambda *a: tpk.matvec_ff_novl_tiled_p(*a, 4),
-               "c8": lambda *a: tpk.matvec_ff_novl_tiled_p(*a, 8)}[which]
+        rng.standard_normal((packed.shape[0], 40)).astype(np.float32))
     tpk.reset_launch_counts()
-    yh, yl = wrapper(packed, lut6, v)
+    yh, yl = getattr(tpk, name + "_p")(packed, lut6, v)
     ph, pl = tpk.matvec_ff_novl_plain(packed, lut6, v)
     assert torch.equal(yh, ph) and torch.equal(yl, pl)
-    assert yh.shape == (4 * packed.shape[1], k)
     assert all(c == 0 for c in tpk.launch_counts.values())
-
-
-@pytest.mark.parametrize("c", [0, 2, 16])
-def test_novl_tiled_refuses_other_tiles(novl_operands, c):
-    packed, lut6, _ = novl_operands
-    with pytest.raises(ValueError, match="must be one of"):
-        tpk.matvec_ff_novl_tiled_p(packed, lut6,
-                                   torch.zeros((packed.shape[0], 8)), c)
 
 
 @pytest.mark.parametrize("name", ["matvec_ff_novl", "matvec_ff_novl_v1"])
@@ -138,7 +147,7 @@ def test_chip_smoke_reads_registers_and_spills():
     before the register line and is reported with it."""
     cs = _chip_smoke()
     sym = ("_ZN45_GLOBAL__N__9a1b2c3d_17_matvec_ff_novl_cu_1f2e3d4c21"
-           "matvec_ff_novl_kernelILi32ELi8EEEvPKhPKfS4_PfS5_xxbb")
+           "matvec_ff_novl_kernelILi32ELi8ELi64EEEvPKhPKfS4_PfS5_xxbb")
     log = [f"ptxas info    : Compiling entry function '{sym}' for 'sm_90a'",
            f"ptxas info    : Function properties for {sym}",
            "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
@@ -146,7 +155,7 @@ def test_chip_smoke_reads_registers_and_spills():
            "ptxas info    : Used 128 registers, used 1 barriers, 28672 "
            "bytes smem, 400 bytes cmem[0]"]
     assert list(cs.ptxas_usage(log)) == [(
-        "matvec_ff_novl_kernel<32, 8>",
+        "matvec_ff_novl_kernel<32, 8, 64>",
         "Used 128 registers, used 1 barriers, 28672 bytes smem, 400 bytes "
         "cmem[0]; 8 bytes spill stores, 4 bytes spill loads")]
 
@@ -155,7 +164,7 @@ def test_chip_smoke_reads_the_inner_loop_mix():
     """The hot loop of a SASS listing: the backward branch with the most
     FFMA, counted from its target to the branch itself."""
     cs = _chip_smoke()
-    sym = "_ZN5_GLOBAL__N_121matvec_ff_novl_kernelILi32ELi8EEEvPKh"
+    sym = "_ZN5_GLOBAL__N_121matvec_ff_novl_kernelILi32ELi8ELi64EEEvPKh"
     sass = "\n".join([
         "\tcode for sm_90a",
         f"\t\tFunction : {sym}",
@@ -170,6 +179,6 @@ def test_chip_smoke_reads_the_inner_loop_mix():
         "        /*0070*/              @!P1 BRA 0x0 ;",
         "        /*0080*/                   EXIT ;"])
     mix = cs.sass_hot_loops(sass)
-    assert list(mix) == ["matvec_ff_novl_kernel<32, 8>"]
-    c = mix["matvec_ff_novl_kernel<32, 8>"]
+    assert list(mix) == ["matvec_ff_novl_kernel<32, 8, 64>"]
+    c = mix["matvec_ff_novl_kernel<32, 8, 64>"]
     assert dict(c) == {"LDS": 1, "FFMA": 2, "SHF": 1, "BRA": 1}
