@@ -5,8 +5,12 @@ Mirrors flashpca.cpp's option table (flashpca.cpp:40-92), checks
 maxiter=500, seed=1, precision=7, suffix=.txt) and output files and
 formats (:755-878) for the two modes this package ports: PCA (the
 default) and ``--check``.  ``--scca``, ``--ucca``, ``--project`` and
-``--batch`` exit with an error naming the ROADMAP item that ports them.
-``--device`` (default ``cuda``) selects the card or the CPU path.
+``--batch`` exit with an error naming the ROADMAP item that ports them,
+as do the JAX CLI's options not ported yet: ``--stream on``, ``--shards``
+above 1, ``--checkpoint-every`` above 0 and ``--profile``.  ``--debug`` is
+the reference's no-op; ``--outstate``/``--instate`` write and resume the
+JAX package's .npz checkpoint.  ``--device`` (default ``cuda``) selects
+the card or the CPU path.
 """
 
 from __future__ import annotations
@@ -29,6 +33,11 @@ NOT_PORTED = {
     "ucca": "A13 'ucca()'",
     "project": "A11 'project()'",
     "batch": "A12 'Dense and matrix inputs'",
+    # options of the ported modes
+    "stream on": "A15 'Streaming, wide and tall'",
+    "shards": "A18 'Multi-GPU'",
+    "checkpoint-every": "A17 'Checkpoints'",
+    "profile": "A10 'Bench script and --profile'",
 }
 
 
@@ -70,6 +79,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--verbose", "-v", action="store_true")
     p.add_argument("--tol", type=float, default=1e-6)
     p.add_argument("--maxiter", type=int, default=500)
+    p.add_argument("--debug", action="store_true",
+                   help="accepted and ignored, as by the reference")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="write a profiler trace of the run to DIR [not "
+                        "ported yet]")
     p.add_argument("--suffix", "-f", default=".txt")
     p.add_argument("--precision", type=int, default=7)
     p.add_argument("--notime", action="store_true")
@@ -79,6 +93,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "float64 on cpu)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the GPU (default) or the CPU path")
+    p.add_argument("--shards", type=int, default=None,
+                   help="shard SNPs over this many devices (only 1 is "
+                        "ported yet)")
+    p.add_argument("--stream", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="stream packed genotypes from host per block "
+                        "('on' is not ported yet; 'auto' and 'off' keep "
+                        "the operator on the device)")
+    p.add_argument("--outstate", metavar="FILE", default=None,
+                   help="write an .npz restart checkpoint (the Ritz panel "
+                        "after the solve; the JAX package's format)")
+    p.add_argument("--instate", metavar="FILE", default=None,
+                   help="warm-start PCA from a checkpoint written by "
+                        "--outstate")
+    p.add_argument("--checkpoint-every", metavar="R", type=int, default=0,
+                   help="rewrite the checkpoint every R restarts during "
+                        "the solve [not ported yet; 0 = off]")
     p.add_argument("--opmode", default="auto",
                    choices=["auto", "wide", "tall"],
                    help="decompose X X^T (wide), X^T X (tall, for "
@@ -154,6 +185,22 @@ def main(argv=None) -> int:
                         f"yet (ROADMAP {NOT_PORTED[flag]})")
     if unknown:
         return _die("unrecognized arguments: " + " ".join(unknown))
+    for flag, asked in (("stream on", args.stream == "on"),
+                        ("shards", (args.shards or 1) > 1),
+                        ("checkpoint-every", args.checkpoint_every > 0),
+                        ("profile", args.profile is not None)):
+        if asked:
+            return _die(f"--{flag} is not ported to the PyTorch package "
+                        f"yet (ROADMAP {NOT_PORTED[flag]})")
+    if args.shards is not None and args.shards < 1:
+        return _die(f"--shards must be >= 1 (got {args.shards})")
+    if args.checkpoint_every < 0:
+        return _die("--checkpoint-every must be a positive restart "
+                    "interval")
+    if (args.outstate or args.instate) and mode != "pca":
+        return _die("--outstate/--instate apply to PCA mode only (this "
+                    "mode has no restart state)")
+    stream = {"auto": "auto", "off": False}[args.stream]
     if args.numthreads is not None and args.numthreads > 0:
         from .io.cbed import set_num_threads
 
@@ -237,7 +284,9 @@ def main(argv=None) -> int:
                 maxiter=args.maxiter, tol=args.tol, seed=args.seed,
                 block_size=block_size, do_loadings=bool(args.outload),
                 dtype=args.dtype, device=args.device, verbose=args.verbose,
-                operator_mode=args.opmode, polish=args.polish)
+                operator_mode=args.opmode, polish=args.polish,
+                streaming=stream, state_in=args.instate,
+                state_out=args.outstate)
             print(timestamp() + "PCA done")
             save_text(res.values.reshape(-1, 1), out["val"], precision=prec)
             ucol = ["FID" + TXT_SEP + "IID"] + [
@@ -261,7 +310,7 @@ def main(argv=None) -> int:
             res = run_check(ds, evec, eval_, stand=args.standx,
                             divisor=args.div, block_size=block_size,
                             dtype=args.dtype, device=args.device,
-                            memory_mb=args.memory)
+                            streaming=stream, memory_mb=args.memory)
             for j in range(len(res.err)):
                 print(timestamp() + f"eval({j+1}): {eval_[j]}, "
                       f"sum squared error: {res.err[j]}")

@@ -162,11 +162,16 @@ def _cli(args, cwd):
         os.chdir(old)
 
 
-def test_cli_pca_reproduces_golden(small_plink, tmp_path):
+@pytest.mark.parametrize("extra", [
+    [],
+    # the JAX CLI's options at the values the port runs as before
+    ["--debug", "--shards", "1", "--stream", "off"],
+], ids=["plain", "debug-shards1-streamoff"])
+def test_cli_pca_reproduces_golden(small_plink, tmp_path, extra):
     root, _ = small_plink
     rc = _cli(["--bfile", root, "--ndim", "3", "--tol", "1e-9",
                "--outload", "loadings.txt", "--outmeansd", "meansd.txt",
-               "--verbose", "--device", "cpu"], tmp_path)
+               "--verbose", "--device", "cpu"] + extra, tmp_path)
     assert rc == 0
     for fn in ("eigenvalues.txt", "eigenvectors.txt", "pcs.txt", "pve.txt",
                "loadings.txt", "meansd.txt"):
@@ -208,6 +213,49 @@ def test_state_in_from_jax_checkpoint(fileset, tmp_path):
                 np.ones(2), np.zeros(2), True)
     with pytest.raises(ValueError):
         ft.pca(root, K, device="cpu", state_in=str(tmp_path / "bad.npz"))
+
+
+def test_cli_checkpoints_resume_across_packages(fileset, tmp_path):
+    """--outstate written by either CLI resumes in the other package."""
+    from flashpca_tpu.cli import main as jmain
+
+    root = fileset[0]
+    port_ck, jax_ck = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+    assert _cli(["--bfile", root, "--ndim", str(K), "--device", "cpu",
+                 "--outstate", port_ck, "--notime"], tmp_path) == 0
+    port_vals = np.loadtxt(tmp_path / "eigenvalues.txt")
+    rj = fj.pca(root, K, state_in=port_ck)
+    np.testing.assert_allclose(rj.values, port_vals, rtol=1e-6)
+
+    jdir = tmp_path / "jax"
+    jdir.mkdir()
+    old = os.getcwd()
+    os.chdir(jdir)
+    try:
+        assert jmain(["--bfile", root, "--ndim", str(K), "--shards", "1",
+                      "--outstate", jax_ck, "--notime"]) == 0
+    finally:
+        os.chdir(old)
+    jax_vals = np.loadtxt(jdir / "eigenvalues.txt")
+    assert _cli(["--bfile", root, "--ndim", str(K), "--device", "cpu",
+                 "--instate", jax_ck, "--notime"], tmp_path) == 0
+    np.testing.assert_allclose(np.loadtxt(tmp_path / "eigenvalues.txt"),
+                               jax_vals, rtol=1e-6)
+    assert jload_state(jax_ck)["vectors"].shape == (fileset[1], K)
+
+
+@pytest.mark.parametrize("flags, item", [
+    (["--stream", "on"], "A15"),
+    (["--shards", "2"], "A18"),
+    (["--outstate", "f.npz", "--checkpoint-every", "2"], "A17"),
+    (["--profile", "trace"], "A10"),
+], ids=["stream-on", "shards2", "checkpoint-every", "profile"])
+def test_cli_unported_options_name_their_item(fileset, tmp_path, capsys,
+                                              flags, item):
+    assert _cli(["--bfile", fileset[0], "--device", "cpu"] + flags,
+                tmp_path) == 1
+    assert f"ROADMAP {item}" in capsys.readouterr().err
+    assert not (tmp_path / "eigenvalues.txt").exists()
 
 
 def test_entry_points_raise_without_gpu(fileset, tmp_path, monkeypatch):
