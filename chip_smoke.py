@@ -6,18 +6,20 @@
 Phases, all in this one process; any failure raises and exits nonzero:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the hand-written kernels from kernels/csrc, fourteen entries
-   in eight libraries: B1-B5, the kernel sweep's tile entries of B1 and
-   B2 and its variants V1-V4 of B1, and B5's comparison entries -- its
-   first design and its design at C = 4 columns per thread or CR = 128
-   rows per chunk (timed set-up); each instantiation's registers and
+2. build the hand-written kernels from kernels/csrc, fifteen entries
+   in nine libraries: B1-B5, the kernel sweep's tile entries of B1 and
+   B2 and its variants V1-V4 of B1, B1's first design, and B5's
+   comparison entries -- its first design and its design at C = 4
+   columns per thread or CR = 128 rows per chunk (timed set-up); each instantiation's registers and
    spills (ptxas), and the instruction mix of B5's inner loop in each
    (cuobjdump);
 3. hold each kernel against its plain PyTorch version on the card, at
    full width (501,760 samples) on a 4,096-SNP slice and on a small odd
    case (n % 4 != 0, some inv_sd == 0), panels k in {3, 16, 24}, and
    each against a float64 product; there also V1-V4 (V3 within 5e-5 of
-   float64, the others 1e-5), B1's tile entries bit-equal to B1 and B2's
+   float64, the others 1e-5), B1 bit-equal to its first design
+   (torch.equal, at every case and k of this phase, the tall width's
+   too), the first design's tile entries bit-equal to B1 and B2's
    against B2's plain version.  B5 (and its comparison entries) and the
    tall two-float gram (B5, mask, B3, B1) likewise on those cases and at
    the tall width (2,048 SNPs x 1,003,520 samples), panels k in {3, 16,
@@ -35,7 +37,7 @@ Phases, all in this one process; any failure raises and exits nonzero:
    after ``check``, and every kernel of the wide path (B1-B4) must have
    run; then B1-B4 timed at the headline shapes beside their bounds,
    their plain versions and the torch.matmul calls on the same block
-   decoded to float32;
+   decoded to float32, and B1 beside its first design in turns;
 6. the kernel sweep (flashpca_tpu_torch.tools.kernel_sweep) at the wide
    headline's shape, 100,352 x 501,760, k=16, after the headline's
    operator is freed: V1-V4 against B1 on a 512-SNP slice, B1/B2 at each
@@ -55,11 +57,14 @@ Phases, all in this one process; any failure raises and exits nonzero:
    that in the Marchenko-Pastur bulk the bar below is 3.6e-5 (and
    between the paths 3.6e-5 both ways); then B5 at kc 32 and 24 (and
    B1-B3 at their tall widths) timed at the tall shapes, and beside B5,
-   on the same inputs, its comparison entries.
+   on the same inputs, its comparison entries, and B1 at kc 16 and 32
+   beside its first design in turns.
 
-The line before the last is the JSON ``{"kernels": [...]}`` (B1-B5 from
-the headlines, B5's first design from the tall timing phase, V1-V4 from
-the sweep); the last
+The headlines must give wide ``n_ops`` 20 and tall ``n_ops`` 32, and no
+launch of B1's first design on either main path.  The line before the
+last is the JSON ``{"kernels": [...]}`` (B1-B5 from the headlines, B1 at
+the tall widths, B1's and B5's first designs from the timing phases,
+V1-V4 from the sweep); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside it, the script exits nonzero and prints no
 result.
@@ -96,6 +101,7 @@ EIG_BAR, BULK_BAR = 2e-6, 3.6e-5
 
 TPU_KERNEL = {
     "crossprod": "flashpca_tpu/kernels/packed_matvec.py:83",
+    "crossprod_v1": "flashpca_tpu/kernels/packed_matvec.py:83",
     "matvec": "flashpca_tpu/kernels/packed_matvec.py:122",
     "crossprod_ff": "flashpca_tpu/kernels/packed_matvec.py:336",
     "matvec_ff": "flashpca_tpu/kernels/packed_matvec.py:369",
@@ -107,7 +113,8 @@ TPU_KERNEL = {
     "crossprod_nocomp": ".claude/skills/verify/kernel_sweep.py:261",
 }
 _CSRC = "flashpca_tpu_torch/kernels/csrc/"
-SOURCE = {"crossprod": _CSRC + "crossprod.cu", "matvec": _CSRC + "matvec.cu",
+SOURCE = {"crossprod": _CSRC + "crossprod_v2.cu",
+          "crossprod_v1": _CSRC + "crossprod.cu", "matvec": _CSRC + "matvec.cu",
           "crossprod_ff": _CSRC + "crossprod_ff.cu",
           "matvec_ff": _CSRC + "matvec_ff.cu",
           "matvec_ff_novl": _CSRC + "matvec_ff_novl.cu",
@@ -118,7 +125,7 @@ SOURCE = {"crossprod": _CSRC + "crossprod.cu", "matvec": _CSRC + "matvec.cu",
           "crossprod_nocomp": _CSRC + "crossprod_variants.cu"}
 # float32 dots per genotype and panel column (V3's products are bf16:
 # SPLIT3_BF16_DOTS of them, and its decode is bounded apart)
-DOTS = {"crossprod": 1, "matvec": 1, "crossprod_ff": 2, "matvec_ff": 3,
+DOTS = {"crossprod": 1, "crossprod_v1": 1, "matvec": 1, "crossprod_ff": 2, "matvec_ff": 3,
         "matvec_ff_novl": 2, "matvec_ff_novl_v1": 2,
         "crossprod_stacked": 1, "crossprod_intsub": 1, "crossprod_nocomp": 1}
 SPLIT3_BF16_DOTS = 3
@@ -261,6 +268,16 @@ def rel_err(got, ref):
     return float((got - ref).norm() / ref.norm())
 
 
+def require_b1_equal(z, z1, where):
+    """B1 must give its first design's sums bit for bit."""
+    import torch
+
+    if not torch.equal(z, z1):
+        raise AssertionError(
+            f"crossprod {where}: not bit-equal to crossprod_v1 (max diff "
+            f"{float((z - z1).abs().max()):.3e})")
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -357,7 +374,7 @@ def check_kernels(dev):
     from flashpca_tpu_torch.kernels import crossprod_variants as cv
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
 
-    worst = {name: 0.0 for name in WIDE_PATH + SWEEP_PATH}
+    worst = {name: 0.0 for name in WIDE_PATH + SWEEP_PATH + ("crossprod_v1",)}
     for label, p, n, seed in KERNEL_CASES:
         packed, mean, invsd, lut6, nb, _ = random_operands(p, n, seed, dev)
         g = torch.Generator(device=dev).manual_seed(seed + 100)
@@ -370,13 +387,15 @@ def check_kernels(dev):
             ref_yy = f64_product(packed, lut6, v.double() + vl.double(),
                                  transpose=True)
             bar_z, bar_y = plain_bar(4 * nb), plain_bar(p)
+            plain_z = tpk.crossprod_plain(packed, mean, invsd, x)
             outs = {
                 # name: (kernel result, plain result, float64 product,
                 #        plain bar, float64 bar); two-float pairs compare
                 #        hi with hi and hi + lo with float64
                 "crossprod": (tpk.crossprod_p(packed, mean, invsd, x),
-                              tpk.crossprod_plain(packed, mean, invsd, x),
-                              ref_z, bar_z, 1e-5),
+                              plain_z, ref_z, bar_z, 1e-5),
+                "crossprod_v1": (tpk.crossprod_v1_p(packed, mean, invsd, x),
+                                 plain_z, ref_z, bar_z, 1e-5),
                 "matvec": (tpk.matvec_p(packed, mean, invsd, v),
                            tpk.matvec_plain(packed, mean, invsd, v),
                            ref_y, bar_y, 1e-5),
@@ -395,6 +414,8 @@ def check_kernels(dev):
                                                   == "crossprod_split3"
                                                   else 1)),
                               F64_BAR[name])
+            require_b1_equal(outs["crossprod"][0], outs["crossprod_v1"][0],
+                             f"{label} k={k}")
             # the tile entries: B1's bit-equal to production B1 (each
             # thread walks the same chunks whatever the rows per block),
             # B2's against B2's plain version (its fold points move)
@@ -467,6 +488,14 @@ def check_tall_kernels(dev):
             abs_z = f64_product(packed, lut6.abs(), my.abs(),
                                 transpose=False)
             plain_y = tpk.matvec_ff_novl_plain(packed, lut6, v)
+            # B1 against its first design on a draw of its own (the
+            # draws below stay those of earlier runs)
+            gx = torch.Generator(device=dev).manual_seed(seed + 300 + k)
+            xb = torch.randn((4 * nb, k), generator=gx, device=dev)
+            require_b1_equal(tpk.crossprod_p(packed, mean, invsd, xb),
+                             tpk.crossprod_v1_p(packed, mean, invsd, xb),
+                             f"{label} k={k}")
+            del xb
             outs = {
                 # name: (kernel, plain, float64, plain bar, float64 bar,
                 #        compare the pairs' sums (else hi halves))
@@ -707,6 +736,16 @@ def require_launched(launches, path, what):
                              f"{missing} (counts {launches})")
 
 
+def require_no_first_design(launches, what):
+    """No path takes a kept first design: it is timed, never launched."""
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    ran = [nm for nm in tpk.B1_KERNELS + tpk.NOVL_KERNELS if launches[nm]]
+    if ran:
+        raise AssertionError(f"comparison entries launched on the {what}: "
+                             f"{ran}")
+
+
 def headline(dev, n, p, k, seed=7):
     import torch
 
@@ -737,20 +776,20 @@ def headline(dev, n, p, k, seed=7):
     sync()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     say(f"   n_ops {res.n_ops}, n_restarts {res.n_restarts}, contract gate "
-        f"mse {res.gate_mse:.4e} (accepts < 7e-9), check mse {chk.mse:.4e}, "
+        f"mse {res.gate_mse!r} (accepts < 7e-9), check mse {chk.mse!r}, "
         f"converged {res.converged}")
     say(f"   pca wall {out['pca_s']:.2f} s, check wall {out['check_s']:.2f} s,"
         f" peak device memory {out['peak_gb']:.2f} GB")
     launch_ms = launch_medians(log)
     require_launched(launches, WIDE_PATH, "wide path")
+    require_no_first_design(launches, "wide path")
     if not (res.vectors.shape == (n, k) and np.isfinite(res.vectors).all()
             and np.isfinite(res.values).all()):
         raise AssertionError("headline: non-finite or misshapen result")
     if not chk.mse < 1e-8:
         raise AssertionError(f"headline: check mse {chk.mse:.3e} >= 1e-8")
     if res.n_ops != 20:
-        say(f"   note: n_ops {res.n_ops} differs from the JAX package's "
-            "20 at this shape (a finding, not a failure)")
+        raise AssertionError(f"headline: n_ops {res.n_ops}, not 20")
     out.update(n_ops=res.n_ops, n_restarts=res.n_restarts,
                gate_mse=res.gate_mse, check_mse=chk.mse,
                launches=launches, launch_ms=launch_ms)
@@ -821,6 +860,7 @@ def tall_headline(dev, n, p, k, seed=8):
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     launch_ms = launch_medians(log)
     require_launched(launches, TALL_PATH, "tall path")
+    require_no_first_design(launches, "tall path")
 
     # the wide path on the same bytes (the tensor is shared, not copied)
     wide = PackedOperator(top.packed, mean, sd, n, device=dev,
@@ -848,9 +888,9 @@ def tall_headline(dev, n, p, k, seed=8):
                  / (np.linalg.norm(res.vectors, axis=0)
                     * np.linalg.norm(res_w.vectors, axis=0)))
     say(f"   tall: n_ops {res.n_ops}, n_restarts {res.n_restarts}, "
-        f"converged {res.converged}, check mse {chk.mse:.4e}; wide: n_ops "
-        f"{res_w.n_ops}, gate mse {res_w.gate_mse}, check mse "
-        f"{chk_w.mse:.4e}")
+        f"converged {res.converged}, check mse {chk.mse!r}; wide: n_ops "
+        f"{res_w.n_ops}, gate mse {res_w.gate_mse!r}, check mse "
+        f"{chk_w.mse!r}")
     say(f"   tall pca wall {out['pca_s']:.2f} s, wide pca wall "
         f"{out['wide_pca_s']:.2f} s, peak device memory of the tall pca "
         f"{out['peak_gb']:.2f} GB")
@@ -878,10 +918,10 @@ def tall_headline(dev, n, p, k, seed=8):
     if not chk.mse <= max(1e-8, 2.0 * chk_w.mse):
         raise AssertionError(f"tall headline: check mse {chk.mse:.3e} > "
                              f"max(1e-8, 2 x wide {chk_w.mse:.3e})")
-    if res.n_ops != 40:
-        say(f"   note: n_ops {res.n_ops} differs from the 40 that the JAX "
-            "package's tall bench recorded at this shape (a finding, not a "
-            "failure)")
+    if res.n_ops != 32:
+        raise AssertionError(f"tall headline: n_ops {res.n_ops}, not 32 "
+                             "(the JAX package's tall bench: 40, on its own "
+                             "data)")
     out.update(n_ops=res.n_ops, n_restarts=res.n_restarts,
                check_mse=chk.mse, wide_n_ops=res_w.n_ops,
                wide_gate_mse=res_w.gate_mse, wide_check_mse=chk_w.mse,
@@ -1067,11 +1107,25 @@ def time_kernels(op, widths, launches, worst, slices):
     return rows
 
 
+def time_turns(fns, kc, out):
+    """Time each of ``fns`` ({name: thunk}, one function on the same
+    inputs) in turns: each in order, then each in reverse order, one
+    median of 5 launches after a warm-up per turn; add {"name/kc": [ms,
+    ms]} to ``out``."""
+    times = {}
+    for name in list(fns) + list(fns)[::-1]:
+        times.setdefault(name, []).append(event_ms(fns[name], reps=5))
+    for name, ts in times.items():
+        say(f"   {name:24s} kc={kc}: " + ", ".join(f"{t:.2f}" for t in ts)
+            + " ms (turns)")
+        out[f"{name}/{kc}"] = ts
+    return out
+
+
 def time_novl(op, kcs):
     """B5 beside its comparison entries (C = 4, CR = 128, the first
-    design) at ``op``'s shapes, on the same inputs, in turns: each in
-    order, then each in reverse order, one median of 5 launches after a
-    warm-up per turn.  Returns {"name/kc": [ms, ms]}."""
+    design) at ``op``'s shapes, on the same inputs, in turns.  Returns
+    {"name/kc": [ms, ms]}."""
     import torch
 
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
@@ -1082,16 +1136,48 @@ def time_novl(op, kcs):
     out = {}
     for kc in kcs:
         v = torch.randn((pk.shape[0], kc), generator=g, device=op.device)
-        fns = {name: (lambda f=getattr(tpk, name + "_p"): f(pk, lut6, v))
-               for name in ("matvec_ff_novl",) + tpk.NOVL_KERNELS}
-        times = {}
-        for name in list(fns) + list(fns)[::-1]:
-            times.setdefault(name, []).append(event_ms(fns[name], reps=5))
-        for name, ts in times.items():
-            say(f"   {name:24s} kc={kc}: " + ", ".join(f"{t:.2f}" for t in ts)
-                + " ms (turns)")
-            out[f"{name}/{kc}"] = ts
+        time_turns({name: (lambda f=getattr(tpk, name + "_p"):
+                           f(pk, lut6, v))
+                    for name in ("matvec_ff_novl",) + tpk.NOVL_KERNELS},
+                   kc, out)
         del v
+    return out
+
+
+def time_b1(op, kcs):
+    """B1 beside its first design at ``op``'s shapes, on the same
+    inputs, in turns.  Returns {"name/kc": [ms, ms]}."""
+    import torch
+
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    g = torch.Generator(device=op.device).manual_seed(97)
+    pk, m, iv = op.packed, op.mean, op.invsd
+    out = {}
+    for kc in kcs:
+        x = torch.randn((4 * pk.shape[1], kc), generator=g, device=op.device)
+        time_turns({name: (lambda f=getattr(tpk, name + "_p"):
+                           f(pk, m, iv, x))
+                    for name in ("crossprod",) + tpk.B1_KERNELS}, kc, out)
+        del x
+    return out
+
+
+def first_design_rows(rows, name, turns, launches, worst):
+    """Each ``kernels`` row of B1 or B5 in ``rows`` marked as the current
+    design, beside a row of its first design ``name``: the same function
+    at the same shape, so the bound, plain and library times are the
+    current row's; its own time the median of its turns, and its
+    launches on the main path (0)."""
+    out = []
+    for row in rows:
+        kc = next(w for w in (8, 16, 24, 32) if w >= row["k"])
+        out += [dict(row, design="current"),
+                dict(row, name=name, source=SOURCE[name],
+                     replaces=TPU_KERNEL[name], launches=launches[name],
+                     max_abs_err=worst[name],
+                     ms=float(np.median(turns[f"{name}/{kc}"])),
+                     design="first")]
     return out
 
 
@@ -1237,6 +1323,9 @@ def main(argv=None) -> int:
         kernels = time_kernels(
             op, [("crossprod", 16), ("matvec", 16), ("crossprod_ff", 24),
                  ("matvec_ff", 24)], head["launches"], worst, slices=32)
+        b1_turns = time_b1(op, (16,))
+    kernels[:1] = first_design_rows(kernels[:1], "crossprod_v1", b1_turns,
+                                    head["launches"], worst)
     del op
     torch.cuda.empty_cache()
     sweep_rows, sweep = kernel_sweep(dev, args.p, args.n, worst,
@@ -1254,16 +1343,13 @@ def main(argv=None) -> int:
                   ("crossprod_ff", 32)],
             tall["launches"], worst, slices=64)
         novl = time_novl(top, (32, 24))
-    # B5's first design: the same function at the same shape, so the
-    # bound, plain and library times are B5's row's; its own time from
-    # the turns above, and its launches on the main path (0)
-    b5 = tall_rows[0]
-    v1 = "matvec_ff_novl_v1"
-    kernels.extend([
-        dict(b5, design="current"),
-        dict(b5, name=v1, source=SOURCE[v1], replaces=TPU_KERNEL[v1],
-             launches=tall["launches"][v1], max_abs_err=worst[v1],
-             ms=float(np.median(novl[f"{v1}/32"])), design="first")])
+        b1_tall_turns = time_b1(top, (16, 32))
+    # B5's and B1's first designs beside B5 at kc 32 and B1 at kc 16/32
+    kernels.extend(first_design_rows(tall_rows[:1], "matvec_ff_novl_v1",
+                                     novl, tall["launches"], worst))
+    kernels.extend(first_design_rows(
+        [r for r in tall_rows if r["name"] == "crossprod"], "crossprod_v1",
+        b1_tall_turns, tall["launches"], worst))
     kernels.extend(sweep_rows)
     say(json.dumps({"summary": {
         "card": smi, "n": args.n, "p": args.p, "k": args.k,
@@ -1271,8 +1357,10 @@ def main(argv=None) -> int:
         **{key: val for key, val in head.items()},
         "gram_tall_ff_max_abs_err": worst["gram_tall_ff"],
         "tall_kernels_f64_rel": tall_f64,
+        "b1_turns_ms": b1_turns,
         "tall": {"n": TALL_N, "p": TALL_P, **tall,
-                 "kernels": tall_rows, "b5_turns_ms": novl},
+                 "kernels": tall_rows, "b5_turns_ms": novl,
+                 "b1_turns_ms": b1_tall_turns},
         "sweep": sweep,
         "total_s": time.time() - t_start}}))
     say(json.dumps({"kernels": kernels}))

@@ -3,10 +3,11 @@
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded through ``ctypes``; a source may hold several
 kernels (matvec_ff.cu holds B4 and B5's first design), each with its own
-C entry.  Fourteen entries in eight libraries: B1-B5, the sweep's tile
-entries of B1 and B2 and its variants V1-V4, and B5's comparison
-entries -- its first design (``matvec_ff_novl_v1``) and two other tiles
-(``matvec_ff_novl_c4``, ``matvec_ff_novl_cr128``).  The build happens
+C entry.  Fifteen entries in nine libraries: B1-B5, the sweep's tile
+entries of B1 and B2 and its variants V1-V4, B1's first design
+(``crossprod_v1``, in crossprod.cu beside the sweep's B1 tile entry), and
+B5's comparison entries -- its first design (``matvec_ff_novl_v1``) and
+two other tiles (``matvec_ff_novl_c4``, ``matvec_ff_novl_cr128``).  The build happens
 at first use, never at import (the CPU tests import every module, and
 the CPU has no ``nvcc``), into ``kernels/build/<hash>/`` -- a directory
 that ``.gitignore`` lists.  The hash covers every source, header and flag,
@@ -36,7 +37,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 KERNELS = {
-    "crossprod": ("crossprod.cu", "fp_crossprod",
+    "crossprod": ("crossprod_v2.cu", "fp_crossprod",
                   [_P] * 6 + [_I64, _I64, _I32, _P]),
     "matvec": ("matvec.cu", "fp_matvec",
                [_P] * 6 + [_I64, _I64, _I32, _P]),
@@ -46,6 +47,10 @@ KERNELS = {
                   [_P] * 6 + [_I64, _I64, _I32, _P]),
     "matvec_ff_novl": ("matvec_ff_novl.cu", "fp_matvec_ff_novl",
                        [_P] * 5 + [_I64, _I64, _I32, _P]),
+    # B1's first design: timed beside production B1, launched by no
+    # operator
+    "crossprod_v1": ("crossprod.cu", "fp_crossprod_v1",
+                     [_P] * 6 + [_I64, _I64, _I32, _P]),
     # B5's first design and B5 at two other tiles: timed beside
     # production B5, launched by no operator
     "matvec_ff_novl_v1": ("matvec_ff.cu", "fp_matvec_ff_novl_v1",

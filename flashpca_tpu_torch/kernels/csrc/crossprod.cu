@@ -2,6 +2,9 @@
 // genotype matrix W (p SNPs x n4 permuted samples) with a panel x.
 //
 // Replaces flashpca_tpu/kernels/packed_matvec.py::_crossprod_kernel.
+// This is the first Hopper design of B1, kept as fp_crossprod_v1 for a
+// same-run comparison; production B1 is crossprod_v2.cu, whose sums are
+// bit for bit these.
 //
 // Bound: float32 FMAs on the CUDA cores.  Each packed byte feeds
 // 4 samples x KC columns of FMAs, so at the solver's panel widths the
@@ -21,15 +24,15 @@
 // instead of growing with the 5e5-long contraction.
 //
 // TM, the rows per block, is the tile axis of the kernel sweep
-// (tools/kernel_sweep.py; the JAX sweep's tile_p): production runs
-// TM = 256 through fp_crossprod, and fp_crossprod_tiled takes TM in
+// (tools/kernel_sweep.py; the JAX sweep's tile_p): the first design
+// runs TM = 256 through fp_crossprod_v1, and fp_crossprod_tiled takes TM in
 // {128, 256, 512}.  Each thread owns one row and walks the same CB-byte
 // chunks whatever TM is, so every TM gives bit-identical results.
 #include "common.cuh"
 
 namespace {
 
-constexpr int TM_PROD = 256;      // production SNP rows per block == threads per block
+constexpr int TM_PROD = 256;      // fp_crossprod_v1's SNP rows per block == threads per block
 constexpr int CB = 32;            // packed bytes per chunk (128 samples)
 constexpr int PSTRIDE = CB + 4;   // shared row stride: 9 words, odd -> no bank conflicts
 
@@ -145,11 +148,12 @@ int launch(const uint8_t* pk, const float* c0, const float* c1, const float* c2,
 
 }  // namespace
 
-// packed (p, nb) u8; cf0..cf2 (p,) f32; x (4*nb, kc) f32; z (p, kc) f32.
-extern "C" int fp_crossprod(const void* packed, const void* cf0,
-                            const void* cf1, const void* cf2, const void* x,
-                            void* z, long long p, long long nb, int kc,
-                            void* stream) {
+// B1's first design. packed (p, nb) u8; cf0..cf2 (p,) f32;
+// x (4*nb, kc) f32; z (p, kc) f32.
+extern "C" int fp_crossprod_v1(const void* packed, const void* cf0,
+                               const void* cf1, const void* cf2,
+                               const void* x, void* z, long long p,
+                               long long nb, int kc, void* stream) {
   if (p <= 0 || nb <= 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch<TM_PROD>(
       static_cast<const uint8_t*>(packed), static_cast<const float*>(cf0),
@@ -158,7 +162,7 @@ extern "C" int fp_crossprod(const void* packed, const void* cf0,
       static_cast<cudaStream_t>(stream));
 }
 
-// The sweep's tile entry: fp_crossprod at TM = tm rows per block,
+// The sweep's tile entry: fp_crossprod_v1 at TM = tm rows per block,
 // tm in {128, 256, 512}.
 extern "C" int fp_crossprod_tiled(const void* packed, const void* cf0,
                                   const void* cf1, const void* cf2,

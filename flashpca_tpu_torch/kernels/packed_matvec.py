@@ -8,14 +8,16 @@ standardized float32 in registers and contract them at once, so the
 decoded matrix never reaches device memory:
 
 ====  ==================  ============================================
-B1    crossprod.cu        z = W x        (n4, k) -> (p, k)
+B1    crossprod_v2.cu     z = W x        (n4, k) -> (p, k)
 B2    matvec.cu           y = W^T v      (p, k) -> (n4, k)
 B3    crossprod_ff.cu     two-float (z_hi, z_err) of W x
 B4    matvec_ff.cu        two-float (y_hi, y_err) of W^T (v_hi + v_lo)
 B5    matvec_ff_novl.cu   two-float (y_hi, y_err) of W^T v (no v_lo)
 ====  ==================  ============================================
 
-B5 has three comparison entries that no operator launches: its first
+B1 has one comparison entry that no operator launches: its first
+design in crossprod.cu (``crossprod_v1_p``), whose sums are bit for bit
+B1's.  B5 has three: its first
 design, the ``HAS_VL=false`` instantiation of matvec_ff.cu
 (``matvec_ff_novl_v1_p``), and its design at two other tiles in
 matvec_ff_novl_variants.cu (``matvec_ff_novl_c4_p``,
@@ -62,11 +64,12 @@ OPERATOR_KERNELS = ("crossprod", "matvec", "crossprod_ff", "matvec_ff",
                     "matvec_ff_novl")
 SWEEP_KERNELS = ("crossprod_tiled", "matvec_tiled", "crossprod_stacked",
                  "crossprod_intsub", "crossprod_split3", "crossprod_nocomp")
-# B5's comparison entries, which no operator launches either
+# B1's and B5's comparison entries, which no operator launches either
+B1_KERNELS = ("crossprod_v1",)
 NOVL_KERNELS = ("matvec_ff_novl_v1", "matvec_ff_novl_c4",
                 "matvec_ff_novl_cr128")
-launch_counts = dict.fromkeys(OPERATOR_KERNELS + SWEEP_KERNELS + NOVL_KERNELS,
-                              0)
+launch_counts = dict.fromkeys(
+    OPERATOR_KERNELS + SWEEP_KERNELS + B1_KERNELS + NOVL_KERNELS, 0)
 _launch_log: list | None = None
 
 
@@ -317,10 +320,11 @@ def _padded(x, c0, c1, kc):
     return out
 
 
-def _launch_crossprod(packed, coeffs, x, kc):
+def _launch_crossprod(packed, coeffs, x, kc, name="crossprod"):
+    """Launch B1 (or, by ``name``, its first design)."""
     p, nb = packed.shape
     z = torch.empty((p, kc), dtype=torch.float32, device=packed.device)
-    _run("crossprod", packed, *coeffs, x, z, p, nb, kc)
+    _run(name, packed, *coeffs, x, z, p, nb, kc)
     return z
 
 
@@ -372,13 +376,24 @@ def _check_shapes(rows, x, what):
 
 def crossprod_p(packed, mean, invsd, xp):
     """z = W xp: (n4, k) -> (p, k).  B1 on CUDA, plain on the CPU."""
-    _check_shapes(4 * packed.shape[1], xp, "crossprod_p")
+    return _crossprod_p("crossprod", packed, mean, invsd, xp)
+
+
+def crossprod_v1_p(packed, mean, invsd, xp):
+    """B1's first design (crossprod.cu); the sums of :func:`crossprod_p`
+    bit for bit, :func:`crossprod_plain` on the CPU."""
+    return _crossprod_p("crossprod_v1", packed, mean, invsd, xp)
+
+
+def _crossprod_p(name, packed, mean, invsd, xp):
+    _check_shapes(4 * packed.shape[1], xp, f"{name}_p")
     if xp.device.type == "cpu":
         return crossprod_plain(packed, mean, invsd, xp)
     coeffs = coeff_rows(mean, invsd)
     _check_cuda(packed, xp, *coeffs)
-    outs = [_launch_crossprod(packed, coeffs, _padded(xp, c0, c1, kc), kc)
-            [:, : c1 - c0] for c0, c1, kc in _widths(xp.shape[1])]
+    outs = [_launch_crossprod(packed, coeffs, _padded(xp, c0, c1, kc), kc,
+                              name)[:, : c1 - c0]
+            for c0, c1, kc in _widths(xp.shape[1])]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 

@@ -121,6 +121,29 @@ def test_tall_kernels_match_plain(cuda, k, p, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 5, 16, 24, 28, 40])
+@pytest.mark.parametrize("p,n", [(333, 1001), (333, 1024), (133, 1001),
+                                 (133, 1024)])
+def test_b1_is_bit_equal_to_its_first_design(cuda, k, p, n):
+    """B1 (crossprod_v2.cu) gives its first design's sums bit for bit at
+    every KC (k 3, 5 -> 8; 16; 24; 28 -> 32; 40 -> 32 + 8): each output
+    takes the same FMA sequence and the same TwoSum fold every 32 bytes.
+    p = 133 = 2 x 64 + 5 is ragged on B1's 64-row blocks; n = 1001 gives
+    251 bytes (ragged chunk, unaligned rows), n = 1024 256 (aligned)."""
+    packed, mean, invsd, nb = _operands(cuda, n, p)
+    x = torch.randn((4 * nb, k), device=cuda)
+    tpk.reset_launch_counts()
+    z = tpk.crossprod_p(packed, mean, invsd, x)
+    z1 = tpk.crossprod_v1_p(packed, mean, invsd, x)
+    chunks = len(tpk._widths(k))
+    assert tpk.launch_counts["crossprod"] == chunks
+    assert tpk.launch_counts["crossprod_v1"] == chunks
+    assert torch.equal(z, z1)
+    _close(z, tpk.crossprod_plain(packed.cpu(), mean.cpu(), invsd.cpu(),
+                                  x.cpu()))
+
+
+@pytest.mark.cuda
 def test_kernels_count_launches_and_refuse_float64(cuda):
     packed, mean, invsd, nb = _operands(cuda, 100, 40)
     tpk.reset_launch_counts()

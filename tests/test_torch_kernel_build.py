@@ -1,14 +1,14 @@
-"""The kernel build table, B5's comparison entries and chip_smoke.py's
-tables, on the CPU.
+"""The kernel build table, B1's and B5's comparison entries and
+chip_smoke.py's tables, on the CPU.
 
 The CUDA sources compile only on a machine with ``nvcc`` and a card, so
 what runs here is what surrounds them: every entry of
 ``_build.KERNELS`` names a source that exists and a C function of that
 source whose parameter count matches its ctypes argument list; the
 build directory's hash moves with every source; every entry has a
-launch count; production B5's library holds no comparison entry; B5's
-comparison wrappers exist and take B5's plain version on CPU tensors,
-bit for bit; and chip_smoke.py has the rows its timing phase reads and
+launch count; production B1's and B5's libraries hold no comparison
+entry; B1's and B5's comparison wrappers exist and take the plain
+versions on CPU tensors, bit for bit; and chip_smoke.py has the rows its timing phase reads and
 parses the compiler's register report.
 """
 
@@ -43,8 +43,13 @@ def _chip_smoke():
     ("matvec_ff_novl_cr128", "matvec_ff_novl_variants.cu",
      "fp_matvec_ff_novl_cr128"),
     ("matvec_ff", "matvec_ff.cu", "fp_matvec_ff"),
+    ("crossprod", "crossprod_v2.cu", "fp_crossprod"),
+    ("crossprod_v1", "crossprod.cu", "fp_crossprod_v1"),
+    ("crossprod_tiled", "crossprod.cu", "fp_crossprod_tiled"),
 ])
 def test_b5_entries_map_to_their_sources(name, src, entry):
+    """B5's and (since its redesign) B1's entries: production in the new
+    source, the first design and the sweep's tile entry in the old one."""
     assert _build.KERNELS[name][:2] == (src, entry)
 
 
@@ -76,6 +81,27 @@ def test_b5_is_built_from_its_new_source():
         _build.sources())
 
 
+def test_b1_is_built_from_its_new_source():
+    assert {"crossprod_v2.cu", "crossprod.cu"} <= set(_build.sources())
+    assert len(_build.sources()) == 9 and len(_build.KERNELS) == 15
+
+
+def test_production_b1_library_holds_only_b1():
+    """B1's source defines one C entry, which a file that includes it
+    can switch off; the first design's entries stay in crossprod.cu."""
+    with open(os.path.join(_build.CSRC, "crossprod_v2.cu")) as fh:
+        prod = fh.read()
+    with open(os.path.join(_build.CSRC, "crossprod.cu")) as fh:
+        first = fh.read()
+    assert re.findall(r'extern "C" int (\w+)\(', prod) == ["fp_crossprod"]
+    assert re.search(r"#ifndef CROSSPROD_V2_NO_ENTRY\s+// B1\.", prod)
+    assert re.findall(r'extern "C" int (\w+)\(', first) == [
+        "fp_crossprod_v1", "fp_crossprod_tiled"]
+    # the note names the TPU kernel it replaces and its bound
+    assert "packed_matvec.py::_crossprod_kernel" in prod
+    assert "2*KC*p*n4 operations" in prod
+
+
 def test_production_b5_library_holds_only_b5():
     """The comparison tiles are built into their own library: B5's
     source defines one C entry, and the variants' source includes it
@@ -92,8 +118,10 @@ def test_production_b5_library_holds_only_b5():
 
 def test_launch_counts_cover_every_entry():
     assert set(tpk.launch_counts) == set(_build.KERNELS)
-    assert set(tpk.NOVL_KERNELS) <= set(tpk.launch_counts)
-    assert not set(tpk.NOVL_KERNELS) & set(tpk.OPERATOR_KERNELS)
+    for comparison in (tpk.NOVL_KERNELS, tpk.B1_KERNELS):
+        assert set(comparison) <= set(tpk.launch_counts)
+        assert not set(comparison) & set(tpk.OPERATOR_KERNELS)
+    assert tpk.B1_KERNELS == ("crossprod_v1",)
 
 
 @pytest.fixture(scope="module")
@@ -123,6 +151,41 @@ def test_novl_comparison_wrapper_on_cpu_is_plain(novl_operands, name):
     ph, pl = tpk.matvec_ff_novl_plain(packed, lut6, v)
     assert torch.equal(yh, ph) and torch.equal(yl, pl)
     assert all(c == 0 for c in tpk.launch_counts.values())
+
+
+@pytest.mark.parametrize("k", [3, 16, 40])
+@pytest.mark.parametrize("name", ("crossprod",) + tpk.B1_KERNELS)
+def test_b1_wrappers_on_cpu_are_plain(novl_operands, name, k):
+    """B1 and its first design take crossprod_plain on CPU tensors, bit
+    for bit, and launch nothing."""
+    packed, _, rng = novl_operands
+    p, nb = packed.shape
+    mean = torch.from_numpy(rng.uniform(0.1, 1.9, p))
+    invsd = torch.from_numpy(rng.uniform(0.5, 2.0, p))
+    x = torch.from_numpy(rng.standard_normal((4 * nb, k)).astype(np.float32))
+    tpk.reset_launch_counts()
+    z = getattr(tpk, name + "_p")(packed, mean, invsd, x)
+    assert torch.equal(z, tpk.crossprod_plain(packed, mean, invsd, x))
+    assert all(c == 0 for c in tpk.launch_counts.values())
+
+
+@pytest.mark.parametrize("name", ("crossprod",) + tpk.B1_KERNELS)
+def test_chip_smoke_has_rows_for_b1_and_its_first_design(name):
+    """The rows chip_smoke's timing phase reads for B1 and its first
+    design, so the phase cannot KeyError on the card."""
+    cs = _chip_smoke()
+    assert cs.SOURCE[name] == ("flashpca_tpu_torch/kernels/csrc/"
+                               + _build.KERNELS[name][0])
+    assert os.path.exists(os.path.join(ROOT, cs.SOURCE[name]))
+    assert cs.TPU_KERNEL[name] == "flashpca_tpu/kernels/packed_matvec.py:83"
+    assert cs.DOTS[name] == 1
+
+
+def test_chip_smoke_names_b1s_instantiations():
+    cs = _chip_smoke()
+    sym = ("_ZN45_GLOBAL__N__9a1b2c3d_15_crossprod_v2_cu_1f2e3d4c2v2"
+           "21crossprod_tile_kernelILi16ELi8ELi64EEEvPKhPKfS5_S5_S5_Pfxxbb")
+    assert cs.kernel_name(sym) == "crossprod_tile_kernel<16, 8, 64>"
 
 
 @pytest.mark.parametrize("name", ["matvec_ff_novl", "matvec_ff_novl_v1"])
