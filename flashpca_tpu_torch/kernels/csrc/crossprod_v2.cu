@@ -19,40 +19,44 @@
 // two_sum(sum, acc) and err += e at the chunk's end; sum + err at the
 // end.  Only the mapping of outputs to threads and the staging differ.
 //
-// Design (the first design lost to registers, grid fill and exposed
-// staging: one thread owned a row and all KC columns, 3*KC floats of
-// state, 123 registers at KC = 16 and 172 at KC = 32, so 8-16 warps an SM
-// and 196 blocks of 256 rows on the tall shape):
-// * Thread tile: one SNP row x C columns (C = 8, or 12 at KC = 24), its
-//   sum, err and partial in registers (3*C floats, independent of KC).
-//   A block is TM = 64 rows x KC / C column groups; the 32 lanes of a
-//   warp take 32 consecutive rows of one column group, so the x reads
-//   broadcast and the decode-table reads hit 32 distinct banks.
-// * Decode: the row's four decoded values, fp::decode_cubic(t, b0, b1,
-//   b2) for t = 0..3, are computed once per kernel into shared memory
-//   laid out [code][row] -- the same floats as decoding at every sample
-//   -- so one indexed load replaces the cubic.
-// * Grid and occupancy: blocks are KC / C x 64 threads and
-//   __launch_bounds__ asks for 768 threads an SM (80 registers a thread,
-//   24 warps).  Grid p / 64: 784 blocks at p = 50,176, 1,568 at 100,352.
-//     KC   C   threads  blocks/SM  tall waves  wide waves
-//      8   8      64       12         0.49        0.99
-//     16   8     128        6         0.99        1.98
-//     24  12     128        6         0.99        1.98
-//     32   8     256        3         1.98        3.96
-//   (waves = blocks / (132 SMs x blocks/SM); every wave but a last
-//   partial one fills all 132 SMs, and no last wave is under 98% full).
+// Design (the first design lost to occupancy and issue slots: one
+// thread owned a row and all KC columns, 3*KC floats of state, 123
+// registers at KC = 16 and 172 at KC = 32, 8-16 warps an SM, 196 blocks
+// of 256 rows on the tall shape, and the cubic recomputed per sample):
+// * Thread tile: R = 2 SNP rows x C columns, KC-independent: acc and err
+//   in registers (2*R*C floats), the running sum in shared memory (read
+//   and written once per chunk by the fold, thread-fastest).  A block is
+//   TM = 128 rows: 64 row slots x KC / C column groups.  The 32 lanes of
+//   a warp take 32 consecutive rows (slot, slot + 64) of one column
+//   group, so each broadcast float4 of x feeds 2*4 FFMAs and the
+//   byte-tile reads are conflict-free.
+// * Decode: each row's four decoded values, fp::decode_cubic(t, b0, b1,
+//   b2) for t = 0..3, are computed once per kernel into registers; a
+//   sample's w is two bit tests and three selects on them (pick), the
+//   same float as decoding at every sample.  Per sample and thread: R*C
+//   FFMA, C/4 LDS.128 of x, 10 decode instructions.
+// * Grid and occupancy: grid p / 128 (392 blocks at p = 50,176, 784 at
+//   100,352).  __launch_bounds__ asks for TPS threads an SM:
+//     KC   C  threads  TPS  reg. cap  blocks/SM  tall waves  wide waves
+//      8   8     64    768     80         9         0.33        0.66
+//     16   8    128    768     80         6         0.49        0.99
+//     24  12    128    384    168         3         0.99        1.98
+//     32  16    128    384    168         3         0.99        1.98
+//   (blocks/SM by threads, registers and shared memory; waves = blocks
+//   / (132 SMs x blocks/SM): every wave but a last partial one fills all
+//   132 SMs, and no last wave is under 98% full.)  At KC = 16 the tall
+//   shape has 12 warps an SM, the wide one 24.
 // * Staging: double-buffered with cp.async (16-byte cp.async.cg) one
-//   32-byte chunk at a time: the copies of chunk i+1 (a 64 x 32-byte
+//   32-byte chunk at a time: the copies of chunk i+1 (the 128 x 32-byte
 //   tile and the 4 x 32 x KC x-tile) are in flight while chunk i is
 //   computed, with one barrier per chunk.  The byte tile's rows are 48
-//   bytes apart, so a thread reads its row's 32 bytes as two 16-byte
-//   loads without bank conflicts.  Ragged edges keep the first design's
-//   rule -- byte 0x55 (four missing codes) and zero x rows -- written
-//   with plain stores; rows whose bytes are not 16-byte aligned
-//   (nb % 16 != 0) are staged byte by byte.
+//   bytes apart, so a thread reads 16 bytes of its row in one load
+//   without bank conflicts.  Ragged edges keep the first design's rule
+//   -- byte 0x55 (four missing codes) and zero x rows -- written with
+//   plain stores; rows whose bytes are not 16-byte aligned (nb % 16 !=
+//   0) are staged byte by byte.
 //
-// C and TM are template parameters; production runs the tile of
+// C, R, TM and TPS are template parameters; production runs the tile of
 // ProdTile<KC> through fp_crossprod.  Defining CROSSPROD_V2_NO_ENTRY
 // leaves the entry out, for a file that includes this one to build other
 // tiles.
@@ -64,7 +68,7 @@ namespace v2 {
 
 constexpr int CB = 32;             // bytes per chunk (128 samples): one fold
 constexpr int BSTRIDE = CB + 16;   // byte-tile row stride: 12 words
-constexpr int TM_PROD = 64;        // SNP rows per block in production
+constexpr int TM_PROD = 128;       // SNP rows per block in production
 
 __device__ __forceinline__ unsigned smem_addr(const void* ptr) {
   return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
@@ -90,25 +94,41 @@ struct Stage {
   float x[4][CB][KC];
 };
 
-// Threads per block, the blocks per SM that __launch_bounds__ asks for
-// (768 threads an SM: 80 registers a thread) and the dynamic shared
-// memory: two stages and the [code][row] decode table.
-template <int KC, int C, int TM>
+// Threads per block (TM / R row slots x KC / C column groups), the
+// blocks per SM that __launch_bounds__ asks for (768 threads an SM: 80
+// registers a thread) and the dynamic shared memory: two stages and the
+// running sums.
+template <int KC, int C, int R, int TM, int TPS>
 struct Tile {
   static_assert(KC % C == 0 && C % 4 == 0, "C must divide KC, 4 | C");
-  static_assert(TM % 32 == 0, "a warp takes 32 rows of one column group");
-  static constexpr int NT = TM * (KC / C);
-  static constexpr int MIN_BLOCKS = 768 / NT > 0 ? 768 / NT : 1;
-  static constexpr int SMEM = 2 * sizeof(Stage<KC, TM>) + 4 * TM * 4;
+  static_assert(TM % (32 * R) == 0, "a warp takes 32 row slots");
+  static constexpr int NT = TM / R * (KC / C);
+  static constexpr int MIN_BLOCKS = TPS / NT > 0 ? TPS / NT : 1;
+  static constexpr int SMEM = 2 * sizeof(Stage<KC, TM>) + R * C * NT * 4;
 };
 
-// Production tile: C = 8 columns a thread, 12 at KC = 24 (two column
-// groups instead of three keeps the tall grid to one wave).
+// Production tile, per KC (the tiles timed on the card, PERF.md):
+// C = 8 at KC 8 and 16 (768 threads an SM, 80 registers), C = 12 at 24
+// and 16 at 32 (384 threads an SM, up to 168 registers); R = 2 rows and
+// TM = 128 rows a block throughout.
 template <int KC>
 struct ProdTile {
-  static constexpr int C = KC == 24 ? 12 : 8;
+  static constexpr int C = KC == 24 ? 12 : KC == 32 ? 16 : 8;
+  static constexpr int R = 2;
   static constexpr int TM = TM_PROD;
+  static constexpr int TPS = KC <= 16 ? 768 : 384;
 };
+
+// w of the code in bits [sh, sh + 2) of ``word``, from the row's four
+// decoded values: two bit tests and three selects (sh is a constant once
+// the loops unroll), no arithmetic, so w is t[code] bit for bit.
+__device__ __forceinline__ float pick(uint32_t word, int sh,
+                                      const float (&t)[4]) {
+  const bool b0 = (word >> sh) & 1u;
+  const float lo = b0 ? t[1] : t[0];
+  const float hi = b0 ? t[3] : t[2];
+  return ((word >> (sh + 1)) & 1u) ? hi : lo;
+}
 
 // Start the copies of chunk [base, base + CB) into stage ``sg``.
 template <int KC, int NT, int TM>
@@ -151,123 +171,156 @@ __device__ __forceinline__ void stage_chunk(
   }
 }
 
-template <int KC, int C, int TM>
-__global__ void __launch_bounds__(Tile<KC, C, TM>::NT,
-                                  Tile<KC, C, TM>::MIN_BLOCKS)
+template <int KC, int C, int R, int TM, int TPS>
+__global__ void __launch_bounds__(Tile<KC, C, R, TM, TPS>::NT,
+                                  Tile<KC, C, R, TM, TPS>::MIN_BLOCKS)
 crossprod_tile_kernel(const uint8_t* __restrict__ packed,
                       const float* __restrict__ cf0,
                       const float* __restrict__ cf1,
                       const float* __restrict__ cf2,
                       const float* __restrict__ x, float* __restrict__ z,
                       long long p, long long nb, bool bytes16, bool x16) {
-  constexpr int NT = Tile<KC, C, TM>::NT;
+  using T = Tile<KC, C, R, TM, TPS>;
+  constexpr int NT = T::NT;
+  constexpr int SLOTS = TM / R;
   extern __shared__ __align__(16) unsigned char smem[];
   Stage<KC, TM>* sg = reinterpret_cast<Stage<KC, TM>*>(smem);
-  // w of code t for block row r at lut[t * TM + r]
-  float* lut = reinterpret_cast<float*>(smem + 2 * sizeof(Stage<KC, TM>));
+  // sum[i][c] of thread tid at ssum[(i * C + c) * NT + tid]: read and
+  // written once per chunk, by the fold
+  float* ssum = reinterpret_cast<float*>(smem + 2 * sizeof(Stage<KC, TM>));
 
   const int tid = threadIdx.x;
-  const int r = tid % TM;
-  const int cg = tid / TM;
+  // rows slot + i * SLOTS (i < R): 32 lanes take 32 consecutive rows
+  const int slot = tid % SLOTS;
+  const int cg = tid / SLOTS;
   const long long row0 = static_cast<long long>(blockIdx.x) * TM;
-  const long long row = row0 + r;
 
-  for (int idx = tid; idx < 4 * TM; idx += NT) {
-    const int t = idx / TM;
-    const long long gr = row0 + idx % TM;
+  // each row's four decoded values, the same floats as decoding at
+  // every sample
+  float tab[R][4];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const long long gr = row0 + slot + i * SLOTS;
     const bool live = gr < p;
-    lut[idx] = fp::decode_cubic(static_cast<uint32_t>(t),
-                                live ? cf0[gr] : 0.0f, live ? cf1[gr] : 0.0f,
-                                live ? cf2[gr] : 0.0f);
+    const float b0 = live ? cf0[gr] : 0.0f;
+    const float b1 = live ? cf1[gr] : 0.0f;
+    const float b2 = live ? cf2[gr] : 0.0f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      tab[i][t] = fp::decode_cubic(static_cast<uint32_t>(t), b0, b1, b2);
   }
 
-  float sum[C], err[C], acc[C];
+  float err[R][C], acc[R][C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    sum[c] = 0.0f;
-    err[c] = 0.0f;
-    acc[c] = 0.0f;
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      ssum[(i * C + c) * NT + tid] = 0.0f;
+      err[i][c] = 0.0f;
+      acc[i][c] = 0.0f;
+    }
   }
 
   const long long nchunk = (nb + CB - 1) / CB;
   stage_chunk<KC, NT, TM>(sg[0], packed, x, p, nb, row0, 0, bytes16, x16,
                           tid);
   cp_async_commit();
-  const float* wrow = lut + r;
-  for (long long i = 0; i < nchunk; ++i) {
-    // chunk i has landed for every thread (and the decode table is
-    // written), and every thread is done with chunk i - 1, whose buffer
-    // the next copies overwrite
+  for (long long ch = 0; ch < nchunk; ++ch) {
+    // chunk ch has landed for every thread, and every thread is done
+    // with chunk ch - 1, whose buffer the next copies overwrite
     cp_async_wait_all();
     __syncthreads();
-    if (i + 1 < nchunk)
-      stage_chunk<KC, NT, TM>(sg[(i + 1) & 1], packed, x, p, nb, row0,
-                              (i + 1) * CB, bytes16, x16, tid);
+    if (ch + 1 < nchunk)
+      stage_chunk<KC, NT, TM>(sg[(ch + 1) & 1], packed, x, p, nb, row0,
+                              (ch + 1) * CB, bytes16, x16, tid);
     cp_async_commit();
 
-    const Stage<KC, TM>& cur = sg[i & 1];
+    const Stage<KC, TM>& cur = sg[ch & 1];
 #pragma unroll 1
     for (int h = 0; h < CB / 16; ++h) {
-      const uint4 words =
-          *reinterpret_cast<const uint4*>(&cur.bytes[r][16 * h]);
-      const uint32_t wd[4] = {words.x, words.y, words.z, words.w};
+      uint32_t wd[R][4];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const uint4 words = *reinterpret_cast<const uint4*>(
+            &cur.bytes[slot + i * SLOTS][16 * h]);
+        wd[i][0] = words.x;
+        wd[i][1] = words.y;
+        wd[i][2] = words.z;
+        wd[i][3] = words.w;
+      }
 #pragma unroll
       for (int jj = 0; jj < 16; ++jj) {
-        const uint32_t byte = (wd[jj / 4] >> (8 * (jj % 4))) & 0xffu;
         const int j = 16 * h + jj;
 #pragma unroll
         for (int s = 0; s < 4; ++s) {
-          const float w = wrow[((byte >> (2 * s)) & 3u) * TM];
+          float w[R];
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+            w[i] = pick(wd[i][jj / 4], 8 * (jj % 4) + 2 * s, tab[i]);
           const float4* xr =
               reinterpret_cast<const float4*>(&cur.x[s][j][cg * C]);
 #pragma unroll
           for (int q = 0; q < C / 4; ++q) {
             const float4 xv = xr[q];
-            acc[4 * q + 0] = fmaf(w, xv.x, acc[4 * q + 0]);
-            acc[4 * q + 1] = fmaf(w, xv.y, acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(w, xv.z, acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(w, xv.w, acc[4 * q + 3]);
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+              acc[i][4 * q + 0] = fmaf(w[i], xv.x, acc[i][4 * q + 0]);
+              acc[i][4 * q + 1] = fmaf(w[i], xv.y, acc[i][4 * q + 1]);
+              acc[i][4 * q + 2] = fmaf(w[i], xv.z, acc[i][4 * q + 2]);
+              acc[i][4 * q + 3] = fmaf(w[i], xv.w, acc[i][4 * q + 3]);
+            }
           }
         }
       }
     }
 
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float e;
-      fp::two_sum(sum[c], acc[c], sum[c], e);
-      err[c] = __fadd_rn(err[c], e);
-      acc[c] = 0.0f;
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int o = (i * C + c) * NT + tid;
+        float t, e;
+        fp::two_sum(ssum[o], acc[i][c], t, e);
+        ssum[o] = t;
+        err[i][c] = __fadd_rn(err[i][c], e);
+        acc[i][c] = 0.0f;
+      }
     }
   }
 
-  if (row < p) {
-    float4* out = reinterpret_cast<float4*>(z + row * KC + cg * C);
 #pragma unroll
-    for (int q = 0; q < C / 4; ++q)
-      out[q] = make_float4(__fadd_rn(sum[4 * q + 0], err[4 * q + 0]),
-                           __fadd_rn(sum[4 * q + 1], err[4 * q + 1]),
-                           __fadd_rn(sum[4 * q + 2], err[4 * q + 2]),
-                           __fadd_rn(sum[4 * q + 3], err[4 * q + 3]));
+  for (int i = 0; i < R; ++i) {
+    const long long row = row0 + slot + i * SLOTS;
+    if (row < p) {
+      float4* out = reinterpret_cast<float4*>(z + row * KC + cg * C);
+      const float* sum = &ssum[i * C * NT + tid];
+#pragma unroll
+      for (int q = 0; q < C / 4; ++q)
+        out[q] = make_float4(__fadd_rn(sum[(4 * q + 0) * NT], err[i][4 * q + 0]),
+                             __fadd_rn(sum[(4 * q + 1) * NT], err[i][4 * q + 1]),
+                             __fadd_rn(sum[(4 * q + 2) * NT], err[i][4 * q + 2]),
+                             __fadd_rn(sum[(4 * q + 3) * NT], err[i][4 * q + 3]));
+    }
   }
 }
 
-template <int KC, int C, int TM>
+template <int KC, int C, int R, int TM, int TPS>
 int launch_kc(const uint8_t* pk, const float* c0, const float* c1,
               const float* c2, const float* xx, float* zz, long long p,
               long long nb, bool bytes16, bool x16, cudaStream_t st) {
-  using T = Tile<KC, C, TM>;
+  using T = Tile<KC, C, R, TM, TPS>;
   const cudaError_t rc = cudaFuncSetAttribute(
-      crossprod_tile_kernel<KC, C, TM>,
+      crossprod_tile_kernel<KC, C, R, TM, TPS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid(static_cast<unsigned>((p + TM - 1) / TM));
-  crossprod_tile_kernel<KC, C, TM><<<grid, T::NT, T::SMEM, st>>>(
+  crossprod_tile_kernel<KC, C, R, TM, TPS><<<grid, T::NT, T::SMEM, st>>>(
       pk, c0, c1, c2, xx, zz, p, nb, bytes16, x16);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Check the operands and launch at KC = kc with the tile Tl<KC>'s (C, TM).
+// Check the operands and launch at KC = kc with the tile Tl<KC>'s
+// (C, R, TM).
 template <template <int> class Tl>
 int launch(const void* packed, const void* cf0, const void* cf1,
            const void* cf2, const void* x, void* z, long long p,
@@ -286,18 +339,15 @@ int launch(const void* packed, const void* cf0, const void* cf1,
     return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kc) {
-    case 8:
-      return launch_kc<8, Tl<8>::C, Tl<8>::TM>(pk, c0, c1, c2, xx, zz, p, nb,
-                                               bytes16, x16, st);
-    case 16:
-      return launch_kc<16, Tl<16>::C, Tl<16>::TM>(pk, c0, c1, c2, xx, zz, p,
-                                                  nb, bytes16, x16, st);
-    case 24:
-      return launch_kc<24, Tl<24>::C, Tl<24>::TM>(pk, c0, c1, c2, xx, zz, p,
-                                                  nb, bytes16, x16, st);
-    case 32:
-      return launch_kc<32, Tl<32>::C, Tl<32>::TM>(pk, c0, c1, c2, xx, zz, p,
-                                                  nb, bytes16, x16, st);
+#define CROSSPROD_V2_CASE(K)                                              \
+  case K:                                                                 \
+    return launch_kc<K, Tl<K>::C, Tl<K>::R, Tl<K>::TM, Tl<K>::TPS>(       \
+        pk, c0, c1, c2, xx, zz, p, nb, bytes16, x16, st);
+    CROSSPROD_V2_CASE(8)
+    CROSSPROD_V2_CASE(16)
+    CROSSPROD_V2_CASE(24)
+    CROSSPROD_V2_CASE(32)
+#undef CROSSPROD_V2_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
