@@ -534,10 +534,14 @@ def check_tall_kernels(dev):
                 # different shares of a sum in the err half
                 x = torch.randn((4 * nb, k), generator=g, device=dev)
                 ref_x = f64_product(packed, lut6, x, transpose=False)
+                plain_x = tpk.crossprod_plain(packed, mean, invsd, x)
                 outs.update({
                     "crossprod": (tpk.crossprod_p(packed, mean, invsd, x),
-                                  tpk.crossprod_plain(packed, mean, invsd, x),
-                                  ref_x, plain_bar(4 * nb), 1e-5, False),
+                                  plain_x, ref_x, plain_bar(4 * nb), 1e-5,
+                                  False),
+                    "crossprod_v1": (
+                        tpk.crossprod_v1_p(packed, mean, invsd, x), plain_x,
+                        ref_x, plain_bar(4 * nb), 1e-5, False),
                     "matvec": (tpk.matvec_p(packed, mean, invsd, v),
                                tpk.matvec_plain(packed, mean, invsd, v),
                                ref_y, plain_bar(p), 1e-5, False),
@@ -545,6 +549,9 @@ def check_tall_kernels(dev):
                                      tpk.crossprod_ff_plain(packed, lut6, x),
                                      ref_x, plain_bar(4 * nb), 5e-6, True),
                 })
+            if "crossprod" in outs:
+                require_b1_equal(outs["crossprod"][0],
+                                 outs["crossprod_v1"][0], f"{label} k={k}")
             msg, rels = [], {}
             for name, (got, plain, ref, bar, f64_bar, sums) in outs.items():
                 tag = f"{name} {label} k={k}"
