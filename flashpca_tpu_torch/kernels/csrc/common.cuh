@@ -86,4 +86,29 @@ __device__ __forceinline__ float decode_lut(uint32_t code, float l0, float l2,
 // Four missing codes: a padding byte that decodes to exactly zero.
 constexpr uint8_t kMissingByte = 0x55;
 
+// cp.async staging (sm_80+): copies from global into shared memory that
+// run while the block computes; commit a group after issuing, wait for
+// all groups, then __syncthreads() before reading what landed.
+__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 }  // namespace fp

@@ -56,10 +56,7 @@
 //   plain stores; rows whose bytes are not 16-byte aligned (nb % 16 !=
 //   0) are staged byte by byte.
 //
-// C, R, TM and TPS are template parameters; production runs the tile of
-// ProdTile<KC> through fp_crossprod.  Defining CROSSPROD_V2_NO_ENTRY
-// leaves the entry out, for a file that includes this one to build other
-// tiles.
+// The tiles tried on the card are named in PERF.md.
 #include "common.cuh"
 
 namespace {
@@ -68,55 +65,30 @@ namespace v2 {
 
 constexpr int CB = 32;             // bytes per chunk (128 samples): one fold
 constexpr int BSTRIDE = CB + 16;   // byte-tile row stride: 12 words
-constexpr int TM_PROD = 128;       // SNP rows per block in production
-
-__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               ::"r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+constexpr int R = 2;               // SNP rows a thread
+constexpr int TM = 128;            // SNP rows a block
 
 // One stage of the double buffer: a chunk's byte tile and x rows.
-template <int KC, int TM>
+template <int KC>
 struct Stage {
   uint8_t bytes[TM][BSTRIDE];
   float x[4][CB][KC];
 };
 
-// Threads per block (TM / R row slots x KC / C column groups), the
-// blocks per SM that __launch_bounds__ asks for (768 threads an SM: 80
-// registers a thread) and the dynamic shared memory: two stages and the
-// running sums.
-template <int KC, int C, int R, int TM, int TPS>
+// The tile at KC: C columns a thread (8 at KC 8 and 16, 12 at 24, 16 at
+// 32), threads per block (TM / R row slots x KC / C column groups), the
+// threads an SM that __launch_bounds__ asks for (768: 80 registers a
+// thread; 384 at KC 24 and 32: up to 168), and the dynamic shared
+// memory: two stages and the running sums.
+template <int KC>
 struct Tile {
+  static constexpr int C = KC == 24 ? 12 : KC == 32 ? 16 : 8;
+  static constexpr int TPS = KC <= 16 ? 768 : 384;
   static_assert(KC % C == 0 && C % 4 == 0, "C must divide KC, 4 | C");
   static_assert(TM % (32 * R) == 0, "a warp takes 32 row slots");
   static constexpr int NT = TM / R * (KC / C);
   static constexpr int MIN_BLOCKS = TPS / NT > 0 ? TPS / NT : 1;
-  static constexpr int SMEM = 2 * sizeof(Stage<KC, TM>) + R * C * NT * 4;
-};
-
-// Production tile, per KC (the tiles timed on the card, PERF.md):
-// C = 8 at KC 8 and 16 (768 threads an SM, 80 registers), C = 12 at 24
-// and 16 at 32 (384 threads an SM, up to 168 registers); R = 2 rows and
-// TM = 128 rows a block throughout.
-template <int KC>
-struct ProdTile {
-  static constexpr int C = KC == 24 ? 12 : KC == 32 ? 16 : 8;
-  static constexpr int R = 2;
-  static constexpr int TM = TM_PROD;
-  static constexpr int TPS = KC <= 16 ? 768 : 384;
+  static constexpr int SMEM = 2 * sizeof(Stage<KC>) + R * C * NT * 4;
 };
 
 // w of the code in bits [sh, sh + 2) of ``word``, from the row's four
@@ -131,9 +103,9 @@ __device__ __forceinline__ float pick(uint32_t word, int sh,
 }
 
 // Start the copies of chunk [base, base + CB) into stage ``sg``.
-template <int KC, int NT, int TM>
+template <int KC, int NT>
 __device__ __forceinline__ void stage_chunk(
-    Stage<KC, TM>& sg, const uint8_t* __restrict__ packed,
+    Stage<KC>& sg, const uint8_t* __restrict__ packed,
     const float* __restrict__ x, long long p, long long nb, long long row0,
     long long base, bool bytes16, bool x16, int tid) {
   for (int idx = tid; idx < TM * (CB / 16); idx += NT) {
@@ -143,7 +115,7 @@ __device__ __forceinline__ void stage_chunk(
     const long long gb = base + 16 * q;
     uint8_t* dst = &sg.bytes[r][16 * q];
     if (bytes16 && gr < p && gb + 16 <= nb) {
-      cp_async16(dst, packed + gr * nb + gb);
+      fp::cp_async16(dst, packed + gr * nb + gb);
     } else {
       for (int e = 0; e < 16; ++e)
         dst[e] = (gr < p && gb + e < nb) ? packed[gr * nb + gb + e]
@@ -161,7 +133,7 @@ __device__ __forceinline__ void stage_chunk(
     if (gb < nb) {
       const float* src = x + (static_cast<long long>(s) * nb + gb) * KC + 4 * q;
       if (x16) {
-        cp_async16(dst, src);
+        fp::cp_async16(dst, src);
       } else {
         for (int e = 0; e < 4; ++e) dst[e] = src[e];
       }
@@ -171,23 +143,22 @@ __device__ __forceinline__ void stage_chunk(
   }
 }
 
-template <int KC, int C, int R, int TM, int TPS>
-__global__ void __launch_bounds__(Tile<KC, C, R, TM, TPS>::NT,
-                                  Tile<KC, C, R, TM, TPS>::MIN_BLOCKS)
+template <int KC>
+__global__ void __launch_bounds__(Tile<KC>::NT, Tile<KC>::MIN_BLOCKS)
 crossprod_tile_kernel(const uint8_t* __restrict__ packed,
                       const float* __restrict__ cf0,
                       const float* __restrict__ cf1,
                       const float* __restrict__ cf2,
                       const float* __restrict__ x, float* __restrict__ z,
                       long long p, long long nb, bool bytes16, bool x16) {
-  using T = Tile<KC, C, R, TM, TPS>;
-  constexpr int NT = T::NT;
+  constexpr int C = Tile<KC>::C;
+  constexpr int NT = Tile<KC>::NT;
   constexpr int SLOTS = TM / R;
   extern __shared__ __align__(16) unsigned char smem[];
-  Stage<KC, TM>* sg = reinterpret_cast<Stage<KC, TM>*>(smem);
+  Stage<KC>* sg = reinterpret_cast<Stage<KC>*>(smem);
   // sum[i][c] of thread tid at ssum[(i * C + c) * NT + tid]: read and
   // written once per chunk, by the fold
-  float* ssum = reinterpret_cast<float*>(smem + 2 * sizeof(Stage<KC, TM>));
+  float* ssum = reinterpret_cast<float*>(smem + 2 * sizeof(Stage<KC>));
 
   const int tid = threadIdx.x;
   // rows slot + i * SLOTS (i < R): 32 lanes take 32 consecutive rows
@@ -222,20 +193,19 @@ crossprod_tile_kernel(const uint8_t* __restrict__ packed,
   }
 
   const long long nchunk = (nb + CB - 1) / CB;
-  stage_chunk<KC, NT, TM>(sg[0], packed, x, p, nb, row0, 0, bytes16, x16,
-                          tid);
-  cp_async_commit();
+  stage_chunk<KC, NT>(sg[0], packed, x, p, nb, row0, 0, bytes16, x16, tid);
+  fp::cp_async_commit();
   for (long long ch = 0; ch < nchunk; ++ch) {
     // chunk ch has landed for every thread, and every thread is done
     // with chunk ch - 1, whose buffer the next copies overwrite
-    cp_async_wait_all();
+    fp::cp_async_wait_all();
     __syncthreads();
     if (ch + 1 < nchunk)
-      stage_chunk<KC, NT, TM>(sg[(ch + 1) & 1], packed, x, p, nb, row0,
-                              (ch + 1) * CB, bytes16, x16, tid);
-    cp_async_commit();
+      stage_chunk<KC, NT>(sg[(ch + 1) & 1], packed, x, p, nb, row0,
+                          (ch + 1) * CB, bytes16, x16, tid);
+    fp::cp_async_commit();
 
-    const Stage<KC, TM>& cur = sg[ch & 1];
+    const Stage<KC>& cur = sg[ch & 1];
 #pragma unroll 1
     for (int h = 0; h < CB / 16; ++h) {
       uint32_t wd[R][4];
@@ -304,24 +274,22 @@ crossprod_tile_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
-template <int KC, int C, int R, int TM, int TPS>
+template <int KC>
 int launch_kc(const uint8_t* pk, const float* c0, const float* c1,
               const float* c2, const float* xx, float* zz, long long p,
               long long nb, bool bytes16, bool x16, cudaStream_t st) {
-  using T = Tile<KC, C, R, TM, TPS>;
+  using T = Tile<KC>;
   const cudaError_t rc = cudaFuncSetAttribute(
-      crossprod_tile_kernel<KC, C, R, TM, TPS>,
+      crossprod_tile_kernel<KC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid(static_cast<unsigned>((p + TM - 1) / TM));
-  crossprod_tile_kernel<KC, C, R, TM, TPS><<<grid, T::NT, T::SMEM, st>>>(
+  crossprod_tile_kernel<KC><<<grid, T::NT, T::SMEM, st>>>(
       pk, c0, c1, c2, xx, zz, p, nb, bytes16, x16);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Check the operands and launch at KC = kc with the tile Tl<KC>'s
-// (C, R, TM).
-template <template <int> class Tl>
+// Check the operands and launch at KC = kc.
 int launch(const void* packed, const void* cf0, const void* cf1,
            const void* cf2, const void* x, void* z, long long p,
            long long nb, int kc, void* stream) {
@@ -339,15 +307,10 @@ int launch(const void* packed, const void* cf0, const void* cf1,
     return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kc) {
-#define CROSSPROD_V2_CASE(K)                                              \
-  case K:                                                                 \
-    return launch_kc<K, Tl<K>::C, Tl<K>::R, Tl<K>::TM, Tl<K>::TPS>(       \
-        pk, c0, c1, c2, xx, zz, p, nb, bytes16, x16, st);
-    CROSSPROD_V2_CASE(8)
-    CROSSPROD_V2_CASE(16)
-    CROSSPROD_V2_CASE(24)
-    CROSSPROD_V2_CASE(32)
-#undef CROSSPROD_V2_CASE
+    case 8: return launch_kc<8>(pk, c0, c1, c2, xx, zz, p, nb, bytes16, x16, st);
+    case 16: return launch_kc<16>(pk, c0, c1, c2, xx, zz, p, nb, bytes16, x16, st);
+    case 24: return launch_kc<24>(pk, c0, c1, c2, xx, zz, p, nb, bytes16, x16, st);
+    case 32: return launch_kc<32>(pk, c0, c1, c2, xx, zz, p, nb, bytes16, x16, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -356,13 +319,10 @@ int launch(const void* packed, const void* cf0, const void* cf1,
 
 }  // namespace
 
-#ifndef CROSSPROD_V2_NO_ENTRY
 // B1. packed (p, nb) u8; cf0..cf2 (p,) f32; x (4*nb, kc) f32; z (p, kc) f32.
 extern "C" int fp_crossprod(const void* packed, const void* cf0,
                             const void* cf1, const void* cf2, const void* x,
                             void* z, long long p, long long nb, int kc,
                             void* stream) {
-  return v2::launch<v2::ProdTile>(packed, cf0, cf1, cf2, x, z, p, nb, kc,
-                                  stream);
+  return v2::launch(packed, cf0, cf1, cf2, x, z, p, nb, kc, stream);
 }
-#endif

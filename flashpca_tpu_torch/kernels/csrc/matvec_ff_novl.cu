@@ -67,28 +67,6 @@ constexpr int C_PROD = 8;    // columns per thread in production
 constexpr int CR_PROD = 64;  // SNP rows per chunk: one stage, one fold
 constexpr int LW = 8;        // staged table row: (hi, lo) for codes 0..3
 
-__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               ::"r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               ::"r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // One stage of the double buffer: a chunk's byte tile, v_h rows and
 // table rows.
 template <int KC, int CR>
@@ -113,7 +91,7 @@ __device__ __forceinline__ void stage_chunk(
     const long long gj = byte0 + 16 * q;
     uint8_t* dst = &sg.bytes[r][16 * q];
     if (bytes16 && gr < p && gj + 16 <= nb) {
-      cp_async16(dst, packed + gr * nb + gj);
+      fp::cp_async16(dst, packed + gr * nb + gj);
     } else {
       for (int e = 0; e < 16; ++e)
         dst[e] = (gr < p && gj + e < nb) ? packed[gr * nb + gj + e]
@@ -127,7 +105,7 @@ __device__ __forceinline__ void stage_chunk(
     const long long gr = r0 + r;
     float* dst = &sg.v[r][4 * q];
     if (v16 && gr < p) {
-      cp_async16(dst, vh + gr * KC + 4 * q);
+      fp::cp_async16(dst, vh + gr * KC + 4 * q);
     } else {
       for (int e = 0; e < 4; ++e)
         dst[e] = gr < p ? vh[gr * KC + 4 * q + e] : 0.0f;
@@ -143,7 +121,7 @@ __device__ __forceinline__ void stage_chunk(
     const int code = (t % 3 == 0) ? 0 : t % 3 + 1;
     float* dst = &sg.lut[r][2 * code + t / 3];
     if (gr < p) {
-      cp_async4(dst, lut6 + t * p + gr);
+      fp::cp_async4(dst, lut6 + t * p + gr);
     } else {
       *dst = 0.0f;
     }
@@ -200,16 +178,16 @@ matvec_ff_novl_kernel(const uint8_t* __restrict__ packed,
   const long long nchunk = (p + CR - 1) / CR;
   stage_chunk<KC, NT, CR>(sg[0], packed, lut6, vh, p, nb, byte0, 0, bytes16,
                           v16, tid);
-  cp_async_commit();
+  fp::cp_async_commit();
   for (long long i = 0; i < nchunk; ++i) {
     // chunk i has landed for every thread, and every thread is done
     // with chunk i - 1, whose buffer the next copies overwrite
-    cp_async_wait_all();
+    fp::cp_async_wait_all();
     __syncthreads();
     if (i + 1 < nchunk)
       stage_chunk<KC, NT, CR>(sg[(i + 1) & 1], packed, lut6, vh, p, nb,
                               byte0, (i + 1) * CR, bytes16, v16, tid);
-    cp_async_commit();
+    fp::cp_async_commit();
 
     const Stage<KC, CR>& cur = sg[i & 1];
 #pragma unroll 16

@@ -87,14 +87,13 @@ def test_b1_is_built_from_its_new_source():
 
 
 def test_production_b1_library_holds_only_b1():
-    """B1's source defines one C entry, which a file that includes it
-    can switch off; the first design's entries stay in crossprod.cu."""
+    """B1's source defines one C entry; the first design's entries stay
+    in crossprod.cu."""
     with open(os.path.join(_build.CSRC, "crossprod_v2.cu")) as fh:
         prod = fh.read()
     with open(os.path.join(_build.CSRC, "crossprod.cu")) as fh:
         first = fh.read()
     assert re.findall(r'extern "C" int (\w+)\(', prod) == ["fp_crossprod"]
-    assert re.search(r"#ifndef CROSSPROD_V2_NO_ENTRY\s+// B1\.", prod)
     assert re.findall(r'extern "C" int (\w+)\(', first) == [
         "fp_crossprod_v1", "fp_crossprod_tiled"]
     # the note names the TPU kernel it replaces and its bound
@@ -184,8 +183,8 @@ def test_chip_smoke_has_rows_for_b1_and_its_first_design(name):
 def test_chip_smoke_names_b1s_instantiations():
     cs = _chip_smoke()
     sym = ("_ZN45_GLOBAL__N__9a1b2c3d_15_crossprod_v2_cu_1f2e3d4c2v2"
-           "21crossprod_tile_kernelILi16ELi8ELi64EEEvPKhPKfS5_S5_S5_Pfxxbb")
-    assert cs.kernel_name(sym) == "crossprod_tile_kernel<16, 8, 64>"
+           "21crossprod_tile_kernelILi32EEEvPKhPKfS5_S5_S5_Pfxxbb")
+    assert cs.kernel_name(sym) == "crossprod_tile_kernel<32>"
 
 
 @pytest.mark.parametrize("name", ["matvec_ff_novl", "matvec_ff_novl_v1"])
