@@ -6,20 +6,22 @@
 Phases, all in this one process; any failure raises and exits nonzero:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the hand-written kernels from kernels/csrc, fifteen entries
-   in nine libraries: B1-B5, the kernel sweep's tile entries of B1 and
-   B2 and its variants V1-V4 of B1, B1's first design, and B5's
-   comparison entries -- its first design and its design at C = 4
-   columns per thread or CR = 128 rows per chunk (timed set-up); each instantiation's registers and
-   spills (ptxas), and the instruction mix of B5's inner loop in each
-   (cuobjdump);
+2. build the hand-written kernels from kernels/csrc, sixteen entries
+   in ten libraries: B1-B5, the kernel sweep's tile entries of B1 and
+   B2 and its variants V1-V4 of B1, the first designs of B1 and B3, and
+   B5's comparison entries -- its first design and its design at C = 4
+   columns per thread or CR = 128 rows per chunk (timed set-up); each
+   instantiation's registers and spills (ptxas; production B3 must
+   spill nothing), and the instruction mix of B5's and B3's inner loops
+   in each (cuobjdump);
 3. hold each kernel against its plain PyTorch version on the card, at
    full width (501,760 samples) on a 4,096-SNP slice and on a small odd
    case (n % 4 != 0, some inv_sd == 0), panels k in {3, 16, 24}, and
    each against a float64 product; there also V1-V4 (V3 within 5e-5 of
-   float64, the others 1e-5), B1 bit-equal to its first design
-   (torch.equal, at every case and k of this phase, the tall width's
-   too), the first design's tile entries bit-equal to B1 and B2's
+   float64, the others 1e-5), B1 and B3 each bit-equal to its first
+   design (torch.equal, both halves of B3, at every case and k of this
+   phase, the tall width's too), the first design's tile entries
+   bit-equal to B1 and B2's
    against B2's plain version.  B5 (and its comparison entries) and the
    tall two-float gram (B5, mask, B3, B1) likewise on those cases and at
    the tall width (2,048 SNPs x 1,003,520 samples), panels k in {3, 16,
@@ -35,9 +37,10 @@ Phases, all in this one process; any failure raises and exits nonzero:
    with ``polish="contract"`` at float32, then ``check(op, U, d)``; the
    kernels' launch counts are reset just before ``pca`` and read just
    after ``check``, and every kernel of the wide path (B1-B4) must have
-   run; then B1-B4 timed at the headline shapes beside their bounds,
-   their plain versions and the torch.matmul calls on the same block
-   decoded to float32, and B1 beside its first design in turns;
+   run; then B1-B4 timed at the headline shapes (B1/B2 at kc 16 and 24,
+   B3/B4 at 24) beside their bounds, their plain versions and the
+   torch.matmul calls on the same block decoded to float32, and B1 (kc
+   16) and B3 (kc 24) beside their first designs in turns;
 6. the kernel sweep (flashpca_tpu_torch.tools.kernel_sweep) at the wide
    headline's shape, 100,352 x 501,760, k=16, after the headline's
    operator is freed: V1-V4 against B1 on a 512-SNP slice, B1/B2 at each
@@ -56,15 +59,16 @@ Phases, all in this one process; any failure raises and exits nonzero:
    of X^T X / p formed on the card (p x p float64, 20 GB, ~100 s), save
    that in the Marchenko-Pastur bulk the bar below is 3.6e-5 (and
    between the paths 3.6e-5 both ways); then B5 at kc 32 and 24 (and
-   B1-B3 at their tall widths) timed at the tall shapes, and beside B5,
-   on the same inputs, its comparison entries, and B1 at kc 16 and 32
-   beside its first design in turns.
+   B1-B3 at their tall widths: B1 and B2 at 16, 24, 32, B3 at 24, 32)
+   timed at the tall shapes, and beside B5, on the same inputs, its
+   comparison entries, B1 at kc 16 and 32 and B3 at kc 24 and 32 beside
+   their first designs in turns.
 
 The headlines must give wide ``n_ops`` 20 and tall ``n_ops`` 32, and no
-launch of B1's first design on either main path.  The line before the
-last is the JSON ``{"kernels": [...]}`` (B1-B5 from the headlines, B1 at
-the tall widths, B1's and B5's first designs from the timing phases,
-V1-V4 from the sweep); the last
+launch of a first design or comparison entry on either main path.  The
+line before the last is the JSON ``{"kernels": [...]}`` (B1-B5 at the
+widths the headlines launch, the first designs of B1, B3 and B5 from
+the timing phases, V1-V4 from the sweep); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside it, the script exits nonzero and prints no
 result.
@@ -82,6 +86,8 @@ import tempfile
 import time
 
 import numpy as np
+
+from flashpca_tpu_torch.kernels._build import kernel_name, ptxas_usage
 
 # Hopper FP32 (CUDA-core) peak and memory rate of an H100 SXM, the
 # published dense figures at the 700 W limit.  Full-float32 products do
@@ -104,6 +110,7 @@ TPU_KERNEL = {
     "crossprod_v1": "flashpca_tpu/kernels/packed_matvec.py:83",
     "matvec": "flashpca_tpu/kernels/packed_matvec.py:122",
     "crossprod_ff": "flashpca_tpu/kernels/packed_matvec.py:336",
+    "crossprod_ff_v1": "flashpca_tpu/kernels/packed_matvec.py:336",
     "matvec_ff": "flashpca_tpu/kernels/packed_matvec.py:369",
     "matvec_ff_novl": "flashpca_tpu/kernels/packed_matvec.py:415",
     "matvec_ff_novl_v1": "flashpca_tpu/kernels/packed_matvec.py:415",
@@ -115,7 +122,8 @@ TPU_KERNEL = {
 _CSRC = "flashpca_tpu_torch/kernels/csrc/"
 SOURCE = {"crossprod": _CSRC + "crossprod_v2.cu",
           "crossprod_v1": _CSRC + "crossprod.cu", "matvec": _CSRC + "matvec.cu",
-          "crossprod_ff": _CSRC + "crossprod_ff.cu",
+          "crossprod_ff": _CSRC + "crossprod_ff_v2.cu",
+          "crossprod_ff_v1": _CSRC + "crossprod_ff.cu",
           "matvec_ff": _CSRC + "matvec_ff.cu",
           "matvec_ff_novl": _CSRC + "matvec_ff_novl.cu",
           "matvec_ff_novl_v1": _CSRC + "matvec_ff.cu",
@@ -125,7 +133,8 @@ SOURCE = {"crossprod": _CSRC + "crossprod_v2.cu",
           "crossprod_nocomp": _CSRC + "crossprod_variants.cu"}
 # float32 dots per genotype and panel column (V3's products are bf16:
 # SPLIT3_BF16_DOTS of them, and its decode is bounded apart)
-DOTS = {"crossprod": 1, "crossprod_v1": 1, "matvec": 1, "crossprod_ff": 2, "matvec_ff": 3,
+DOTS = {"crossprod": 1, "crossprod_v1": 1, "matvec": 1, "crossprod_ff": 2,
+        "crossprod_ff_v1": 2, "matvec_ff": 3,
         "matvec_ff_novl": 2, "matvec_ff_novl_v1": 2,
         "crossprod_stacked": 1, "crossprod_intsub": 1, "crossprod_nocomp": 1}
 SPLIT3_BF16_DOTS = 3
@@ -160,35 +169,6 @@ TALL_CASE = ("tall width 2048 x 1003520", 2048, 1_003_520, 23)
 TALL_N, TALL_P = 1_003_520, 50_176
 
 
-def kernel_name(text):
-    """"kernel<template args>" of the first mangled ``..._kernel<...>``
-    symbol in ``text`` (template arguments in order: kc, then TM / CR /
-    HAS_VL / C), or None."""
-    m = re.search(r"\w*?\d([a-z_]+_kernel)I((?:L[a-z]\d+E)+)E", text)
-    if not m:
-        return None
-    targs = re.findall(r"L[a-z](\d+)E", m.group(2))
-    return f"{m.group(1)}<{', '.join(targs)}>"
-
-
-def ptxas_usage(lines):
-    """(kernel<template args>, "Used N registers, ...; S bytes spill
-    stores, L bytes spill loads") for each instantiation in an ``nvcc
-    -Xptxas -v`` log: registers, shared memory and spills."""
-    fn, spills = "?", ""
-    for line in lines:
-        name = "Compiling entry function" in line and kernel_name(line)
-        if name:
-            fn, spills = name, ""
-        m = re.search(r"(\d+ bytes spill stores, \d+ bytes spill loads)",
-                      line)
-        if m:
-            spills = f"; {m.group(1)}"
-        m = re.search(r"(Used \d+ registers.*)", line)
-        if m:
-            yield fn, m.group(1).strip() + spills
-
-
 def sass_hot_loops(sass):
     """{kernel<template args>: Counter of opcodes} of the innermost hot
     loop of each function in a ``cuobjdump -sass`` listing: the loop
@@ -216,6 +196,15 @@ def sass_hot_loops(sass):
         if best is not None:
             out[fn] = best[1]
     return out
+
+
+def require_no_spills(src, usages):
+    """Every instantiation in ``usages`` (``ptxas_usage`` pairs) reports
+    0 bytes of spill stores and loads."""
+    clean = "; 0 bytes spill stores, 0 bytes spill loads"
+    bad = [fn for fn, usage in usages if not usage.endswith(clean)]
+    if bad or not usages:
+        raise AssertionError(f"{src}: spills (or no ptxas report) in {bad}")
 
 
 def say(msg: str) -> None:
@@ -276,6 +265,17 @@ def require_b1_equal(z, z1, where):
         raise AssertionError(
             f"crossprod {where}: not bit-equal to crossprod_v1 (max diff "
             f"{float((z - z1).abs().max()):.3e})")
+
+
+def require_b3_equal(z, z1, where):
+    """B3 must give its first design's (z_hi, z_err) bit for bit."""
+    import torch
+
+    for half, a, b in (("z_hi", z[0], z1[0]), ("z_err", z[1], z1[1])):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"crossprod_ff {where}: {half} not bit-equal to "
+                f"crossprod_ff_v1 (max diff {float((a - b).abs().max()):.3e})")
 
 
 # ---------------------------------------------------------------------------
@@ -365,16 +365,18 @@ def hold(tag, got, plain, ref, bar, f64_bar, sums=False):
 
 def check_kernels(dev):
     """Each kernel against its plain version and against a float64
-    product, on a full-width slice and a small odd case: B1-B4, the
-    sweep's V1-V4 (sharing B1's float64 product), B1's tile entries
-    (bit-equal to B1) and B2's.  Returns {kernel: max abs err against
-    the plain version}."""
+    product, on a full-width slice and a small odd case: B1-B4 and the
+    first designs of B1 and B3 (each bit-equal to its production
+    kernel), the sweep's V1-V4 (sharing B1's float64 product), B1's tile
+    entries (bit-equal to B1) and B2's.  Returns {kernel: max abs err
+    against the plain version}."""
     import torch
 
     from flashpca_tpu_torch.kernels import crossprod_variants as cv
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
 
-    worst = {name: 0.0 for name in WIDE_PATH + SWEEP_PATH + ("crossprod_v1",)}
+    worst = {name: 0.0 for name in WIDE_PATH + SWEEP_PATH
+             + ("crossprod_v1", "crossprod_ff_v1")}
     for label, p, n, seed in KERNEL_CASES:
         packed, mean, invsd, lut6, nb, _ = random_operands(p, n, seed, dev)
         g = torch.Generator(device=dev).manual_seed(seed + 100)
@@ -388,6 +390,7 @@ def check_kernels(dev):
                                  transpose=True)
             bar_z, bar_y = plain_bar(4 * nb), plain_bar(p)
             plain_z = tpk.crossprod_plain(packed, mean, invsd, x)
+            plain_zz = tpk.crossprod_ff_plain(packed, lut6, x)
             outs = {
                 # name: (kernel result, plain result, float64 product,
                 #        plain bar, float64 bar); two-float pairs compare
@@ -400,8 +403,9 @@ def check_kernels(dev):
                            tpk.matvec_plain(packed, mean, invsd, v),
                            ref_y, bar_y, 1e-5),
                 "crossprod_ff": (tpk.crossprod_ff_p(packed, lut6, x),
-                                 tpk.crossprod_ff_plain(packed, lut6, x),
-                                 ref_z, bar_z, 5e-6),
+                                 plain_zz, ref_z, bar_z, 5e-6),
+                "crossprod_ff_v1": (tpk.crossprod_ff_v1_p(packed, lut6, x),
+                                    plain_zz, ref_z, bar_z, 5e-6),
                 "matvec_ff": (tpk.matvec_ff_p(packed, lut6, v, vl),
                               tpk.matvec_ff_plain(packed, lut6, v, vl),
                               ref_yy, bar_y, 5e-6),
@@ -416,6 +420,8 @@ def check_kernels(dev):
                               F64_BAR[name])
             require_b1_equal(outs["crossprod"][0], outs["crossprod_v1"][0],
                              f"{label} k={k}")
+            require_b3_equal(outs["crossprod_ff"][0],
+                             outs["crossprod_ff_v1"][0], f"{label} k={k}")
             # the tile entries: B1's bit-equal to production B1 (each
             # thread walks the same chunks whatever the rows per block),
             # B2's against B2's plain version (its fold points move)
@@ -449,7 +455,9 @@ def check_kernels(dev):
 def check_tall_kernels(dev):
     """B5 and the tall two-float gram against their plain versions and
     against float64 products, on the kernel-check cases and at the tall
-    width; there B1, B2 and B3 too, at the tall path's widths.  B5's
+    width; there B1, B2 and B3 too, at the tall path's widths, beside the
+    first designs of B1 and B3 (each bit-equal to its production kernel
+    at every case and k).  B5's
     comparison entries likewise (its first design, C = 4 and CR = 128),
     and the tall gram with the CR = 128 entry in B5's place against
     float64, measured but not held to GRAM_F64_BAR.  Returns ({name: max
@@ -488,12 +496,15 @@ def check_tall_kernels(dev):
             abs_z = f64_product(packed, lut6.abs(), my.abs(),
                                 transpose=False)
             plain_y = tpk.matvec_ff_novl_plain(packed, lut6, v)
-            # B1 against its first design on a draw of its own (the
-            # draws below stay those of earlier runs)
+            # B1 and B3 against their first designs on a draw of their
+            # own (the draws below stay those of earlier runs)
             gx = torch.Generator(device=dev).manual_seed(seed + 300 + k)
             xb = torch.randn((4 * nb, k), generator=gx, device=dev)
             require_b1_equal(tpk.crossprod_p(packed, mean, invsd, xb),
                              tpk.crossprod_v1_p(packed, mean, invsd, xb),
+                             f"{label} k={k}")
+            require_b3_equal(tpk.crossprod_ff_p(packed, lut6, xb),
+                             tpk.crossprod_ff_v1_p(packed, lut6, xb),
                              f"{label} k={k}")
             del xb
             outs = {
@@ -535,6 +546,7 @@ def check_tall_kernels(dev):
                 x = torch.randn((4 * nb, k), generator=g, device=dev)
                 ref_x = f64_product(packed, lut6, x, transpose=False)
                 plain_x = tpk.crossprod_plain(packed, mean, invsd, x)
+                plain_xx = tpk.crossprod_ff_plain(packed, lut6, x)
                 outs.update({
                     "crossprod": (tpk.crossprod_p(packed, mean, invsd, x),
                                   plain_x, ref_x, plain_bar(4 * nb), 1e-5,
@@ -546,12 +558,17 @@ def check_tall_kernels(dev):
                                tpk.matvec_plain(packed, mean, invsd, v),
                                ref_y, plain_bar(p), 1e-5, False),
                     "crossprod_ff": (tpk.crossprod_ff_p(packed, lut6, x),
-                                     tpk.crossprod_ff_plain(packed, lut6, x),
-                                     ref_x, plain_bar(4 * nb), 5e-6, True),
+                                     plain_xx, ref_x, plain_bar(4 * nb), 5e-6,
+                                     True),
+                    "crossprod_ff_v1": (
+                        tpk.crossprod_ff_v1_p(packed, lut6, x), plain_xx,
+                        ref_x, plain_bar(4 * nb), 5e-6, True),
                 })
             if "crossprod" in outs:
                 require_b1_equal(outs["crossprod"][0],
                                  outs["crossprod_v1"][0], f"{label} k={k}")
+                require_b3_equal(outs["crossprod_ff"][0],
+                                 outs["crossprod_ff_v1"][0], f"{label} k={k}")
             msg, rels = [], {}
             for name, (got, plain, ref, bar, f64_bar, sums) in outs.items():
                 tag = f"{name} {label} k={k}"
@@ -747,7 +764,8 @@ def require_no_first_design(launches, what):
     """No path takes a kept first design: it is timed, never launched."""
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
 
-    ran = [nm for nm in tpk.B1_KERNELS + tpk.NOVL_KERNELS if launches[nm]]
+    ran = [nm for nm in tpk.B1_KERNELS + tpk.B3_KERNELS + tpk.NOVL_KERNELS
+           if launches[nm]]
     if ran:
         raise AssertionError(f"comparison entries launched on the {what}: "
                              f"{ran}")
@@ -1170,15 +1188,40 @@ def time_b1(op, kcs):
     return out
 
 
-def first_design_rows(rows, name, turns, launches, worst):
-    """Each ``kernels`` row of B1 or B5 in ``rows`` marked as the current
-    design, beside a row of its first design ``name``: the same function
-    at the same shape, so the bound, plain and library times are the
-    current row's; its own time the median of its turns, and its
-    launches on the main path (0)."""
+def time_b3(op, kcs):
+    """B3 beside its first design at ``op``'s shapes, on the same
+    inputs, in turns.  Returns {"name/kc": [ms, ms]}."""
+    import torch
+
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    g = torch.Generator(device=op.device).manual_seed(96)
+    pk = op.packed
+    lut6 = tpk.lut_rows(*op._ff_luts())
+    out = {}
+    for kc in kcs:
+        x = torch.randn((4 * pk.shape[1], kc), generator=g, device=op.device)
+        time_turns({name: (lambda f=getattr(tpk, name + "_p"):
+                           f(pk, lut6, x))
+                    for name in ("crossprod_ff",) + tpk.B3_KERNELS}, kc, out)
+        del x
+    return out
+
+
+def with_first_designs(rows, firsts, launches, worst):
+    """``rows`` with each row of a kernel in ``firsts`` ({kernel: (first
+    design, its turns)}) whose first design was timed at the row's kc
+    marked as the current design, beside a row of that first design: the
+    same function at the same shape, so the bound, plain and library
+    times are the current row's; its own time the median of its turns,
+    and its launches on the main path (0)."""
     out = []
     for row in rows:
         kc = next(w for w in (8, 16, 24, 32) if w >= row["k"])
+        name, turns = firsts.get(row["name"], (None, {}))
+        if f"{name}/{kc}" not in turns:
+            out.append(row)
+            continue
         out += [dict(row, design="current"),
                 dict(row, name=name, source=SOURCE[name],
                      replaces=TPU_KERNEL[name], launches=launches[name],
@@ -1288,15 +1331,18 @@ def main(argv=None) -> int:
     for src in _build.sources():
         with open(os.path.join(build_dir,
                                f"{os.path.splitext(src)[0]}.log")) as fh:
-            for fn, usage in ptxas_usage(fh):
-                say(f"   {src} {fn}: {usage}")
-    # B5's instruction mix: the FFMA share of its inner loop's
-    # instructions, for the current design, its other tiles and the first
-    # design (cuobjdump, which the CUDA toolkit ships beside nvcc)
+            usages = list(ptxas_usage(fh))
+        for fn, usage in usages:
+            say(f"   {src} {fn}: {usage}")
+        if src == os.path.basename(SOURCE["crossprod_ff"]):
+            require_no_spills(src, usages)
+    # B5's and B3's instruction mix: the FFMA share of their inner loops'
+    # instructions, for the current designs, B5's other tiles and the
+    # first designs (cuobjdump, which the CUDA toolkit ships beside nvcc)
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass_mix = {}
     for src in ("matvec_ff_novl.cu", "matvec_ff_novl_variants.cu",
-                "matvec_ff.cu"):
+                "matvec_ff.cu", "crossprod_ff_v2.cu", "crossprod_ff.cu"):
         lib = os.path.join(build_dir, f"lib{os.path.splitext(src)[0]}.so")
         if not os.path.exists(cuobjdump):
             say(f"   {src}: no cuobjdump beside nvcc; SASS mix not read")
@@ -1304,7 +1350,8 @@ def main(argv=None) -> int:
         sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                               text=True).stdout
         for fn, c in sorted(sass_hot_loops(sass).items()):
-            if "novl" in fn or fn.endswith(", 0>"):
+            if ("novl" in fn or fn.endswith(", 0>")
+                    or fn.startswith("crossprod_ff")):
                 share = c["FFMA"] / sum(c.values())
                 sass_mix[fn] = {"ffma": c["FFMA"], "instructions":
                                 sum(c.values()), "ffma_share": share}
@@ -1326,48 +1373,59 @@ def main(argv=None) -> int:
     op, head = headline(dev, args.n, args.p, args.k)
     torch.cuda.empty_cache()
     with Phase("kernel times at the headline shapes"):
-        # B1/B2 at the solver panel, B3/B4 at the polish / check width
+        # B1/B2 at the solver panel and the polish sweeps' width, B3/B4
+        # at the polish / check width
         kernels = time_kernels(
             op, [("crossprod", 16), ("matvec", 16), ("crossprod_ff", 24),
-                 ("matvec_ff", 24)], head["launches"], worst, slices=32)
+                 ("matvec_ff", 24), ("crossprod", 24), ("matvec", 24)],
+            head["launches"], worst, slices=32)
         b1_turns = time_b1(op, (16,))
-    kernels[:1] = first_design_rows(kernels[:1], "crossprod_v1", b1_turns,
-                                    head["launches"], worst)
+        b3_turns = time_b3(op, (24,))
+    kernels = with_first_designs(
+        kernels, {"crossprod": ("crossprod_v1", b1_turns),
+                  "crossprod_ff": ("crossprod_ff_v1", b3_turns)},
+        head["launches"], worst)
+    b1_library_ms = next(r["library_ms"] for r in kernels
+                         if r["name"] == "crossprod" and r["k"] == 16)
     del op
     torch.cuda.empty_cache()
     sweep_rows, sweep = kernel_sweep(dev, args.p, args.n, worst,
-                                     kernels[0]["library_ms"],
-                                     head["launches"])
+                                     b1_library_ms, head["launches"])
     torch.cuda.empty_cache()
     top, tall = tall_headline(dev, TALL_N, TALL_P, args.k)
     torch.cuda.empty_cache()
     with Phase("kernel times at the tall shapes"):
         # B5 at the polish widths (nev 28 -> kc 32, and kc 24); B1-B3 at
-        # their tall widths (B1/B2 the solver panel, B1/B3 the polish)
+        # their tall widths (B1/B2 the solver panel, B1/B2/B3 the polish
+        # at kc 24 and 32)
         tall_rows = time_kernels(
             top, [("matvec_ff_novl", 32), ("matvec_ff_novl", 24),
                   ("crossprod", 16), ("matvec", 16), ("crossprod", 32),
-                  ("crossprod_ff", 32)],
+                  ("crossprod_ff", 32), ("crossprod", 24), ("matvec", 24),
+                  ("matvec", 32), ("crossprod_ff", 24)],
             tall["launches"], worst, slices=64)
         novl = time_novl(top, (32, 24))
         b1_tall_turns = time_b1(top, (16, 32))
-    # B5's and B1's first designs beside B5 at kc 32 and B1 at kc 16/32
-    kernels.extend(first_design_rows(tall_rows[:1], "matvec_ff_novl_v1",
-                                     novl, tall["launches"], worst))
-    kernels.extend(first_design_rows(
-        [r for r in tall_rows if r["name"] == "crossprod"], "crossprod_v1",
-        b1_tall_turns, tall["launches"], worst))
+        b3_tall_turns = time_b3(top, (24, 32))
+    # the first designs beside B5 at kc 32/24, B1 at kc 16/32, B3 at kc
+    # 24/32
+    kernels.extend(with_first_designs(
+        tall_rows, {"matvec_ff_novl": ("matvec_ff_novl_v1", novl),
+                    "crossprod": ("crossprod_v1", b1_tall_turns),
+                    "crossprod_ff": ("crossprod_ff_v1", b3_tall_turns)},
+        tall["launches"], worst))
     kernels.extend(sweep_rows)
     say(json.dumps({"summary": {
         "card": smi, "n": args.n, "p": args.p, "k": args.k,
-        "build_s": build_s, "b5_sass_mix": sass_mix, "mid": mid,
+        "build_s": build_s, "sass_mix": sass_mix, "mid": mid,
         **{key: val for key, val in head.items()},
         "gram_tall_ff_max_abs_err": worst["gram_tall_ff"],
         "tall_kernels_f64_rel": tall_f64,
-        "b1_turns_ms": b1_turns,
+        "b1_turns_ms": b1_turns, "b3_turns_ms": b3_turns,
         "tall": {"n": TALL_N, "p": TALL_P, **tall,
                  "kernels": tall_rows, "b5_turns_ms": novl,
-                 "b1_turns_ms": b1_tall_turns},
+                 "b1_turns_ms": b1_tall_turns,
+                 "b3_turns_ms": b3_tall_turns},
         "sweep": sweep,
         "total_s": time.time() - t_start}}))
     say(json.dumps({"kernels": kernels}))

@@ -3,20 +3,22 @@
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded through ``ctypes``; a source may hold several
 kernels (matvec_ff.cu holds B4 and B5's first design), each with its own
-C entry.  Fifteen entries in nine libraries: B1-B5, the sweep's tile
+C entry.  Sixteen entries in ten libraries: B1-B5, the sweep's tile
 entries of B1 and B2 and its variants V1-V4, B1's first design
-(``crossprod_v1``, in crossprod.cu beside the sweep's B1 tile entry), and
-B5's comparison entries -- its first design (``matvec_ff_novl_v1``) and
-two other tiles (``matvec_ff_novl_c4``, ``matvec_ff_novl_cr128``).  The build happens
-at first use, never at import (the CPU tests import every module, and
-the CPU has no ``nvcc``), into ``kernels/build/<hash>/`` -- a directory
-that ``.gitignore`` lists.  The hash covers every source, header and flag,
-so an edited source builds anew; the sources compile in parallel, one
-``nvcc`` each.
+(``crossprod_v1``, in crossprod.cu beside the sweep's B1 tile entry),
+B3's first design (``crossprod_ff_v1``, in crossprod_ff.cu), and B5's
+comparison entries -- its first design (``matvec_ff_novl_v1``) and two
+other tiles (``matvec_ff_novl_c4``, ``matvec_ff_novl_cr128``).  The
+build happens at first use, never at import (the CPU tests import every
+module, and the CPU has no ``nvcc``), into ``kernels/build/<hash>/`` --
+a directory that ``.gitignore`` lists.  The hash covers every source,
+header and flag, so an edited source builds anew; the sources compile
+in parallel, one ``nvcc`` each.
 
 The flags target ``sm_90a`` (Hopper) and deliberately leave out
 ``--use_fast_math``: the compensated accumulation relies on IEEE
-round-to-nearest float addition.
+round-to-nearest float addition.  ``kernel_name`` and ``ptxas_usage``
+read the compiler's register report that ``build_all`` keeps.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,7 +44,7 @@ KERNELS = {
                   [_P] * 6 + [_I64, _I64, _I32, _P]),
     "matvec": ("matvec.cu", "fp_matvec",
                [_P] * 6 + [_I64, _I64, _I32, _P]),
-    "crossprod_ff": ("crossprod_ff.cu", "fp_crossprod_ff",
+    "crossprod_ff": ("crossprod_ff_v2.cu", "fp_crossprod_ff",
                      [_P] * 5 + [_I64, _I64, _I32, _P]),
     "matvec_ff": ("matvec_ff.cu", "fp_matvec_ff",
                   [_P] * 6 + [_I64, _I64, _I32, _P]),
@@ -51,6 +54,10 @@ KERNELS = {
     # operator
     "crossprod_v1": ("crossprod.cu", "fp_crossprod_v1",
                      [_P] * 6 + [_I64, _I64, _I32, _P]),
+    # B3's first design: timed beside production B3, launched by no
+    # operator
+    "crossprod_ff_v1": ("crossprod_ff.cu", "fp_crossprod_ff_v1",
+                        [_P] * 5 + [_I64, _I64, _I32, _P]),
     # B5's first design and B5 at two other tiles: timed beside
     # production B5, launched by no operator
     "matvec_ff_novl_v1": ("matvec_ff.cu", "fp_matvec_ff_novl_v1",
@@ -167,3 +174,32 @@ def kernel(name: str):
                     _funcs[kname] = f
         fn = _funcs[name]
     return fn
+
+
+def kernel_name(text):
+    """"kernel<template args>" of the first mangled ``..._kernel<...>``
+    symbol in ``text`` (template arguments in order: kc, then TM / CR /
+    HAS_VL / C), or None."""
+    m = re.search(r"\w*?\d([a-z_]+_kernel)I((?:L[a-z]\d+E)+)E", text)
+    if not m:
+        return None
+    targs = re.findall(r"L[a-z](\d+)E", m.group(2))
+    return f"{m.group(1)}<{', '.join(targs)}>"
+
+
+def ptxas_usage(lines):
+    """(kernel<template args>, "Used N registers, ...; S bytes spill
+    stores, L bytes spill loads") for each instantiation in an ``nvcc
+    -Xptxas -v`` log: registers, shared memory and spills."""
+    fn, spills = "?", ""
+    for line in lines:
+        name = "Compiling entry function" in line and kernel_name(line)
+        if name:
+            fn, spills = name, ""
+        m = re.search(r"(\d+ bytes spill stores, \d+ bytes spill loads)",
+                      line)
+        if m:
+            spills = f"; {m.group(1)}"
+        m = re.search(r"(Used \d+ registers.*)", line)
+        if m:
+            yield fn, m.group(1).strip() + spills

@@ -86,6 +86,17 @@ __device__ __forceinline__ float decode_lut(uint32_t code, float l0, float l2,
 // Four missing codes: a padding byte that decodes to exactly zero.
 constexpr uint8_t kMissingByte = 0x55;
 
+// w of the code in bits [sh, sh + 2) of ``word``, from a row's four code
+// values t[0..3]: two bit tests and three selects (sh is a constant once
+// the loops unroll), no arithmetic, so w is t[code] bit for bit.
+__device__ __forceinline__ float pick(uint32_t word, int sh,
+                                      const float (&t)[4]) {
+  const bool b0 = (word >> sh) & 1u;
+  const float lo = b0 ? t[1] : t[0];
+  const float hi = b0 ? t[3] : t[2];
+  return ((word >> (sh + 1)) & 1u) ? hi : lo;
+}
+
 // cp.async staging (sm_80+): copies from global into shared memory that
 // run while the block computes; commit a group after issuing, wait for
 // all groups, then __syncthreads() before reading what landed.
@@ -109,6 +120,64 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One stage of the double-buffered z = W x kernels (B1, B3): a 32-byte
+// chunk (128 samples) of TM SNP rows' packed bytes, rows BSTRIDE bytes
+// apart, and the chunk's panel rows x[s][j][0..KC) for the 4 planes.
+constexpr int kChunkBytes = 32;
+
+template <int TM, int BSTRIDE, int KC>
+struct ChunkStage {
+  uint8_t bytes[TM][BSTRIDE];
+  float x[4][kChunkBytes][KC];
+};
+
+// Start the copies of chunk [base, base + 32) of rows [row0, row0 + TM)
+// into ``sg``, NT threads sharing them: 16-byte cp.async where the row's
+// bytes (``bytes16``) or the panel (``x16``) are 16-byte aligned, plain
+// copies where not.  Ragged edges are written with plain stores: byte
+// 0x55 (four missing codes) past row p or byte nb, zero panel rows past
+// byte nb.
+template <int TM, int BSTRIDE, int KC, int NT>
+__device__ __forceinline__ void stage_chunk(
+    ChunkStage<TM, BSTRIDE, KC>& sg, const uint8_t* __restrict__ packed,
+    const float* __restrict__ x, long long p, long long nb, long long row0,
+    long long base, bool bytes16, bool x16, int tid) {
+  constexpr int CB = kChunkBytes;
+  for (int idx = tid; idx < TM * (CB / 16); idx += NT) {
+    const int r = idx / (CB / 16);
+    const int q = idx % (CB / 16);
+    const long long gr = row0 + r;
+    const long long gb = base + 16 * q;
+    uint8_t* dst = &sg.bytes[r][16 * q];
+    if (bytes16 && gr < p && gb + 16 <= nb) {
+      cp_async16(dst, packed + gr * nb + gb);
+    } else {
+      for (int e = 0; e < 16; ++e)
+        dst[e] = (gr < p && gb + e < nb) ? packed[gr * nb + gb + e]
+                                         : kMissingByte;
+    }
+  }
+  constexpr int V4 = KC / 4;
+  for (int idx = tid; idx < 4 * CB * V4; idx += NT) {
+    const int s = idx / (CB * V4);
+    const int rem = idx % (CB * V4);
+    const int j = rem / V4;
+    const int q = rem % V4;
+    const long long gb = base + j;
+    float* dst = &sg.x[s][j][4 * q];
+    if (gb < nb) {
+      const float* src = x + (static_cast<long long>(s) * nb + gb) * KC + 4 * q;
+      if (x16) {
+        cp_async16(dst, src);
+      } else {
+        for (int e = 0; e < 4; ++e) dst[e] = src[e];
+      }
+    } else {
+      *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
 }
 
 }  // namespace fp

@@ -1,5 +1,7 @@
-// B3: the two-float (z_hi, z_err) of z = W x, where W = W_hi + W_lo is
-// the exact float64 standardized matrix split into a float32 pair.
+// B3's first Hopper design, kept for comparison (production B3 is
+// crossprod_ff_v2.cu, whose sums are these bit for bit): the two-float
+// (z_hi, z_err) of z = W x, where W = W_hi + W_lo is the exact float64
+// standardized matrix split into a float32 pair.
 //
 // Replaces flashpca_tpu/kernels/packed_matvec.py::_crossprod_ff_kernel.
 //
@@ -131,10 +133,12 @@ crossprod_ff_kernel(const uint8_t* __restrict__ packed,
 
 }  // namespace
 
-// packed (p, nb) u8; lut6 (6, p) f32; x (4*nb, kc) f32; zh, zl (p, kc) f32.
-extern "C" int fp_crossprod_ff(const void* packed, const void* lut6,
-                               const void* x, void* zh, void* zl, long long p,
-                               long long nb, int kc, void* stream) {
+// B3's first design.  packed (p, nb) u8; lut6 (6, p) f32; x (4*nb, kc)
+// f32; zh, zl (p, kc) f32.
+extern "C" int fp_crossprod_ff_v1(const void* packed, const void* lut6,
+                                  const void* x, void* zh, void* zl,
+                                  long long p, long long nb, int kc,
+                                  void* stream) {
   if (p <= 0 || nb <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((p + TM - 1) / TM));
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -63,17 +63,14 @@ namespace {
 
 namespace v2 {
 
-constexpr int CB = 32;             // bytes per chunk (128 samples): one fold
+constexpr int CB = fp::kChunkBytes;  // bytes a chunk (128 samples): one fold
 constexpr int BSTRIDE = CB + 16;   // byte-tile row stride: 12 words
 constexpr int R = 2;               // SNP rows a thread
 constexpr int TM = 128;            // SNP rows a block
 
 // One stage of the double buffer: a chunk's byte tile and x rows.
 template <int KC>
-struct Stage {
-  uint8_t bytes[TM][BSTRIDE];
-  float x[4][CB][KC];
-};
+using Stage = fp::ChunkStage<TM, BSTRIDE, KC>;
 
 // The tile at KC: C columns a thread (8 at KC 8 and 16, 12 at 24, 16 at
 // 32), threads per block (TM / R row slots x KC / C column groups), the
@@ -90,58 +87,6 @@ struct Tile {
   static constexpr int MIN_BLOCKS = TPS / NT > 0 ? TPS / NT : 1;
   static constexpr int SMEM = 2 * sizeof(Stage<KC>) + R * C * NT * 4;
 };
-
-// w of the code in bits [sh, sh + 2) of ``word``, from the row's four
-// decoded values: two bit tests and three selects (sh is a constant once
-// the loops unroll), no arithmetic, so w is t[code] bit for bit.
-__device__ __forceinline__ float pick(uint32_t word, int sh,
-                                      const float (&t)[4]) {
-  const bool b0 = (word >> sh) & 1u;
-  const float lo = b0 ? t[1] : t[0];
-  const float hi = b0 ? t[3] : t[2];
-  return ((word >> (sh + 1)) & 1u) ? hi : lo;
-}
-
-// Start the copies of chunk [base, base + CB) into stage ``sg``.
-template <int KC, int NT>
-__device__ __forceinline__ void stage_chunk(
-    Stage<KC>& sg, const uint8_t* __restrict__ packed,
-    const float* __restrict__ x, long long p, long long nb, long long row0,
-    long long base, bool bytes16, bool x16, int tid) {
-  for (int idx = tid; idx < TM * (CB / 16); idx += NT) {
-    const int r = idx / (CB / 16);
-    const int q = idx % (CB / 16);
-    const long long gr = row0 + r;
-    const long long gb = base + 16 * q;
-    uint8_t* dst = &sg.bytes[r][16 * q];
-    if (bytes16 && gr < p && gb + 16 <= nb) {
-      fp::cp_async16(dst, packed + gr * nb + gb);
-    } else {
-      for (int e = 0; e < 16; ++e)
-        dst[e] = (gr < p && gb + e < nb) ? packed[gr * nb + gb + e]
-                                         : fp::kMissingByte;
-    }
-  }
-  constexpr int V4 = KC / 4;
-  for (int idx = tid; idx < 4 * CB * V4; idx += NT) {
-    const int s = idx / (CB * V4);
-    const int rem = idx % (CB * V4);
-    const int j = rem / V4;
-    const int q = rem % V4;
-    const long long gb = base + j;
-    float* dst = &sg.x[s][j][4 * q];
-    if (gb < nb) {
-      const float* src = x + (static_cast<long long>(s) * nb + gb) * KC + 4 * q;
-      if (x16) {
-        fp::cp_async16(dst, src);
-      } else {
-        for (int e = 0; e < 4; ++e) dst[e] = src[e];
-      }
-    } else {
-      *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-  }
-}
 
 template <int KC>
 __global__ void __launch_bounds__(Tile<KC>::NT, Tile<KC>::MIN_BLOCKS)
@@ -193,7 +138,8 @@ crossprod_tile_kernel(const uint8_t* __restrict__ packed,
   }
 
   const long long nchunk = (nb + CB - 1) / CB;
-  stage_chunk<KC, NT>(sg[0], packed, x, p, nb, row0, 0, bytes16, x16, tid);
+  fp::stage_chunk<TM, BSTRIDE, KC, NT>(sg[0], packed, x, p, nb, row0, 0,
+                                       bytes16, x16, tid);
   fp::cp_async_commit();
   for (long long ch = 0; ch < nchunk; ++ch) {
     // chunk ch has landed for every thread, and every thread is done
@@ -201,8 +147,9 @@ crossprod_tile_kernel(const uint8_t* __restrict__ packed,
     fp::cp_async_wait_all();
     __syncthreads();
     if (ch + 1 < nchunk)
-      stage_chunk<KC, NT>(sg[(ch + 1) & 1], packed, x, p, nb, row0,
-                          (ch + 1) * CB, bytes16, x16, tid);
+      fp::stage_chunk<TM, BSTRIDE, KC, NT>(sg[(ch + 1) & 1], packed, x, p,
+                                           nb, row0, (ch + 1) * CB, bytes16,
+                                           x16, tid);
     fp::cp_async_commit();
 
     const Stage<KC>& cur = sg[ch & 1];
@@ -226,7 +173,7 @@ crossprod_tile_kernel(const uint8_t* __restrict__ packed,
           float w[R];
 #pragma unroll
           for (int i = 0; i < R; ++i)
-            w[i] = pick(wd[i][jj / 4], 8 * (jj % 4) + 2 * s, tab[i]);
+            w[i] = fp::pick(wd[i][jj / 4], 8 * (jj % 4) + 2 * s, tab[i]);
           const float4* xr =
               reinterpret_cast<const float4*>(&cur.x[s][j][cg * C]);
 #pragma unroll

@@ -10,14 +10,15 @@ decoded matrix never reaches device memory:
 ====  ==================  ============================================
 B1    crossprod_v2.cu     z = W x        (n4, k) -> (p, k)
 B2    matvec.cu           y = W^T v      (p, k) -> (n4, k)
-B3    crossprod_ff.cu     two-float (z_hi, z_err) of W x
+B3    crossprod_ff_v2.cu  two-float (z_hi, z_err) of W x
 B4    matvec_ff.cu        two-float (y_hi, y_err) of W^T (v_hi + v_lo)
 B5    matvec_ff_novl.cu   two-float (y_hi, y_err) of W^T v (no v_lo)
 ====  ==================  ============================================
 
-B1 has one comparison entry that no operator launches: its first
-design in crossprod.cu (``crossprod_v1_p``), whose sums are bit for bit
-B1's.  B5 has three: its first
+B1 and B3 each have one comparison entry that no operator launches:
+their first designs, in crossprod.cu (``crossprod_v1_p``) and
+crossprod_ff.cu (``crossprod_ff_v1_p``), whose sums are bit for bit
+B1's and B3's.  B5 has three: its first
 design, the ``HAS_VL=false`` instantiation of matvec_ff.cu
 (``matvec_ff_novl_v1_p``), and its design at two other tiles in
 matvec_ff_novl_variants.cu (``matvec_ff_novl_c4_p``,
@@ -64,12 +65,15 @@ OPERATOR_KERNELS = ("crossprod", "matvec", "crossprod_ff", "matvec_ff",
                     "matvec_ff_novl")
 SWEEP_KERNELS = ("crossprod_tiled", "matvec_tiled", "crossprod_stacked",
                  "crossprod_intsub", "crossprod_split3", "crossprod_nocomp")
-# B1's and B5's comparison entries, which no operator launches either
+# B1's, B3's and B5's comparison entries, which no operator launches
+# either
 B1_KERNELS = ("crossprod_v1",)
+B3_KERNELS = ("crossprod_ff_v1",)
 NOVL_KERNELS = ("matvec_ff_novl_v1", "matvec_ff_novl_c4",
                 "matvec_ff_novl_cr128")
 launch_counts = dict.fromkeys(
-    OPERATOR_KERNELS + SWEEP_KERNELS + B1_KERNELS + NOVL_KERNELS, 0)
+    OPERATOR_KERNELS + SWEEP_KERNELS + B1_KERNELS + B3_KERNELS
+    + NOVL_KERNELS, 0)
 _launch_log: list | None = None
 
 
@@ -335,11 +339,12 @@ def _launch_matvec(packed, coeffs, v, kc):
     return y
 
 
-def _launch_crossprod_ff(packed, lut6, x, kc):
+def _launch_crossprod_ff(packed, lut6, x, kc, name="crossprod_ff"):
+    """Launch B3 (or, by ``name``, its first design)."""
     p, nb = packed.shape
     zh = torch.empty((p, kc), dtype=torch.float32, device=packed.device)
     zl = torch.empty_like(zh)
-    _run("crossprod_ff", packed, lut6, x, zh, zl, p, nb, kc)
+    _run(name, packed, lut6, x, zh, zl, p, nb, kc)
     return zh, zl
 
 
@@ -427,14 +432,27 @@ def gram_matvec_p(packed, mean, invsd, xp):
 
 def crossprod_ff_p(packed, lut6, xp):
     """(z_hi, z_err) of W xp: (n4, k) -> 2 x (p, k).  B3 on CUDA."""
-    _check_shapes(4 * packed.shape[1], xp, "crossprod_ff_p")
+    return _crossprod_ff_p("crossprod_ff", packed, lut6, xp)
+
+
+def crossprod_ff_v1_p(packed, lut6, xp):
+    """B3's first design (crossprod_ff.cu); the sums of
+    :func:`crossprod_ff_p` bit for bit, :func:`crossprod_ff_plain` on the
+    CPU."""
+    return _crossprod_ff_p("crossprod_ff_v1", packed, lut6, xp)
+
+
+def _crossprod_ff_p(name, packed, lut6, xp):
+    _check_shapes(4 * packed.shape[1], xp, f"{name}_p")
     if xp.device.type == "cpu":
         return crossprod_ff_plain(packed, lut6, xp)
     _check_cuda(packed, xp, lut6)
     _check_lut6(packed, lut6)
-    outs = [_launch_crossprod_ff(packed, lut6, _padded(xp, c0, c1, kc), kc)
-            for c0, c1, kc in _widths(xp.shape[1])]
-    return _cat_pairs(outs, _widths(xp.shape[1]))
+    w = _widths(xp.shape[1])
+    outs = [_launch_crossprod_ff(packed, lut6, _padded(xp, c0, c1, kc), kc,
+                                 name)
+            for c0, c1, kc in w]
+    return _cat_pairs(outs, w)
 
 
 def matvec_ff_p(packed, lut6, vh, vl):

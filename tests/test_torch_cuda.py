@@ -144,6 +144,31 @@ def test_b1_is_bit_equal_to_its_first_design(cuda, k, p, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 16, 24, 28, 32])
+@pytest.mark.parametrize("p,n", [(333, 1001), (133, 771), (333, 4096)])
+def test_b3_is_bit_equal_to_its_first_design(cuda, k, p, n):
+    """B3 (crossprod_ff_v2.cu) gives its first design's (z_hi, z_err) bit
+    for bit at every KC (k 3 -> 8; 16; 24; 28 -> 32; 32): each output
+    takes the same two FMA sequences and the same TwoSum fold every 32
+    bytes.  p = 333 and 133 are ragged on B3's 128-row blocks; n = 1001
+    and 771 give 251 and 193 bytes (nb % 16 != 0: a partial last chunk,
+    rows staged byte by byte), n = 4096 1,024 (aligned)."""
+    packed, _, _, nb = _operands(cuda, n, p)
+    lut6 = tpk.lut_rows(torch.randn(p, 4, device=cuda),
+                        torch.randn(p, 4, device=cuda) * 1e-8)
+    x = torch.randn((4 * nb, k), device=cuda)
+    tpk.reset_launch_counts()
+    zh, zl = tpk.crossprod_ff_p(packed, lut6, x)
+    vh, vl = tpk.crossprod_ff_v1_p(packed, lut6, x)
+    assert tpk.launch_counts["crossprod_ff"] == 1
+    assert tpk.launch_counts["crossprod_ff_v1"] == 1
+    assert torch.equal(zh, vh) and torch.equal(zl, vl)
+    ph, pl = tpk.crossprod_ff_plain(packed.cpu(), lut6.cpu(), x.cpu())
+    _close(zh, ph)
+    _close_pair(zh, zl, ph, pl)
+
+
+@pytest.mark.cuda
 def test_kernels_count_launches_and_refuse_float64(cuda):
     packed, mean, invsd, nb = _operands(cuda, 100, 40)
     tpk.reset_launch_counts()

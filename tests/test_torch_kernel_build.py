@@ -1,4 +1,4 @@
-"""The kernel build table, B1's and B5's comparison entries and
+"""The kernel build table, the comparison entries of B1, B3 and B5 and
 chip_smoke.py's tables, on the CPU.
 
 The CUDA sources compile only on a machine with ``nvcc`` and a card, so
@@ -6,10 +6,11 @@ what runs here is what surrounds them: every entry of
 ``_build.KERNELS`` names a source that exists and a C function of that
 source whose parameter count matches its ctypes argument list; the
 build directory's hash moves with every source; every entry has a
-launch count; production B1's and B5's libraries hold no comparison
-entry; B1's and B5's comparison wrappers exist and take the plain
-versions on CPU tensors, bit for bit; and chip_smoke.py has the rows its timing phase reads and
-parses the compiler's register report.
+launch count; production B1's, B3's and B5's libraries hold no
+comparison entry; the comparison wrappers exist and take the plain
+versions on CPU tensors, bit for bit; chip_smoke.py has the rows its
+timing phase reads and parses the compiler's register report; and the
+B3 tile tool reads production's tiles and refuses the CPU.
 """
 
 import importlib.util
@@ -46,10 +47,13 @@ def _chip_smoke():
     ("crossprod", "crossprod_v2.cu", "fp_crossprod"),
     ("crossprod_v1", "crossprod.cu", "fp_crossprod_v1"),
     ("crossprod_tiled", "crossprod.cu", "fp_crossprod_tiled"),
+    ("crossprod_ff", "crossprod_ff_v2.cu", "fp_crossprod_ff"),
+    ("crossprod_ff_v1", "crossprod_ff.cu", "fp_crossprod_ff_v1"),
 ])
 def test_b5_entries_map_to_their_sources(name, src, entry):
-    """B5's and (since its redesign) B1's entries: production in the new
-    source, the first design and the sweep's tile entry in the old one."""
+    """B5's and (since their redesigns) B1's and B3's entries: production
+    in the new source, the first design (and B1's sweep tile entry) in
+    the old one."""
     assert _build.KERNELS[name][:2] == (src, entry)
 
 
@@ -83,7 +87,13 @@ def test_b5_is_built_from_its_new_source():
 
 def test_b1_is_built_from_its_new_source():
     assert {"crossprod_v2.cu", "crossprod.cu"} <= set(_build.sources())
-    assert len(_build.sources()) == 9 and len(_build.KERNELS) == 15
+    assert len(_build.sources()) == 10 and len(_build.KERNELS) == 16
+
+
+def test_b3_is_built_from_its_new_source():
+    assert {"crossprod_ff_v2.cu", "crossprod_ff.cu"} <= set(_build.sources())
+    assert _build.KERNELS["crossprod_ff"][2] == _build.KERNELS[
+        "crossprod_ff_v1"][2]
 
 
 def test_production_b1_library_holds_only_b1():
@@ -99,6 +109,21 @@ def test_production_b1_library_holds_only_b1():
     # the note names the TPU kernel it replaces and its bound
     assert "packed_matvec.py::_crossprod_kernel" in prod
     assert "2*KC*p*n4 operations" in prod
+
+
+def test_production_b3_library_holds_only_b3():
+    """B3's source defines one C entry; its first design's stays in
+    crossprod_ff.cu, alone there."""
+    with open(os.path.join(_build.CSRC, "crossprod_ff_v2.cu")) as fh:
+        prod = fh.read()
+    with open(os.path.join(_build.CSRC, "crossprod_ff.cu")) as fh:
+        first = fh.read()
+    assert re.findall(r'extern "C" int (\w+)\(', prod) == ["fp_crossprod_ff"]
+    assert re.findall(r'extern "C" int (\w+)\(', first) == [
+        "fp_crossprod_ff_v1"]
+    # the note names the TPU kernel it replaces and its bound
+    assert "packed_matvec.py::_crossprod_ff_kernel" in prod
+    assert "4*KC*p*n4 operations" in prod
 
 
 def test_production_b5_library_holds_only_b5():
@@ -117,10 +142,11 @@ def test_production_b5_library_holds_only_b5():
 
 def test_launch_counts_cover_every_entry():
     assert set(tpk.launch_counts) == set(_build.KERNELS)
-    for comparison in (tpk.NOVL_KERNELS, tpk.B1_KERNELS):
+    for comparison in (tpk.NOVL_KERNELS, tpk.B1_KERNELS, tpk.B3_KERNELS):
         assert set(comparison) <= set(tpk.launch_counts)
         assert not set(comparison) & set(tpk.OPERATOR_KERNELS)
     assert tpk.B1_KERNELS == ("crossprod_v1",)
+    assert tpk.B3_KERNELS == ("crossprod_ff_v1",)
 
 
 @pytest.fixture(scope="module")
@@ -168,6 +194,21 @@ def test_b1_wrappers_on_cpu_are_plain(novl_operands, name, k):
     assert all(c == 0 for c in tpk.launch_counts.values())
 
 
+@pytest.mark.parametrize("k", [3, 16, 40])
+@pytest.mark.parametrize("name", ("crossprod_ff",) + tpk.B3_KERNELS)
+def test_b3_wrappers_on_cpu_are_plain(novl_operands, name, k):
+    """B3 and its first design take crossprod_ff_plain on CPU tensors,
+    both halves bit for bit, and launch nothing."""
+    packed, lut6, rng = novl_operands
+    x = torch.from_numpy(
+        rng.standard_normal((4 * packed.shape[1], k)).astype(np.float32))
+    tpk.reset_launch_counts()
+    zh, zl = getattr(tpk, name + "_p")(packed, lut6, x)
+    ph, pl = tpk.crossprod_ff_plain(packed, lut6, x)
+    assert torch.equal(zh, ph) and torch.equal(zl, pl)
+    assert all(c == 0 for c in tpk.launch_counts.values())
+
+
 @pytest.mark.parametrize("name", ("crossprod",) + tpk.B1_KERNELS)
 def test_chip_smoke_has_rows_for_b1_and_its_first_design(name):
     """The rows chip_smoke's timing phase reads for B1 and its first
@@ -185,6 +226,120 @@ def test_chip_smoke_names_b1s_instantiations():
     sym = ("_ZN45_GLOBAL__N__9a1b2c3d_15_crossprod_v2_cu_1f2e3d4c2v2"
            "21crossprod_tile_kernelILi32EEEvPKhPKfS5_S5_S5_Pfxxbb")
     assert cs.kernel_name(sym) == "crossprod_tile_kernel<32>"
+
+
+@pytest.mark.parametrize("name", ("crossprod_ff",) + tpk.B3_KERNELS)
+def test_chip_smoke_has_rows_for_b3_and_its_first_design(name):
+    """The rows chip_smoke's timing phase reads for B3 and its first
+    design: sources, the TPU kernel replaced and two products a genotype
+    (the bound)."""
+    cs = _chip_smoke()
+    assert cs.SOURCE[name] == ("flashpca_tpu_torch/kernels/csrc/"
+                               + _build.KERNELS[name][0])
+    assert os.path.exists(os.path.join(ROOT, cs.SOURCE[name]))
+    assert cs.TPU_KERNEL[name] == "flashpca_tpu/kernels/packed_matvec.py:336"
+    assert cs.DOTS[name] == 2
+
+
+def test_chip_smoke_names_b3s_instantiations():
+    cs = _chip_smoke()
+    sym = ("_ZN45_GLOBAL__N__9a1b2c3d_18_crossprod_ff_v2_cu_1f2e3d4c3ff2"
+           "24crossprod_ff_tile_kernelILi24EEEvPKhPKfS5_PfS6_xxbb")
+    assert cs.kernel_name(sym) == "crossprod_ff_tile_kernel<24>"
+
+
+def test_chip_smoke_requires_no_spills():
+    cs = _chip_smoke()
+    ok = [("k<8>", "Used 60 registers, 400 bytes cmem[0]; 0 bytes spill "
+           "stores, 0 bytes spill loads")]
+    cs.require_no_spills("crossprod_ff_v2.cu", ok)
+    for bad in ([("k<32>", "Used 80 registers; 8 bytes spill stores, 4 "
+                  "bytes spill loads")], [("k<32>", "Used 80 registers")],
+                []):
+        with pytest.raises(AssertionError):
+            cs.require_no_spills("crossprod_ff_v2.cu", ok + bad
+                                 if bad else bad)
+
+
+def test_chip_smoke_requires_b3_equal_on_both_halves():
+    cs = _chip_smoke()
+    a = torch.arange(6.0).reshape(3, 2)
+    cs.require_b3_equal((a, -a), (a.clone(), -a), "same")
+    b = a.clone()
+    b[1, 1] = torch.nextafter(b[1, 1], torch.tensor(9.0))
+    for got in ((b, -a), (a, -b)):
+        with pytest.raises(AssertionError, match="not bit-equal"):
+            cs.require_b3_equal(got, (a, -a), "one ulp")
+
+
+def test_chip_smoke_pairs_rows_with_first_designs():
+    """A first-design row follows each current row whose first design
+    was timed at its kc, with the current row's bound and library time
+    and its own median time; other rows pass through unmarked."""
+    cs = _chip_smoke()
+    row = {"name": "crossprod_ff", "k": 20, "ms": 1.0, "bound_ms": 0.5,
+           "library_ms": 2.0, "launches": 5}
+    other = dict(row, name="matvec", k=16)
+    launches = dict.fromkeys(tpk.launch_counts, 0)
+    worst = dict.fromkeys(tpk.launch_counts, 0.0)
+    out = cs.with_first_designs(
+        [row, other], {"crossprod_ff": ("crossprod_ff_v1",
+                                        {"crossprod_ff_v1/24": [3.0, 5.0]})},
+        launches, worst)
+    assert [(r["name"], r.get("design")) for r in out] == [
+        ("crossprod_ff", "current"), ("crossprod_ff_v1", "first"),
+        ("matvec", None)]
+    first = out[1]
+    assert first["ms"] == 4.0 and first["launches"] == 0
+    assert (first["bound_ms"], first["library_ms"]) == (0.5, 2.0)
+    assert first["source"].endswith("/crossprod_ff.cu")
+
+
+def test_b3_tile_tool_reads_production_tiles():
+    """The tool's production tiles are the source's defaults, and every
+    tile it tries divides its KC."""
+    from flashpca_tpu_torch.tools import b3_tiles
+
+    prod = b3_tiles.production_tiles()
+    assert prod == {8: (1, 8, 768), 16: (1, 8, 768), 24: (1, 12, 768),
+                    32: (1, 16, 512)}
+    for kc, tiles in b3_tiles.TILES.items():
+        for r, c, tps in tiles:
+            assert (r, c, tps) != prod[kc]
+            assert kc % c == 0 and c % 4 == 0 and 128 % (32 * r) == 0
+    src = b3_tiles.tile_source(32, (2, 8, 768)).splitlines()
+    assert src[0] == "#define CROSSPROD_FF_TILE_32 2, 8, 768"
+    assert src[1] == '#include "%s"' % os.path.join(_build.CSRC,
+                                                    "crossprod_ff_v2.cu")
+    # the tool reads each tile's registers under the kernel's own name
+    sym = ("_ZN45_GLOBAL__N__9a1b2c3d_18_crossprod_ff_v2_cu_1f2e3d4c3ff2"
+           "24crossprod_ff_tile_kernelILi24EEEvPKhPKfS5_PfS6_xxbb")
+    log = [f"ptxas info    : Compiling entry function '{sym}' for 'sm_90a'",
+           "ptxas info    : Used 80 registers, used 1 barriers"]
+    assert dict(_build.ptxas_usage(log)) == {
+        f"{b3_tiles.KERNEL}<24>": "Used 80 registers, used 1 barriers"}
+    # the source only sets a default the definition overrides
+    with open(os.path.join(_build.CSRC, "crossprod_ff_v2.cu")) as fh:
+        assert "#ifndef CROSSPROD_FF_TILE_32\n" in fh.read()
+
+
+def test_b3_tile_tool_counts_blocks_an_sm():
+    """Production's kc=32 tile: 256 threads, 72 KB of shared memory,
+    two blocks an SM at 127 registers; three at 80 (shared memory allows
+    three), two past 85."""
+    from flashpca_tpu_torch.tools import b3_tiles
+
+    assert b3_tiles.occupancy(32, (1, 16, 512), 127) == (256, 73_728, 2)
+    assert b3_tiles.occupancy(32, (1, 16, 768), 80) == (256, 73_728, 3)
+    assert b3_tiles.occupancy(32, (1, 16, 768), 86)[2] == 2
+
+
+def test_b3_tile_tool_exits_nonzero_without_gpu(monkeypatch, capsys):
+    from flashpca_tpu_torch.tools import b3_tiles
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert b3_tiles.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("name", ["matvec_ff_novl", "matvec_ff_novl_v1"])
