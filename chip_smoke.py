@@ -6,23 +6,23 @@
 Phases, all in this one process; any failure raises and exits nonzero:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the hand-written kernels from kernels/csrc, sixteen entries
-   in ten libraries: B1-B5, the kernel sweep's tile entries of B1 and
-   B2 and its variants V1-V4 of B1, the first designs of B1 and B3, and
-   B5's comparison entries -- its first design and its design at C = 4
-   columns per thread or CR = 128 rows per chunk (timed set-up); each
-   instantiation's registers and spills (ptxas; production B3 must
-   spill nothing), and the instruction mix of B5's and B3's inner loops
-   in each (cuobjdump);
+2. build the hand-written kernels from kernels/csrc, seventeen entries
+   in eleven libraries: B1-B5, the kernel sweep's tile entries of B1 and
+   B2 and its variants V1-V4 of B1, the first designs of B1, B2 and B3,
+   and B5's comparison entries -- its first design and its design at C =
+   4 columns per thread or CR = 128 rows per chunk (timed set-up); each
+   instantiation's registers and spills (ptxas; production B2 and B3
+   must spill nothing), and the instruction mix of B5's, B3's and B2's
+   inner loops in each (cuobjdump);
 3. hold each kernel against its plain PyTorch version on the card, at
    full width (501,760 samples) on a 4,096-SNP slice and on a small odd
    case (n % 4 != 0, some inv_sd == 0), panels k in {3, 16, 24}, and
    each against a float64 product; there also V1-V4 (V3 within 5e-5 of
-   float64, the others 1e-5), B1 and B3 each bit-equal to its first
+   float64, the others 1e-5), B1, B2 and B3 each bit-equal to its first
    design (torch.equal, both halves of B3, at every case and k of this
-   phase, the tall width's too), the first design's tile entries
-   bit-equal to B1 and B2's
-   against B2's plain version.  B5 (and its comparison entries) and the
+   phase, the tall width's too), B1's tile entries and B2's at 64 rows
+   a chunk bit-equal to B1 and B2, and B2's at 32 and 128 against B2's
+   plain version.  B5 (and its comparison entries) and the
    tall two-float gram (B5, mask, B3, B1) likewise on those cases and at
    the tall width (2,048 SNPs x 1,003,520 samples), panels k in {3, 16,
    24, 28}, and there B1-B3 at k in {16, 24, 28}; the gram within
@@ -40,7 +40,8 @@ Phases, all in this one process; any failure raises and exits nonzero:
    run; then B1-B4 timed at the headline shapes (B1/B2 at kc 16 and 24,
    B3/B4 at 24) beside their bounds, their plain versions and the
    torch.matmul calls on the same block decoded to float32, and B1 (kc
-   16) and B3 (kc 24) beside their first designs in turns;
+   16), B2 (kc 16 and 24) and B3 (kc 24) beside their first designs in
+   turns;
 6. the kernel sweep (flashpca_tpu_torch.tools.kernel_sweep) at the wide
    headline's shape, 100,352 x 501,760, k=16, after the headline's
    operator is freed: V1-V4 against B1 on a 512-SNP slice, B1/B2 at each
@@ -61,14 +62,14 @@ Phases, all in this one process; any failure raises and exits nonzero:
    between the paths 3.6e-5 both ways); then B5 at kc 32 and 24 (and
    B1-B3 at their tall widths: B1 and B2 at 16, 24, 32, B3 at 24, 32)
    timed at the tall shapes, and beside B5, on the same inputs, its
-   comparison entries, B1 at kc 16 and 32 and B3 at kc 24 and 32 beside
-   their first designs in turns.
+   comparison entries, B1 at kc 16 and 32, B2 at kc 16, 24 and 32 and B3
+   at kc 24 and 32 beside their first designs in turns.
 
 The headlines must give wide ``n_ops`` 20 and tall ``n_ops`` 32, and no
 launch of a first design or comparison entry on either main path.  The
 line before the last is the JSON ``{"kernels": [...]}`` (B1-B5 at the
-widths the headlines launch, the first designs of B1, B3 and B5 from
-the timing phases, V1-V4 from the sweep); the last
+widths the headlines launch, the first designs of B1, B2, B3 and B5
+from the timing phases, V1-V4 from the sweep); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside it, the script exits nonzero and prints no
 result.
@@ -109,6 +110,7 @@ TPU_KERNEL = {
     "crossprod": "flashpca_tpu/kernels/packed_matvec.py:83",
     "crossprod_v1": "flashpca_tpu/kernels/packed_matvec.py:83",
     "matvec": "flashpca_tpu/kernels/packed_matvec.py:122",
+    "matvec_v1": "flashpca_tpu/kernels/packed_matvec.py:122",
     "crossprod_ff": "flashpca_tpu/kernels/packed_matvec.py:336",
     "crossprod_ff_v1": "flashpca_tpu/kernels/packed_matvec.py:336",
     "matvec_ff": "flashpca_tpu/kernels/packed_matvec.py:369",
@@ -121,7 +123,8 @@ TPU_KERNEL = {
 }
 _CSRC = "flashpca_tpu_torch/kernels/csrc/"
 SOURCE = {"crossprod": _CSRC + "crossprod_v2.cu",
-          "crossprod_v1": _CSRC + "crossprod.cu", "matvec": _CSRC + "matvec.cu",
+          "crossprod_v1": _CSRC + "crossprod.cu",
+          "matvec": _CSRC + "matvec_v2.cu", "matvec_v1": _CSRC + "matvec.cu",
           "crossprod_ff": _CSRC + "crossprod_ff_v2.cu",
           "crossprod_ff_v1": _CSRC + "crossprod_ff.cu",
           "matvec_ff": _CSRC + "matvec_ff.cu",
@@ -133,8 +136,8 @@ SOURCE = {"crossprod": _CSRC + "crossprod_v2.cu",
           "crossprod_nocomp": _CSRC + "crossprod_variants.cu"}
 # float32 dots per genotype and panel column (V3's products are bf16:
 # SPLIT3_BF16_DOTS of them, and its decode is bounded apart)
-DOTS = {"crossprod": 1, "crossprod_v1": 1, "matvec": 1, "crossprod_ff": 2,
-        "crossprod_ff_v1": 2, "matvec_ff": 3,
+DOTS = {"crossprod": 1, "crossprod_v1": 1, "matvec": 1, "matvec_v1": 1,
+        "crossprod_ff": 2, "crossprod_ff_v1": 2, "matvec_ff": 3,
         "matvec_ff_novl": 2, "matvec_ff_novl_v1": 2,
         "crossprod_stacked": 1, "crossprod_intsub": 1, "crossprod_nocomp": 1}
 SPLIT3_BF16_DOTS = 3
@@ -171,8 +174,10 @@ TALL_N, TALL_P = 1_003_520, 50_176
 
 def sass_hot_loops(sass):
     """{kernel<template args>: Counter of opcodes} of the innermost hot
-    loop of each function in a ``cuobjdump -sass`` listing: the loop
-    (a backward branch) with the most FFMA, the shortest of those."""
+    loop of each function in a ``cuobjdump -sass`` listing: the shortest
+    loop (a backward branch) with at least 90% of the most FFMA any loop
+    holds (an outer loop that adds a few FFMA of its own, as B2's table
+    decode, around the inner one is not it)."""
     from collections import Counter
 
     out = {}
@@ -183,18 +188,17 @@ def sass_hot_loops(sass):
         ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                          r"([A-Z][A-Z0-9_.]*)([^;]*);", part)
         at = {int(a, 16): i for i, (a, _, _) in enumerate(ins)}
-        best = None
+        loops = []
         for i, (_, op, args) in enumerate(ins):
             t = re.search(r"0x([0-9a-f]+)", args)
             j = at.get(int(t.group(1), 16)) if t else None
             if not op.startswith("BRA") or j is None or j >= i:
                 continue
-            c = Counter(o.split(".")[0] for _, o, _ in ins[j: i + 1])
-            key = (c["FFMA"], j - i)
-            if best is None or key > best[0]:
-                best = (key, c)
-        if best is not None:
-            out[fn] = best[1]
+            loops.append(Counter(o.split(".")[0] for _, o, _ in ins[j: i + 1]))
+        if loops:
+            most = max(c["FFMA"] for c in loops)
+            out[fn] = min((c for c in loops if c["FFMA"] >= 0.9 * most),
+                          key=lambda c: sum(c.values()))
     return out
 
 
@@ -265,6 +269,19 @@ def require_b1_equal(z, z1, where):
         raise AssertionError(
             f"crossprod {where}: not bit-equal to crossprod_v1 (max diff "
             f"{float((z - z1).abs().max()):.3e})")
+
+
+def require_b2_equal(y, y1, y64, where):
+    """B2 (``y``) must give its first design's sums (``y1``) bit for bit,
+    and so the first design's tile entry at production's 64 rows a chunk
+    (``y64``: the same folds)."""
+    import torch
+
+    for name, other in (("matvec_v1", y1), ("matvec_tiled cr=64", y64)):
+        if not torch.equal(y, other):
+            raise AssertionError(
+                f"matvec {where}: not bit-equal to {name} (max diff "
+                f"{float((y - other).abs().max()):.3e})")
 
 
 def require_b3_equal(z, z1, where):
@@ -366,17 +383,17 @@ def hold(tag, got, plain, ref, bar, f64_bar, sums=False):
 def check_kernels(dev):
     """Each kernel against its plain version and against a float64
     product, on a full-width slice and a small odd case: B1-B4 and the
-    first designs of B1 and B3 (each bit-equal to its production
+    first designs of B1, B2 and B3 (each bit-equal to its production
     kernel), the sweep's V1-V4 (sharing B1's float64 product), B1's tile
-    entries (bit-equal to B1) and B2's.  Returns {kernel: max abs err
-    against the plain version}."""
+    entries (bit-equal to B1) and B2's (at 64 rows a chunk bit-equal to
+    B2).  Returns {kernel: max abs err against the plain version}."""
     import torch
 
     from flashpca_tpu_torch.kernels import crossprod_variants as cv
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
 
     worst = {name: 0.0 for name in WIDE_PATH + SWEEP_PATH
-             + ("crossprod_v1", "crossprod_ff_v1")}
+             + ("crossprod_v1", "matvec_v1", "crossprod_ff_v1")}
     for label, p, n, seed in KERNEL_CASES:
         packed, mean, invsd, lut6, nb, _ = random_operands(p, n, seed, dev)
         g = torch.Generator(device=dev).manual_seed(seed + 100)
@@ -391,6 +408,7 @@ def check_kernels(dev):
             bar_z, bar_y = plain_bar(4 * nb), plain_bar(p)
             plain_z = tpk.crossprod_plain(packed, mean, invsd, x)
             plain_zz = tpk.crossprod_ff_plain(packed, lut6, x)
+            plain_y = tpk.matvec_plain(packed, mean, invsd, v)
             outs = {
                 # name: (kernel result, plain result, float64 product,
                 #        plain bar, float64 bar); two-float pairs compare
@@ -399,9 +417,10 @@ def check_kernels(dev):
                               plain_z, ref_z, bar_z, 1e-5),
                 "crossprod_v1": (tpk.crossprod_v1_p(packed, mean, invsd, x),
                                  plain_z, ref_z, bar_z, 1e-5),
-                "matvec": (tpk.matvec_p(packed, mean, invsd, v),
-                           tpk.matvec_plain(packed, mean, invsd, v),
+                "matvec": (tpk.matvec_p(packed, mean, invsd, v), plain_y,
                            ref_y, bar_y, 1e-5),
+                "matvec_v1": (tpk.matvec_v1_p(packed, mean, invsd, v),
+                              plain_y, ref_y, bar_y, 1e-5),
                 "crossprod_ff": (tpk.crossprod_ff_p(packed, lut6, x),
                                  plain_zz, ref_z, bar_z, 5e-6),
                 "crossprod_ff_v1": (tpk.crossprod_ff_v1_p(packed, lut6, x),
@@ -424,7 +443,8 @@ def check_kernels(dev):
                              outs["crossprod_ff_v1"][0], f"{label} k={k}")
             # the tile entries: B1's bit-equal to production B1 (each
             # thread walks the same chunks whatever the rows per block),
-            # B2's against B2's plain version (its fold points move)
+            # B2's against B2's plain version (its fold points move), and
+            # at 64 rows a chunk bit-equal to B2 (they do not)
             z = outs["crossprod"][0]
             for tm in cv.TILE_TM:
                 zt = cv.crossprod_tiled_p(packed, mean, invsd, x, tm)
@@ -436,7 +456,9 @@ def check_kernels(dev):
             for cr in cv.TILE_CR:
                 outs[f"matvec_tiled/{cr}"] = (
                     cv.matvec_tiled_p(packed, mean, invsd, v, cr),
-                    outs["matvec"][1], ref_y, bar_y, 1e-5)
+                    plain_y, ref_y, bar_y, 1e-5)
+            require_b2_equal(outs["matvec"][0], outs["matvec_v1"][0],
+                             outs["matvec_tiled/64"][0], f"{label} k={k}")
             errs, rels = {}, {}
             for name, (got, plain, ref, bar, f64_bar) in outs.items():
                 errs[name], rels[name] = hold(f"{name} {label} k={k}", got,
@@ -456,11 +478,12 @@ def check_tall_kernels(dev):
     """B5 and the tall two-float gram against their plain versions and
     against float64 products, on the kernel-check cases and at the tall
     width; there B1, B2 and B3 too, at the tall path's widths, beside the
-    first designs of B1 and B3 (each bit-equal to its production kernel
-    at every case and k).  B5's
-    comparison entries likewise (its first design, C = 4 and CR = 128),
-    and the tall gram with the CR = 128 entry in B5's place against
-    float64, measured but not held to GRAM_F64_BAR.  Returns ({name: max
+    first designs of B1, B2 and B3 (each bit-equal to its production
+    kernel at every case and k, and B2 to its first design's tile entry
+    at 64 rows a chunk).  B5's comparison entries likewise (its first
+    design, C = 4 and CR = 128), and the tall gram with the CR = 128
+    entry in B5's place against float64, measured but not held to
+    GRAM_F64_BAR.  Returns ({name: max
     abs err vs plain}: of the hi half for B5, of the pair's float64 sum
     for CR = 128, the gram and B3; {name: max relative err of the
     kernel vs float64}).
@@ -477,6 +500,7 @@ def check_tall_kernels(dev):
     (B2, mask, B1: no compensation) must miss at the tall width."""
     import torch
 
+    from flashpca_tpu_torch.kernels import crossprod_variants as cv
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
     from flashpca_tpu_torch.ops.genotypes import valid_mask_permuted
 
@@ -507,6 +531,11 @@ def check_tall_kernels(dev):
                              tpk.crossprod_ff_v1_p(packed, lut6, xb),
                              f"{label} k={k}")
             del xb
+            # B2 likewise, on v (B2 takes the SNP-space panel)
+            require_b2_equal(tpk.matvec_p(packed, mean, invsd, v),
+                             tpk.matvec_v1_p(packed, mean, invsd, v),
+                             cv.matvec_tiled_p(packed, mean, invsd, v, 64),
+                             f"{label} k={k}")
             outs = {
                 # name: (kernel, plain, float64, plain bar, float64 bar,
                 #        compare the pairs' sums (else hi halves))
@@ -547,6 +576,7 @@ def check_tall_kernels(dev):
                 ref_x = f64_product(packed, lut6, x, transpose=False)
                 plain_x = tpk.crossprod_plain(packed, mean, invsd, x)
                 plain_xx = tpk.crossprod_ff_plain(packed, lut6, x)
+                plain_mv = tpk.matvec_plain(packed, mean, invsd, v)
                 outs.update({
                     "crossprod": (tpk.crossprod_p(packed, mean, invsd, x),
                                   plain_x, ref_x, plain_bar(4 * nb), 1e-5,
@@ -555,8 +585,9 @@ def check_tall_kernels(dev):
                         tpk.crossprod_v1_p(packed, mean, invsd, x), plain_x,
                         ref_x, plain_bar(4 * nb), 1e-5, False),
                     "matvec": (tpk.matvec_p(packed, mean, invsd, v),
-                               tpk.matvec_plain(packed, mean, invsd, v),
-                               ref_y, plain_bar(p), 1e-5, False),
+                               plain_mv, ref_y, plain_bar(p), 1e-5, False),
+                    "matvec_v1": (tpk.matvec_v1_p(packed, mean, invsd, v),
+                                  plain_mv, ref_y, plain_bar(p), 1e-5, False),
                     "crossprod_ff": (tpk.crossprod_ff_p(packed, lut6, x),
                                      plain_xx, ref_x, plain_bar(4 * nb), 5e-6,
                                      True),
@@ -764,8 +795,8 @@ def require_no_first_design(launches, what):
     """No path takes a kept first design: it is timed, never launched."""
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
 
-    ran = [nm for nm in tpk.B1_KERNELS + tpk.B3_KERNELS + tpk.NOVL_KERNELS
-           if launches[nm]]
+    ran = [nm for nm in tpk.B1_KERNELS + tpk.B2_KERNELS + tpk.B3_KERNELS
+           + tpk.NOVL_KERNELS if launches[nm]]
     if ran:
         raise AssertionError(f"comparison entries launched on the {what}: "
                              f"{ran}")
@@ -1188,6 +1219,25 @@ def time_b1(op, kcs):
     return out
 
 
+def time_b2(op, kcs):
+    """B2 beside its first design at ``op``'s shapes, on the same
+    inputs, in turns.  Returns {"name/kc": [ms, ms]}."""
+    import torch
+
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    g = torch.Generator(device=op.device).manual_seed(95)
+    pk, m, iv = op.packed, op.mean, op.invsd
+    out = {}
+    for kc in kcs:
+        v = torch.randn((pk.shape[0], kc), generator=g, device=op.device)
+        time_turns({name: (lambda f=getattr(tpk, name + "_p"):
+                           f(pk, m, iv, v))
+                    for name in ("matvec",) + tpk.B2_KERNELS}, kc, out)
+        del v
+    return out
+
+
 def time_b3(op, kcs):
     """B3 beside its first design at ``op``'s shapes, on the same
     inputs, in turns.  Returns {"name/kc": [ms, ms]}."""
@@ -1334,15 +1384,18 @@ def main(argv=None) -> int:
             usages = list(ptxas_usage(fh))
         for fn, usage in usages:
             say(f"   {src} {fn}: {usage}")
-        if src == os.path.basename(SOURCE["crossprod_ff"]):
+        if src in (os.path.basename(SOURCE["crossprod_ff"]),
+                   os.path.basename(SOURCE["matvec"])):
             require_no_spills(src, usages)
-    # B5's and B3's instruction mix: the FFMA share of their inner loops'
-    # instructions, for the current designs, B5's other tiles and the
-    # first designs (cuobjdump, which the CUDA toolkit ships beside nvcc)
+    # B5's, B3's and B2's instruction mix: the FFMA share of their inner
+    # loops' instructions, for the current designs, B5's other tiles and
+    # the first designs (cuobjdump, which the CUDA toolkit ships beside
+    # nvcc; of B2's first design the production fold, 64 rows a chunk)
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass_mix = {}
     for src in ("matvec_ff_novl.cu", "matvec_ff_novl_variants.cu",
-                "matvec_ff.cu", "crossprod_ff_v2.cu", "crossprod_ff.cu"):
+                "matvec_ff.cu", "crossprod_ff_v2.cu", "crossprod_ff.cu",
+                "matvec_v2.cu", "matvec.cu"):
         lib = os.path.join(build_dir, f"lib{os.path.splitext(src)[0]}.so")
         if not os.path.exists(cuobjdump):
             say(f"   {src}: no cuobjdump beside nvcc; SASS mix not read")
@@ -1351,7 +1404,9 @@ def main(argv=None) -> int:
                               text=True).stdout
         for fn, c in sorted(sass_hot_loops(sass).items()):
             if ("novl" in fn or fn.endswith(", 0>")
-                    or fn.startswith("crossprod_ff")):
+                    or fn.startswith(("crossprod_ff", "matvec_tile"))
+                    or (fn.startswith("matvec_kernel<")
+                        and fn.endswith(", 64>"))):
                 share = c["FFMA"] / sum(c.values())
                 sass_mix[fn] = {"ffma": c["FFMA"], "instructions":
                                 sum(c.values()), "ffma_share": share}
@@ -1380,9 +1435,11 @@ def main(argv=None) -> int:
                  ("matvec_ff", 24), ("crossprod", 24), ("matvec", 24)],
             head["launches"], worst, slices=32)
         b1_turns = time_b1(op, (16,))
+        b2_turns = time_b2(op, (16, 24))
         b3_turns = time_b3(op, (24,))
     kernels = with_first_designs(
         kernels, {"crossprod": ("crossprod_v1", b1_turns),
+                  "matvec": ("matvec_v1", b2_turns),
                   "crossprod_ff": ("crossprod_ff_v1", b3_turns)},
         head["launches"], worst)
     b1_library_ms = next(r["library_ms"] for r in kernels
@@ -1406,12 +1463,14 @@ def main(argv=None) -> int:
             tall["launches"], worst, slices=64)
         novl = time_novl(top, (32, 24))
         b1_tall_turns = time_b1(top, (16, 32))
+        b2_tall_turns = time_b2(top, (16, 24, 32))
         b3_tall_turns = time_b3(top, (24, 32))
-    # the first designs beside B5 at kc 32/24, B1 at kc 16/32, B3 at kc
-    # 24/32
+    # the first designs beside B5 at kc 32/24, B1 at kc 16/32, B2 at kc
+    # 16/24/32, B3 at kc 24/32
     kernels.extend(with_first_designs(
         tall_rows, {"matvec_ff_novl": ("matvec_ff_novl_v1", novl),
                     "crossprod": ("crossprod_v1", b1_tall_turns),
+                    "matvec": ("matvec_v1", b2_tall_turns),
                     "crossprod_ff": ("crossprod_ff_v1", b3_tall_turns)},
         tall["launches"], worst))
     kernels.extend(sweep_rows)
@@ -1421,10 +1480,12 @@ def main(argv=None) -> int:
         **{key: val for key, val in head.items()},
         "gram_tall_ff_max_abs_err": worst["gram_tall_ff"],
         "tall_kernels_f64_rel": tall_f64,
-        "b1_turns_ms": b1_turns, "b3_turns_ms": b3_turns,
+        "b1_turns_ms": b1_turns, "b2_turns_ms": b2_turns,
+        "b3_turns_ms": b3_turns,
         "tall": {"n": TALL_N, "p": TALL_P, **tall,
                  "kernels": tall_rows, "b5_turns_ms": novl,
                  "b1_turns_ms": b1_tall_turns,
+                 "b2_turns_ms": b2_tall_turns,
                  "b3_turns_ms": b3_tall_turns},
         "sweep": sweep,
         "total_s": time.time() - t_start}}))

@@ -3,15 +3,17 @@
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded through ``ctypes``; a source may hold several
 kernels (matvec_ff.cu holds B4 and B5's first design), each with its own
-C entry.  Sixteen entries in ten libraries: B1-B5, the sweep's tile
-entries of B1 and B2 and its variants V1-V4, B1's first design
+C entry.  Seventeen entries in eleven libraries: B1-B5, the sweep's
+tile entries of B1 and B2 and its variants V1-V4, B1's first design
 (``crossprod_v1``, in crossprod.cu beside the sweep's B1 tile entry),
-B3's first design (``crossprod_ff_v1``, in crossprod_ff.cu), and B5's
-comparison entries -- its first design (``matvec_ff_novl_v1``) and two
-other tiles (``matvec_ff_novl_c4``, ``matvec_ff_novl_cr128``).  The
-build happens at first use, never at import (the CPU tests import every
-module, and the CPU has no ``nvcc``), into ``kernels/build/<hash>/`` --
-a directory that ``.gitignore`` lists.  The hash covers every source,
+B2's first design (``matvec_v1``, in matvec.cu beside the sweep's B2
+tile entry), B3's first design (``crossprod_ff_v1``, in
+crossprod_ff.cu), and B5's comparison entries -- its first design
+(``matvec_ff_novl_v1``) and two other tiles (``matvec_ff_novl_c4``,
+``matvec_ff_novl_cr128``).  The build happens at first use, never at
+import (the CPU tests import every module, and the CPU has no
+``nvcc``), into ``kernels/build/<hash>/`` -- a directory that
+``.gitignore`` lists.  The hash covers every source,
 header and flag, so an edited source builds anew; the sources compile
 in parallel, one ``nvcc`` each.
 
@@ -42,7 +44,7 @@ _I32 = ctypes.c_int
 KERNELS = {
     "crossprod": ("crossprod_v2.cu", "fp_crossprod",
                   [_P] * 6 + [_I64, _I64, _I32, _P]),
-    "matvec": ("matvec.cu", "fp_matvec",
+    "matvec": ("matvec_v2.cu", "fp_matvec",
                [_P] * 6 + [_I64, _I64, _I32, _P]),
     "crossprod_ff": ("crossprod_ff_v2.cu", "fp_crossprod_ff",
                      [_P] * 5 + [_I64, _I64, _I32, _P]),
@@ -54,6 +56,10 @@ KERNELS = {
     # operator
     "crossprod_v1": ("crossprod.cu", "fp_crossprod_v1",
                      [_P] * 6 + [_I64, _I64, _I32, _P]),
+    # B2's first design: timed beside production B2, launched by no
+    # operator
+    "matvec_v1": ("matvec.cu", "fp_matvec_v1",
+                  [_P] * 6 + [_I64, _I64, _I32, _P]),
     # B3's first design: timed beside production B3, launched by no
     # operator
     "crossprod_ff_v1": ("crossprod_ff.cu", "fp_crossprod_ff_v1",

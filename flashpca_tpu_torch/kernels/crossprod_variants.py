@@ -224,9 +224,10 @@ def crossprod_tiled_p(packed, mean, invsd, xp, tm):
 
 
 def matvec_tiled_p(packed, mean, invsd, v, cr):
-    """B2 at ``cr`` SNP rows per chunk (TILE_CR): y = W^T v, (p, k) ->
-    (n4, k); :func:`matvec_plain` on the CPU.  ``cr`` moves the fold
-    points, so it agrees with ``matvec_p`` to rounding only."""
+    """B2's first design at ``cr`` SNP rows per chunk (TILE_CR): y = W^T
+    v, (p, k) -> (n4, k); :func:`matvec_plain` on the CPU.  ``cr`` moves
+    the fold points, so it agrees with ``matvec_p`` to rounding only,
+    save at production's 64, which gives its bits."""
     if cr not in TILE_CR:
         raise ValueError(f"cr must be one of {TILE_CR}, got {cr}")
     _check_shapes(packed.shape[0], v, "matvec_tiled_p")

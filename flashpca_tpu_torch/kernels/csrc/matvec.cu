@@ -1,6 +1,9 @@
-// B2: y = W^T v, the permuted-sample-space product of the packed
-// standardized genotype matrix W (p SNPs x n4 samples) with an
-// SNP-space panel v (p x KC).
+// B2's first Hopper design: y = W^T v, the permuted-sample-space product
+// of the packed standardized genotype matrix W (p SNPs x n4 samples) with
+// an SNP-space panel v (p x KC).  Production B2 is matvec_v2.cu, whose
+// sums are this design's bit for bit; this one stays for comparison as
+// fp_matvec_v1 (timed beside production, launched by no operator), and
+// as the kernel sweep's tile entry fp_matvec_tiled.
 //
 // Replaces flashpca_tpu/kernels/packed_matvec.py::_matvec_kernel.
 //
@@ -17,17 +20,17 @@
 // (sum, err) pair with TwoSum, as in crossprod.cu.
 //
 // CR, the SNP rows per chunk, is the tile axis of the kernel sweep
-// (tools/kernel_sweep.py; the JAX sweep's tile_p): production runs
-// CR = 64 through fp_matvec, and fp_matvec_tiled takes CR in
+// (tools/kernel_sweep.py; the JAX sweep's tile_p): fp_matvec_v1 runs
+// CR = 64, as production B2 does, and fp_matvec_tiled takes CR in
 // {32, 64, 128}.  CR moves the fold points, so other CRs agree with
-// production to rounding, not bit for bit.
+// production to rounding, not bit for bit; CR = 64 gives its bits.
 #include "common.cuh"
 
 namespace {
 
 constexpr int TB = 64;            // packed bytes per block
 constexpr int NT = 4 * TB;        // threads: 4 sample planes x TB bytes
-constexpr int CR_PROD = 64;       // production SNP rows per chunk
+constexpr int CR_PROD = 64;       // production B2's SNP rows per chunk
 
 template <int KC, int CR>
 __global__ void __launch_bounds__(NT)
@@ -135,10 +138,12 @@ int launch(const uint8_t* pk, const float* c0, const float* c1, const float* c2,
 
 }  // namespace
 
-// packed (p, nb) u8; cf0..cf2 (p,) f32; v (p, kc) f32; y (4*nb, kc) f32.
-extern "C" int fp_matvec(const void* packed, const void* cf0, const void* cf1,
-                         const void* cf2, const void* v, void* y, long long p,
-                         long long nb, int kc, void* stream) {
+// B2's first design. packed (p, nb) u8; cf0..cf2 (p,) f32; v (p, kc) f32;
+// y (4*nb, kc) f32.
+extern "C" int fp_matvec_v1(const void* packed, const void* cf0,
+                            const void* cf1, const void* cf2, const void* v,
+                            void* y, long long p, long long nb, int kc,
+                            void* stream) {
   if (p <= 0 || nb <= 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch<CR_PROD>(
       static_cast<const uint8_t*>(packed), static_cast<const float*>(cf0),
@@ -147,7 +152,7 @@ extern "C" int fp_matvec(const void* packed, const void* cf0, const void* cf1,
       static_cast<cudaStream_t>(stream));
 }
 
-// The sweep's tile entry: fp_matvec at CR = cr SNP rows per chunk,
+// The sweep's tile entry: fp_matvec_v1 at CR = cr SNP rows per chunk,
 // cr in {32, 64, 128}.
 extern "C" int fp_matvec_tiled(const void* packed, const void* cf0,
                                const void* cf1, const void* cf2, const void* v,

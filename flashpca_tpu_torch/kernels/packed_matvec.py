@@ -9,16 +9,16 @@ decoded matrix never reaches device memory:
 
 ====  ==================  ============================================
 B1    crossprod_v2.cu     z = W x        (n4, k) -> (p, k)
-B2    matvec.cu           y = W^T v      (p, k) -> (n4, k)
+B2    matvec_v2.cu        y = W^T v      (p, k) -> (n4, k)
 B3    crossprod_ff_v2.cu  two-float (z_hi, z_err) of W x
 B4    matvec_ff.cu        two-float (y_hi, y_err) of W^T (v_hi + v_lo)
 B5    matvec_ff_novl.cu   two-float (y_hi, y_err) of W^T v (no v_lo)
 ====  ==================  ============================================
 
-B1 and B3 each have one comparison entry that no operator launches:
-their first designs, in crossprod.cu (``crossprod_v1_p``) and
-crossprod_ff.cu (``crossprod_ff_v1_p``), whose sums are bit for bit
-B1's and B3's.  B5 has three: its first
+B1, B2 and B3 each have one comparison entry that no operator launches:
+their first designs, in crossprod.cu (``crossprod_v1_p``), matvec.cu
+(``matvec_v1_p``) and crossprod_ff.cu (``crossprod_ff_v1_p``), whose
+sums are bit for bit B1's, B2's and B3's.  B5 has three: its first
 design, the ``HAS_VL=false`` instantiation of matvec_ff.cu
 (``matvec_ff_novl_v1_p``), and its design at two other tiles in
 matvec_ff_novl_variants.cu (``matvec_ff_novl_c4_p``,
@@ -65,14 +65,15 @@ OPERATOR_KERNELS = ("crossprod", "matvec", "crossprod_ff", "matvec_ff",
                     "matvec_ff_novl")
 SWEEP_KERNELS = ("crossprod_tiled", "matvec_tiled", "crossprod_stacked",
                  "crossprod_intsub", "crossprod_split3", "crossprod_nocomp")
-# B1's, B3's and B5's comparison entries, which no operator launches
-# either
+# B1's, B2's, B3's and B5's comparison entries, which no operator
+# launches either
 B1_KERNELS = ("crossprod_v1",)
+B2_KERNELS = ("matvec_v1",)
 B3_KERNELS = ("crossprod_ff_v1",)
 NOVL_KERNELS = ("matvec_ff_novl_v1", "matvec_ff_novl_c4",
                 "matvec_ff_novl_cr128")
 launch_counts = dict.fromkeys(
-    OPERATOR_KERNELS + SWEEP_KERNELS + B1_KERNELS + B3_KERNELS
+    OPERATOR_KERNELS + SWEEP_KERNELS + B1_KERNELS + B2_KERNELS + B3_KERNELS
     + NOVL_KERNELS, 0)
 _launch_log: list | None = None
 
@@ -332,10 +333,11 @@ def _launch_crossprod(packed, coeffs, x, kc, name="crossprod"):
     return z
 
 
-def _launch_matvec(packed, coeffs, v, kc):
+def _launch_matvec(packed, coeffs, v, kc, name="matvec"):
+    """Launch B2 (or, by ``name``, its first design)."""
     p, nb = packed.shape
     y = torch.empty((4 * nb, kc), dtype=torch.float32, device=packed.device)
-    _run("matvec", packed, *coeffs, v, y, p, nb, kc)
+    _run(name, packed, *coeffs, v, y, p, nb, kc)
     return y
 
 
@@ -404,12 +406,22 @@ def _crossprod_p(name, packed, mean, invsd, xp):
 
 def matvec_p(packed, mean, invsd, v):
     """y = W^T v: (p, k) -> (n4, k).  B2 on CUDA, plain on the CPU."""
-    _check_shapes(packed.shape[0], v, "matvec_p")
+    return _matvec_p("matvec", packed, mean, invsd, v)
+
+
+def matvec_v1_p(packed, mean, invsd, v):
+    """B2's first design (matvec.cu); the sums of :func:`matvec_p` bit for
+    bit, :func:`matvec_plain` on the CPU."""
+    return _matvec_p("matvec_v1", packed, mean, invsd, v)
+
+
+def _matvec_p(name, packed, mean, invsd, v):
+    _check_shapes(packed.shape[0], v, f"{name}_p")
     if v.device.type == "cpu":
         return matvec_plain(packed, mean, invsd, v)
     coeffs = coeff_rows(mean, invsd)
     _check_cuda(packed, v, *coeffs)
-    outs = [_launch_matvec(packed, coeffs, _padded(v, c0, c1, kc), kc)
+    outs = [_launch_matvec(packed, coeffs, _padded(v, c0, c1, kc), kc, name)
             [:, : c1 - c0] for c0, c1, kc in _widths(v.shape[1])]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 

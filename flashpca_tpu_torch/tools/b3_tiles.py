@@ -39,6 +39,7 @@ from ..kernels import _build
 from ..kernels import packed_matvec as tpk
 
 SOURCE, KERNEL = "crossprod_ff_v2.cu", "crossprod_ff_tile_kernel"
+MACRO, ENTRY = "CROSSPROD_FF_TILE", "fp_crossprod_ff"
 # the tiles tried beside production's, by KC: (R, C, TPS)
 TILES = {
     24: [(1, 12, 512), (1, 8, 768), (2, 8, 768), (2, 12, 384),
@@ -57,19 +58,21 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def production_tiles():
-    """{KC: (R, C, TPS)} of the production build, read from the source's
-    defaults."""
-    with open(os.path.join(_build.CSRC, SOURCE)) as fh:
+def production_tiles(source=SOURCE, macro=MACRO):
+    """{KC: tile} of the production build of ``source``, read from its
+    defaults of ``<macro>_<KC>`` (B3's: (R, C, TPS))."""
+    with open(os.path.join(_build.CSRC, source)) as fh:
         text = fh.read()
-    return {int(kc): (int(r), int(c), int(t)) for kc, r, c, t in re.findall(
-        r"#define CROSSPROD_FF_TILE_(\d+) (\d+), (\d+), (\d+)", text)}
+    return {int(kc): tuple(int(t) for t in vals.split(", "))
+            for kc, vals in re.findall(
+                rf"#define {macro}_(\d+) (\d+(?:, \d+)*)\n", text)}
 
 
-def tile_source(kc, tile):
-    """The source of crossprod_ff_v2.cu built with ``tile`` at ``kc``."""
-    return (f"#define CROSSPROD_FF_TILE_{kc} {', '.join(map(str, tile))}\n"
-            f'#include "{os.path.join(_build.CSRC, SOURCE)}"\n')
+def tile_source(kc, tile, source=SOURCE, macro=MACRO):
+    """The source of ``source`` (crossprod_ff_v2.cu) built with ``tile``
+    at ``kc``."""
+    return (f"#define {macro}_{kc} {', '.join(map(str, tile))}\n"
+            f'#include "{os.path.join(_build.CSRC, source)}"\n')
 
 
 def occupancy(kc, tile, regs):
@@ -84,14 +87,17 @@ def occupancy(kc, tile, regs):
     return nt, smem, min(2048 // nt, by_regs, by_smem, 32)
 
 
-def build_tiles(tiles):
-    """Compile one library per (kc, tile), all ``nvcc`` together; return
-    {(kc, tile): (ctypes entry, "Used N registers ..." of that kc)} of
-    the tiles that built."""
+def build_tiles(tiles, source=SOURCE, macro=MACRO, entry=ENTRY,
+                kernel=KERNEL, name="crossprod_ff"):
+    """Compile one library per (kc, tile) of ``source`` (by default
+    B3's), all ``nvcc`` together; return {(kc, tile): (ctypes entry
+    ``entry`` with the argument types of ``_build.KERNELS[name]``, "Used
+    N registers ..." of ``kernel`` at that kc)} of the tiles that
+    built."""
     nvcc = _build._nvcc()
     h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
-    for name in (SOURCE,) + _build.HEADERS:
-        with open(os.path.join(_build.CSRC, name), "rb") as fh:
+    for fname in (source,) + _build.HEADERS:
+        with open(os.path.join(_build.CSRC, fname), "rb") as fh:
             h.update(fh.read())
     out_dir = os.path.join(_build.BUILD_ROOT, "tiles", h.hexdigest()[:16])
     os.makedirs(out_dir, exist_ok=True)
@@ -105,7 +111,7 @@ def build_tiles(tiles):
             continue
         src = os.path.join(out_dir, f"{tag}.cu")
         with open(src, "w") as fh:
-            fh.write(tile_source(kc, tile))
+            fh.write(tile_source(kc, tile, source, macro))
         with open(log, "w") as fh:
             procs[kc, tile] = (lib, log, subprocess.Popen(
                 [nvcc, *_build.NVCC_FLAGS, "-o", lib, src], stdout=fh,
@@ -117,12 +123,12 @@ def build_tiles(tiles):
                 say(f"   kc={kc} tile {tile}: nvcc failed, not timed\n"
                     + fh.read()[-2000:])
             continue
-        fn = getattr(ctypes.CDLL(lib), "fp_crossprod_ff")
-        fn.argtypes = _build.KERNELS["crossprod_ff"][2]
+        fn = getattr(ctypes.CDLL(lib), entry)
+        fn.argtypes = _build.KERNELS[name][2]
         fn.restype = ctypes.c_int
         with open(log) as fh:
             usage = dict(_build.ptxas_usage(fh))
-        out[kc, tile] = (fn, usage.get(f"{KERNEL}<{kc}>", "?"))
+        out[kc, tile] = (fn, usage.get(f"{kernel}<{kc}>", "?"))
     return out
 
 

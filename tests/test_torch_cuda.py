@@ -144,6 +144,34 @@ def test_b1_is_bit_equal_to_its_first_design(cuda, k, p, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 16, 24, 28, 32, 40])
+@pytest.mark.parametrize("n", [1001, 771, 4096])
+@pytest.mark.parametrize("p", [133, 333])
+def test_b2_is_bit_equal_to_its_first_design(cuda, k, p, n):
+    """B2 (matvec_v2.cu) gives its first design's sums bit for bit at
+    every KC (k 3 -> 8; 16; 24; 28 -> 32; 32; 40 -> 32 + 8), and so does
+    the first design's tile entry at 64 rows a chunk: each output takes
+    the same FMA sequence and the same TwoSum fold every 64 SNP rows.
+    p = 133 = 2 x 64 + 5 and 333 = 5 x 64 + 13 are ragged on the 64-row
+    chunks; n = 1001 and 771 give 251 and 193 bytes (nb % 16 != 0: rows
+    staged byte by byte, a ragged last block), n = 4096 1,024."""
+    from flashpca_tpu_torch.kernels import crossprod_variants as cv
+
+    packed, mean, invsd, nb = _operands(cuda, n, p)
+    v = torch.randn((p, k), device=cuda)
+    tpk.reset_launch_counts()
+    y = tpk.matvec_p(packed, mean, invsd, v)
+    y1 = tpk.matvec_v1_p(packed, mean, invsd, v)
+    chunks = len(tpk._widths(k))
+    assert tpk.launch_counts["matvec"] == chunks
+    assert tpk.launch_counts["matvec_v1"] == chunks
+    assert torch.equal(y, y1)
+    assert torch.equal(y, cv.matvec_tiled_p(packed, mean, invsd, v, 64))
+    _close(y, tpk.matvec_plain(packed.cpu(), mean.cpu(), invsd.cpu(),
+                               v.cpu()))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k", [3, 16, 24, 28, 32])
 @pytest.mark.parametrize("p,n", [(333, 1001), (133, 771), (333, 4096)])
 def test_b3_is_bit_equal_to_its_first_design(cuda, k, p, n):

@@ -1,16 +1,16 @@
-"""The kernel build table, the comparison entries of B1, B3 and B5 and
-chip_smoke.py's tables, on the CPU.
+"""The kernel build table, the comparison entries of B1, B2, B3 and B5
+and chip_smoke.py's tables, on the CPU.
 
 The CUDA sources compile only on a machine with ``nvcc`` and a card, so
 what runs here is what surrounds them: every entry of
 ``_build.KERNELS`` names a source that exists and a C function of that
 source whose parameter count matches its ctypes argument list; the
 build directory's hash moves with every source; every entry has a
-launch count; production B1's, B3's and B5's libraries hold no
+launch count; production B1's, B2's, B3's and B5's libraries hold no
 comparison entry; the comparison wrappers exist and take the plain
 versions on CPU tensors, bit for bit; chip_smoke.py has the rows its
 timing phase reads and parses the compiler's register report; and the
-B3 tile tool reads production's tiles and refuses the CPU.
+B2 and B3 tile tools read production's tiles and refuse the CPU.
 """
 
 import importlib.util
@@ -49,11 +49,14 @@ def _chip_smoke():
     ("crossprod_tiled", "crossprod.cu", "fp_crossprod_tiled"),
     ("crossprod_ff", "crossprod_ff_v2.cu", "fp_crossprod_ff"),
     ("crossprod_ff_v1", "crossprod_ff.cu", "fp_crossprod_ff_v1"),
+    ("matvec", "matvec_v2.cu", "fp_matvec"),
+    ("matvec_v1", "matvec.cu", "fp_matvec_v1"),
+    ("matvec_tiled", "matvec.cu", "fp_matvec_tiled"),
 ])
 def test_b5_entries_map_to_their_sources(name, src, entry):
-    """B5's and (since their redesigns) B1's and B3's entries: production
-    in the new source, the first design (and B1's sweep tile entry) in
-    the old one."""
+    """B5's and (since their redesigns) B1's, B2's and B3's entries:
+    production in the new source, the first design (and B1's and B2's
+    sweep tile entries) in the old one."""
     assert _build.KERNELS[name][:2] == (src, entry)
 
 
@@ -87,13 +90,36 @@ def test_b5_is_built_from_its_new_source():
 
 def test_b1_is_built_from_its_new_source():
     assert {"crossprod_v2.cu", "crossprod.cu"} <= set(_build.sources())
-    assert len(_build.sources()) == 10 and len(_build.KERNELS) == 16
+    assert len(_build.sources()) == 11 and len(_build.KERNELS) == 17
 
 
 def test_b3_is_built_from_its_new_source():
     assert {"crossprod_ff_v2.cu", "crossprod_ff.cu"} <= set(_build.sources())
     assert _build.KERNELS["crossprod_ff"][2] == _build.KERNELS[
         "crossprod_ff_v1"][2]
+
+
+def test_b2_is_built_from_its_new_source():
+    assert {"matvec_v2.cu", "matvec.cu"} <= set(_build.sources())
+    assert _build.KERNELS["matvec"][2] == _build.KERNELS["matvec_v1"][2]
+    assert tpk.B2_KERNELS == ("matvec_v1",)
+
+
+def test_production_b2_library_holds_only_b2():
+    """B2's source defines one C entry; the first design's and the
+    sweep's tile entry stay in matvec.cu."""
+    with open(os.path.join(_build.CSRC, "matvec_v2.cu")) as fh:
+        prod = fh.read()
+    with open(os.path.join(_build.CSRC, "matvec.cu")) as fh:
+        first = fh.read()
+    assert re.findall(r'extern "C" int (\w+)\(', prod) == ["fp_matvec"]
+    assert re.findall(r'extern "C" int (\w+)\(', first) == [
+        "fp_matvec_v1", "fp_matvec_tiled"]
+    # the note names the TPU kernel it replaces, its bound and the fold
+    # that keeps the first design's bits
+    assert "packed_matvec.py::_matvec_kernel" in prod
+    assert "2*KC*p*n4 operations" in prod
+    assert "constexpr int CR = 64;" in prod
 
 
 def test_production_b1_library_holds_only_b1():
@@ -142,7 +168,8 @@ def test_production_b5_library_holds_only_b5():
 
 def test_launch_counts_cover_every_entry():
     assert set(tpk.launch_counts) == set(_build.KERNELS)
-    for comparison in (tpk.NOVL_KERNELS, tpk.B1_KERNELS, tpk.B3_KERNELS):
+    for comparison in (tpk.NOVL_KERNELS, tpk.B1_KERNELS, tpk.B2_KERNELS,
+                       tpk.B3_KERNELS):
         assert set(comparison) <= set(tpk.launch_counts)
         assert not set(comparison) & set(tpk.OPERATOR_KERNELS)
     assert tpk.B1_KERNELS == ("crossprod_v1",)
@@ -194,6 +221,22 @@ def test_b1_wrappers_on_cpu_are_plain(novl_operands, name, k):
     assert all(c == 0 for c in tpk.launch_counts.values())
 
 
+@pytest.mark.parametrize("k", [3, 16, 24, 40])
+@pytest.mark.parametrize("name", ("matvec",) + tpk.B2_KERNELS)
+def test_b2_wrappers_on_cpu_are_plain(novl_operands, name, k):
+    """B2 and its first design take matvec_plain on CPU tensors, bit for
+    bit, and launch nothing."""
+    packed, _, rng = novl_operands
+    p = packed.shape[0]
+    mean = torch.from_numpy(rng.uniform(0.1, 1.9, p))
+    invsd = torch.from_numpy(rng.uniform(0.5, 2.0, p))
+    v = torch.from_numpy(rng.standard_normal((p, k)).astype(np.float32))
+    tpk.reset_launch_counts()
+    y = getattr(tpk, name + "_p")(packed, mean, invsd, v)
+    assert torch.equal(y, tpk.matvec_plain(packed, mean, invsd, v))
+    assert all(c == 0 for c in tpk.launch_counts.values())
+
+
 @pytest.mark.parametrize("k", [3, 16, 40])
 @pytest.mark.parametrize("name", ("crossprod_ff",) + tpk.B3_KERNELS)
 def test_b3_wrappers_on_cpu_are_plain(novl_operands, name, k):
@@ -239,6 +282,42 @@ def test_chip_smoke_has_rows_for_b3_and_its_first_design(name):
     assert os.path.exists(os.path.join(ROOT, cs.SOURCE[name]))
     assert cs.TPU_KERNEL[name] == "flashpca_tpu/kernels/packed_matvec.py:336"
     assert cs.DOTS[name] == 2
+
+
+@pytest.mark.parametrize("name", ("matvec",) + tpk.B2_KERNELS)
+def test_chip_smoke_has_rows_for_b2_and_its_first_design(name):
+    """The rows chip_smoke's timing phase reads for B2 and its first
+    design: sources, the TPU kernel replaced and one product a genotype
+    (the bound)."""
+    cs = _chip_smoke()
+    assert cs.SOURCE[name] == ("flashpca_tpu_torch/kernels/csrc/"
+                               + _build.KERNELS[name][0])
+    assert os.path.exists(os.path.join(ROOT, cs.SOURCE[name]))
+    assert cs.TPU_KERNEL[name] == "flashpca_tpu/kernels/packed_matvec.py:122"
+    assert cs.DOTS[name] == 1
+
+
+def test_chip_smoke_names_b2s_instantiations():
+    cs = _chip_smoke()
+    sym = ("_ZN45_GLOBAL__N__9a1b2c3d_12_matvec_v2_cu_1f2e3d4c3mv2"
+           "18matvec_tile_kernelILi16EEEvPKhPKfS5_S5_S5_Pfxxbb")
+    assert cs.kernel_name(sym) == "matvec_tile_kernel<16>"
+    sym = ("_ZN45_GLOBAL__N__9a1b2c3d_9_matvec_cu_1f2e3d4c"
+           "13matvec_kernelILi24ELi64EEEvPKhPKfS4_S4_S4_Pfxx")
+    assert cs.kernel_name(sym) == "matvec_kernel<24, 64>"
+
+
+def test_chip_smoke_requires_b2_equal():
+    """B2 against its first design and the tile entry at 64 rows a
+    chunk: one ulp in either fails."""
+    cs = _chip_smoke()
+    y = torch.arange(8.0).reshape(4, 2)
+    cs.require_b2_equal(y, y.clone(), y.clone(), "same")
+    b = y.clone()
+    b[2, 0] = torch.nextafter(b[2, 0], torch.tensor(99.0))
+    for got in ((b, y), (y, b)):
+        with pytest.raises(AssertionError, match="not bit-equal"):
+            cs.require_b2_equal(y, *got, "one ulp")
 
 
 def test_chip_smoke_names_b3s_instantiations():
@@ -334,6 +413,62 @@ def test_b3_tile_tool_counts_blocks_an_sm():
     assert b3_tiles.occupancy(32, (1, 16, 768), 86)[2] == 2
 
 
+def test_b2_tile_tool_reads_production_tiles():
+    """The tool's production tiles are the source's defaults, and every
+    tile it tries is a tile the source takes: C divides KC, 4 | C, a
+    warp's 32 bytes divide TB, and one thread a row decodes the 64-row
+    tables."""
+    from flashpca_tpu_torch.tools import b2_tiles, b3_tiles
+
+    prod = b2_tiles.production_tiles()
+    assert prod == {8: (8, 64, 640, 1), 16: (16, 128, 384, 1),
+                    24: (12, 64, 384, 1), 32: (16, 64, 384, 1)}
+    assert sorted(b2_tiles.TILES) == [16, 24, 32]
+    for kc, tiles in b2_tiles.TILES.items():
+        assert len(tiles) >= 2
+        for c, tb, tps, ereg in tiles:
+            assert (c, tb, tps, ereg) != prod[kc]
+            assert kc % c == 0 and c % 4 == 0 and tb % 32 == 0
+            assert tb * (kc // c) >= 64 and ereg in (0, 1)
+    src = b3_tiles.tile_source(16, (16, 64, 384, 1), b2_tiles.SOURCE,
+                               b2_tiles.MACRO)
+    assert src.splitlines() == [
+        "#define MATVEC_TILE_16 16, 64, 384, 1",
+        '#include "%s"' % os.path.join(_build.CSRC, "matvec_v2.cu")]
+    with open(os.path.join(_build.CSRC, "matvec_v2.cu")) as fh:
+        assert "#ifndef MATVEC_TILE_16\n" in fh.read()
+
+
+def test_b2_tile_tool_counts_blocks_and_waves():
+    """Production's kc=16 tile: 128 threads, 58 KB of shared memory,
+    three blocks an SM at the 168 registers its launch bounds leave, 2.47
+    waves on the wide shape; the header's table says so."""
+    from flashpca_tpu_torch.tools import b2_tiles
+
+    tile = (16, 128, 384, 1)
+    assert b2_tiles.reg_cap(16, tile) == 168
+    assert b2_tiles.occupancy(16, tile, 166) == (128, 59_392, 3)
+    assert round(b2_tiles.waves(16, tile, 166, 125_440), 2) == 2.47
+    # err beside the sum in shared memory: 16 KB more a block, four blocks
+    assert b2_tiles.occupancy(16, (8, 64, 512, 0), 60) == (128, 51_200, 4)
+    with open(os.path.join(_build.CSRC, "matvec_v2.cu")) as fh:
+        text = fh.read()
+    for kc, (c, tb, tps, _) in b2_tiles.production_tiles().items():
+        cap = b2_tiles.reg_cap(kc, (c, tb, tps, 1))
+        nt, smem, blocks = b2_tiles.occupancy(kc, (c, tb, tps, 1), cap)
+        row = (f"//     {kc:2d}  {c:2d} {tb:3d}    {nt:3d}    {tps}    "
+               f"{cap:3d}       {smem // 1024}        {blocks:2d}")
+        assert row in text, row
+
+
+def test_b2_tile_tool_exits_nonzero_without_gpu(monkeypatch, capsys):
+    from flashpca_tpu_torch.tools import b2_tiles
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert b2_tiles.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
 def test_b3_tile_tool_exits_nonzero_without_gpu(monkeypatch, capsys):
     from flashpca_tpu_torch.tools import b3_tiles
 
@@ -399,3 +534,25 @@ def test_chip_smoke_reads_the_inner_loop_mix():
     assert list(mix) == ["matvec_ff_novl_kernel<32, 8, 64>"]
     c = mix["matvec_ff_novl_kernel<32, 8, 64>"]
     assert dict(c) == {"LDS": 1, "FFMA": 2, "SHF": 1, "BRA": 1}
+
+
+def test_chip_smoke_reads_the_inner_loop_inside_a_decoding_loop():
+    """B2's chunk loop holds the inner row loop and a few FFMA of its own
+    (the next chunk's table decode): the inner loop is still the one
+    read, as the shortest loop with at least 90% of the most FFMA."""
+    cs = _chip_smoke()
+    sym = "_ZN5_GLOBAL__N_118matvec_tile_kernelILi16EEEvPKh"
+    body = [f"        /*{a:04x}*/                   FFMA R4, R5, R6, R4 ;"
+            for a in range(0x20, 0xc0, 0x10)]
+    sass = "\n".join([
+        "\tcode for sm_90a",
+        f"\t\tFunction : {sym}",
+        "        /*0000*/                   LDG.E R2, [R3] ;",
+        "        /*0010*/                   LDS.U8 R2, [R3] ;",
+        *body,
+        "        /*00c0*/              @P0  BRA 0x10 ;",
+        "        /*00d0*/                   FFMA R7, R5, R6, R7 ;",
+        "        /*00e0*/              @!P1 BRA 0x0 ;",
+        "        /*00f0*/                   EXIT ;"])
+    c = cs.sass_hot_loops(sass)["matvec_tile_kernel<16>"]
+    assert dict(c) == {"LDS": 1, "FFMA": 10, "BRA": 1}
