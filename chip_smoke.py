@@ -6,23 +6,23 @@
 Phases, all in this one process; any failure raises and exits nonzero:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the hand-written kernels from kernels/csrc, seventeen entries
-   in eleven libraries: B1-B5, the kernel sweep's tile entries of B1 and
-   B2 and its variants V1-V4 of B1, the first designs of B1, B2 and B3,
-   and B5's comparison entries -- its first design and its design at C =
-   4 columns per thread or CR = 128 rows per chunk (timed set-up); each
-   instantiation's registers and spills (ptxas; production B2 and B3
-   must spill nothing), and the instruction mix of B5's, B3's and B2's
-   inner loops in each (cuobjdump);
+2. build the hand-written kernels from kernels/csrc, eighteen entries
+   in twelve libraries: B1-B5, the kernel sweep's tile entries of B1 and
+   B2 and its variants V1-V4 of B1, the first designs of B1, B2, B3 and
+   B4, and B5's comparison entries -- its first design and its design at
+   C = 4 columns per thread or CR = 128 rows per chunk (timed set-up);
+   each instantiation's registers and spills (ptxas; production B2, B3
+   and B4 must spill nothing), and the instruction mix of B5's, B4's,
+   B3's and B2's inner loops in each (cuobjdump);
 3. hold each kernel against its plain PyTorch version on the card, at
    full width (501,760 samples) on a 4,096-SNP slice and on a small odd
    case (n % 4 != 0, some inv_sd == 0), panels k in {3, 16, 24}, and
    each against a float64 product; there also V1-V4 (V3 within 5e-5 of
-   float64, the others 1e-5), B1, B2 and B3 each bit-equal to its first
-   design (torch.equal, both halves of B3, at every case and k of this
-   phase, the tall width's too), B1's tile entries and B2's at 64 rows
-   a chunk bit-equal to B1 and B2, and B2's at 32 and 128 against B2's
-   plain version.  B5 (and its comparison entries) and the
+   float64, the others 1e-5), B1, B2, B3 and B4 each bit-equal to its
+   first design (torch.equal, both halves of B3 and B4, at every case
+   and k of this phase, the tall width's too), B1's tile entries and
+   B2's at 64 rows a chunk bit-equal to B1 and B2, and B2's at 32 and
+   128 against B2's plain version.  B5 (and its comparison entries) and the
    tall two-float gram (B5, mask, B3, B1) likewise on those cases and at
    the tall width (2,048 SNPs x 1,003,520 samples), panels k in {3, 16,
    24, 28}, and there B1-B3 at k in {16, 24, 28}; the gram within
@@ -40,8 +40,8 @@ Phases, all in this one process; any failure raises and exits nonzero:
    run; then B1-B4 timed at the headline shapes (B1/B2 at kc 16 and 24,
    B3/B4 at 24) beside their bounds, their plain versions and the
    torch.matmul calls on the same block decoded to float32, and B1 (kc
-   16), B2 (kc 16 and 24) and B3 (kc 24) beside their first designs in
-   turns;
+   16), B2 (kc 16 and 24), B3 (kc 24) and B4 (kc 24) beside their first
+   designs in turns;
 6. the kernel sweep (flashpca_tpu_torch.tools.kernel_sweep) at the wide
    headline's shape, 100,352 x 501,760, k=16, after the headline's
    operator is freed: V1-V4 against B1 on a 512-SNP slice, B1/B2 at each
@@ -63,13 +63,15 @@ Phases, all in this one process; any failure raises and exits nonzero:
    B1-B3 at their tall widths: B1 and B2 at 16, 24, 32, B3 at 24, 32)
    timed at the tall shapes, and beside B5, on the same inputs, its
    comparison entries, B1 at kc 16 and 32, B2 at kc 16, 24 and 32 and B3
-   at kc 24 and 32 beside their first designs in turns.
+   at kc 24 and 32 beside their first designs in turns; and B4, which
+   the tall path does not run, at kc 24 on the tall bytes (the wide
+   operator's check of a tall result) beside its first design.
 
 The headlines must give wide ``n_ops`` 20 and tall ``n_ops`` 32, and no
 launch of a first design or comparison entry on either main path.  The
 line before the last is the JSON ``{"kernels": [...]}`` (B1-B5 at the
-widths the headlines launch, the first designs of B1, B2, B3 and B5
-from the timing phases, V1-V4 from the sweep); the last
+widths the headlines launch and B4 at the tall bytes' kc 24, the first
+designs of B1-B5 from the timing phases, V1-V4 from the sweep); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside it, the script exits nonzero and prints no
 result.
@@ -114,6 +116,7 @@ TPU_KERNEL = {
     "crossprod_ff": "flashpca_tpu/kernels/packed_matvec.py:336",
     "crossprod_ff_v1": "flashpca_tpu/kernels/packed_matvec.py:336",
     "matvec_ff": "flashpca_tpu/kernels/packed_matvec.py:369",
+    "matvec_ff_v1": "flashpca_tpu/kernels/packed_matvec.py:369",
     "matvec_ff_novl": "flashpca_tpu/kernels/packed_matvec.py:415",
     "matvec_ff_novl_v1": "flashpca_tpu/kernels/packed_matvec.py:415",
     "crossprod_stacked": ".claude/skills/verify/kernel_sweep.py:50",
@@ -127,7 +130,8 @@ SOURCE = {"crossprod": _CSRC + "crossprod_v2.cu",
           "matvec": _CSRC + "matvec_v2.cu", "matvec_v1": _CSRC + "matvec.cu",
           "crossprod_ff": _CSRC + "crossprod_ff_v2.cu",
           "crossprod_ff_v1": _CSRC + "crossprod_ff.cu",
-          "matvec_ff": _CSRC + "matvec_ff.cu",
+          "matvec_ff": _CSRC + "matvec_ff_v2.cu",
+          "matvec_ff_v1": _CSRC + "matvec_ff.cu",
           "matvec_ff_novl": _CSRC + "matvec_ff_novl.cu",
           "matvec_ff_novl_v1": _CSRC + "matvec_ff.cu",
           "crossprod_stacked": _CSRC + "crossprod_variants.cu",
@@ -138,6 +142,7 @@ SOURCE = {"crossprod": _CSRC + "crossprod_v2.cu",
 # SPLIT3_BF16_DOTS of them, and its decode is bounded apart)
 DOTS = {"crossprod": 1, "crossprod_v1": 1, "matvec": 1, "matvec_v1": 1,
         "crossprod_ff": 2, "crossprod_ff_v1": 2, "matvec_ff": 3,
+        "matvec_ff_v1": 3,
         "matvec_ff_novl": 2, "matvec_ff_novl_v1": 2,
         "crossprod_stacked": 1, "crossprod_intsub": 1, "crossprod_nocomp": 1}
 SPLIT3_BF16_DOTS = 3
@@ -295,6 +300,17 @@ def require_b3_equal(z, z1, where):
                 f"crossprod_ff_v1 (max diff {float((a - b).abs().max()):.3e})")
 
 
+def require_b4_equal(y, y1, where):
+    """B4 must give its first design's (y_hi, y_err) bit for bit."""
+    import torch
+
+    for half, a, b in (("y_hi", y[0], y1[0]), ("y_err", y[1], y1[1])):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"matvec_ff {where}: {half} not bit-equal to matvec_ff_v1 "
+                f"(max diff {float((a - b).abs().max()):.3e})")
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -383,7 +399,7 @@ def hold(tag, got, plain, ref, bar, f64_bar, sums=False):
 def check_kernels(dev):
     """Each kernel against its plain version and against a float64
     product, on a full-width slice and a small odd case: B1-B4 and the
-    first designs of B1, B2 and B3 (each bit-equal to its production
+    first designs of B1, B2, B3 and B4 (each bit-equal to its production
     kernel), the sweep's V1-V4 (sharing B1's float64 product), B1's tile
     entries (bit-equal to B1) and B2's (at 64 rows a chunk bit-equal to
     B2).  Returns {kernel: max abs err against the plain version}."""
@@ -393,7 +409,8 @@ def check_kernels(dev):
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
 
     worst = {name: 0.0 for name in WIDE_PATH + SWEEP_PATH
-             + ("crossprod_v1", "matvec_v1", "crossprod_ff_v1")}
+             + ("crossprod_v1", "matvec_v1", "crossprod_ff_v1",
+                "matvec_ff_v1")}
     for label, p, n, seed in KERNEL_CASES:
         packed, mean, invsd, lut6, nb, _ = random_operands(p, n, seed, dev)
         g = torch.Generator(device=dev).manual_seed(seed + 100)
@@ -409,6 +426,7 @@ def check_kernels(dev):
             plain_z = tpk.crossprod_plain(packed, mean, invsd, x)
             plain_zz = tpk.crossprod_ff_plain(packed, lut6, x)
             plain_y = tpk.matvec_plain(packed, mean, invsd, v)
+            plain_yy = tpk.matvec_ff_plain(packed, lut6, v, vl)
             outs = {
                 # name: (kernel result, plain result, float64 product,
                 #        plain bar, float64 bar); two-float pairs compare
@@ -426,8 +444,9 @@ def check_kernels(dev):
                 "crossprod_ff_v1": (tpk.crossprod_ff_v1_p(packed, lut6, x),
                                     plain_zz, ref_z, bar_z, 5e-6),
                 "matvec_ff": (tpk.matvec_ff_p(packed, lut6, v, vl),
-                              tpk.matvec_ff_plain(packed, lut6, v, vl),
-                              ref_yy, bar_y, 5e-6),
+                              plain_yy, ref_yy, bar_y, 5e-6),
+                "matvec_ff_v1": (tpk.matvec_ff_v1_p(packed, lut6, v, vl),
+                                 plain_yy, ref_yy, bar_y, 5e-6),
             }
             for name in VARIANTS:
                 wrapper, plain = cv.VARIANTS[name]
@@ -441,6 +460,8 @@ def check_kernels(dev):
                              f"{label} k={k}")
             require_b3_equal(outs["crossprod_ff"][0],
                              outs["crossprod_ff_v1"][0], f"{label} k={k}")
+            require_b4_equal(outs["matvec_ff"][0], outs["matvec_ff_v1"][0],
+                             f"{label} k={k}")
             # the tile entries: B1's bit-equal to production B1 (each
             # thread walks the same chunks whatever the rows per block),
             # B2's against B2's plain version (its fold points move), and
@@ -478,7 +499,7 @@ def check_tall_kernels(dev):
     """B5 and the tall two-float gram against their plain versions and
     against float64 products, on the kernel-check cases and at the tall
     width; there B1, B2 and B3 too, at the tall path's widths, beside the
-    first designs of B1, B2 and B3 (each bit-equal to its production
+    first designs of B1, B2, B3 and B4 (each bit-equal to its production
     kernel at every case and k, and B2 to its first design's tile entry
     at 64 rows a chunk).  B5's comparison entries likewise (its first
     design, C = 4 and CR = 128), and the tall gram with the CR = 128
@@ -531,11 +552,18 @@ def check_tall_kernels(dev):
                              tpk.crossprod_ff_v1_p(packed, lut6, xb),
                              f"{label} k={k}")
             del xb
-            # B2 likewise, on v (B2 takes the SNP-space panel)
+            # B2 likewise, on v (B2 takes the SNP-space panel), and B4
+            # on v and a v_lo of its own draw
             require_b2_equal(tpk.matvec_p(packed, mean, invsd, v),
                              tpk.matvec_v1_p(packed, mean, invsd, v),
                              cv.matvec_tiled_p(packed, mean, invsd, v, 64),
                              f"{label} k={k}")
+            gl = torch.Generator(device=dev).manual_seed(seed + 400 + k)
+            vl = torch.randn((p, k), generator=gl, device=dev) * 1e-7
+            require_b4_equal(tpk.matvec_ff_p(packed, lut6, v, vl),
+                             tpk.matvec_ff_v1_p(packed, lut6, v, vl),
+                             f"{label} k={k}")
+            del vl
             outs = {
                 # name: (kernel, plain, float64, plain bar, float64 bar,
                 #        compare the pairs' sums (else hi halves))
@@ -796,7 +824,7 @@ def require_no_first_design(launches, what):
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
 
     ran = [nm for nm in tpk.B1_KERNELS + tpk.B2_KERNELS + tpk.B3_KERNELS
-           + tpk.NOVL_KERNELS if launches[nm]]
+           + tpk.B4_KERNELS + tpk.NOVL_KERNELS if launches[nm]]
     if ran:
         raise AssertionError(f"comparison entries launched on the {what}: "
                              f"{ran}")
@@ -1258,6 +1286,28 @@ def time_b3(op, kcs):
     return out
 
 
+def time_b4(op, kcs):
+    """B4 beside its first design at ``op``'s shapes, on the same
+    inputs, in turns.  Returns {"name/kc": [ms, ms]}."""
+    import torch
+
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    g = torch.Generator(device=op.device).manual_seed(94)
+    pk = op.packed
+    lut6 = tpk.lut_rows(*op._ff_luts())
+    out = {}
+    for kc in kcs:
+        v = torch.randn((pk.shape[0], kc), generator=g, device=op.device)
+        vl = torch.randn((pk.shape[0], kc), generator=g, device=op.device)
+        vl *= 1e-7
+        time_turns({name: (lambda f=getattr(tpk, name + "_p"):
+                           f(pk, lut6, v, vl))
+                    for name in ("matvec_ff",) + tpk.B4_KERNELS}, kc, out)
+        del v, vl
+    return out
+
+
 def with_first_designs(rows, firsts, launches, worst):
     """``rows`` with each row of a kernel in ``firsts`` ({kernel: (first
     design, its turns)}) whose first design was timed at the row's kc
@@ -1385,17 +1435,19 @@ def main(argv=None) -> int:
         for fn, usage in usages:
             say(f"   {src} {fn}: {usage}")
         if src in (os.path.basename(SOURCE["crossprod_ff"]),
-                   os.path.basename(SOURCE["matvec"])):
+                   os.path.basename(SOURCE["matvec"]),
+                   os.path.basename(SOURCE["matvec_ff"])):
             require_no_spills(src, usages)
-    # B5's, B3's and B2's instruction mix: the FFMA share of their inner
-    # loops' instructions, for the current designs, B5's other tiles and
-    # the first designs (cuobjdump, which the CUDA toolkit ships beside
-    # nvcc; of B2's first design the production fold, 64 rows a chunk)
+    # B5's, B4's, B3's and B2's instruction mix: the FFMA share of their
+    # inner loops' instructions, for the current designs, B5's other
+    # tiles and the first designs (cuobjdump, which the CUDA toolkit
+    # ships beside nvcc; of B2's first design the production fold, 64
+    # rows a chunk)
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass_mix = {}
     for src in ("matvec_ff_novl.cu", "matvec_ff_novl_variants.cu",
-                "matvec_ff.cu", "crossprod_ff_v2.cu", "crossprod_ff.cu",
-                "matvec_v2.cu", "matvec.cu"):
+                "matvec_ff.cu", "matvec_ff_v2.cu", "crossprod_ff_v2.cu",
+                "crossprod_ff.cu", "matvec_v2.cu", "matvec.cu"):
         lib = os.path.join(build_dir, f"lib{os.path.splitext(src)[0]}.so")
         if not os.path.exists(cuobjdump):
             say(f"   {src}: no cuobjdump beside nvcc; SASS mix not read")
@@ -1403,7 +1455,7 @@ def main(argv=None) -> int:
         sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                               text=True).stdout
         for fn, c in sorted(sass_hot_loops(sass).items()):
-            if ("novl" in fn or fn.endswith(", 0>")
+            if (fn.startswith("matvec_ff")
                     or fn.startswith(("crossprod_ff", "matvec_tile"))
                     or (fn.startswith("matvec_kernel<")
                         and fn.endswith(", 64>"))):
@@ -1437,10 +1489,12 @@ def main(argv=None) -> int:
         b1_turns = time_b1(op, (16,))
         b2_turns = time_b2(op, (16, 24))
         b3_turns = time_b3(op, (24,))
+        b4_turns = time_b4(op, (24,))
     kernels = with_first_designs(
         kernels, {"crossprod": ("crossprod_v1", b1_turns),
                   "matvec": ("matvec_v1", b2_turns),
-                  "crossprod_ff": ("crossprod_ff_v1", b3_turns)},
+                  "crossprod_ff": ("crossprod_ff_v1", b3_turns),
+                  "matvec_ff": ("matvec_ff_v1", b4_turns)},
         head["launches"], worst)
     b1_library_ms = next(r["library_ms"] for r in kernels
                          if r["name"] == "crossprod" and r["k"] == 16)
@@ -1454,24 +1508,27 @@ def main(argv=None) -> int:
     with Phase("kernel times at the tall shapes"):
         # B5 at the polish widths (nev 28 -> kc 32, and kc 24); B1-B3 at
         # their tall widths (B1/B2 the solver panel, B1/B2/B3 the polish
-        # at kc 24 and 32)
+        # at kc 24 and 32); B4 at the wide operator's check width on the
+        # tall bytes
         tall_rows = time_kernels(
             top, [("matvec_ff_novl", 32), ("matvec_ff_novl", 24),
                   ("crossprod", 16), ("matvec", 16), ("crossprod", 32),
                   ("crossprod_ff", 32), ("crossprod", 24), ("matvec", 24),
-                  ("matvec", 32), ("crossprod_ff", 24)],
+                  ("matvec", 32), ("crossprod_ff", 24), ("matvec_ff", 24)],
             tall["launches"], worst, slices=64)
         novl = time_novl(top, (32, 24))
         b1_tall_turns = time_b1(top, (16, 32))
         b2_tall_turns = time_b2(top, (16, 24, 32))
         b3_tall_turns = time_b3(top, (24, 32))
+        b4_tall_turns = time_b4(top, (24,))
     # the first designs beside B5 at kc 32/24, B1 at kc 16/32, B2 at kc
-    # 16/24/32, B3 at kc 24/32
+    # 16/24/32, B3 at kc 24/32, B4 at kc 24
     kernels.extend(with_first_designs(
         tall_rows, {"matvec_ff_novl": ("matvec_ff_novl_v1", novl),
                     "crossprod": ("crossprod_v1", b1_tall_turns),
                     "matvec": ("matvec_v1", b2_tall_turns),
-                    "crossprod_ff": ("crossprod_ff_v1", b3_tall_turns)},
+                    "crossprod_ff": ("crossprod_ff_v1", b3_tall_turns),
+                    "matvec_ff": ("matvec_ff_v1", b4_tall_turns)},
         tall["launches"], worst))
     kernels.extend(sweep_rows)
     say(json.dumps({"summary": {
@@ -1481,12 +1538,13 @@ def main(argv=None) -> int:
         "gram_tall_ff_max_abs_err": worst["gram_tall_ff"],
         "tall_kernels_f64_rel": tall_f64,
         "b1_turns_ms": b1_turns, "b2_turns_ms": b2_turns,
-        "b3_turns_ms": b3_turns,
+        "b3_turns_ms": b3_turns, "b4_turns_ms": b4_turns,
         "tall": {"n": TALL_N, "p": TALL_P, **tall,
                  "kernels": tall_rows, "b5_turns_ms": novl,
                  "b1_turns_ms": b1_tall_turns,
                  "b2_turns_ms": b2_tall_turns,
-                 "b3_turns_ms": b3_tall_turns},
+                 "b3_turns_ms": b3_tall_turns,
+                 "b4_turns_ms": b4_tall_turns},
         "sweep": sweep,
         "total_s": time.time() - t_start}}))
     say(json.dumps({"kernels": kernels}))

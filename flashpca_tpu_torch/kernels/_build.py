@@ -2,14 +2,15 @@
 
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded through ``ctypes``; a source may hold several
-kernels (matvec_ff.cu holds B4 and B5's first design), each with its own
-C entry.  Seventeen entries in eleven libraries: B1-B5, the sweep's
-tile entries of B1 and B2 and its variants V1-V4, B1's first design
-(``crossprod_v1``, in crossprod.cu beside the sweep's B1 tile entry),
-B2's first design (``matvec_v1``, in matvec.cu beside the sweep's B2
-tile entry), B3's first design (``crossprod_ff_v1``, in
-crossprod_ff.cu), and B5's comparison entries -- its first design
-(``matvec_ff_novl_v1``) and two other tiles (``matvec_ff_novl_c4``,
+kernels (matvec_ff.cu holds the first designs of B4 and B5), each with
+its own C entry.  Eighteen entries in twelve libraries: B1-B5, the
+sweep's tile entries of B1 and B2 and its variants V1-V4, B1's first
+design (``crossprod_v1``, in crossprod.cu beside the sweep's B1 tile
+entry), B2's first design (``matvec_v1``, in matvec.cu beside the
+sweep's B2 tile entry), B3's first design (``crossprod_ff_v1``, in
+crossprod_ff.cu), B4's first design (``matvec_ff_v1``, in matvec_ff.cu)
+and B5's comparison entries -- its first design (``matvec_ff_novl_v1``,
+in matvec_ff.cu) and two other tiles (``matvec_ff_novl_c4``,
 ``matvec_ff_novl_cr128``).  The build happens at first use, never at
 import (the CPU tests import every module, and the CPU has no
 ``nvcc``), into ``kernels/build/<hash>/`` -- a directory that
@@ -48,7 +49,7 @@ KERNELS = {
                [_P] * 6 + [_I64, _I64, _I32, _P]),
     "crossprod_ff": ("crossprod_ff_v2.cu", "fp_crossprod_ff",
                      [_P] * 5 + [_I64, _I64, _I32, _P]),
-    "matvec_ff": ("matvec_ff.cu", "fp_matvec_ff",
+    "matvec_ff": ("matvec_ff_v2.cu", "fp_matvec_ff",
                   [_P] * 6 + [_I64, _I64, _I32, _P]),
     "matvec_ff_novl": ("matvec_ff_novl.cu", "fp_matvec_ff_novl",
                        [_P] * 5 + [_I64, _I64, _I32, _P]),
@@ -64,6 +65,10 @@ KERNELS = {
     # operator
     "crossprod_ff_v1": ("crossprod_ff.cu", "fp_crossprod_ff_v1",
                         [_P] * 5 + [_I64, _I64, _I32, _P]),
+    # B4's first design: timed beside production B4, launched by no
+    # operator
+    "matvec_ff_v1": ("matvec_ff.cu", "fp_matvec_ff_v1",
+                     [_P] * 6 + [_I64, _I64, _I32, _P]),
     # B5's first design and B5 at two other tiles: timed beside
     # production B5, launched by no operator
     "matvec_ff_novl_v1": ("matvec_ff.cu", "fp_matvec_ff_novl_v1",

@@ -1,6 +1,6 @@
-// B4 and B5: the two-float (y_hi, y_err) of y = W^T (v_hi [+ v_lo]),
-// with W = W_hi + W_lo the exact float64 standardized matrix split into
-// a float32 pair.
+// The first Hopper designs of B4 and B5: the two-float (y_hi, y_err) of
+// y = W^T (v_hi [+ v_lo]), with W = W_hi + W_lo the exact float64
+// standardized matrix split into a float32 pair.
 //
 // Replaces flashpca_tpu/kernels/packed_matvec.py::_matvec_ff_kernel_for:
 //   B4 = _matvec_ff_kernel      (_matvec_ff_kernel_for(True)),  HAS_VL=true
@@ -8,9 +8,11 @@
 // B5 is stage 1 of the tall compensated gram, whose input panel is a
 // plain float32 v: it has no v_lo operand, so its instantiation stages
 // no v_lo tile and issues no v_lo W_hi FMA -- one product in three less
-// than B4 called with a zero v_lo.  Production B5 is matvec_ff_novl.cu;
-// this instantiation stays as fp_matvec_ff_novl_v1, the first design,
-// for a same-run comparison (no operator launches it).
+// than B4 called with a zero v_lo.  Production B4 is matvec_ff_v2.cu,
+// whose sums are this design's bit for bit, and production B5 is
+// matvec_ff_novl.cu; these instantiations stay as fp_matvec_ff_v1 and
+// fp_matvec_ff_novl_v1, the first designs, for a same-run comparison
+// (no operator launches them).
 //
 // Bound: float32 FMAs on the CUDA cores -- per genotype and column,
 // three products for B4 (v_hi W_hi, v_hi W_lo, v_lo W_hi), two for B5:
@@ -165,11 +167,12 @@ int launch(const void* packed, const void* lut6, const void* vh,
 
 }  // namespace
 
-// B4. packed (p, nb) u8; lut6 (6, p) f32; vh, vl (p, kc) f32;
-// yh, yl (4*nb, kc) f32.
-extern "C" int fp_matvec_ff(const void* packed, const void* lut6,
-                            const void* vh, const void* vl, void* yh, void* yl,
-                            long long p, long long nb, int kc, void* stream) {
+// B4's first design. packed (p, nb) u8; lut6 (6, p) f32; vh, vl (p, kc)
+// f32; yh, yl (4*nb, kc) f32.
+extern "C" int fp_matvec_ff_v1(const void* packed, const void* lut6,
+                               const void* vh, const void* vl, void* yh,
+                               void* yl, long long p, long long nb, int kc,
+                               void* stream) {
   return launch<true>(packed, lut6, vh, vl, yh, yl, p, nb, kc, stream);
 }
 

@@ -11,14 +11,16 @@ decoded matrix never reaches device memory:
 B1    crossprod_v2.cu     z = W x        (n4, k) -> (p, k)
 B2    matvec_v2.cu        y = W^T v      (p, k) -> (n4, k)
 B3    crossprod_ff_v2.cu  two-float (z_hi, z_err) of W x
-B4    matvec_ff.cu        two-float (y_hi, y_err) of W^T (v_hi + v_lo)
+B4    matvec_ff_v2.cu     two-float (y_hi, y_err) of W^T (v_hi + v_lo)
 B5    matvec_ff_novl.cu   two-float (y_hi, y_err) of W^T v (no v_lo)
 ====  ==================  ============================================
 
-B1, B2 and B3 each have one comparison entry that no operator launches:
-their first designs, in crossprod.cu (``crossprod_v1_p``), matvec.cu
-(``matvec_v1_p``) and crossprod_ff.cu (``crossprod_ff_v1_p``), whose
-sums are bit for bit B1's, B2's and B3's.  B5 has three: its first
+B1, B2, B3 and B4 each have one comparison entry that no operator
+launches: their first designs, in crossprod.cu (``crossprod_v1_p``),
+matvec.cu (``matvec_v1_p``), crossprod_ff.cu (``crossprod_ff_v1_p``)
+and matvec_ff.cu (``matvec_ff_v1_p``, the ``HAS_VL=true``
+instantiation), whose sums are bit for bit B1's, B2's, B3's and B4's.
+B5 has three: its first
 design, the ``HAS_VL=false`` instantiation of matvec_ff.cu
 (``matvec_ff_novl_v1_p``), and its design at two other tiles in
 matvec_ff_novl_variants.cu (``matvec_ff_novl_c4_p``,
@@ -65,16 +67,17 @@ OPERATOR_KERNELS = ("crossprod", "matvec", "crossprod_ff", "matvec_ff",
                     "matvec_ff_novl")
 SWEEP_KERNELS = ("crossprod_tiled", "matvec_tiled", "crossprod_stacked",
                  "crossprod_intsub", "crossprod_split3", "crossprod_nocomp")
-# B1's, B2's, B3's and B5's comparison entries, which no operator
+# B1's, B2's, B3's, B4's and B5's comparison entries, which no operator
 # launches either
 B1_KERNELS = ("crossprod_v1",)
 B2_KERNELS = ("matvec_v1",)
 B3_KERNELS = ("crossprod_ff_v1",)
+B4_KERNELS = ("matvec_ff_v1",)
 NOVL_KERNELS = ("matvec_ff_novl_v1", "matvec_ff_novl_c4",
                 "matvec_ff_novl_cr128")
 launch_counts = dict.fromkeys(
     OPERATOR_KERNELS + SWEEP_KERNELS + B1_KERNELS + B2_KERNELS + B3_KERNELS
-    + NOVL_KERNELS, 0)
+    + B4_KERNELS + NOVL_KERNELS, 0)
 _launch_log: list | None = None
 
 
@@ -350,11 +353,12 @@ def _launch_crossprod_ff(packed, lut6, x, kc, name="crossprod_ff"):
     return zh, zl
 
 
-def _launch_matvec_ff(packed, lut6, vh, vl, kc):
+def _launch_matvec_ff(packed, lut6, vh, vl, kc, name="matvec_ff"):
+    """Launch B4 (or, by ``name``, its first design)."""
     p, nb = packed.shape
     yh = torch.empty((4 * nb, kc), dtype=torch.float32, device=packed.device)
     yl = torch.empty_like(yh)
-    _run("matvec_ff", packed, lut6, vh, vl, yh, yl, p, nb, kc)
+    _run(name, packed, lut6, vh, vl, yh, yl, p, nb, kc)
     return yh, yl
 
 
@@ -470,15 +474,26 @@ def _crossprod_ff_p(name, packed, lut6, xp):
 def matvec_ff_p(packed, lut6, vh, vl):
     """(y_hi, y_err) of W^T (vh + vl): 2 x (p, k) -> 2 x (n4, k).  B4 on
     CUDA."""
-    _check_shapes(packed.shape[0], vh, "matvec_ff_p")
-    _check_shapes(packed.shape[0], vl, "matvec_ff_p")
+    return _matvec_ff_p("matvec_ff", packed, lut6, vh, vl)
+
+
+def matvec_ff_v1_p(packed, lut6, vh, vl):
+    """B4's first design (matvec_ff.cu, ``HAS_VL=true``); the sums of
+    :func:`matvec_ff_p` bit for bit, :func:`matvec_ff_plain` on the
+    CPU."""
+    return _matvec_ff_p("matvec_ff_v1", packed, lut6, vh, vl)
+
+
+def _matvec_ff_p(name, packed, lut6, vh, vl):
+    _check_shapes(packed.shape[0], vh, f"{name}_p")
+    _check_shapes(packed.shape[0], vl, f"{name}_p")
     if vh.device.type == "cpu":
         return matvec_ff_plain(packed, lut6, vh, vl)
     _check_cuda(packed, vh, vl, lut6)
     _check_lut6(packed, lut6)
     w = _widths(vh.shape[1])
     outs = [_launch_matvec_ff(packed, lut6, _padded(vh, c0, c1, kc),
-                              _padded(vl, c0, c1, kc), kc)
+                              _padded(vl, c0, c1, kc), kc, name)
             for c0, c1, kc in w]
     return _cat_pairs(outs, w)
 

@@ -232,12 +232,15 @@ def run(device, reps=3):
     return rows
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+def tool_main(argv, doc, tool, run):
+    """The command line of a tile tool (``doc`` its module note, ``tool``
+    its name): ``--out FILE``; exits 1 without a GPU or when a tile's
+    row is not ``bit_equal``."""
+    ap = argparse.ArgumentParser(description=doc.split("\n")[0])
     ap.add_argument("--out", help="also write the readings to this JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
-        print("b3_tiles: no CUDA device; the tile trials run on a GPU only",
+        print(f"{tool}: no CUDA device; the tile trials run on a GPU only",
               file=sys.stderr)
         return 1
     smi = subprocess.run(
@@ -250,6 +253,10 @@ def main(argv=None) -> int:
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "rows": rows}, fh, indent=1)
     return 0 if all(r["bit_equal"] for r in rows) else 1
+
+
+def main(argv=None) -> int:
+    return tool_main(argv, __doc__, "b3_tiles", run)
 
 
 if __name__ == "__main__":

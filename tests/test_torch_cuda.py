@@ -90,13 +90,15 @@ def test_tall_kernels_match_plain(cuda, k, p, n):
     24, 28 -> 32).  133 x 771 is ragged on both of B5's tile axes: p =
     2 x 64 + 5 SNP rows (two full 64-row chunks, or one 128-row chunk,
     and five rows), 193 bytes = 3 x 64 + 1 (three full blocks and one
-    byte)."""
+    byte).  v and the tables come from a seeded generator, so a case
+    takes the same inputs whatever ran before it
+    (``python -m flashpca_tpu_torch.tools.tall_gram_seeds`` runs a case
+    over other seeds)."""
     from flashpca_tpu_torch.ops.genotypes import valid_mask_permuted
+    from flashpca_tpu_torch.tools.tall_gram_seeds import draws
 
     packed, mean, invsd, nb = _operands(cuda, n, p)
-    v = torch.randn((p, k), device=cuda)
-    lh = torch.randn(p, 4, device=cuda)
-    ll = torch.randn(p, 4, device=cuda) * 1e-8
+    v, lh, ll = (t.to(cuda) for t in draws(p, k, 12))
     lut6 = tpk.lut_rows(lh, ll)
     tpk.reset_launch_counts()
     yh, yl = tpk.matvec_ff_novl_p(packed, lut6, v)
@@ -169,6 +171,37 @@ def test_b2_is_bit_equal_to_its_first_design(cuda, k, p, n):
     assert torch.equal(y, cv.matvec_tiled_p(packed, mean, invsd, v, 64))
     _close(y, tpk.matvec_plain(packed.cpu(), mean.cpu(), invsd.cpu(),
                                v.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 16, 24, 28, 32, 40])
+@pytest.mark.parametrize("n", [1001, 771, 4096])
+@pytest.mark.parametrize("p", [133, 333])
+def test_b4_is_bit_equal_to_its_first_design(cuda, k, p, n):
+    """B4 (matvec_ff_v2.cu) gives its first design's (y_hi, y_err) bit
+    for bit at every KC (k 3 -> 8; 16; 24; 28 -> 32; 32; 40 -> 32 + 8):
+    each output takes the same three FMA sequences and the same TwoSum
+    fold every 64 SNP rows.  p = 133 = 2 x 64 + 5 and 333 = 5 x 64 + 13
+    are ragged on the 64-row chunks; n = 1001 and 771 give 251 and 193
+    bytes (nb % 16 != 0: rows staged byte by byte, a ragged last block),
+    n = 4096 1,024.  Inputs from a seeded generator."""
+    packed, _, _, nb = _operands(cuda, n, p)
+    g = torch.Generator().manual_seed(13)
+    lut6 = tpk.lut_rows(torch.randn((p, 4), generator=g),
+                        torch.randn((p, 4), generator=g) * 1e-8).to(cuda)
+    vh = torch.randn((p, k), generator=g).to(cuda)
+    vl = (torch.randn((p, k), generator=g) * 1e-7).to(cuda)
+    tpk.reset_launch_counts()
+    yh, yl = tpk.matvec_ff_p(packed, lut6, vh, vl)
+    fh, fl = tpk.matvec_ff_v1_p(packed, lut6, vh, vl)
+    chunks = len(tpk._widths(k))
+    assert tpk.launch_counts["matvec_ff"] == chunks
+    assert tpk.launch_counts["matvec_ff_v1"] == chunks
+    assert torch.equal(yh, fh) and torch.equal(yl, fl)
+    ph, pl = tpk.matvec_ff_plain(packed.cpu(), lut6.cpu(), vh.cpu(),
+                                 vl.cpu())
+    _close(yh, ph)
+    _close_pair(yh, yl, ph, pl)
 
 
 @pytest.mark.cuda

@@ -1,16 +1,17 @@
-"""The kernel build table, the comparison entries of B1, B2, B3 and B5
-and chip_smoke.py's tables, on the CPU.
+"""The kernel build table, the comparison entries of B1-B5 and
+chip_smoke.py's tables, on the CPU.
 
 The CUDA sources compile only on a machine with ``nvcc`` and a card, so
 what runs here is what surrounds them: every entry of
 ``_build.KERNELS`` names a source that exists and a C function of that
 source whose parameter count matches its ctypes argument list; the
 build directory's hash moves with every source; every entry has a
-launch count; production B1's, B2's, B3's and B5's libraries hold no
-comparison entry; the comparison wrappers exist and take the plain
-versions on CPU tensors, bit for bit; chip_smoke.py has the rows its
-timing phase reads and parses the compiler's register report; and the
-B2 and B3 tile tools read production's tiles and refuse the CPU.
+launch count; production B1's, B2's, B3's, B4's and B5's libraries
+hold no comparison entry; the comparison wrappers exist and take the
+plain versions on CPU tensors, bit for bit; chip_smoke.py has the rows
+its timing phase reads and parses the compiler's register report; and
+the B2, B3 and B4 tile tools read production's tiles and refuse the
+CPU.
 """
 
 import importlib.util
@@ -43,7 +44,8 @@ def _chip_smoke():
      "fp_matvec_ff_novl_c4"),
     ("matvec_ff_novl_cr128", "matvec_ff_novl_variants.cu",
      "fp_matvec_ff_novl_cr128"),
-    ("matvec_ff", "matvec_ff.cu", "fp_matvec_ff"),
+    ("matvec_ff", "matvec_ff_v2.cu", "fp_matvec_ff"),
+    ("matvec_ff_v1", "matvec_ff.cu", "fp_matvec_ff_v1"),
     ("crossprod", "crossprod_v2.cu", "fp_crossprod"),
     ("crossprod_v1", "crossprod.cu", "fp_crossprod_v1"),
     ("crossprod_tiled", "crossprod.cu", "fp_crossprod_tiled"),
@@ -54,9 +56,9 @@ def _chip_smoke():
     ("matvec_tiled", "matvec.cu", "fp_matvec_tiled"),
 ])
 def test_b5_entries_map_to_their_sources(name, src, entry):
-    """B5's and (since their redesigns) B1's, B2's and B3's entries:
-    production in the new source, the first design (and B1's and B2's
-    sweep tile entries) in the old one."""
+    """B5's and (since their redesigns) B1's, B2's, B3's and B4's
+    entries: production in the new source, the first design (and B1's
+    and B2's sweep tile entries) in the old one."""
     assert _build.KERNELS[name][:2] == (src, entry)
 
 
@@ -90,7 +92,7 @@ def test_b5_is_built_from_its_new_source():
 
 def test_b1_is_built_from_its_new_source():
     assert {"crossprod_v2.cu", "crossprod.cu"} <= set(_build.sources())
-    assert len(_build.sources()) == 11 and len(_build.KERNELS) == 17
+    assert len(_build.sources()) == 12 and len(_build.KERNELS) == 18
 
 
 def test_b3_is_built_from_its_new_source():
@@ -103,6 +105,32 @@ def test_b2_is_built_from_its_new_source():
     assert {"matvec_v2.cu", "matvec.cu"} <= set(_build.sources())
     assert _build.KERNELS["matvec"][2] == _build.KERNELS["matvec_v1"][2]
     assert tpk.B2_KERNELS == ("matvec_v1",)
+
+
+def test_b4_is_built_from_its_new_source():
+    assert {"matvec_ff_v2.cu", "matvec_ff.cu"} <= set(_build.sources())
+    assert _build.KERNELS["matvec_ff"][2] == _build.KERNELS[
+        "matvec_ff_v1"][2]
+    assert len(_build.KERNELS["matvec_ff"][2]) == 10
+    assert tpk.B4_KERNELS == ("matvec_ff_v1",)
+
+
+def test_production_b4_library_holds_only_b4():
+    """B4's source defines one C entry; the first designs of B4 and B5
+    stay in matvec_ff.cu, and B5's production source is not B4's."""
+    with open(os.path.join(_build.CSRC, "matvec_ff_v2.cu")) as fh:
+        prod = fh.read()
+    with open(os.path.join(_build.CSRC, "matvec_ff.cu")) as fh:
+        first = fh.read()
+    assert re.findall(r'extern "C" int (\w+)\(', prod) == ["fp_matvec_ff"]
+    assert re.findall(r'extern "C" int (\w+)\(', first) == [
+        "fp_matvec_ff_v1", "fp_matvec_ff_novl_v1"]
+    assert "matvec_ff_novl" not in re.sub(r"//.*", "", prod)
+    # the note names the TPU kernel it replaces, its bound and the fold
+    # that keeps the first design's bits
+    assert "packed_matvec.py::_matvec_ff_kernel\n" in prod
+    assert "6*KC*p*n4 operations" in prod
+    assert "constexpr int CR = 64;" in prod
 
 
 def test_production_b2_library_holds_only_b2():
@@ -169,11 +197,12 @@ def test_production_b5_library_holds_only_b5():
 def test_launch_counts_cover_every_entry():
     assert set(tpk.launch_counts) == set(_build.KERNELS)
     for comparison in (tpk.NOVL_KERNELS, tpk.B1_KERNELS, tpk.B2_KERNELS,
-                       tpk.B3_KERNELS):
+                       tpk.B3_KERNELS, tpk.B4_KERNELS):
         assert set(comparison) <= set(tpk.launch_counts)
         assert not set(comparison) & set(tpk.OPERATOR_KERNELS)
     assert tpk.B1_KERNELS == ("crossprod_v1",)
     assert tpk.B3_KERNELS == ("crossprod_ff_v1",)
+    assert tpk.B4_KERNELS == ("matvec_ff_v1",)
 
 
 @pytest.fixture(scope="module")
@@ -252,6 +281,23 @@ def test_b3_wrappers_on_cpu_are_plain(novl_operands, name, k):
     assert all(c == 0 for c in tpk.launch_counts.values())
 
 
+@pytest.mark.parametrize("k", [3, 16, 24, 40])
+@pytest.mark.parametrize("name", ("matvec_ff",) + tpk.B4_KERNELS)
+def test_b4_wrappers_on_cpu_are_plain(novl_operands, name, k):
+    """B4 and its first design take matvec_ff_plain on CPU tensors, both
+    halves bit for bit, and launch nothing."""
+    packed, lut6, rng = novl_operands
+    p = packed.shape[0]
+    vh = torch.from_numpy(rng.standard_normal((p, k)).astype(np.float32))
+    vl = torch.from_numpy(
+        (rng.standard_normal((p, k)) * 1e-7).astype(np.float32))
+    tpk.reset_launch_counts()
+    yh, yl = getattr(tpk, name + "_p")(packed, lut6, vh, vl)
+    ph, pl = tpk.matvec_ff_plain(packed, lut6, vh, vl)
+    assert torch.equal(yh, ph) and torch.equal(yl, pl)
+    assert all(c == 0 for c in tpk.launch_counts.values())
+
+
 @pytest.mark.parametrize("name", ("crossprod",) + tpk.B1_KERNELS)
 def test_chip_smoke_has_rows_for_b1_and_its_first_design(name):
     """The rows chip_smoke's timing phase reads for B1 and its first
@@ -318,6 +364,55 @@ def test_chip_smoke_requires_b2_equal():
     for got in ((b, y), (y, b)):
         with pytest.raises(AssertionError, match="not bit-equal"):
             cs.require_b2_equal(y, *got, "one ulp")
+
+
+@pytest.mark.parametrize("name", ("matvec_ff",) + tpk.B4_KERNELS)
+def test_chip_smoke_has_rows_for_b4_and_its_first_design(name):
+    """The rows chip_smoke's timing phase reads for B4 and its first
+    design: sources, the TPU kernel replaced and three products a
+    genotype (the bound)."""
+    cs = _chip_smoke()
+    assert cs.SOURCE[name] == ("flashpca_tpu_torch/kernels/csrc/"
+                               + _build.KERNELS[name][0])
+    assert os.path.exists(os.path.join(ROOT, cs.SOURCE[name]))
+    assert cs.TPU_KERNEL[name] == "flashpca_tpu/kernels/packed_matvec.py:369"
+    assert cs.DOTS[name] == 3
+
+
+def test_chip_smoke_names_b4s_instantiations():
+    """B4's and its first design's symbols, as ptxas and cuobjdump name
+    them; the smoke reads the inner loop of both."""
+    cs = _chip_smoke()
+    sym = ("_ZN46_GLOBAL__N__9a1b2c3d_15_matvec_ff_v2_cu_1f2e3d4c4mff2"
+           "21matvec_ff_tile_kernelILi24EEEvPKhPKfS5_S5_PfS6_xxbb")
+    assert cs.kernel_name(sym) == "matvec_ff_tile_kernel<24>"
+    sym = ("_ZN45_GLOBAL__N__9a1b2c3d_12_matvec_ff_cu_1f2e3d4c"
+           "16matvec_ff_kernelILi24ELb1EEEvPKhPKfS4_S4_PfS5_xx")
+    assert cs.kernel_name(sym) == "matvec_ff_kernel<24, 1>"
+
+
+def test_chip_smoke_requires_b4_equal_on_both_halves():
+    cs = _chip_smoke()
+    a = torch.arange(8.0).reshape(4, 2)
+    cs.require_b4_equal((a, a * 1e-8), (a.clone(), a * 1e-8), "same")
+    b = a.clone()
+    b[3, 1] = torch.nextafter(b[3, 1], torch.tensor(-9.0))
+    for got in ((b, a * 1e-8), (a, b * 1e-8)):
+        with pytest.raises(AssertionError, match="not bit-equal"):
+            cs.require_b4_equal(got, (a, a * 1e-8), "one ulp")
+
+
+def test_chip_smoke_runs_no_first_design_on_a_main_path():
+    """A launch of B4's first design (or any other) on a main path
+    fails the smoke; the production kernels' launches do not."""
+    cs = _chip_smoke()
+    launches = dict.fromkeys(tpk.launch_counts, 0)
+    launches.update(dict.fromkeys(cs.WIDE_PATH, 5))
+    cs.require_no_first_design(launches, "wide path")
+    for first in tpk.B4_KERNELS + tpk.B2_KERNELS:
+        with pytest.raises(AssertionError, match=first):
+            cs.require_no_first_design(dict(launches, **{first: 1}),
+                                       "wide path")
 
 
 def test_chip_smoke_names_b3s_instantiations():
@@ -461,6 +556,79 @@ def test_b2_tile_tool_counts_blocks_and_waves():
         assert row in text, row
 
 
+def test_b4_tile_tool_reads_production_tiles():
+    """The tool's production tiles are the source's defaults, and every
+    tile it tries is a tile the source takes: C divides KC, 4 | C and a
+    warp's 32 bytes divide TB; it times the wide kc=24 and the tall
+    bytes' kc=24 launches."""
+    from flashpca_tpu_torch.tools import b3_tiles, b4_tiles
+
+    prod = b4_tiles.production_tiles()
+    assert sorted(prod) == [8, 16, 24, 32]
+    assert sorted(b4_tiles.TILES) == [16, 24, 32]
+    assert {(lbl, kc) for lbl, _, _, kc in b4_tiles.SHAPES} >= {
+        ("wide", 24), ("tall", 24)}
+    for kc, tiles in list(b4_tiles.TILES.items()) + [
+            (kc, [t]) for kc, t in prod.items()]:
+        for c, tb, tps, ereg, u in tiles:
+            assert kc % c == 0 and c % 4 == 0 and tb % 32 == 0
+            assert ereg in (0, 1) and tps >= tb * (kc // c)
+            assert 64 % u == 0
+    for kc, tiles in b4_tiles.TILES.items():
+        assert len(tiles) >= 2 and prod[kc] not in tiles
+    src = b3_tiles.tile_source(24, (8, 64, 384, 0, 8), b4_tiles.SOURCE,
+                               b4_tiles.MACRO)
+    assert src.splitlines() == [
+        "#define MATVEC_FF_TILE_24 8, 64, 384, 0, 8",
+        '#include "%s"' % os.path.join(_build.CSRC, "matvec_ff_v2.cu")]
+    with open(os.path.join(_build.CSRC, "matvec_ff_v2.cu")) as fh:
+        assert "#ifndef MATVEC_FF_TILE_24\n" in fh.read()
+    # the tool reads each tile's registers under the kernel's own name
+    sym = ("_ZN46_GLOBAL__N__9a1b2c3d_15_matvec_ff_v2_cu_1f2e3d4c4mff2"
+           "21matvec_ff_tile_kernelILi24EEEvPKhPKfS5_S5_PfS6_xxbb")
+    log = [f"ptxas info    : Compiling entry function '{sym}' for 'sm_90a'",
+           "ptxas info    : Used 126 registers, used 1 barriers"]
+    assert dict(_build.ptxas_usage(log)) == {
+        f"{b4_tiles.KERNEL}<24>": "Used 126 registers, used 1 barriers"}
+
+
+def test_b4_tile_tool_counts_blocks_and_waves():
+    """A kc=24 tile of 8 columns: 192 threads, 60 KB of shared memory
+    with err in registers (84 KB beside the sum), two blocks an SM at the
+    168 registers that 384 threads leave, 7.42 waves on the wide shape;
+    the header's table says so for every production tile."""
+    from flashpca_tpu_torch.tools import b4_tiles
+
+    tile = (8, 64, 384, 1, 8)
+    assert b4_tiles.reg_cap(24, tile) == 168
+    assert b4_tiles.occupancy(24, tile, 166) == (192, 61_440, 2)
+    assert round(b4_tiles.waves(24, tile, 166, 125_440), 2) == 7.42
+    assert round(b4_tiles.waves(24, tile, 166, 250_880), 2) == 14.85
+    # three blocks fit the shared memory but not 166 registers
+    assert b4_tiles.occupancy(24, tile, 104) == (192, 61_440, 3)
+    assert b4_tiles.occupancy(24, (8, 64, 384, 0, 8), 104) == (192, 86_016,
+                                                               2)
+    with open(os.path.join(_build.CSRC, "matvec_ff_v2.cu")) as fh:
+        text = fh.read()
+    for kc, tile in b4_tiles.production_tiles().items():
+        c, tb, tps, _, u = tile
+        cap = b4_tiles.reg_cap(kc, tile)
+        nt, smem, blocks = b4_tiles.occupancy(kc, tile, cap)
+        row = (f"//     {kc:2d}  {c:2d} {tb:3d}  {u:2d}    {nt:3d}    {tps}"
+               f"    {cap:3d}      {smem // 1024:3d}        {blocks:2d}      "
+               f"{b4_tiles.waves(kc, tile, cap, 125_440):.2f}  "
+               f"{b4_tiles.waves(kc, tile, cap, 250_880):5.2f}")
+        assert row in text, row
+
+
+def test_b4_tile_tool_exits_nonzero_without_gpu(monkeypatch, capsys):
+    from flashpca_tpu_torch.tools import b4_tiles
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert b4_tiles.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
 def test_b2_tile_tool_exits_nonzero_without_gpu(monkeypatch, capsys):
     from flashpca_tpu_torch.tools import b2_tiles
 
@@ -556,3 +724,46 @@ def test_chip_smoke_reads_the_inner_loop_inside_a_decoding_loop():
         "        /*00f0*/                   EXIT ;"])
     c = cs.sass_hot_loops(sass)["matvec_tile_kernel<16>"]
     assert dict(c) == {"LDS": 1, "FFMA": 10, "BRA": 1}
+
+
+def test_tall_gram_seed_tool_draws_the_card_tests_inputs():
+    """The seed sweep's bytes are the card test's ``_operands`` and its
+    draws are seeded: the same seed gives the same v and tables."""
+    from flashpca_tpu_torch.tools import tall_gram_seeds as tgs
+
+    spec = importlib.util.spec_from_file_location(
+        "card_tests", os.path.join(ROOT, "tests", "test_torch_cuda.py"))
+    card = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(card)
+    packed, mean, invsd, nb = card._operands(torch.device("cpu"), 771, 133)
+    for got, want in zip(tgs.operands(771, 133), (packed, mean, invsd)):
+        assert torch.equal(got, want)
+    a, b = tgs.draws(133, 28, 12), tgs.draws(133, 28, 12)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(a[0], tgs.draws(133, 28, 13)[0])
+    assert [tuple(t.shape) for t in a] == [(133, 28), (133, 4), (133, 4)]
+
+
+def test_tall_gram_seed_tool_reads_a_case_on_the_cpu():
+    """On the CPU both sides take the plain version, so every ratio is
+    0; the float64 gram of the same tables sits within float32 rounding
+    of the plain pair."""
+    from flashpca_tpu_torch.tools import tall_gram_seeds as tgs
+
+    r = tgs.case(torch.device("cpu"), 37, 101, 5, 3)
+    assert (r["hi_ratio"], r["pair_rel"], r["b3_ratio"]) == (0.0, 0.0, 0.0)
+    assert r["card_pair_err"] == r["plain_pair_err"]
+    assert r["plain_pair_err"] <= 1e-5 * max(1.0, abs(r["z64"]))
+    ratio, at = tgs.hi_ratio(
+        torch.tensor([1.0, 2.0 + 2e-3 + 4e-4], dtype=torch.float64),
+        torch.tensor([1.0, 2.0], dtype=torch.float64))
+    assert at == 1 and abs(ratio - 1.0) < 1e-12
+
+
+def test_tall_gram_seed_tool_exits_nonzero_without_gpu(monkeypatch,
+                                                       capsys):
+    from flashpca_tpu_torch.tools import tall_gram_seeds as tgs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tgs.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
