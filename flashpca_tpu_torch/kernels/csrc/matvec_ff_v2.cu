@@ -68,12 +68,12 @@
 //   (blocks/SM by threads, the register cap and shared memory, 228 KB an
 //   SM less 1 KB a block; the last two columns are waves, blocks / (132
 //   SMs x blocks/SM), at nb = 125,440 (wide) and 250,880 (tall).)  On
-//   the card the kernel is latency-bound, not issue-bound: 84.5% of the
-//   inner loop's instructions are FFMA, yet C = 4 at twice the warps
-//   keeps up with C = 8, and 8 rows unrolled beat 16 at kc 16 and 24
-//   (at the 168-register cap 16 rows leave less room for loads in
-//   flight).  TB = 128 runs best on the tall bytes but, one block an SM,
-//   loses the wide launch's last part-wave.  The tiles tried are in
+//   the card the kernel is latency-bound, not issue-bound: 84% of the
+//   inner loop's instructions are FFMA, yet with 16 rows unrolled C = 4
+//   at twice the warps beat C = 8; 8 rows unrolled beat 16 at kc 16
+//   and 24, and C = 4 at kc 24 (at the 168-register cap 16 rows leave
+//   less room for loads in flight).  TB = 128 runs best on the tall bytes but, one block an
+//   SM, loses the wide launch's last part-wave.  The tiles tried are in
 //   PERF.md.
 //
 // A source that defines MATVEC_FF_TILE_<KC> as "C, TB, TPS, EREG, U" and
