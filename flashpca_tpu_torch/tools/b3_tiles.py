@@ -19,6 +19,11 @@ values).  Times are medians of CUDA-event times after a warm-up, each
 tile timed once in order and once in reverse.  A tile that does not
 build is reported and skipped.  The tool needs a GPU and exits 1
 without one, or when a tile is not bit-equal.
+
+The build, the check, the timing and the command line
+(:func:`build_tiles`, :func:`run_tiles`, :func:`tool_main`) serve B2's
+and B4's tile tools too, as do the occupancy counts of their W^T tiles
+(:func:`reg_cap`, :func:`wt_occupancy`, :func:`wt_grid`, :func:`waves`).
 """
 
 from __future__ import annotations
@@ -38,8 +43,8 @@ import torch
 from ..kernels import _build
 from ..kernels import packed_matvec as tpk
 
-SOURCE, KERNEL = "crossprod_ff_v2.cu", "crossprod_ff_tile_kernel"
-MACRO, ENTRY = "CROSSPROD_FF_TILE", "fp_crossprod_ff"
+NAME, KERNEL = "crossprod_ff", "crossprod_ff_tile_kernel"
+SOURCE, MACRO = "crossprod_ff_v2.cu", "CROSSPROD_FF_TILE"
 # the tiles tried beside production's, by KC: (R, C, TPS)
 TILES = {
     24: [(1, 12, 512), (1, 8, 768), (2, 8, 768), (2, 12, 384),
@@ -50,7 +55,7 @@ TILES = {
 # (label, SNPs, packed bytes, kc): the main paths' B3 launches
 SHAPES = (("wide", 100_352, 125_440, 24), ("tall", 50_176, 250_880, 24),
           ("tall", 50_176, 250_880, 32))
-TM, CB = 128, 32
+TM, CB, SMS = 128, 32, 132
 SMEM_SM, SMEM_BLOCK_RESERVED = 233_472, 1024     # H100: 228 KB an SM
 
 
@@ -75,25 +80,68 @@ def tile_source(kc, tile, source=SOURCE, macro=MACRO):
             f'#include "{os.path.join(_build.CSRC, source)}"\n')
 
 
+def blocks_an_sm(nt, smem, regs):
+    """Blocks of ``nt`` threads and ``smem`` dynamic shared bytes with
+    ``regs`` registers a thread that one SM holds: the least that
+    threads, registers and shared memory allow."""
+    by_regs = 65_536 // (nt * (-(-regs // 8) * 8))
+    by_smem = SMEM_SM // (smem + SMEM_BLOCK_RESERVED)
+    return min(2048 // nt, by_regs, by_smem, 32)
+
+
 def occupancy(kc, tile, regs):
-    """(threads a block, dynamic shared bytes, blocks an SM) of ``tile``
-    at ``kc`` with ``regs`` registers a thread: the least of the blocks
-    that threads, registers and shared memory allow."""
+    """(threads a block, dynamic shared bytes, blocks an SM) of B3's
+    ``tile`` at ``kc`` with ``regs`` registers a thread."""
     r, c, _ = tile
     nt = TM // r * (kc // c)
     smem = 2 * (TM * CB + 4 * CB * kc * 4) + 2 * TM * kc * 4
-    by_regs = 65_536 // (nt * (-(-regs // 8) * 8))
-    by_smem = SMEM_SM // (smem + SMEM_BLOCK_RESERVED)
-    return nt, smem, min(2048 // nt, by_regs, by_smem, 32)
+    return nt, smem, blocks_an_sm(nt, smem, regs)
 
 
-def build_tiles(tiles, source=SOURCE, macro=MACRO, entry=ENTRY,
-                kernel=KERNEL, name="crossprod_ff"):
-    """Compile one library per (kc, tile) of ``source`` (by default
-    B3's), all ``nvcc`` together; return {(kc, tile): (ctypes entry
-    ``entry`` with the argument types of ``_build.KERNELS[name]``, "Used
-    N registers ..." of ``kernel`` at that kc)} of the tiles that
+def grid(tile, p, nb):
+    """Blocks of a B3 launch over ``p`` SNPs: one per 128 rows."""
+    return -(-p // TM)
+
+
+def waves(blocks, per_sm):
+    """Waves of a launch of ``blocks`` blocks at ``per_sm`` blocks an SM
+    (132 SMs)."""
+    return blocks / (SMS * per_sm)
+
+
+def reg_cap(kc, tile):
+    """The registers a thread that ``__launch_bounds__`` leaves a W^T
+    tile (C, TB, TPS, ...) of B2 or B4 (TPS / threads a block blocks an
+    SM; a multiple of 8, at most 255)."""
+    c, tb, tps = tile[:3]
+    nt = tb * (kc // c)
+    return min(255, 65_536 // (nt * max(1, tps // nt)) // 8 * 8)
+
+
+def wt_occupancy(kc, tile, regs, stage_bytes):
+    """(threads a block, dynamic shared bytes, blocks an SM) of a W^T
+    tile (C columns, TB bytes, TPS, EREG, ...) of B2 or B4 at ``kc`` with
+    ``regs`` registers a thread: two ``cp.async`` stages of
+    ``stage_bytes(kc, tile)`` each, and the running sum of each thread's
+    4 samples x C columns beside them (the err too when EREG is 0)."""
+    c, tb, _, ereg = tile[:4]
+    nt = tb * (kc // c)
+    smem = 2 * stage_bytes(kc, tile) + (1 if ereg else 2) * 4 * c * nt * 4
+    return nt, smem, blocks_an_sm(nt, smem, regs)
+
+
+def wt_grid(tile, p, nb):
+    """Blocks of a B2 or B4 launch over ``nb`` packed bytes: one per TB."""
+    return -(-nb // tile[1])
+
+
+def build_tiles(tiles, name=NAME, macro=MACRO, kernel=KERNEL):
+    """Compile one library per (kc, tile) of the production source of
+    ``_build.KERNELS[name]`` (by default B3's), all ``nvcc`` together;
+    return {(kc, tile): (ctypes entry with that entry's argument types,
+    "Used N registers ..." of ``kernel`` at that kc)} of the tiles that
     built."""
+    source, entry, argtypes = _build.KERNELS[name]
     nvcc = _build._nvcc()
     h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
     for fname in (source,) + _build.HEADERS:
@@ -124,12 +172,29 @@ def build_tiles(tiles, source=SOURCE, macro=MACRO, entry=ENTRY,
                     + fh.read()[-2000:])
             continue
         fn = getattr(ctypes.CDLL(lib), entry)
-        fn.argtypes = _build.KERNELS[name][2]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         with open(log) as fh:
             usage = dict(_build.ptxas_usage(fh))
         out[kc, tile] = (fn, usage.get(f"{kernel}<{kc}>", "?"))
     return out
+
+
+def table_data(device, p, nb):
+    """The packed bytes and two-float code tables of a B3 or B4 shape
+    (random: the kernels' time does not depend on the values)."""
+    g = torch.Generator(device=device).manual_seed(5)
+    return (torch.randint(0, 256, (p, nb), generator=g, dtype=torch.uint8,
+                          device=device),
+            tpk.lut_rows(torch.randn((p, 4), generator=g, device=device),
+                         torch.randn((p, 4), generator=g, device=device)
+                         * 1e-8))
+
+
+def panel(device, p, nb, kc):
+    """B3's x (4 nb, kc)."""
+    g = torch.Generator(device=device).manual_seed(6 + kc)
+    return (torch.randn((4 * nb, kc), generator=g, device=device),)
 
 
 def launcher(fn, packed, lut6, x, kc):
@@ -163,79 +228,89 @@ def event_ms(fn, reps):
     return float(np.median(ts))
 
 
-def run(device, reps=3):
-    """Build, check and time every tile; return the readings (each
-    row's ``bit_equal``: both halves equal to the first design's)."""
-    prod = production_tiles()
-    with open(os.path.join(_build.build_all(),
-                           SOURCE.replace(".cu", ".log"))) as fh:
+def _outputs(r):
+    return r if isinstance(r, tuple) else (r,)
+
+
+def run_tiles(device, name, macro, kernel, tiles, shapes, data, panel,
+              launcher, occupancy, grid, reps=3):
+    """Build, check and time the ``tiles`` ({KC: [tile]}) of
+    ``_build.KERNELS[name]``'s source beside production
+    (``tpk.<name>_p``) and its first design (``tpk.<name>_v1_p``) at each
+    of ``shapes`` ((label, SNPs, packed bytes, kc)); return the readings
+    (each row's ``bit_equal``: every output equal to the first
+    design's).
+
+    The wrappers take ``data(device, p, nb)`` (made once for the shapes
+    that share it) and then ``panel(device, p, nb, kc)``;
+    ``launcher(fn, *data, *panel, kc)`` gives a thunk of a tile's ctypes
+    entry ``fn``; ``occupancy(kc, tile, regs)`` is (threads a block,
+    dynamic shared bytes, blocks an SM) and ``grid(tile, p, nb)`` a
+    launch's blocks."""
+    prod = production_tiles(_build.KERNELS[name][0], macro)
+    with open(os.path.join(_build.build_all(), _build.KERNELS[name][0]
+                           .replace(".cu", ".log"))) as fh:
         prod_usage = dict(_build.ptxas_usage(fh))
-    libs = build_tiles([(kc, t) for kc, ts in TILES.items() for t in ts])
+    libs = build_tiles([(kc, t) for kc, ts in tiles.items() for t in ts],
+                       name, macro, kernel)
+    production, first = getattr(tpk, name + "_p"), getattr(tpk,
+                                                           name + "_v1_p")
     rows = []
-    data = None
-    for label, p, nb, kc in SHAPES:
-        if data is None or data[0].shape != (p, nb):
-            data = None
+    shared = None
+    for label, p, nb, kc in shapes:
+        if shared is None or shared[0].shape != (p, nb):
+            shared = None
             torch.cuda.empty_cache()
-            g = torch.Generator(device=device).manual_seed(5)
-            data = (torch.randint(0, 256, (p, nb), generator=g,
-                                  dtype=torch.uint8, device=device),
-                    tpk.lut_rows(
-                        torch.randn((p, 4), generator=g, device=device),
-                        torch.randn((p, 4), generator=g, device=device)
-                        * 1e-8))
-        packed, lut6 = data
-        g = torch.Generator(device=device).manual_seed(6 + kc)
-        x = torch.randn((4 * nb, kc), generator=g, device=device)
-        fns = {"production " + str(prod[kc]):
-               lambda: tpk.crossprod_ff_p(packed, lut6, x),
-               "first design": lambda: tpk.crossprod_ff_v1_p(packed, lut6,
-                                                            x)}
-        for tile in TILES[kc]:
+            shared = data(device, p, nb)
+        args = shared + panel(device, p, nb, kc)
+        fns = {"production " + str(prod[kc]): lambda: production(*args),
+               "first design": lambda: first(*args)}
+        for tile in tiles[kc]:
             if (kc, tile) in libs:
-                fns[str(tile)] = launcher(libs[kc, tile][0], packed, lut6, x,
-                                          kc)
-        want = fns["first design"]()
+                fns[str(tile)] = launcher(libs[kc, tile][0], *args, kc)
+        want = _outputs(fns["first design"]())
         equal = {}
-        for name, fn in fns.items():
-            got = fn()
-            equal[name] = (torch.equal(got[0], want[0])
-                           and torch.equal(got[1], want[1]))
+        for tag, fn in fns.items():
+            got = _outputs(fn())
+            equal[tag] = all(torch.equal(a, b) for a, b in zip(got, want))
             del got
+        del want
         times = {}
-        for name in list(fns) + list(fns)[::-1]:
-            times.setdefault(name, []).append(event_ms(fns[name], reps))
-        for name, ts in times.items():
-            if name == "first design":
+        for tag in list(fns) + list(fns)[::-1]:
+            times.setdefault(tag, []).append(event_ms(fns[tag], reps))
+        for tag, ts in times.items():
+            if tag == "first design":
                 tile, usage = None, ""
-            elif name.startswith("production"):
-                tile, usage = prod[kc], prod_usage.get(f"{KERNEL}<{kc}>",
+            elif tag.startswith("production"):
+                tile, usage = prod[kc], prod_usage.get(f"{kernel}<{kc}>",
                                                        "?")
             else:
-                tile = tuple(int(v) for v in name.strip("()").split(","))
+                tile = tuple(int(t) for t in tag.strip("()").split(","))
                 usage = libs[kc, tile][1]
             occ = ""
             m = re.search(r"Used (\d+) registers", usage)
             if m:
                 nt, smem, blocks = occupancy(kc, tile, int(m.group(1)))
                 occ = (f"; {nt} threads, {smem // 1024} KB, {blocks} "
-                       f"blocks/SM")
-            say(f"   {label} kc={kc} {name:26s} "
+                       f"blocks/SM, {waves(grid(tile, p, nb), blocks):.2f} "
+                       f"waves")
+            say(f"   {label} kc={kc} {tag:28s} "
                 + ", ".join(f"{t:.2f}" for t in ts) + f" ms{occ}"
                 + (f" ({usage})" if usage else "")
-                + ("" if equal[name] else "; NOT bit-equal to the first "
+                + ("" if equal[tag] else "; NOT bit-equal to the first "
                    "design"))
             rows.append({"shape": label, "p": p, "nbytes": nb, "kc": kc,
-                         "tile": name, "ms": ts, "ptxas": usage,
-                         "bit_equal": equal[name]})
-        del x
+                         "tile": tag, "ms": ts, "ptxas": usage,
+                         "bit_equal": equal[tag]})
+        del args, fns
     return rows
 
 
-def tool_main(argv, doc, tool, run):
+def tool_main(argv, doc, tool, **trials):
     """The command line of a tile tool (``doc`` its module note, ``tool``
-    its name): ``--out FILE``; exits 1 without a GPU or when a tile's
-    row is not ``bit_equal``."""
+    its name, ``trials`` the arguments of :func:`run_tiles` after the
+    device): ``--out FILE``; exits 1 without a GPU or when a tile's row
+    is not ``bit_equal``."""
     ap = argparse.ArgumentParser(description=doc.split("\n")[0])
     ap.add_argument("--out", help="also write the readings to this JSON")
     args = ap.parse_args(argv)
@@ -248,7 +323,7 @@ def tool_main(argv, doc, tool, run):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     say(smi)
-    rows = run(torch.device("cuda"))
+    rows = run_tiles(torch.device("cuda"), **trials)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "rows": rows}, fh, indent=1)
@@ -256,7 +331,10 @@ def tool_main(argv, doc, tool, run):
 
 
 def main(argv=None) -> int:
-    return tool_main(argv, __doc__, "b3_tiles", run)
+    return tool_main(argv, __doc__, "b3_tiles", name=NAME, macro=MACRO,
+                     kernel=KERNEL, tiles=TILES, shapes=SHAPES,
+                     data=table_data, panel=panel, launcher=launcher,
+                     occupancy=occupancy, grid=grid)
 
 
 if __name__ == "__main__":

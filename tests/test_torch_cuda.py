@@ -83,8 +83,13 @@ def test_kernels_match_plain(cuda, k, n):
 @pytest.mark.parametrize("p,n", [(333, 1001), (333, 4096), (133, 771)])
 def test_tall_kernels_match_plain(cuda, k, p, n):
     """B5 and the tall two-float gram (B5, mask, B3, B1) against their
-    plain versions; the gram's hi halves at the gram bar of
-    tests/test_torch_kernels.py (two compounded contractions).  B5's
+    plain versions: the gram through its pairs' float64 sums, and its
+    second stage, B3 on the card's own masked y_hi, by its hi halves at
+    the gram bar of tests/test_torch_kernels.py (two compounded
+    contractions).  The gram's own hi halves are not held to that bar:
+    B5 on the card and on the CPU leave a different share of each sum
+    in y_lo (their summation orders differ), and that share moves the
+    gram's hi half near cancellation; the pair holds it.  B5's
     comparison entries (its first design, C = 4, CR = 128) against B5
     through the pairs' float64 sums.  k runs B5 at every KC (5 -> 8, 16,
     24, 28 -> 32).  133 x 771 is ragged on both of B5's tile axes: p =
@@ -92,8 +97,8 @@ def test_tall_kernels_match_plain(cuda, k, p, n):
     and five rows), 193 bytes = 3 x 64 + 1 (three full blocks and one
     byte).  v and the tables come from a seeded generator, so a case
     takes the same inputs whatever ran before it
-    (``python -m flashpca_tpu_torch.tools.tall_gram_seeds`` runs a case
-    over other seeds)."""
+    (``python -m flashpca_tpu_torch.tools.tall_gram_seeds`` runs the
+    333-4096-28 case over other seeds)."""
     from flashpca_tpu_torch.ops.genotypes import valid_mask_permuted
     from flashpca_tpu_torch.tools.tall_gram_seeds import draws
 
@@ -118,8 +123,12 @@ def test_tall_kernels_match_plain(cuda, k, p, n):
     ph, pl = tpk.gram_tall_ff_p(packed.cpu(), lh.cpu(), ll.cpu(),
                                 mean.cpu(), invsd.cpu(), v.cpu(),
                                 valid.cpu())
-    _close(zh, ph, rtol=2e-4, atol=2e-3)
     _close_pair(zh, zl, ph, pl)
+    ym = yh * valid[:, None]
+    bh, bl = tpk.crossprod_ff_p(packed, lut6, ym)
+    ch, cl = tpk.crossprod_ff_p(packed.cpu(), lut6.cpu(), ym.cpu())
+    _close(bh, ch, rtol=2e-4, atol=2e-3)
+    _close_pair(bh, bl, ch, cl)
 
 
 @pytest.mark.cuda

@@ -14,6 +14,7 @@ the B2, B3 and B4 tile tools read production's tiles and refuse the
 CPU.
 """
 
+import functools
 import importlib.util
 import os
 import re
@@ -515,7 +516,7 @@ def test_b2_tile_tool_reads_production_tiles():
     tables."""
     from flashpca_tpu_torch.tools import b2_tiles, b3_tiles
 
-    prod = b2_tiles.production_tiles()
+    prod = b3_tiles.production_tiles(b2_tiles.SOURCE, b2_tiles.MACRO)
     assert prod == {8: (8, 64, 640, 1), 16: (16, 128, 384, 1),
                     24: (12, 64, 384, 1), 32: (16, 64, 384, 1)}
     assert sorted(b2_tiles.TILES) == [16, 24, 32]
@@ -539,18 +540,24 @@ def test_b2_tile_tool_counts_blocks_and_waves():
     three blocks an SM at the 168 registers its launch bounds leave, 2.47
     waves on the wide shape; the header's table says so."""
     from flashpca_tpu_torch.tools import b2_tiles
+    from flashpca_tpu_torch.tools import b3_tiles as bt
+
+    def occupancy(kc, tile, regs):
+        return bt.wt_occupancy(kc, tile, regs, b2_tiles.stage_bytes)
 
     tile = (16, 128, 384, 1)
-    assert b2_tiles.reg_cap(16, tile) == 168
-    assert b2_tiles.occupancy(16, tile, 166) == (128, 59_392, 3)
-    assert round(b2_tiles.waves(16, tile, 166, 125_440), 2) == 2.47
+    assert bt.reg_cap(16, tile) == 168
+    assert occupancy(16, tile, 166) == (128, 59_392, 3)
+    assert bt.wt_grid(tile, 100_352, 125_440) == 980
+    assert round(bt.waves(980, 3), 2) == 2.47
     # err beside the sum in shared memory: 16 KB more a block, four blocks
-    assert b2_tiles.occupancy(16, (8, 64, 512, 0), 60) == (128, 51_200, 4)
+    assert occupancy(16, (8, 64, 512, 0), 60) == (128, 51_200, 4)
     with open(os.path.join(_build.CSRC, "matvec_v2.cu")) as fh:
         text = fh.read()
-    for kc, (c, tb, tps, _) in b2_tiles.production_tiles().items():
-        cap = b2_tiles.reg_cap(kc, (c, tb, tps, 1))
-        nt, smem, blocks = b2_tiles.occupancy(kc, (c, tb, tps, 1), cap)
+    for kc, (c, tb, tps, _) in bt.production_tiles(
+            b2_tiles.SOURCE, b2_tiles.MACRO).items():
+        cap = bt.reg_cap(kc, (c, tb, tps, 1))
+        nt, smem, blocks = occupancy(kc, (c, tb, tps, 1), cap)
         row = (f"//     {kc:2d}  {c:2d} {tb:3d}    {nt:3d}    {tps}    "
                f"{cap:3d}       {smem // 1024}        {blocks:2d}")
         assert row in text, row
@@ -563,7 +570,7 @@ def test_b4_tile_tool_reads_production_tiles():
     bytes' kc=24 launches."""
     from flashpca_tpu_torch.tools import b3_tiles, b4_tiles
 
-    prod = b4_tiles.production_tiles()
+    prod = b3_tiles.production_tiles(b4_tiles.SOURCE, b4_tiles.MACRO)
     assert sorted(prod) == [8, 16, 24, 32]
     assert sorted(b4_tiles.TILES) == [16, 24, 32]
     assert {(lbl, kc) for lbl, _, _, kc in b4_tiles.SHAPES} >= {
@@ -598,27 +605,75 @@ def test_b4_tile_tool_counts_blocks_and_waves():
     168 registers that 384 threads leave, 7.42 waves on the wide shape;
     the header's table says so for every production tile."""
     from flashpca_tpu_torch.tools import b4_tiles
+    from flashpca_tpu_torch.tools import b3_tiles as bt
+
+    def occupancy(kc, tile, regs):
+        return bt.wt_occupancy(kc, tile, regs, b4_tiles.stage_bytes)
+
+    def waves(kc, tile, regs, nb):
+        return bt.waves(bt.wt_grid(tile, 0, nb),
+                        occupancy(kc, tile, regs)[2])
 
     tile = (8, 64, 384, 1, 8)
-    assert b4_tiles.reg_cap(24, tile) == 168
-    assert b4_tiles.occupancy(24, tile, 166) == (192, 61_440, 2)
-    assert round(b4_tiles.waves(24, tile, 166, 125_440), 2) == 7.42
-    assert round(b4_tiles.waves(24, tile, 166, 250_880), 2) == 14.85
+    assert bt.reg_cap(24, tile) == 168
+    assert occupancy(24, tile, 166) == (192, 61_440, 2)
+    assert round(waves(24, tile, 166, 125_440), 2) == 7.42
+    assert round(waves(24, tile, 166, 250_880), 2) == 14.85
     # three blocks fit the shared memory but not 166 registers
-    assert b4_tiles.occupancy(24, tile, 104) == (192, 61_440, 3)
-    assert b4_tiles.occupancy(24, (8, 64, 384, 0, 8), 104) == (192, 86_016,
-                                                               2)
+    assert occupancy(24, tile, 104) == (192, 61_440, 3)
+    assert occupancy(24, (8, 64, 384, 0, 8), 104) == (192, 86_016, 2)
     with open(os.path.join(_build.CSRC, "matvec_ff_v2.cu")) as fh:
         text = fh.read()
-    for kc, tile in b4_tiles.production_tiles().items():
+    for kc, tile in bt.production_tiles(b4_tiles.SOURCE,
+                                        b4_tiles.MACRO).items():
         c, tb, tps, _, u = tile
-        cap = b4_tiles.reg_cap(kc, tile)
-        nt, smem, blocks = b4_tiles.occupancy(kc, tile, cap)
+        cap = bt.reg_cap(kc, tile)
+        nt, smem, blocks = occupancy(kc, tile, cap)
         row = (f"//     {kc:2d}  {c:2d} {tb:3d}  {u:2d}    {nt:3d}    {tps}"
                f"    {cap:3d}      {smem // 1024:3d}        {blocks:2d}      "
-               f"{b4_tiles.waves(kc, tile, cap, 125_440):.2f}  "
-               f"{b4_tiles.waves(kc, tile, cap, 250_880):5.2f}")
+               f"{waves(kc, tile, cap, 125_440):.2f}  "
+               f"{waves(kc, tile, cap, 250_880):5.2f}")
         assert row in text, row
+
+
+def test_tile_trials_hold_each_tile_to_the_first_design(monkeypatch,
+                                                        tmp_path, capsys):
+    """The tile tools' shared loop on the CPU, with the build and the
+    clock stubbed: production, the first design and a tile that gives
+    the first design's sums are bit-equal, a tile that moves one bit is
+    not, and each built tile's row carries its occupancy and waves."""
+    from flashpca_tpu_torch.tools import b3_tiles as bt
+    from flashpca_tpu_torch.tools import b4_tiles
+
+    (tmp_path / "matvec_ff_v2.log").write_text("")
+    usage = "Used 160 registers, used 1 barriers"
+    good, bad = (8, 64, 384, 1, 16), (8, 64, 384, 1, 4)
+
+    def off_by_one_bit(packed, lut6, vh, vl):
+        yh, yl = tpk.matvec_ff_v1_p(packed, lut6, vh, vl)
+        return yh, torch.nextafter(yl, torch.full_like(yl, np.inf))
+
+    monkeypatch.setattr(_build, "build_all", lambda: str(tmp_path))
+    monkeypatch.setattr(bt, "build_tiles", lambda *a: {
+        (24, good): (tpk.matvec_ff_v1_p, usage),
+        (24, bad): (off_by_one_bit, usage)})
+    monkeypatch.setattr(bt, "event_ms", lambda fn, reps: (fn(), 1.5)[1])
+    occupancy = functools.partial(bt.wt_occupancy,
+                                  stage_bytes=b4_tiles.stage_bytes)
+    rows = bt.run_tiles(
+        torch.device("cpu"), b4_tiles.NAME, b4_tiles.MACRO, b4_tiles.KERNEL,
+        {24: [good, bad, (4, 64, 768, 0, 16)]}, (("wide", 133, 193, 24),),
+        bt.table_data, b4_tiles.panel,
+        lambda fn, *args: (lambda: fn(*args[:-1])), occupancy, bt.wt_grid)
+    prod = bt.production_tiles(b4_tiles.SOURCE, b4_tiles.MACRO)[24]
+    assert [(r["tile"], r["bit_equal"], r["ms"]) for r in rows] == [
+        ("production " + str(prod), True, [1.5, 1.5]),
+        ("first design", True, [1.5, 1.5]), (str(good), True, [1.5, 1.5]),
+        (str(bad), False, [1.5, 1.5])]
+    out = capsys.readouterr().out
+    assert "NOT bit-equal" in out.splitlines()[-1]
+    assert (f"{str(good):28s} 1.50, 1.50 ms; 192 threads, 60 KB, 2 "
+            f"blocks/SM, 0.02 waves ({usage})") in out
 
 
 def test_b4_tile_tool_exits_nonzero_without_gpu(monkeypatch, capsys):
