@@ -6,21 +6,23 @@
 Phases, all in this one process; any failure raises and exits nonzero:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the hand-written kernels from kernels/csrc, eighteen entries
-   in twelve libraries: B1-B5, the kernel sweep's tile entries of B1 and
-   B2 and its variants V1-V4 of B1, the first designs of B1, B2, B3 and
-   B4, and B5's comparison entries -- its first design and its design at
-   C = 4 columns per thread or CR = 128 rows per chunk (timed set-up);
-   each instantiation's registers and spills (ptxas; production B2, B3
-   and B4 must spill nothing), and the instruction mix of B5's, B4's,
-   B3's and B2's inner loops in each (cuobjdump);
+2. build the hand-written kernels from kernels/csrc, twenty entries
+   in thirteen libraries: B1-B5, the kernel sweep's tile entries of B1
+   and B2 and its variants V1-V4 of B1, the first designs of B1, B2, B3,
+   B4, V1 and V4, and B5's comparison entries -- its first design and
+   its design at C = 4 columns per thread or CR = 128 rows per chunk
+   (timed set-up); each instantiation's registers and spills (ptxas;
+   production B2, B3 and B4 and the redesigned V1 and V4 must spill
+   nothing), and the instruction mix of B5's, B4's, B3's, B2's, B1's,
+   V1's and V4's inner loops in each (cuobjdump);
 3. hold each kernel against its plain PyTorch version on the card, at
    full width (501,760 samples) on a 4,096-SNP slice and on a small odd
    case (n % 4 != 0, some inv_sd == 0), panels k in {3, 16, 24}, and
-   each against a float64 product; there also V1-V4 (V3 within 5e-5 of
-   float64, the others 1e-5), B1, B2, B3 and B4 each bit-equal to its
-   first design (torch.equal, both halves of B3 and B4, at every case
-   and k of this phase, the tall width's too), B1's tile entries and
+   each against a float64 product; there also V1-V4 and V1's and V4's
+   first designs (V3 within 5e-5 of float64, the others 1e-5), B1, B2,
+   B3, B4, V1 and V4 each bit-equal to its first design (torch.equal,
+   both halves of B3 and B4, at every case and k of this phase, B1-B4
+   at the tall width's too), B1's tile entries and
    B2's at 64 rows a chunk bit-equal to B1 and B2, and B2's at 32 and
    128 against B2's plain version.  B5 (and its comparison entries) and the
    tall two-float gram (B5, mask, B3, B1) likewise on those cases and at
@@ -44,11 +46,14 @@ Phases, all in this one process; any failure raises and exits nonzero:
    designs in turns;
 6. the kernel sweep (flashpca_tpu_torch.tools.kernel_sweep) at the wide
    headline's shape, 100,352 x 501,760, k=16, after the headline's
-   operator is freed: V1-V4 against B1 on a 512-SNP slice, B1/B2 at each
-   tile, B1 at k in {8, 16, 32, 64}, and V1-V4 timed beside their plain
-   versions and bounds; launch counts reset just before it and read just
-   after (V1-V4 and the tile entries must have launched; none of them is
-   on the main path, whose count of each is 0);
+   operator is freed: V1-V4 and V1's and V4's first designs against B1
+   on a 512-SNP slice, B1/B2 at each tile, B1 at k in {8, 16, 32, 64},
+   V1 and V4 bit-equal to their first designs at the full shape, and B1,
+   V1-V4 and the two first designs timed in turns, each beside B1 (B1
+   less V4: what the compensation costs B1), their plain versions and
+   bounds; launch counts reset just before it and read just after
+   (V1-V4, the first designs and the tile entries must have launched;
+   none of them is on the main path, whose count of each is 0);
 7. the tall headline: 1,003,520 x 50,176 generated the same way, held
    by a ``TallPackedOperator``; ``pca(op, 20)`` with
    ``polish="contract"`` at float32 on the tall path (counts reset just
@@ -71,7 +76,8 @@ The headlines must give wide ``n_ops`` 20 and tall ``n_ops`` 32, and no
 launch of a first design or comparison entry on either main path.  The
 line before the last is the JSON ``{"kernels": [...]}`` (B1-B5 at the
 widths the headlines launch and B4 at the tall bytes' kc 24, the first
-designs of B1-B5 from the timing phases, V1-V4 from the sweep); the last
+designs of B1-B5 from the timing phases, V1-V4 and V1's and V4's first
+designs from the sweep); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside it, the script exits nonzero and prints no
 result.
@@ -120,9 +126,11 @@ TPU_KERNEL = {
     "matvec_ff_novl": "flashpca_tpu/kernels/packed_matvec.py:415",
     "matvec_ff_novl_v1": "flashpca_tpu/kernels/packed_matvec.py:415",
     "crossprod_stacked": ".claude/skills/verify/kernel_sweep.py:50",
+    "crossprod_stacked_v1": ".claude/skills/verify/kernel_sweep.py:50",
     "crossprod_intsub": ".claude/skills/verify/kernel_sweep.py:128",
     "crossprod_split3": ".claude/skills/verify/kernel_sweep.py:209",
     "crossprod_nocomp": ".claude/skills/verify/kernel_sweep.py:261",
+    "crossprod_nocomp_v1": ".claude/skills/verify/kernel_sweep.py:261",
 }
 _CSRC = "flashpca_tpu_torch/kernels/csrc/"
 SOURCE = {"crossprod": _CSRC + "crossprod_v2.cu",
@@ -134,17 +142,21 @@ SOURCE = {"crossprod": _CSRC + "crossprod_v2.cu",
           "matvec_ff_v1": _CSRC + "matvec_ff.cu",
           "matvec_ff_novl": _CSRC + "matvec_ff_novl.cu",
           "matvec_ff_novl_v1": _CSRC + "matvec_ff.cu",
-          "crossprod_stacked": _CSRC + "crossprod_variants.cu",
+          "crossprod_stacked": _CSRC + "crossprod_variants_v2.cu",
+          "crossprod_stacked_v1": _CSRC + "crossprod_variants.cu",
           "crossprod_intsub": _CSRC + "crossprod_variants.cu",
           "crossprod_split3": _CSRC + "crossprod_split3.cu",
-          "crossprod_nocomp": _CSRC + "crossprod_variants.cu"}
+          "crossprod_nocomp": _CSRC + "crossprod_variants_v2.cu",
+          "crossprod_nocomp_v1": _CSRC + "crossprod_variants.cu"}
 # float32 dots per genotype and panel column (V3's products are bf16:
 # SPLIT3_BF16_DOTS of them, and its decode is bounded apart)
 DOTS = {"crossprod": 1, "crossprod_v1": 1, "matvec": 1, "matvec_v1": 1,
         "crossprod_ff": 2, "crossprod_ff_v1": 2, "matvec_ff": 3,
         "matvec_ff_v1": 3,
         "matvec_ff_novl": 2, "matvec_ff_novl_v1": 2,
-        "crossprod_stacked": 1, "crossprod_intsub": 1, "crossprod_nocomp": 1}
+        "crossprod_stacked": 1, "crossprod_stacked_v1": 1,
+        "crossprod_intsub": 1, "crossprod_nocomp": 1,
+        "crossprod_nocomp_v1": 1}
 SPLIT3_BF16_DOTS = 3
 PEAK_BF16_FLOPS = 989e12      # dense tensor-core rate, H100 SXM
 # V3's CUDA-core work per genotype, counted from crossprod_split3.cu:
@@ -154,15 +166,18 @@ PEAK_BF16_FLOPS = 989e12      # dense tensor-core rate, H100 SXM
 # -- 9 instructions, at one per lane and clock, 33.5e12/s
 SPLIT3_OPS_PER_GENOTYPE = 9
 PEAK_FP32_INSTR = PEAK_FP32_FLOPS / 2
-# the kernel sweep's variants (kernels/crossprod_variants.py), and V3's
-# bars: against its plain version three float32 contractions' worth of
-# plain_bar (tensor-core sums are not IEEE add sequences), against
-# float64 5e-5 (its dropped lo*lo term: 4.5-4.7e-6 on the CPU)
+# the kernel sweep's variants (kernels/crossprod_variants.py) and V1's
+# and V4's first designs, and V3's bars: against its plain version three
+# float32 contractions' worth of plain_bar (tensor-core sums are not IEEE
+# add sequences), against float64 5e-5 (its dropped lo*lo term:
+# 4.5-4.7e-6 on the CPU)
 VARIANTS = ("crossprod_stacked", "crossprod_intsub", "crossprod_split3",
             "crossprod_nocomp")
-SWEEP_PATH = VARIANTS + ("crossprod_tiled", "matvec_tiled")
-F64_BAR = {"crossprod_stacked": 1e-5, "crossprod_intsub": 1e-5,
-           "crossprod_split3": 5e-5, "crossprod_nocomp": 1e-5}
+VARIANT_FIRSTS = ("crossprod_stacked_v1", "crossprod_nocomp_v1")
+SWEEP_PATH = VARIANTS + VARIANT_FIRSTS + ("crossprod_tiled", "matvec_tiled")
+F64_BAR = {"crossprod_stacked": 1e-5, "crossprod_stacked_v1": 1e-5,
+           "crossprod_intsub": 1e-5, "crossprod_split3": 5e-5,
+           "crossprod_nocomp": 1e-5, "crossprod_nocomp_v1": 1e-5}
 SWEEP_K = 16
 # the kernels each main path must launch
 WIDE_PATH = ("crossprod", "matvec", "crossprod_ff", "matvec_ff")
@@ -205,6 +220,30 @@ def sass_hot_loops(sass):
             out[fn] = min((c for c in loops if c["FFMA"] >= 0.9 * most),
                           key=lambda c: sum(c.values()))
     return out
+
+
+# the sources whose every instantiation must spill nothing: production
+# B2, B3 and B4, and the redesigned V1 and V4
+NO_SPILL_SOURCES = ("crossprod_ff_v2.cu", "matvec_v2.cu", "matvec_ff_v2.cu",
+                    "crossprod_variants_v2.cu")
+# B5's, B4's, B3's, B2's and B1's instruction mix, and V1's and V4's: the
+# FFMA share of their inner loops' instructions, for the current designs,
+# B5's other tiles and the first designs (cuobjdump, which the CUDA
+# toolkit ships beside nvcc); B1 beside V4 is what the compensation costs
+# in instructions
+SASS_SOURCES = ("matvec_ff_novl.cu", "matvec_ff_novl_variants.cu",
+                "matvec_ff.cu", "matvec_ff_v2.cu", "crossprod_ff_v2.cu",
+                "crossprod_ff.cu", "matvec_v2.cu", "matvec.cu",
+                "crossprod_v2.cu", "crossprod_variants_v2.cu")
+
+
+def sass_read(fn):
+    """Whether the smoke reports the inner-loop mix of instantiation
+    ``fn`` (of B2's first design only the production fold, 64 rows a
+    chunk)."""
+    return (fn.startswith(("matvec_ff", "crossprod_ff", "matvec_tile",
+                           "crossprod_tile", "nocomp_tile", "stacked_tile"))
+            or (fn.startswith("matvec_kernel<") and fn.endswith(", 64>")))
 
 
 def require_no_spills(src, usages):
@@ -274,6 +313,20 @@ def require_b1_equal(z, z1, where):
         raise AssertionError(
             f"crossprod {where}: not bit-equal to crossprod_v1 (max diff "
             f"{float((z - z1).abs().max()):.3e})")
+
+
+def require_variant_equal(outs, where):
+    """V1 and V4 must give their first designs' sums bit for bit
+    (``outs``: {kernel: result, ...})."""
+    import torch
+
+    for first in VARIANT_FIRSTS:
+        name = first.removesuffix("_v1")
+        z, z1 = outs[name], outs[first]
+        if not torch.equal(z, z1):
+            raise AssertionError(
+                f"{name} {where}: not bit-equal to {first} (max diff "
+                f"{float((z - z1).abs().max()):.3e})")
 
 
 def require_b2_equal(y, y1, y64, where):
@@ -400,7 +453,8 @@ def check_kernels(dev):
     """Each kernel against its plain version and against a float64
     product, on a full-width slice and a small odd case: B1-B4 and the
     first designs of B1, B2, B3 and B4 (each bit-equal to its production
-    kernel), the sweep's V1-V4 (sharing B1's float64 product), B1's tile
+    kernel), the sweep's V1-V4 (sharing B1's float64 product) and V1's
+    and V4's first designs (V1 and V4 bit-equal to them), B1's tile
     entries (bit-equal to B1) and B2's (at 64 rows a chunk bit-equal to
     B2).  Returns {kernel: max abs err against the plain version}."""
     import torch
@@ -448,8 +502,9 @@ def check_kernels(dev):
                 "matvec_ff_v1": (tpk.matvec_ff_v1_p(packed, lut6, v, vl),
                                  plain_yy, ref_yy, bar_y, 5e-6),
             }
-            for name in VARIANTS:
-                wrapper, plain = cv.VARIANTS[name]
+            for name in VARIANTS + VARIANT_FIRSTS:
+                wrapper, plain = (cv.VARIANTS.get(name)
+                                  or cv.FIRST_DESIGNS[name])
                 outs[name] = (wrapper(packed, mean, invsd, x),
                               plain(packed, mean, invsd, x), ref_z,
                               plain_bar(4 * nb * (SPLIT3_BF16_DOTS if name
@@ -458,6 +513,8 @@ def check_kernels(dev):
                               F64_BAR[name])
             require_b1_equal(outs["crossprod"][0], outs["crossprod_v1"][0],
                              f"{label} k={k}")
+            require_variant_equal({name: outs[name][0] for name in VARIANTS
+                                   + VARIANT_FIRSTS}, f"{label} k={k}")
             require_b3_equal(outs["crossprod_ff"][0],
                              outs["crossprod_ff_v1"][0], f"{label} k={k}")
             require_b4_equal(outs["matvec_ff"][0], outs["matvec_ff_v1"][0],
@@ -823,8 +880,9 @@ def require_no_first_design(launches, what):
     """No path takes a kept first design: it is timed, never launched."""
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
 
-    ran = [nm for nm in tpk.B1_KERNELS + tpk.B2_KERNELS + tpk.B3_KERNELS
-           + tpk.B4_KERNELS + tpk.NOVL_KERNELS if launches[nm]]
+    ran = [nm for nm in tpk.VARIANT_FIRST_KERNELS + tpk.B1_KERNELS
+           + tpk.B2_KERNELS + tpk.B3_KERNELS + tpk.B4_KERNELS
+           + tpk.NOVL_KERNELS if launches[nm]]
     if ran:
         raise AssertionError(f"comparison entries launched on the {what}: "
                              f"{ran}")
@@ -1336,12 +1394,16 @@ def with_first_designs(rows, firsts, launches, worst):
 # ---------------------------------------------------------------------------
 
 def kernel_sweep(dev, p, n, worst, b1_library_ms, main_launches):
-    """The sweep tool's four steps at p x n, k = SWEEP_K, then V1-V4's
-    plain versions timed at that shape; one row of the ``kernels`` JSON
-    per variant (library_ms: B1's torch.matmul time at the same shape,
-    passed in, since it computes the same z = W x; launches: the sweep's,
-    beside the main path's ``main_launches``).  Returns (rows, the
-    sweep's readings)."""
+    """The sweep tool's five steps at p x n, k = SWEEP_K, then the plain
+    versions of V1-V4 timed at that shape (V1's and V4's first designs
+    share theirs); V1 and V4 must be bit-equal to their first designs
+    there.  One
+    row of the ``kernels`` JSON per variant and first design (library_ms:
+    B1's torch.matmul time at the same shape, passed in, since it
+    computes the same z = W x; launches: the sweep's, beside the main
+    path's ``main_launches``; ms: the mean of its two turn medians,
+    beside B1's and the difference).  Returns (rows, the sweep's
+    readings)."""
     import torch
 
     from flashpca_tpu_torch.kernels import crossprod_variants as cv
@@ -1361,14 +1423,26 @@ def kernel_sweep(dev, p, n, worst, b1_library_ms, main_launches):
             if not rel < F64_BAR[name]:
                 raise AssertionError(f"sweep: {name} vs B1 rel {rel:.2e} "
                                      f"(bar {F64_BAR[name]})")
+        unequal = [nm for nm, eq in out["first_designs_equal"].items()
+                   if not eq]
+        if unequal:
+            raise AssertionError(f"sweep: redesigns not bit-equal to "
+                                 f"{unequal} at {p} x {n4}")
         pk, m, iv, xp = (data[key] for key in ("packed", "mean", "invsd",
                                                "xp"))
         t_bytes = ((p * nb + n4 * k * 4 + 3 * p * 4 + p * k * 4)
                    / PEAK_BYTES_S * 1e3)
-        rows = []
-        for name in VARIANTS:
-            plain = cv.VARIANTS[name][1]
-            plain_ms = ks.event_ms(lambda: plain(pk, m, iv, xp), reps=1)
+        timed = out["variants"]
+        rows, plain_times = [], {}
+        for name in VARIANTS + VARIANT_FIRSTS:
+            # a first design's plain version is its redesign's, timed
+            # just before
+            base = name.removesuffix("_v1")
+            if base not in plain_times:
+                plain = cv.VARIANTS[base][1]
+                plain_times[base] = ks.event_ms(
+                    lambda: plain(pk, m, iv, xp), reps=1)
+            plain_ms = plain_times[base]
             if name == "crossprod_split3":
                 t_ops = max(
                     SPLIT3_BF16_DOTS * 2.0 * k * p * n4 / PEAK_BF16_FLOPS,
@@ -1376,8 +1450,10 @@ def kernel_sweep(dev, p, n, worst, b1_library_ms, main_launches):
             else:
                 t_ops = 2.0 * DOTS[name] * k * p * n4 / PEAK_FP32_FLOPS * 1e3
             bound = max(t_ops, t_bytes)
-            ms = out["variants_ms"][name]
-            say(f"   {name:17s} k={k}: kernel {ms:.2f} ms, plain "
+            ms = timed["ms"][name]
+            say(f"   {name:20s} k={k}: kernel {ms:.2f} ms (B1 "
+                f"{timed['ms']['crossprod']:.2f} ms, difference "
+                f"{timed['minus_b1_ms'][name]:+.2f} ms), plain "
                 f"{plain_ms:.2f} ms, torch.matmul (B1's) {b1_library_ms:.2f}"
                 f" ms, bound {bound:.2f} ms "
                 f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
@@ -1392,6 +1468,9 @@ def kernel_sweep(dev, p, n, worst, b1_library_ms, main_launches):
                 "bound_ms": bound,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": b1_library_ms, "k": k, "shape": [p, n4],
+                "b1_ms": timed["ms"]["crossprod"],
+                "minus_b1_ms": timed["minus_b1_ms"][name],
+                **({"design": "first"} if name in VARIANT_FIRSTS else {}),
             })
         del data, pk, m, iv, xp
     out.update(launches={nm: launches[nm] for nm in SWEEP_PATH},
@@ -1434,20 +1513,11 @@ def main(argv=None) -> int:
             usages = list(ptxas_usage(fh))
         for fn, usage in usages:
             say(f"   {src} {fn}: {usage}")
-        if src in (os.path.basename(SOURCE["crossprod_ff"]),
-                   os.path.basename(SOURCE["matvec"]),
-                   os.path.basename(SOURCE["matvec_ff"])):
+        if src in NO_SPILL_SOURCES:
             require_no_spills(src, usages)
-    # B5's, B4's, B3's and B2's instruction mix: the FFMA share of their
-    # inner loops' instructions, for the current designs, B5's other
-    # tiles and the first designs (cuobjdump, which the CUDA toolkit
-    # ships beside nvcc; of B2's first design the production fold, 64
-    # rows a chunk)
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass_mix = {}
-    for src in ("matvec_ff_novl.cu", "matvec_ff_novl_variants.cu",
-                "matvec_ff.cu", "matvec_ff_v2.cu", "crossprod_ff_v2.cu",
-                "crossprod_ff.cu", "matvec_v2.cu", "matvec.cu"):
+    for src in SASS_SOURCES:
         lib = os.path.join(build_dir, f"lib{os.path.splitext(src)[0]}.so")
         if not os.path.exists(cuobjdump):
             say(f"   {src}: no cuobjdump beside nvcc; SASS mix not read")
@@ -1455,10 +1525,7 @@ def main(argv=None) -> int:
         sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                               text=True).stdout
         for fn, c in sorted(sass_hot_loops(sass).items()):
-            if (fn.startswith("matvec_ff")
-                    or fn.startswith(("crossprod_ff", "matvec_tile"))
-                    or (fn.startswith("matvec_kernel<")
-                        and fn.endswith(", 64>"))):
+            if sass_read(fn):
                 share = c["FFMA"] / sum(c.values())
                 sass_mix[fn] = {"ffma": c["FFMA"], "instructions":
                                 sum(c.values()), "ffma_share": share}

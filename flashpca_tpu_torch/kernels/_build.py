@@ -3,10 +3,12 @@
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded through ``ctypes``; a source may hold several
 kernels (matvec_ff.cu holds the first designs of B4 and B5), each with
-its own C entry.  Eighteen entries in twelve libraries: B1-B5, the
-sweep's tile entries of B1 and B2 and its variants V1-V4, B1's first
-design (``crossprod_v1``, in crossprod.cu beside the sweep's B1 tile
-entry), B2's first design (``matvec_v1``, in matvec.cu beside the
+its own C entry.  Twenty entries in thirteen libraries: B1-B5, the
+sweep's tile entries of B1 and B2 and its variants V1-V4 (V1 and V4 in
+crossprod_variants_v2.cu, their first designs ``crossprod_stacked_v1``
+and ``crossprod_nocomp_v1`` in crossprod_variants.cu beside V2), B1's
+first design (``crossprod_v1``, in crossprod.cu beside the sweep's B1
+tile entry), B2's first design (``matvec_v1``, in matvec.cu beside the
 sweep's B2 tile entry), B3's first design (``crossprod_ff_v1``, in
 crossprod_ff.cu), B4's first design (``matvec_ff_v1``, in matvec_ff.cu)
 and B5's comparison entries -- its first design (``matvec_ff_novl_v1``,
@@ -85,12 +87,19 @@ KERNELS = {
                         [_P] * 6 + [_I64, _I64, _I32, _I32, _P]),
     "matvec_tiled": ("matvec.cu", "fp_matvec_tiled",
                      [_P] * 6 + [_I64, _I64, _I32, _I32, _P]),
-    "crossprod_stacked": ("crossprod_variants.cu", "fp_crossprod_stacked",
+    "crossprod_stacked": ("crossprod_variants_v2.cu", "fp_crossprod_stacked",
                           [_P] * 6 + [_I64, _I64, _I32, _P]),
     "crossprod_intsub": ("crossprod_variants.cu", "fp_crossprod_intsub",
                          [_P] * 6 + [_I64, _I64, _I32, _P]),
-    "crossprod_nocomp": ("crossprod_variants.cu", "fp_crossprod_nocomp",
+    "crossprod_nocomp": ("crossprod_variants_v2.cu", "fp_crossprod_nocomp",
                          [_P] * 6 + [_I64, _I64, _I32, _P]),
+    # V1's and V4's first designs: timed beside their redesigns by the
+    # sweep, launched by no operator
+    "crossprod_stacked_v1": ("crossprod_variants.cu",
+                             "fp_crossprod_stacked_v1",
+                             [_P] * 6 + [_I64, _I64, _I32, _P]),
+    "crossprod_nocomp_v1": ("crossprod_variants.cu", "fp_crossprod_nocomp_v1",
+                            [_P] * 6 + [_I64, _I64, _I32, _P]),
     "crossprod_split3": ("crossprod_split3.cu", "fp_crossprod_split3",
                          [_P] * 6 + [_I64, _I64, _I32, _P]),
 }

@@ -2,17 +2,22 @@
 measurement variants of B1, with their plain PyTorch versions.
 
 ====  ==========================  ======================================
-V1    crossprod_variants.cu       B1 with the decoded planes stacked into
+V1    crossprod_variants_v2.cu    B1 with the decoded planes stacked into
                                   one contraction per chunk (``stacked``)
 V2    crossprod_variants.cu       B1 decoding u = code - 1 in int with the
                                   g-coefficients (``intsub``)
 V3    crossprod_split3.cu         B1 with each product as three bf16
                                   tensor-core products (``split3``)
-V4    crossprod_variants.cu       B1 without the TwoSum compensation
+V4    crossprod_variants_v2.cu    B1 without the TwoSum compensation
                                   (``nocomp``)
 --    crossprod.cu / matvec.cu    B1 at TM rows per block, B2 at CR SNP
                                   rows per chunk (the sweep's tile axis)
 ====  ==========================  ======================================
+
+V1 and V4 are redesigns on B1's second design (crossprod_v2.cu), each
+bit for bit its first design, which stays in crossprod_variants.cu as
+``crossprod_stacked_v1_p`` and ``crossprod_nocomp_v1_p`` (``FIRST_DESIGNS``);
+the sweep times each beside its redesign and B1.
 
 The sweep's docstring (.claude/skills/verify/kernel_sweep.py) calls
 ``nocomp`` V3 and its comment calls ``split3`` V4; the port numbers them
@@ -208,6 +213,12 @@ crossprod_split3_p = _variant("crossprod_split3", crossprod_split3_plain,
                               coeff_rows)
 crossprod_nocomp_p = _variant("crossprod_nocomp", crossprod_nocomp_plain,
                               coeff_rows)
+# V1's and V4's first designs (crossprod_variants.cu), the sums of the
+# two above bit for bit
+crossprod_stacked_v1_p = _variant("crossprod_stacked_v1",
+                                  crossprod_stacked_plain, coeff_rows)
+crossprod_nocomp_v1_p = _variant("crossprod_nocomp_v1",
+                                 crossprod_nocomp_plain, coeff_rows)
 
 
 def crossprod_tiled_p(packed, mean, invsd, xp, tm):
@@ -245,4 +256,10 @@ VARIANTS = {
     "crossprod_intsub": (crossprod_intsub_p, crossprod_intsub_plain),
     "crossprod_nocomp": (crossprod_nocomp_p, crossprod_nocomp_plain),
     "crossprod_split3": (crossprod_split3_p, crossprod_split3_plain),
+}
+# V1's and V4's first designs: name (the redesign's and ``_v1``) ->
+# (wrapper, plain version, the redesign's)
+FIRST_DESIGNS = {
+    "crossprod_stacked_v1": (crossprod_stacked_v1_p, crossprod_stacked_plain),
+    "crossprod_nocomp_v1": (crossprod_nocomp_v1_p, crossprod_nocomp_plain),
 }

@@ -1,5 +1,8 @@
 // V1, V2 and V4: three measurement variants of B1 (crossprod.cu),
-// z = W x, for the kernel sweep (tools/kernel_sweep.py).
+// z = W x, for the kernel sweep (tools/kernel_sweep.py).  V1's and V4's
+// entries here are their first designs, fp_crossprod_stacked_v1 and
+// fp_crossprod_nocomp_v1, kept for comparison: crossprod_variants_v2.cu
+// holds their redesigns on B1's second design, bit for bit these sums.
 //
 // Replaces .claude/skills/verify/kernel_sweep.py::_crossprod_kernel_stacked
 // (V1), ::_crossprod_kernel_intsub (V2) and ::_crossprod_kernel_nocomp (V4).
@@ -7,16 +10,17 @@
 // Bound: as B1, float32 FMAs on the CUDA cores (2*KC*p*n4 operations);
 // the packed bytes are far below it.
 //
-// Design: V2 and V4 keep B1's structure -- one thread per SNP row walking
-// the whole byte axis in CB-byte chunks staged in shared memory -- and
-// change one thing each.  V2 decodes with u = code - 1 taken in int and
-// the g-coefficients (u (g0 + u (g1 + u g2))).  V4 adds each chunk's
-// partial into a plain float32 sum, the TPU kernel's `zt += t`: no TwoSum
-// and no err.  V1 separates the decode from the FMAs: the block first
-// decodes its whole chunk, all four planes, into a (TM, 4*CB) float tile
-// in shared memory, then each thread runs one contraction over the 4*CB
-// stacked samples of its row (the Hopper reading of the TPU kernel's one
-// dot over the concatenated planes); chunks fold with TwoSum as in B1.
+// Design: V2 and V4 keep B1's first structure -- one thread per SNP row
+// walking the whole byte axis in CB-byte chunks staged in shared memory
+// -- and change one thing each.  V2 decodes with u = code - 1 taken in
+// int and the g-coefficients (u (g0 + u (g1 + u g2))).  V4 adds each
+// chunk's partial into a plain float32 sum, the TPU kernel's `zt += t`:
+// no TwoSum and no err.  V1 separates the decode from the FMAs: the
+// block first decodes its whole chunk, all four planes, into a (TM, 4*CB)
+// float tile in shared memory, then each thread runs one contraction
+// over the 4*CB stacked samples of its row (the Hopper reading of the
+// TPU kernel's one dot over the concatenated planes); chunks fold with
+// TwoSum as in B1.
 #include "common.cuh"
 
 namespace {
@@ -279,10 +283,10 @@ stacked_kernel(const uint8_t* __restrict__ packed,
 
 // All three take B1's arguments: packed (p, nb) u8; cf0..cf2 (p,) f32
 // (the g-coefficients for V2); x (4*nb, kc) f32; z (p, kc) f32.
-extern "C" int fp_crossprod_stacked(const void* packed, const void* cf0,
-                                    const void* cf1, const void* cf2,
-                                    const void* x, void* z, long long p,
-                                    long long nb, int kc, void* stream) {
+extern "C" int fp_crossprod_stacked_v1(const void* packed, const void* cf0,
+                                       const void* cf1, const void* cf2,
+                                       const void* x, void* z, long long p,
+                                       long long nb, int kc, void* stream) {
   FP_KC_LAUNCH(stacked_kernel, S_TM)
 }
 
@@ -293,9 +297,9 @@ extern "C" int fp_crossprod_intsub(const void* packed, const void* cf0,
   FP_KC_LAUNCH(intsub_kernel, TM)
 }
 
-extern "C" int fp_crossprod_nocomp(const void* packed, const void* cf0,
-                                   const void* cf1, const void* cf2,
-                                   const void* x, void* z, long long p,
-                                   long long nb, int kc, void* stream) {
+extern "C" int fp_crossprod_nocomp_v1(const void* packed, const void* cf0,
+                                      const void* cf1, const void* cf2,
+                                      const void* x, void* z, long long p,
+                                      long long nb, int kc, void* stream) {
   FP_KC_LAUNCH(nocomp_kernel, TM)
 }

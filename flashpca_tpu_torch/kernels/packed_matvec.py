@@ -67,6 +67,9 @@ OPERATOR_KERNELS = ("crossprod", "matvec", "crossprod_ff", "matvec_ff",
                     "matvec_ff_novl")
 SWEEP_KERNELS = ("crossprod_tiled", "matvec_tiled", "crossprod_stacked",
                  "crossprod_intsub", "crossprod_split3", "crossprod_nocomp")
+# V1's and V4's first designs, which the sweep times beside their
+# redesigns (kernels/crossprod_variants.py)
+VARIANT_FIRST_KERNELS = ("crossprod_stacked_v1", "crossprod_nocomp_v1")
 # B1's, B2's, B3's, B4's and B5's comparison entries, which no operator
 # launches either
 B1_KERNELS = ("crossprod_v1",)
@@ -76,8 +79,8 @@ B4_KERNELS = ("matvec_ff_v1",)
 NOVL_KERNELS = ("matvec_ff_novl_v1", "matvec_ff_novl_c4",
                 "matvec_ff_novl_cr128")
 launch_counts = dict.fromkeys(
-    OPERATOR_KERNELS + SWEEP_KERNELS + B1_KERNELS + B2_KERNELS + B3_KERNELS
-    + B4_KERNELS + NOVL_KERNELS, 0)
+    OPERATOR_KERNELS + SWEEP_KERNELS + VARIANT_FIRST_KERNELS + B1_KERNELS
+    + B2_KERNELS + B3_KERNELS + B4_KERNELS + NOVL_KERNELS, 0)
 _launch_log: list | None = None
 
 

@@ -21,9 +21,10 @@ build is reported and skipped.  The tool needs a GPU and exits 1
 without one, or when a tile is not bit-equal.
 
 The build, the check, the timing and the command line
-(:func:`build_tiles`, :func:`run_tiles`, :func:`tool_main`) serve B2's
-and B4's tile tools too, as do the occupancy counts of their W^T tiles
-(:func:`reg_cap`, :func:`wt_occupancy`, :func:`wt_grid`, :func:`waves`).
+(:func:`build_tiles`, :func:`run_tiles`, :func:`tool_main`) serve B2's,
+B4's and V1/V4's tile tools too, as do the occupancy counts of the W^T
+tiles (:func:`reg_cap`, :func:`wt_occupancy`, :func:`wt_grid`,
+:func:`waves`).
 """
 
 from __future__ import annotations
@@ -233,13 +234,13 @@ def _outputs(r):
 
 
 def run_tiles(device, name, macro, kernel, tiles, shapes, data, panel,
-              launcher, occupancy, grid, reps=3):
+              launcher, occupancy, grid, reps=3, module=tpk):
     """Build, check and time the ``tiles`` ({KC: [tile]}) of
     ``_build.KERNELS[name]``'s source beside production
-    (``tpk.<name>_p``) and its first design (``tpk.<name>_v1_p``) at each
-    of ``shapes`` ((label, SNPs, packed bytes, kc)); return the readings
-    (each row's ``bit_equal``: every output equal to the first
-    design's).
+    (``<module>.<name>_p``, by default of kernels/packed_matvec.py) and
+    its first design (``<module>.<name>_v1_p``) at each of ``shapes``
+    ((label, SNPs, packed bytes, kc)); return the readings (each row's
+    ``bit_equal``: every output equal to the first design's).
 
     The wrappers take ``data(device, p, nb)`` (made once for the shapes
     that share it) and then ``panel(device, p, nb, kc)``;
@@ -253,8 +254,8 @@ def run_tiles(device, name, macro, kernel, tiles, shapes, data, panel,
         prod_usage = dict(_build.ptxas_usage(fh))
     libs = build_tiles([(kc, t) for kc, ts in tiles.items() for t in ts],
                        name, macro, kernel)
-    production, first = getattr(tpk, name + "_p"), getattr(tpk,
-                                                           name + "_v1_p")
+    production = getattr(module, name + "_p")
+    first = getattr(module, name + "_v1_p")
     rows = []
     shared = None
     for label, p, nb, kc in shapes:
@@ -306,11 +307,11 @@ def run_tiles(device, name, macro, kernel, tiles, shapes, data, panel,
     return rows
 
 
-def tool_main(argv, doc, tool, **trials):
+def tool_main(argv, doc, tool, runs=None, **trials):
     """The command line of a tile tool (``doc`` its module note, ``tool``
     its name, ``trials`` the arguments of :func:`run_tiles` after the
-    device): ``--out FILE``; exits 1 without a GPU or when a tile's row
-    is not ``bit_equal``."""
+    device, or ``runs`` a list of such, run in turn): ``--out FILE``;
+    exits 1 without a GPU or when a tile's row is not ``bit_equal``."""
     ap = argparse.ArgumentParser(description=doc.split("\n")[0])
     ap.add_argument("--out", help="also write the readings to this JSON")
     args = ap.parse_args(argv)
@@ -323,7 +324,8 @@ def tool_main(argv, doc, tool, **trials):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     say(smi)
-    rows = run_tiles(torch.device("cuda"), **trials)
+    rows = [row for run in (runs or [trials])
+            for row in run_tiles(torch.device("cuda"), **run)]
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "rows": rows}, fh, indent=1)

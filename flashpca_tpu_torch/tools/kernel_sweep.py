@@ -7,21 +7,31 @@ biobank shape.
 Defaults 100,352 SNPs x 125,440 bytes (501,760 samples), k = 16: the wide
 headline.  The steps, in this order:
 
-1. correctness: each variant (kernels/crossprod_variants.py) against B1
-   on a 512-SNP slice at the full width, as a relative norm;
+1. correctness: each variant (kernels/crossprod_variants.py), and V1's
+   and V4's first designs, against B1 on a 512-SNP slice at the full
+   width, as a relative norm;
 2. the tile sweep: B1 at 128/256/512 rows per block beside B2 at 32/64/
    128 SNP rows per chunk (ms and packed GB/s);
 3. the k-scan: B1 at k in {8, 16, 32, 64};
-4. the four variants timed at the full shape.
+4. V1 and V4 against their first designs at the full shape, bit for bit
+   (``torch.equal``);
+5. B1, the four variants and V1's and V4's first designs timed at the
+   full shape in turns, each printed beside B1 with the difference; for
+   V4, B1's time less V4's is what the TwoSum compensation costs B1.
 
-Times are the median of CUDA-event times after one warm-up run.  The
+V1 and V4 are built on B1's own design (crossprod_variants_v2.cu), so
+each differs from B1 in the one thing it isolates; their first designs,
+built on B1's first design, are timed for comparison and labelled so.
+Times are the median of CUDA-event times after one warm-up run (in
+step 5, the mean of two such medians: every kernel once in order, then
+once in reverse).  The
 packed bytes are random, drawn on the card from a ``torch.Generator``
 seeded 0; ``mean``, ``invsd`` and the panels come from numpy's
 ``default_rng(0)`` in the order of the JAX sweep
 (.claude/skills/verify/kernel_sweep.py).  Any p and nbytes work: the
 kernels mask ragged edges.  The steps are functions of a device, so the
-CPU tests can run the correctness step on the plain versions; the timed
-steps and ``main`` need a GPU and refuse the CPU.
+CPU tests can run the correctness and bit-equality steps on the plain
+versions; the timed steps and ``main`` need a GPU and refuse the CPU.
 """
 
 from __future__ import annotations
@@ -37,6 +47,14 @@ from ..kernels import packed_matvec as tpk
 DEFAULTS = (100_352, 125_440, 16)
 K_SCAN = (8, 16, 32, 64)
 CHECK_ROWS = 512
+# the printed name of each kernel the sweep times
+LABELS = {"crossprod": "B1",
+          "crossprod_stacked": "V1 stacked",
+          "crossprod_stacked_v1": "V1 stacked, first design",
+          "crossprod_intsub": "V2 intsub",
+          "crossprod_nocomp": "V4 nocomp",
+          "crossprod_nocomp_v1": "V4 nocomp, first design",
+          "crossprod_split3": "V3 split3"}
 
 
 def say(msg: str) -> None:
@@ -73,19 +91,44 @@ def planes_to_permuted(xt, device):
         device=device)
 
 
+def _variants():
+    """{name: wrapper} of V1-V4 and, after V1 and V4, their first
+    designs: the sweep's order."""
+    out = {}
+    for name, (wrapper, _) in cv.VARIANTS.items():
+        out[name] = wrapper
+        if name + "_v1" in cv.FIRST_DESIGNS:
+            out[name + "_v1"] = cv.FIRST_DESIGNS[name + "_v1"][0]
+    return out
+
+
 def correctness(data, rows=CHECK_ROWS):
-    """{variant: ||z_variant - z_B1|| / ||z_B1||} on the first ``rows``
-    SNPs at the full width (plain versions on the CPU)."""
+    """{variant or first design: ||z - z_B1|| / ||z_B1||} on the first
+    ``rows`` SNPs at the full width (plain versions on the CPU)."""
     pk = data["packed"][:rows]
     m, iv = data["mean"][:rows], data["invsd"][:rows]
     xp = data["xp"]
     ref = tpk.crossprod_p(pk, m, iv, xp).double()
     out = {}
-    for name, (wrapper, _) in cv.VARIANTS.items():
+    for name, wrapper in _variants().items():
         z = wrapper(pk, m, iv, xp).double()
         out[name] = float((z - ref).norm() / ref.norm())
-        say(f"{name.removeprefix('crossprod_'):8s} correctness vs B1 "
-            f"rel={out[name]:.2e}")
+        say(f"{LABELS[name]:24s} correctness vs B1 rel={out[name]:.2e}")
+    return out
+
+
+def first_designs_equal(data):
+    """{first design: its redesign's z is its z bit for bit} at the full
+    shape (``torch.equal``)."""
+    pk, m, iv, xp = (data[key] for key in ("packed", "mean", "invsd", "xp"))
+    out = {}
+    for first, (wrapper, _) in cv.FIRST_DESIGNS.items():
+        redesign = first.removesuffix("_v1")
+        z = cv.VARIANTS[redesign][0](pk, m, iv, xp)
+        out[first] = bool(torch.equal(z, wrapper(pk, m, iv, xp)))
+        say(f"{LABELS[redesign]} bit-equal to its first design at the full "
+            f"shape: {out[first]}")
+        del z
     return out
 
 
@@ -148,21 +191,37 @@ def k_scan(data, ks=K_SCAN, reps=5):
 
 
 def time_variants(data, reps=5):
-    """{variant: ms} of V1-V4 at the full shape, beside B1."""
+    """B1, V1-V4 and V1's and V4's first designs at the full shape, timed
+    in turns (each once in order, then once in reverse); returns {"ms":
+    {kernel: mean of its two medians}, "turns": {kernel: [ms, ms]},
+    "minus_b1_ms": {kernel: its ms less B1's}, "compensation_ms": B1's ms
+    less V4's}."""
     pk, m, iv, xp = data["packed"], data["mean"], data["invsd"], data["xp"]
-    out = {"crossprod": event_ms(lambda: tpk.crossprod_p(pk, m, iv, xp),
-                                 reps)}
-    say(f"B1       : crossprod {out['crossprod']:7.2f} ms "
-        f"({_gbs(data, out['crossprod']):5.1f} GB/s)")
-    for name, (wrapper, _) in cv.VARIANTS.items():
-        out[name] = event_ms(lambda: wrapper(pk, m, iv, xp), reps)
-        say(f"{name.removeprefix('crossprod_'):8s} : crossprod "
-            f"{out[name]:7.2f} ms ({_gbs(data, out[name]):5.1f} GB/s)")
-    return out
+    fns = {"crossprod": lambda: tpk.crossprod_p(pk, m, iv, xp)}
+    for name, wrapper in _variants().items():
+        fns[name] = lambda w=wrapper: w(pk, m, iv, xp)
+    turns = {}
+    for name in list(fns) + list(fns)[::-1]:
+        turns.setdefault(name, []).append(event_ms(fns[name], reps))
+    ms = {name: float(np.mean(ts)) for name, ts in turns.items()}
+    b1 = ms["crossprod"]
+    for name, t in ms.items():
+        say(f"{LABELS[name]:24s}: crossprod {t:7.2f} ms "
+            f"({_gbs(data, t):5.1f} GB/s; turns "
+            + ", ".join(f"{x:.2f}" for x in turns[name]) + ")"
+            + ("" if name == "crossprod" else
+               f"; B1 {b1:.2f} ms, difference {t - b1:+.2f} ms"))
+    comp = b1 - ms["crossprod_nocomp"]
+    say(f"B1 - V4 nocomp = {comp:+.2f} ms: what the compensation costs B1 "
+        f"({comp / b1:+.1%} of B1)")
+    return {"ms": ms, "turns": turns,
+            "minus_b1_ms": {name: t - b1 for name, t in ms.items()
+                            if name != "crossprod"},
+            "compensation_ms": comp}
 
 
 def run(p, nbytes, k, device, reps=5):
-    """All four steps on ``device`` (a GPU); returns (their readings,
+    """All five steps on ``device`` (a GPU); returns (their readings,
     the sweep's operands)."""
     say(f"sweep: p={p} nbytes={nbytes} k={k} packed "
         f"{p * nbytes / 1e9:.2f} GB on {torch.cuda.get_device_name(device)}")
@@ -171,7 +230,8 @@ def run(p, nbytes, k, device, reps=5):
            "correctness": correctness(data),
            "tiles": tile_sweep(data, reps),
            "k_scan": k_scan(data, reps=reps),
-           "variants_ms": time_variants(data, reps)}
+           "first_designs_equal": first_designs_equal(data),
+           "variants": time_variants(data, reps)}
     return out, data
 
 
@@ -182,8 +242,8 @@ def main(argv=None) -> int:
         print("kernel_sweep: no CUDA device; the sweep times the kernels on "
               "a GPU only", file=sys.stderr)
         return 1
-    run(p, nbytes, k, torch.device("cuda"))
-    return 0
+    out, _ = run(p, nbytes, k, torch.device("cuda"))
+    return 0 if all(out["first_designs_equal"].values()) else 1
 
 
 if __name__ == "__main__":

@@ -154,6 +154,56 @@ def test_b1_is_bit_equal_to_its_first_design(cuda, k, p, n):
                                   x.cpu()))
 
 
+def _variant_is_bit_equal(cuda, name, k, p, n):
+    """The redesigned variant ``name`` (crossprod_variants_v2.cu) against
+    its first design (crossprod_variants.cu): launch counts, torch.equal,
+    an all-missing SNP (row 7) giving an exact zero row, and its plain
+    version's values."""
+    from flashpca_tpu_torch.kernels import crossprod_variants as cv
+
+    packed, mean, invsd, nb = _operands(cuda, n, p)
+    packed[7] = 0x55
+    x = torch.randn((4 * nb, k), device=cuda)
+    wrapper, plain = cv.VARIANTS[name]
+    tpk.reset_launch_counts()
+    z = wrapper(packed, mean, invsd, x)
+    z1 = cv.FIRST_DESIGNS[name + "_v1"][0](packed, mean, invsd, x)
+    chunks = len(tpk._widths(k))
+    assert tpk.launch_counts[name] == chunks
+    assert tpk.launch_counts[name + "_v1"] == chunks
+    assert tpk.launch_counts["crossprod"] == 0
+    assert torch.equal(z, z1)
+    assert bool((z[7] == 0).all())
+    _close(z, plain(packed.cpu(), mean.cpu(), invsd.cpu(), x.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 5, 16, 24, 28, 40])
+@pytest.mark.parametrize("p,n", [(333, 1001), (333, 1024), (133, 1001),
+                                 (133, 1024), (333, 1063)])
+def test_v1_is_bit_equal_to_its_first_design(cuda, k, p, n):
+    """V1 (``stacked``, crossprod_variants_v2.cu) gives its first design's
+    sums bit for bit at every KC (k 3, 5 -> 8; 16; 24; 28 -> 32; 40 -> 32
+    + 8): each output takes the same FMA sequence over each 16-byte
+    chunk's 64 samples in stacked order (plane-major) and the same TwoSum
+    fold.  p = 133 is ragged on the 128-row blocks; n = 1001 gives 251
+    bytes (a ragged chunk, unaligned rows), n = 1024 256 (aligned) and
+    n = 1063 266, whose last 32-byte stage holds one 16-byte chunk."""
+    _variant_is_bit_equal(cuda, "crossprod_stacked", k, p, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 5, 16, 24, 28, 40])
+@pytest.mark.parametrize("p,n", [(333, 1001), (333, 1024), (133, 1001),
+                                 (133, 1024), (333, 1063)])
+def test_v4_is_bit_equal_to_its_first_design(cuda, k, p, n):
+    """V4 (``nocomp``, crossprod_variants_v2.cu) gives its first design's
+    sums bit for bit at every KC: each output takes the same FMA sequence
+    and the same plain float32 add of each 32-byte chunk's partial.
+    Shapes as for V1."""
+    _variant_is_bit_equal(cuda, "crossprod_nocomp", k, p, n)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [3, 16, 24, 28, 32, 40])
 @pytest.mark.parametrize("n", [1001, 771, 4096])

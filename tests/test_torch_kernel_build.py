@@ -55,11 +55,18 @@ def _chip_smoke():
     ("matvec", "matvec_v2.cu", "fp_matvec"),
     ("matvec_v1", "matvec.cu", "fp_matvec_v1"),
     ("matvec_tiled", "matvec.cu", "fp_matvec_tiled"),
+    ("crossprod_stacked", "crossprod_variants_v2.cu", "fp_crossprod_stacked"),
+    ("crossprod_stacked_v1", "crossprod_variants.cu",
+     "fp_crossprod_stacked_v1"),
+    ("crossprod_nocomp", "crossprod_variants_v2.cu", "fp_crossprod_nocomp"),
+    ("crossprod_nocomp_v1", "crossprod_variants.cu",
+     "fp_crossprod_nocomp_v1"),
+    ("crossprod_intsub", "crossprod_variants.cu", "fp_crossprod_intsub"),
 ])
 def test_b5_entries_map_to_their_sources(name, src, entry):
-    """B5's and (since their redesigns) B1's, B2's, B3's and B4's
-    entries: production in the new source, the first design (and B1's
-    and B2's sweep tile entries) in the old one."""
+    """B5's and (since their redesigns) B1's, B2's, B3's, B4's, V1's and
+    V4's entries: the redesign in the new source, the first design (and
+    B1's and B2's sweep tile entries, and V2) in the old one."""
     assert _build.KERNELS[name][:2] == (src, entry)
 
 
@@ -93,7 +100,7 @@ def test_b5_is_built_from_its_new_source():
 
 def test_b1_is_built_from_its_new_source():
     assert {"crossprod_v2.cu", "crossprod.cu"} <= set(_build.sources())
-    assert len(_build.sources()) == 12 and len(_build.KERNELS) == 18
+    assert len(_build.sources()) == 13 and len(_build.KERNELS) == 20
 
 
 def test_b3_is_built_from_its_new_source():
@@ -164,6 +171,74 @@ def test_production_b1_library_holds_only_b1():
     # the note names the TPU kernel it replaces and its bound
     assert "packed_matvec.py::_crossprod_kernel" in prod
     assert "2*KC*p*n4 operations" in prod
+
+
+def test_v1_and_v4_are_built_from_their_new_source():
+    """The redesigns' source defines V1's and V4's entries and no other;
+    the first designs keep theirs in crossprod_variants.cu beside V2,
+    with B1's argument list; the note names the TPU kernels replaced,
+    the bound and the bits kept."""
+    assert {"crossprod_variants_v2.cu", "crossprod_variants.cu"} <= set(
+        _build.sources())
+    with open(os.path.join(_build.CSRC, "crossprod_variants_v2.cu")) as fh:
+        new = fh.read()
+    with open(os.path.join(_build.CSRC, "crossprod_variants.cu")) as fh:
+        first = fh.read()
+    assert re.findall(r'extern "C" int (\w+)\(', new) == [
+        "fp_crossprod_stacked", "fp_crossprod_nocomp"]
+    assert re.findall(r'extern "C" int (\w+)\(', first) == [
+        "fp_crossprod_stacked_v1", "fp_crossprod_intsub",
+        "fp_crossprod_nocomp_v1"]
+    for name in ("crossprod_stacked", "crossprod_nocomp"):
+        assert _build.KERNELS[name][2] == _build.KERNELS[name + "_v1"][2]
+        assert _build.KERNELS[name][2] == _build.KERNELS["crossprod"][2]
+    assert "kernel_sweep.py::_crossprod_kernel_stacked" in new
+    assert "::_crossprod_kernel_nocomp" in new
+    assert "2*KC*p*n4 operations" in new
+    assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
+    # B1's source is not the variants': the redesigns copy from it
+    assert "crossprod_v2.cu" not in re.findall(r'#include "([^"]+)"', new)
+
+
+def test_variant_first_designs_are_counted_and_off_the_main_path():
+    from flashpca_tpu_torch.kernels import crossprod_variants as cv
+
+    assert tpk.VARIANT_FIRST_KERNELS == ("crossprod_stacked_v1",
+                                         "crossprod_nocomp_v1")
+    assert set(cv.FIRST_DESIGNS) == set(tpk.VARIANT_FIRST_KERNELS)
+    for first, (wrapper, plain) in cv.FIRST_DESIGNS.items():
+        redesign = first.removesuffix("_v1")
+        assert first in tpk.launch_counts
+        assert first not in tpk.OPERATOR_KERNELS + tpk.SWEEP_KERNELS
+        assert wrapper.__name__ == first + "_p"
+        assert getattr(cv, first + "_p") is wrapper
+        assert cv.VARIANTS[redesign][1] is plain
+    cs = _chip_smoke()
+    launches = dict.fromkeys(tpk.launch_counts, 0)
+    for first in tpk.VARIANT_FIRST_KERNELS:
+        with pytest.raises(AssertionError, match=first):
+            cs.require_no_first_design(dict(launches, **{first: 1}),
+                                       "wide path")
+
+
+@pytest.mark.parametrize("k", [3, 16, 40])
+@pytest.mark.parametrize("name", ["crossprod_stacked", "crossprod_stacked_v1",
+                                  "crossprod_nocomp", "crossprod_nocomp_v1"])
+def test_variant_wrappers_on_cpu_are_plain(novl_operands, name, k):
+    """V1, V4 and their first designs take their plain versions on CPU
+    tensors, bit for bit, and launch nothing."""
+    from flashpca_tpu_torch.kernels import crossprod_variants as cv
+
+    packed, _, rng = novl_operands
+    p, nb = packed.shape
+    mean = torch.from_numpy(rng.uniform(0.1, 1.9, p))
+    invsd = torch.from_numpy(rng.uniform(0.5, 2.0, p))
+    x = torch.from_numpy(rng.standard_normal((4 * nb, k)).astype(np.float32))
+    plain = (cv.VARIANTS.get(name) or cv.FIRST_DESIGNS[name])[1]
+    tpk.reset_launch_counts()
+    z = getattr(cv, name + "_p")(packed, mean, invsd, x)
+    assert torch.equal(z, plain(packed, mean, invsd, x))
+    assert all(c == 0 for c in tpk.launch_counts.values())
 
 
 def test_production_b3_library_holds_only_b3():
@@ -309,6 +384,105 @@ def test_chip_smoke_has_rows_for_b1_and_its_first_design(name):
     assert os.path.exists(os.path.join(ROOT, cs.SOURCE[name]))
     assert cs.TPU_KERNEL[name] == "flashpca_tpu/kernels/packed_matvec.py:83"
     assert cs.DOTS[name] == 1
+
+
+@pytest.mark.parametrize("name", ["crossprod_stacked", "crossprod_stacked_v1",
+                                  "crossprod_nocomp", "crossprod_nocomp_v1"])
+def test_chip_smoke_has_rows_for_v1_v4_and_their_first_designs(name):
+    """The rows chip_smoke's sweep phase reads for V1, V4 and their first
+    designs: sources, the TPU kernel replaced, one product a genotype
+    (the bound), the float64 bar, and the sweep's launches."""
+    cs = _chip_smoke()
+    assert cs.SOURCE[name] == ("flashpca_tpu_torch/kernels/csrc/"
+                               + _build.KERNELS[name][0])
+    assert os.path.exists(os.path.join(ROOT, cs.SOURCE[name]))
+    line = {"crossprod_stacked": 50, "crossprod_nocomp": 261}[
+        name.removesuffix("_v1")]
+    assert cs.TPU_KERNEL[name] == f".claude/skills/verify/kernel_sweep.py:{line}"
+    assert cs.DOTS[name] == 1 and cs.F64_BAR[name] == 1e-5
+    assert name in cs.SWEEP_PATH
+    assert (name in cs.VARIANT_FIRSTS) == name.endswith("_v1")
+
+
+def test_chip_smoke_requires_variant_equal():
+    """V1 and V4 against their first designs: one ulp in either fails."""
+    cs = _chip_smoke()
+    z = torch.arange(8.0).reshape(4, 2)
+    outs = {name: z.clone() for name in ("crossprod_stacked",
+                                         "crossprod_stacked_v1",
+                                         "crossprod_nocomp",
+                                         "crossprod_nocomp_v1")}
+    cs.require_variant_equal(outs, "same")
+    for name in outs:
+        b = z.clone()
+        b[1, 1] = torch.nextafter(b[1, 1], torch.tensor(99.0))
+        with pytest.raises(AssertionError, match="not bit-equal"):
+            cs.require_variant_equal(dict(outs, **{name: b}), "one ulp")
+
+
+def test_chip_smoke_sweep_phase_rows_and_bit_equality(monkeypatch):
+    """The sweep phase on the CPU with the tool's run stubbed: a row for
+    each variant and for V1's and V4's first designs (marked first, 0
+    launches on the main path, beside B1's time and the difference), and
+    a failure when a redesign is not bit-equal at the sweep's shape."""
+    from flashpca_tpu_torch.kernels import crossprod_variants as cv
+    from flashpca_tpu_torch.tools import kernel_sweep as ks
+
+    cs = _chip_smoke()
+    names = cs.VARIANTS + cs.VARIANT_FIRSTS
+    ms = dict({"crossprod": 50.0}, **{nm: 40.0 + i
+                                      for i, nm in enumerate(names)})
+
+    def fake_run(p, nb, k, dev, equal=True):
+        for nm in cs.SWEEP_PATH:
+            tpk.launch_counts[nm] += 2
+        data = ks.sweep_data(p, nb, k, "cpu")
+        return ({"correctness": dict.fromkeys(names, 1e-7),
+                 "first_designs_equal": {"crossprod_stacked_v1": True,
+                                         "crossprod_nocomp_v1": equal},
+                 "variants": {"ms": ms, "minus_b1_ms": {
+                     nm: t - 50.0 for nm, t in ms.items()
+                     if nm != "crossprod"}}}, data)
+
+    monkeypatch.setattr(cs, "sync", lambda: None)
+    monkeypatch.setattr(ks, "run", fake_run)
+    monkeypatch.setattr(ks, "event_ms", lambda fn, reps: 7.0)
+    worst = dict.fromkeys(tpk.launch_counts, 1e-3)
+    main = dict.fromkeys(tpk.launch_counts, 0)
+    rows, out = cs.kernel_sweep("cpu", 64, 203, worst, 9.0, main)
+    assert [r["name"] for r in rows] == list(names)
+    for r in rows:
+        assert r["launches"] == 2 and r["main_path_launches"] == 0
+        assert r["ms"] == ms[r["name"]] and r["b1_ms"] == 50.0
+        assert r["minus_b1_ms"] == ms[r["name"]] - 50.0
+        assert r["plain_ms"] == 7.0 and r["library_ms"] == 9.0
+        assert (r.get("design") == "first") == (r["name"] in cv.FIRST_DESIGNS)
+        assert r["source"] == cs.SOURCE[r["name"]]
+    assert out["launches"] == dict.fromkeys(cs.SWEEP_PATH, 2)
+    monkeypatch.setattr(ks, "run", functools.partial(fake_run, equal=False))
+    with pytest.raises(AssertionError, match="crossprod_nocomp_v1"):
+        cs.kernel_sweep("cpu", 64, 203, worst, 9.0, main)
+
+
+def test_chip_smoke_names_v1_v4_instantiations_and_reads_them():
+    """V1's and V4's symbols as ptxas and cuobjdump name them; the smoke
+    reads their and B1's inner-loop mix, and requires no spill in the
+    redesigns' source."""
+    cs = _chip_smoke()
+    pre = "_ZN47_GLOBAL__N__9a1b2c3d_24_crossprod_variants_v2_cu_1f2e3d4c4var2"
+    for kern in ("nocomp_tile_kernel", "stacked_tile_kernel"):
+        sym = f"{pre}{len(kern)}{kern}ILi16EEEvPKhPKfS5_S5_S5_Pfxxbb"
+        assert cs.kernel_name(sym) == f"{kern}<16>"
+        assert cs.sass_read(f"{kern}<16>")
+    assert cs.sass_read("crossprod_tile_kernel<16>")
+    assert cs.sass_read("matvec_kernel<16, 64>")
+    assert not cs.sass_read("matvec_kernel<16, 32>")
+    assert not cs.sass_read("crossprod_kernel<16, 256>")
+    assert {"crossprod_v2.cu", "crossprod_variants_v2.cu"} <= set(
+        cs.SASS_SOURCES)
+    assert "crossprod_variants_v2.cu" in cs.NO_SPILL_SOURCES
+    assert set(cs.SASS_SOURCES) | set(cs.NO_SPILL_SOURCES) <= set(
+        _build.sources())
 
 
 def test_chip_smoke_names_b1s_instantiations():
@@ -674,6 +848,107 @@ def test_tile_trials_hold_each_tile_to_the_first_design(monkeypatch,
     assert "NOT bit-equal" in out.splitlines()[-1]
     assert (f"{str(good):28s} 1.50, 1.50 ms; 192 threads, 60 KB, 2 "
             f"blocks/SM, 0.02 waves ({usage})") in out
+
+
+def test_variant_tile_tool_reads_production_tiles():
+    """The tool's production tiles are the source's defaults for V4 and
+    V1, and every tile it tries is one the source takes: C divides KC,
+    4 | C, a warp's 32 row slots divide the block's rows (V4: B1's 128),
+    SREG, WBUF and the unrolled planes U in range; it times the sweep's
+    wide kc=16 launch."""
+    from flashpca_tpu_torch.tools import b3_tiles, variant_tiles as vt
+
+    nocomp = b3_tiles.production_tiles(vt.SOURCE, vt.NOCOMP[1])
+    stacked = b3_tiles.production_tiles(vt.SOURCE, vt.STACKED[1])
+    assert sorted(nocomp) == sorted(stacked) == [8, 16, 24, 32]
+    assert vt.SHAPES == (("wide", 100_352, 125_440, 16),)
+    for prod, tiles, flags in ((nocomp, vt.NOCOMP_TILES, (0, 1)),
+                               (stacked, vt.STACKED_TILES, (1, 2))):
+        for kc, ts in list(tiles.items()) + [(kc, [t])
+                                             for kc, t in prod.items()]:
+            for tile in ts:
+                tm, (r, c, tps, flag), u = ((128, tile, 4) if len(tile) == 4
+                                            else (tile[0], tile[1:5],
+                                                  tile[5]))
+                assert kc % c == 0 and c % 4 == 0 and tm % (32 * r) == 0
+                assert flag in flags and tps % 32 == 0 and u in (1, 2, 4)
+        for kc, ts in tiles.items():
+            assert len(ts) >= 2 and prod[kc] not in ts
+    assert all(len(t) == 6 for t in stacked.values())
+    src = b3_tiles.tile_source(16, (64, 2, 4, 640, 1, 4), vt.SOURCE,
+                               vt.STACKED[1])
+    assert src.splitlines() == [
+        "#define CROSSPROD_STACKED_TILE_16 64, 2, 4, 640, 1, 4",
+        '#include "%s"' % os.path.join(_build.CSRC, vt.SOURCE)]
+    with open(os.path.join(_build.CSRC, vt.SOURCE)) as fh:
+        text = fh.read()
+    assert "#ifndef CROSSPROD_STACKED_TILE_16\n" in text
+    assert "#ifndef CROSSPROD_NOCOMP_TILE_16\n" in text
+    assert [t["name"] for t in vt.trials()] == ["crossprod_nocomp",
+                                                "crossprod_stacked"]
+
+
+def test_variant_tile_tool_counts_blocks_an_sm():
+    """V1 at (128, 2, 8, 384, 1, 4), kc=16: 128 threads, 72 KB of shared
+    memory (two 14 KB stages, a 34 KB decoded tile, the rows' values and
+    the sums), three blocks an SM at the 168 registers 384 threads leave;
+    at 64 rows a block 44 KB, five blocks; V4 at (2, 8, 768, 0): 36 KB,
+    six blocks at 80 registers; 784 blocks of 128 rows on the sweep's
+    shape, 1,568 of 64."""
+    from flashpca_tpu_torch.tools import variant_tiles as vt
+
+    assert vt.stacked_occupancy(16, (128, 2, 8, 384, 1, 4), 168) == (
+        128, 73_728, 3)
+    assert vt.stacked_occupancy(16, (128, 2, 8, 256, 2, 4), 168) == (
+        128, 108_544, 2)
+    assert vt.stacked_occupancy(16, (64, 1, 8, 640, 1, 4), 96) == (
+        128, 45_056, 5)
+    assert vt.nocomp_occupancy(16, (2, 8, 768, 0), 80) == (128, 36_864, 6)
+    assert vt.nocomp_occupancy(16, (2, 8, 768, 1), 80) == (128, 28_672, 6)
+    assert vt.nocomp_occupancy(16, (2, 4, 1024, 0), 64) == (256, 36_864, 4)
+    assert vt.nocomp_grid((2, 8, 768, 0), 100_352, 125_440) == 784
+    assert vt.stacked_grid((64, 1, 8, 640, 1, 4), 100_352, 125_440) == 1568
+
+
+def test_variant_tile_trials_hold_each_tile_to_the_first_design(
+        monkeypatch, tmp_path):
+    """The shared loop on V4's wrappers (kernels/crossprod_variants.py)
+    on the CPU, with the build and the clock stubbed: production, the
+    first design and a tile with the first design's sums are bit-equal,
+    one that moves one bit is not."""
+    from flashpca_tpu_torch.kernels import crossprod_variants as cv
+    from flashpca_tpu_torch.tools import b3_tiles as bt
+    from flashpca_tpu_torch.tools import variant_tiles as vt
+
+    (tmp_path / "crossprod_variants_v2.log").write_text("")
+    usage = "Used 72 registers, used 1 barriers"
+    good, bad = (2, 8, 768, 1), (2, 4, 768, 0)
+
+    def off_by_one_bit(*args):
+        z = cv.crossprod_nocomp_v1_p(*args)
+        return torch.nextafter(z, torch.full_like(z, np.inf))
+
+    monkeypatch.setattr(_build, "build_all", lambda: str(tmp_path))
+    monkeypatch.setattr(bt, "build_tiles", lambda *a: {
+        (16, good): (cv.crossprod_nocomp_v1_p, usage),
+        (16, bad): (off_by_one_bit, usage)})
+    monkeypatch.setattr(bt, "event_ms", lambda fn, reps: (fn(), 2.5)[1])
+    run = dict(vt.trials()[0], shapes=(("wide", 133, 70, 16),),
+               tiles={16: [good, bad]},
+               launcher=lambda fn, *args: (lambda: fn(*args[:-1])))
+    rows = bt.run_tiles(torch.device("cpu"), **run)
+    prod = bt.production_tiles(vt.SOURCE, vt.NOCOMP[1])[16]
+    assert [(r["tile"], r["bit_equal"]) for r in rows] == [
+        ("production " + str(prod), True), ("first design", True),
+        (str(good), True), (str(bad), False)]
+
+
+def test_variant_tile_tool_exits_nonzero_without_gpu(monkeypatch, capsys):
+    from flashpca_tpu_torch.tools import variant_tiles
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert variant_tiles.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 def test_b4_tile_tool_exits_nonzero_without_gpu(monkeypatch, capsys):

@@ -41,7 +41,8 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F64_BAR = {"crossprod_stacked": 1e-5, "crossprod_intsub": 1e-5,
-           "crossprod_nocomp": 1e-5, "crossprod_split3": 5e-5}
+           "crossprod_nocomp": 1e-5, "crossprod_split3": 5e-5,
+           "crossprod_stacked_v1": 1e-5, "crossprod_nocomp_v1": 1e-5}
 PRODUCTS = {"crossprod_split3": 3}
 
 
@@ -124,6 +125,27 @@ def test_variant_plain_matches_pallas(jsweep, fix, name, k):
     ref = _f64_product(packed, mean, invsd, xp.numpy())
     rel = np.linalg.norm(got.numpy() - ref) / np.linalg.norm(ref)
     assert rel < F64_BAR[name]
+
+
+@pytest.mark.parametrize("first", list(cv.FIRST_DESIGNS))
+@pytest.mark.parametrize("k", [8, 16])
+def test_first_design_plain_matches_pallas(jsweep, fix, first, k):
+    """V1's and V4's first designs (``crossprod_stacked_v1_p``,
+    ``crossprod_nocomp_v1_p``) on the CPU: their redesign's plain version
+    bit for bit, so the sweep's Pallas kernel in interpret mode at the
+    bars above."""
+    packed, mean, invsd, rng = fix
+    xt = rng.standard_normal((4, k, packed.shape[1])).astype(np.float32)
+    wrapper, _ = cv.FIRST_DESIGNS[first]
+    redesign = first.removesuffix("_v1")
+    want = _jax_variant(jsweep, redesign, packed, mean, invsd, xt)
+    xp = ks.planes_to_permuted(xt, "cpu")
+    got = wrapper(_t(packed), _t(mean), _t(invsd), xp)
+    np.testing.assert_array_equal(
+        got.numpy(),
+        cv.VARIANTS[redesign][0](_t(packed), _t(mean), _t(invsd), xp).numpy())
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5,
+                               atol=_atol(redesign, xp.shape[0]))
 
 
 def test_coeff_rows_intsub_bit_equal(jsweep, fix):
@@ -251,9 +273,44 @@ def test_tool_correctness_step_on_cpu(monkeypatch):
                                   xt[2, :, 7])       # sample 4*7 + 2
     assert data["packed"].shape == (600, 300)
     rel = ks.correctness(data)
-    assert set(rel) == set(cv.VARIANTS)
+    assert set(rel) == set(cv.VARIANTS) | set(cv.FIRST_DESIGNS)
     for name, r in rel.items():
         assert r < F64_BAR[name], (name, r)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         ks.tile_sweep(data)
+
+
+def test_tool_first_designs_equal_on_cpu():
+    """The bit-equality step: on the CPU each redesign and its first
+    design take the same plain version."""
+    data = ks.sweep_data(200, 77, 8, "cpu")
+    assert ks.first_designs_equal(data) == dict.fromkeys(cv.FIRST_DESIGNS,
+                                                         True)
+
+
+def test_tool_times_each_variant_beside_b1(monkeypatch, capsys):
+    """The timed step with the clock stubbed: every kernel in turns (in
+    order, then in reverse), each printed beside B1 with the difference,
+    first designs labelled, and B1 less V4 as the compensation's cost."""
+    data = ks.sweep_data(64, 40, 8, "cpu")
+    order = ["crossprod", "crossprod_stacked", "crossprod_stacked_v1",
+             "crossprod_intsub", "crossprod_nocomp", "crossprod_nocomp_v1",
+             "crossprod_split3"]
+    first = dict(zip(order, [57.0, 60.0, 114.0, 99.0, 55.0, 76.0, 73.0]))
+    times = iter([first[n] for n in order]
+                 + [first[n] + 1.0 for n in order[::-1]])
+    monkeypatch.setattr(ks, "event_ms", lambda fn, reps: (fn(), next(times))[1])
+    out = ks.time_variants(data)
+    assert list(out["ms"]) == order
+    assert out["turns"]["crossprod_nocomp"] == [55.0, 56.0]
+    assert out["ms"]["crossprod_nocomp"] == 55.5
+    assert out["minus_b1_ms"]["crossprod_stacked_v1"] == 114.0 - 57.0
+    assert "crossprod" not in out["minus_b1_ms"]
+    assert out["compensation_ms"] == 57.5 - 55.5
+    text = capsys.readouterr().out
+    assert "V1 stacked, first design" in text
+    assert "V4 nocomp, first design" in text
+    assert ("B1 - V4 nocomp = +2.00 ms: what the compensation costs B1"
+            in text)
+    assert "difference -2.00 ms" in text
