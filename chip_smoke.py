@@ -6,21 +6,23 @@
 Phases, all in this one process; any failure raises and exits nonzero:
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the hand-written kernels from kernels/csrc, twenty entries
-   in thirteen libraries: B1-B5, the kernel sweep's tile entries of B1
-   and B2 and its variants V1-V4 of B1, the first designs of B1, B2, B3,
-   B4, V1 and V4, and B5's comparison entries -- its first design and
-   its design at C = 4 columns per thread or CR = 128 rows per chunk
-   (timed set-up); each instantiation's registers and spills (ptxas;
-   production B2, B3 and B4 and the redesigned V1 and V4 must spill
-   nothing), and the instruction mix of B5's, B4's, B3's, B2's, B1's,
-   V1's and V4's inner loops in each (cuobjdump);
+2. build the hand-written kernels from kernels/csrc, twenty-two
+   entries in fourteen libraries: B1-B5, the kernel sweep's tile entries
+   of B1 and B2 and its variants V1-V4 of B1, the first designs of B1-B4
+   and V1-V4, and B5's comparison entries -- its first design and its
+   design at C = 4 columns per thread or CR = 128 rows per chunk (timed
+   set-up); each instantiation's registers and spills (ptxas; production
+   B2, B3 and B4 and the redesigned V1-V4 must spill nothing), and the
+   instruction mix of B5's, B4's, B3's, B2's, B1's, V1's, V2's and V4's
+   inner loops in each (cuobjdump), and of V3's tensor-core loop its
+   HMMA and its CUDA-core instructions a genotype (the third term of
+   its bound);
 3. hold each kernel against its plain PyTorch version on the card, at
    full width (501,760 samples) on a 4,096-SNP slice and on a small odd
    case (n % 4 != 0, some inv_sd == 0), panels k in {3, 16, 24}, and
-   each against a float64 product; there also V1-V4 and V1's and V4's
-   first designs (V3 within 5e-5 of float64, the others 1e-5), B1, B2,
-   B3, B4, V1 and V4 each bit-equal to its first design (torch.equal,
+   each against a float64 product; there also V1-V4 and their first
+   designs (V3 within 5e-5 of float64, the others 1e-5), B1-B4 and
+   V1-V4 each bit-equal to its first design (torch.equal,
    both halves of B3 and B4, at every case and k of this phase, B1-B4
    at the tall width's too), B1's tile entries and
    B2's at 64 rows a chunk bit-equal to B1 and B2, and B2's at 32 and
@@ -46,12 +48,13 @@ Phases, all in this one process; any failure raises and exits nonzero:
    designs in turns;
 6. the kernel sweep (flashpca_tpu_torch.tools.kernel_sweep) at the wide
    headline's shape, 100,352 x 501,760, k=16, after the headline's
-   operator is freed: V1-V4 and V1's and V4's first designs against B1
-   on a 512-SNP slice, B1/B2 at each tile, B1 at k in {8, 16, 32, 64},
-   V1 and V4 bit-equal to their first designs at the full shape, and B1,
-   V1-V4 and the two first designs timed in turns, each beside B1 (B1
-   less V4: what the compensation costs B1), their plain versions and
-   bounds; launch counts reset just before it and read just after
+   operator is freed: V1-V4 and their first designs against B1 on a
+   512-SNP slice, B1/B2 at each tile, B1 at k in {8, 16, 32, 64}, V1-V4
+   bit-equal to their first designs at the full shape, and B1, V1-V4
+   and the four first designs timed in turns, each beside B1 (B1 less
+   V4: what the compensation costs B1), their plain versions and bounds
+   (V3's from its SASS reading, its first design's from its own
+   count); launch counts reset just before it and read just after
    (V1-V4, the first designs and the tile entries must have launched;
    none of them is on the main path, whose count of each is 0);
 7. the tall headline: 1,003,520 x 50,176 generated the same way, held
@@ -76,8 +79,8 @@ The headlines must give wide ``n_ops`` 20 and tall ``n_ops`` 32, and no
 launch of a first design or comparison entry on either main path.  The
 line before the last is the JSON ``{"kernels": [...]}`` (B1-B5 at the
 widths the headlines launch and B4 at the tall bytes' kc 24, the first
-designs of B1-B5 from the timing phases, V1-V4 and V1's and V4's first
-designs from the sweep); the last
+designs of B1-B5 from the timing phases, V1-V4 and their first designs
+from the sweep); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside it, the script exits nonzero and prints no
 result.
@@ -128,7 +131,9 @@ TPU_KERNEL = {
     "crossprod_stacked": ".claude/skills/verify/kernel_sweep.py:50",
     "crossprod_stacked_v1": ".claude/skills/verify/kernel_sweep.py:50",
     "crossprod_intsub": ".claude/skills/verify/kernel_sweep.py:128",
+    "crossprod_intsub_v1": ".claude/skills/verify/kernel_sweep.py:128",
     "crossprod_split3": ".claude/skills/verify/kernel_sweep.py:209",
+    "crossprod_split3_v1": ".claude/skills/verify/kernel_sweep.py:209",
     "crossprod_nocomp": ".claude/skills/verify/kernel_sweep.py:261",
     "crossprod_nocomp_v1": ".claude/skills/verify/kernel_sweep.py:261",
 }
@@ -144,8 +149,10 @@ SOURCE = {"crossprod": _CSRC + "crossprod_v2.cu",
           "matvec_ff_novl_v1": _CSRC + "matvec_ff.cu",
           "crossprod_stacked": _CSRC + "crossprod_variants_v2.cu",
           "crossprod_stacked_v1": _CSRC + "crossprod_variants.cu",
-          "crossprod_intsub": _CSRC + "crossprod_variants.cu",
-          "crossprod_split3": _CSRC + "crossprod_split3.cu",
+          "crossprod_intsub": _CSRC + "crossprod_variants_v2.cu",
+          "crossprod_intsub_v1": _CSRC + "crossprod_variants.cu",
+          "crossprod_split3": _CSRC + "crossprod_split3_v2.cu",
+          "crossprod_split3_v1": _CSRC + "crossprod_split3.cu",
           "crossprod_nocomp": _CSRC + "crossprod_variants_v2.cu",
           "crossprod_nocomp_v1": _CSRC + "crossprod_variants.cu"}
 # float32 dots per genotype and panel column (V3's products are bf16:
@@ -155,28 +162,31 @@ DOTS = {"crossprod": 1, "crossprod_v1": 1, "matvec": 1, "matvec_v1": 1,
         "matvec_ff_v1": 3,
         "matvec_ff_novl": 2, "matvec_ff_novl_v1": 2,
         "crossprod_stacked": 1, "crossprod_stacked_v1": 1,
-        "crossprod_intsub": 1, "crossprod_nocomp": 1,
-        "crossprod_nocomp_v1": 1}
+        "crossprod_intsub": 1, "crossprod_intsub_v1": 1,
+        "crossprod_nocomp": 1, "crossprod_nocomp_v1": 1}
 SPLIT3_BF16_DOTS = 3
 PEAK_BF16_FLOPS = 989e12      # dense tensor-core rate, H100 SXM
-# V3's CUDA-core work per genotype, counted from crossprod_split3.cu:
-# code to float, the factored cubic's sub, 2 muls, 2 adds and mul
-# (unfused, as its plain version rounds them), the split's sub and one
-# paired bf16 conversion per piece (half an instruction per value each)
-# -- 9 instructions, at one per lane and clock, 33.5e12/s
+# V3's first design's CUDA-core work per genotype, counted from
+# crossprod_split3.cu: code to float, the factored cubic's sub, 2 muls, 2
+# adds and mul (unfused, as its plain version rounds them), the split's
+# sub and one paired bf16 conversion per piece (half an instruction per
+# value each) -- 9 instructions, at one per lane and clock, 33.5e12/s.
+# The redesign's count is read from its SASS (split3_ops_per_genotype).
 SPLIT3_OPS_PER_GENOTYPE = 9
 PEAK_FP32_INSTR = PEAK_FP32_FLOPS / 2
-# the kernel sweep's variants (kernels/crossprod_variants.py) and V1's
-# and V4's first designs, and V3's bars: against its plain version three
+# the kernel sweep's variants (kernels/crossprod_variants.py) and their
+# first designs, and V3's bars: against its plain version three
 # float32 contractions' worth of plain_bar (tensor-core sums are not IEEE
 # add sequences), against float64 5e-5 (its dropped lo*lo term:
 # 4.5-4.7e-6 on the CPU)
 VARIANTS = ("crossprod_stacked", "crossprod_intsub", "crossprod_split3",
             "crossprod_nocomp")
-VARIANT_FIRSTS = ("crossprod_stacked_v1", "crossprod_nocomp_v1")
+VARIANT_FIRSTS = ("crossprod_stacked_v1", "crossprod_intsub_v1",
+                  "crossprod_nocomp_v1", "crossprod_split3_v1")
 SWEEP_PATH = VARIANTS + VARIANT_FIRSTS + ("crossprod_tiled", "matvec_tiled")
 F64_BAR = {"crossprod_stacked": 1e-5, "crossprod_stacked_v1": 1e-5,
-           "crossprod_intsub": 1e-5, "crossprod_split3": 5e-5,
+           "crossprod_intsub": 1e-5, "crossprod_intsub_v1": 1e-5,
+           "crossprod_split3": 5e-5, "crossprod_split3_v1": 5e-5,
            "crossprod_nocomp": 1e-5, "crossprod_nocomp_v1": 1e-5}
 SWEEP_K = 16
 # the kernels each main path must launch
@@ -197,7 +207,8 @@ def sass_hot_loops(sass):
     loop of each function in a ``cuobjdump -sass`` listing: the shortest
     loop (a backward branch) with at least 90% of the most FFMA any loop
     holds (an outer loop that adds a few FFMA of its own, as B2's table
-    decode, around the inner one is not it)."""
+    decode, around the inner one is not it) -- of the most HMMA, in a
+    function whose loops hold any (V3's tensor-core loop)."""
     from collections import Counter
 
     out = {}
@@ -216,25 +227,31 @@ def sass_hot_loops(sass):
                 continue
             loops.append(Counter(o.split(".")[0] for _, o, _ in ins[j: i + 1]))
         if loops:
-            most = max(c["FFMA"] for c in loops)
-            out[fn] = min((c for c in loops if c["FFMA"] >= 0.9 * most),
+            op = "HMMA" if any(c["HMMA"] for c in loops) else "FFMA"
+            most = max(c[op] for c in loops)
+            out[fn] = min((c for c in loops if c[op] >= 0.9 * most),
                           key=lambda c: sum(c.values()))
     return out
 
 
 # the sources whose every instantiation must spill nothing: production
-# B2, B3 and B4, and the redesigned V1 and V4
+# B2, B3 and B4, and the redesigned V1-V4
 NO_SPILL_SOURCES = ("crossprod_ff_v2.cu", "matvec_v2.cu", "matvec_ff_v2.cu",
-                    "crossprod_variants_v2.cu")
-# B5's, B4's, B3's, B2's and B1's instruction mix, and V1's and V4's: the
-# FFMA share of their inner loops' instructions, for the current designs,
-# B5's other tiles and the first designs (cuobjdump, which the CUDA
-# toolkit ships beside nvcc); B1 beside V4 is what the compensation costs
-# in instructions
+                    "crossprod_variants_v2.cu", "crossprod_split3_v2.cu")
+# B5's, B4's, B3's, B2's and B1's instruction mix, and V1's, V2's and
+# V4's: the FFMA share of their inner loops' instructions, for the
+# current designs, B5's other tiles and the first designs (cuobjdump,
+# which the CUDA toolkit ships beside nvcc); B1 beside V4 is what the
+# compensation costs in instructions.  V3's loop is read by its HMMA:
+# its CUDA-core instructions a genotype (split3_ops_per_genotype)
 SASS_SOURCES = ("matvec_ff_novl.cu", "matvec_ff_novl_variants.cu",
                 "matvec_ff.cu", "matvec_ff_v2.cu", "crossprod_ff_v2.cu",
                 "crossprod_ff.cu", "matvec_v2.cu", "matvec.cu",
-                "crossprod_v2.cu", "crossprod_variants_v2.cu")
+                "crossprod_v2.cu", "crossprod_variants_v2.cu",
+                "crossprod_split3_v2.cu")
+# V3's instantiation at the sweep's width on 16-byte aligned rows, whose
+# count is the third term of its bound
+SPLIT3_SASS = "split_tile_kernel<16, 1>"
 
 
 def sass_read(fn):
@@ -242,8 +259,19 @@ def sass_read(fn):
     ``fn`` (of B2's first design only the production fold, 64 rows a
     chunk)."""
     return (fn.startswith(("matvec_ff", "crossprod_ff", "matvec_tile",
-                           "crossprod_tile", "nocomp_tile", "stacked_tile"))
+                           "crossprod_tile", "nocomp_tile", "stacked_tile",
+                           "intsub_tile", "split_tile"))
             or (fn.startswith("matvec_kernel<") and fn.endswith(", 64>")))
+
+
+def split3_ops_per_genotype(loop, kc):
+    """CUDA-core instructions a genotype in V3's inner ``loop`` (a Counter
+    of opcodes) at ``kc``: every instruction but its HMMA, over the
+    genotypes the loop's HMMA consume -- an m16n8k16 takes 8 genotypes a
+    thread, and each feeds 3 kc / 8 of them (three products, kc / 8
+    n-tiles)."""
+    hmma = loop["HMMA"]
+    return (sum(loop.values()) - hmma) / (hmma * 64 / (3 * kc))
 
 
 def require_no_spills(src, usages):
@@ -316,8 +344,8 @@ def require_b1_equal(z, z1, where):
 
 
 def require_variant_equal(outs, where):
-    """V1 and V4 must give their first designs' sums bit for bit
-    (``outs``: {kernel: result, ...})."""
+    """V1-V4 must give their first designs' sums bit for bit (``outs``:
+    {kernel: result, ...})."""
     import torch
 
     for first in VARIANT_FIRSTS:
@@ -453,10 +481,10 @@ def check_kernels(dev):
     """Each kernel against its plain version and against a float64
     product, on a full-width slice and a small odd case: B1-B4 and the
     first designs of B1, B2, B3 and B4 (each bit-equal to its production
-    kernel), the sweep's V1-V4 (sharing B1's float64 product) and V1's
-    and V4's first designs (V1 and V4 bit-equal to them), B1's tile
-    entries (bit-equal to B1) and B2's (at 64 rows a chunk bit-equal to
-    B2).  Returns {kernel: max abs err against the plain version}."""
+    kernel), the sweep's V1-V4 (sharing B1's float64 product) and their
+    first designs (V1-V4 bit-equal to them), B1's tile entries (bit-equal
+    to B1) and B2's (at 64 rows a chunk bit-equal to B2).  Returns
+    {kernel: max abs err against the plain version}."""
     import torch
 
     from flashpca_tpu_torch.kernels import crossprod_variants as cv
@@ -507,9 +535,9 @@ def check_kernels(dev):
                                   or cv.FIRST_DESIGNS[name])
                 outs[name] = (wrapper(packed, mean, invsd, x),
                               plain(packed, mean, invsd, x), ref_z,
-                              plain_bar(4 * nb * (SPLIT3_BF16_DOTS if name
-                                                  == "crossprod_split3"
-                                                  else 1)),
+                              plain_bar(4 * nb * (
+                                  SPLIT3_BF16_DOTS if name.startswith(
+                                      "crossprod_split3") else 1)),
                               F64_BAR[name])
             require_b1_equal(outs["crossprod"][0], outs["crossprod_v1"][0],
                              f"{label} k={k}")
@@ -1393,16 +1421,19 @@ def with_first_designs(rows, firsts, launches, worst):
 # Phase 6: the kernel sweep (V1-V4 and the tile axis)
 # ---------------------------------------------------------------------------
 
-def kernel_sweep(dev, p, n, worst, b1_library_ms, main_launches):
+def kernel_sweep(dev, p, n, worst, b1_library_ms, main_launches,
+                 split3_ops):
     """The sweep tool's five steps at p x n, k = SWEEP_K, then the plain
-    versions of V1-V4 timed at that shape (V1's and V4's first designs
-    share theirs); V1 and V4 must be bit-equal to their first designs
-    there.  One
-    row of the ``kernels`` JSON per variant and first design (library_ms:
+    versions of V1-V4 timed at that shape (their first designs share
+    them); V1-V4 must be bit-equal to their first designs there.  One row
+    of the ``kernels`` JSON per variant and first design (library_ms:
     B1's torch.matmul time at the same shape, passed in, since it
     computes the same z = W x; launches: the sweep's, beside the main
     path's ``main_launches``; ms: the mean of its two turn medians,
-    beside B1's and the difference).  Returns (rows, the sweep's
+    beside B1's and the difference).  V3's bound is the largest of its
+    tensor-core products, its bytes and ``split3_ops`` CUDA-core
+    instructions a genotype (its SASS reading); its first design's has
+    SPLIT3_OPS_PER_GENOTYPE in that place.  Returns (rows, the sweep's
     readings)."""
     import torch
 
@@ -1443,10 +1474,12 @@ def kernel_sweep(dev, p, n, worst, b1_library_ms, main_launches):
                 plain_times[base] = ks.event_ms(
                     lambda: plain(pk, m, iv, xp), reps=1)
             plain_ms = plain_times[base]
-            if name == "crossprod_split3":
+            if base == "crossprod_split3":
+                ops = (split3_ops if name == base
+                       else SPLIT3_OPS_PER_GENOTYPE)
                 t_ops = max(
                     SPLIT3_BF16_DOTS * 2.0 * k * p * n4 / PEAK_BF16_FLOPS,
-                    SPLIT3_OPS_PER_GENOTYPE * p * n4 / PEAK_FP32_INSTR) * 1e3
+                    ops * p * n4 / PEAK_FP32_INSTR) * 1e3
             else:
                 t_ops = 2.0 * DOTS[name] * k * p * n4 / PEAK_FP32_FLOPS * 1e3
             bound = max(t_ops, t_bytes)
@@ -1471,6 +1504,8 @@ def kernel_sweep(dev, p, n, worst, b1_library_ms, main_launches):
                 "b1_ms": timed["ms"]["crossprod"],
                 "minus_b1_ms": timed["minus_b1_ms"][name],
                 **({"design": "first"} if name in VARIANT_FIRSTS else {}),
+                **({"ops_per_genotype": ops}
+                   if base == "crossprod_split3" else {}),
             })
         del data, pk, m, iv, xp
     out.update(launches={nm: launches[nm] for nm in SWEEP_PATH},
@@ -1525,13 +1560,27 @@ def main(argv=None) -> int:
         sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                               text=True).stdout
         for fn, c in sorted(sass_hot_loops(sass).items()):
-            if sass_read(fn):
+            if not sass_read(fn):
+                continue
+            top = ", ".join(f"{o} {n}" for o, n in c.most_common(6))
+            if c["HMMA"]:
+                kc = int(fn.split("<")[1].split(",")[0])
+                ops = split3_ops_per_genotype(c, kc)
+                sass_mix[fn] = {"hmma": c["HMMA"], "instructions":
+                                sum(c.values()), "ops_per_genotype": ops}
+                say(f"   {src} {fn} inner loop: {c['HMMA']} HMMA of "
+                    f"{sum(c.values())} instructions; {ops:.3f} CUDA-core "
+                    f"instructions a genotype; {top}")
+            else:
                 share = c["FFMA"] / sum(c.values())
                 sass_mix[fn] = {"ffma": c["FFMA"], "instructions":
                                 sum(c.values()), "ffma_share": share}
                 say(f"   {src} {fn} inner loop: {c['FFMA']} FFMA of "
-                    f"{sum(c.values())} instructions ({share:.1%}); "
-                    + ", ".join(f"{o} {n}" for o, n in c.most_common(6)))
+                    f"{sum(c.values())} instructions ({share:.1%}); {top}")
+    if SPLIT3_SASS not in sass_mix:
+        raise AssertionError(f"V3's inner loop ({SPLIT3_SASS}) not read: "
+                             "its bound needs its CUDA-core instructions a "
+                             "genotype")
     with Phase("kernels against their plain versions"):
         worst = check_kernels(dev)
     torch.cuda.empty_cache()
@@ -1567,8 +1616,9 @@ def main(argv=None) -> int:
                          if r["name"] == "crossprod" and r["k"] == 16)
     del op
     torch.cuda.empty_cache()
-    sweep_rows, sweep = kernel_sweep(dev, args.p, args.n, worst,
-                                     b1_library_ms, head["launches"])
+    sweep_rows, sweep = kernel_sweep(
+        dev, args.p, args.n, worst, b1_library_ms, head["launches"],
+        sass_mix[SPLIT3_SASS]["ops_per_genotype"])
     torch.cuda.empty_cache()
     top, tall = tall_headline(dev, TALL_N, TALL_P, args.k)
     torch.cuda.empty_cache()

@@ -3,22 +3,23 @@
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded through ``ctypes``; a source may hold several
 kernels (matvec_ff.cu holds the first designs of B4 and B5), each with
-its own C entry.  Twenty entries in thirteen libraries: B1-B5, the
-sweep's tile entries of B1 and B2 and its variants V1-V4 (V1 and V4 in
-crossprod_variants_v2.cu, their first designs ``crossprod_stacked_v1``
-and ``crossprod_nocomp_v1`` in crossprod_variants.cu beside V2), B1's
-first design (``crossprod_v1``, in crossprod.cu beside the sweep's B1
-tile entry), B2's first design (``matvec_v1``, in matvec.cu beside the
-sweep's B2 tile entry), B3's first design (``crossprod_ff_v1``, in
-crossprod_ff.cu), B4's first design (``matvec_ff_v1``, in matvec_ff.cu)
-and B5's comparison entries -- its first design (``matvec_ff_novl_v1``,
-in matvec_ff.cu) and two other tiles (``matvec_ff_novl_c4``,
-``matvec_ff_novl_cr128``).  The build happens at first use, never at
-import (the CPU tests import every module, and the CPU has no
-``nvcc``), into ``kernels/build/<hash>/`` -- a directory that
-``.gitignore`` lists.  The hash covers every source,
-header and flag, so an edited source builds anew; the sources compile
-in parallel, one ``nvcc`` each.
+its own C entry.  Twenty-two entries in fourteen libraries: B1-B5, the
+sweep's tile entries of B1 and B2 and its variants V1-V4 (V1, V2 and V4
+in crossprod_variants_v2.cu, their first designs ``crossprod_stacked_v1``,
+``crossprod_intsub_v1`` and ``crossprod_nocomp_v1`` in
+crossprod_variants.cu; V3 in crossprod_split3_v2.cu, its first design
+``crossprod_split3_v1`` in crossprod_split3.cu), B1's first design
+(``crossprod_v1``, in crossprod.cu beside the sweep's B1 tile entry), B2's
+first design (``matvec_v1``, in matvec.cu beside the sweep's B2 tile
+entry), B3's first design (``crossprod_ff_v1``, in crossprod_ff.cu), B4's
+first design (``matvec_ff_v1``, in matvec_ff.cu) and B5's comparison
+entries -- its first design (``matvec_ff_novl_v1``, in matvec_ff.cu) and
+two other tiles (``matvec_ff_novl_c4``, ``matvec_ff_novl_cr128``).
+The build happens at first use, never at import (the CPU tests import
+every module, and the CPU has no ``nvcc``), into
+``kernels/build/<hash>/`` -- a directory that ``.gitignore`` lists.  The
+hash covers every source, header and flag, so an edited source builds
+anew; the sources compile in parallel, one ``nvcc`` each.
 
 The flags target ``sm_90a`` (Hopper) and deliberately leave out
 ``--use_fast_math``: the compensated accumulation relies on IEEE
@@ -89,19 +90,24 @@ KERNELS = {
                      [_P] * 6 + [_I64, _I64, _I32, _I32, _P]),
     "crossprod_stacked": ("crossprod_variants_v2.cu", "fp_crossprod_stacked",
                           [_P] * 6 + [_I64, _I64, _I32, _P]),
-    "crossprod_intsub": ("crossprod_variants.cu", "fp_crossprod_intsub",
+    "crossprod_intsub": ("crossprod_variants_v2.cu", "fp_crossprod_intsub",
                          [_P] * 6 + [_I64, _I64, _I32, _P]),
     "crossprod_nocomp": ("crossprod_variants_v2.cu", "fp_crossprod_nocomp",
                          [_P] * 6 + [_I64, _I64, _I32, _P]),
-    # V1's and V4's first designs: timed beside their redesigns by the
-    # sweep, launched by no operator
+    # V3 takes B1's arguments and, after x, its pre-split panel (scratch)
+    "crossprod_split3": ("crossprod_split3_v2.cu", "fp_crossprod_split3",
+                         [_P] * 7 + [_I64, _I64, _I32, _P]),
+    # V1's, V2's, V4's and V3's first designs: timed beside their
+    # redesigns by the sweep, launched by no operator
     "crossprod_stacked_v1": ("crossprod_variants.cu",
                              "fp_crossprod_stacked_v1",
                              [_P] * 6 + [_I64, _I64, _I32, _P]),
+    "crossprod_intsub_v1": ("crossprod_variants.cu", "fp_crossprod_intsub_v1",
+                            [_P] * 6 + [_I64, _I64, _I32, _P]),
     "crossprod_nocomp_v1": ("crossprod_variants.cu", "fp_crossprod_nocomp_v1",
                             [_P] * 6 + [_I64, _I64, _I32, _P]),
-    "crossprod_split3": ("crossprod_split3.cu", "fp_crossprod_split3",
-                         [_P] * 6 + [_I64, _I64, _I32, _P]),
+    "crossprod_split3_v1": ("crossprod_split3.cu", "fp_crossprod_split3_v1",
+                            [_P] * 6 + [_I64, _I64, _I32, _P]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -4,9 +4,9 @@ measurement variants of B1, with their plain PyTorch versions.
 ====  ==========================  ======================================
 V1    crossprod_variants_v2.cu    B1 with the decoded planes stacked into
                                   one contraction per chunk (``stacked``)
-V2    crossprod_variants.cu       B1 decoding u = code - 1 in int with the
+V2    crossprod_variants_v2.cu    B1 decoding u = code - 1 in int with the
                                   g-coefficients (``intsub``)
-V3    crossprod_split3.cu         B1 with each product as three bf16
+V3    crossprod_split3_v2.cu      B1 with each product as three bf16
                                   tensor-core products (``split3``)
 V4    crossprod_variants_v2.cu    B1 without the TwoSum compensation
                                   (``nocomp``)
@@ -14,10 +14,14 @@ V4    crossprod_variants_v2.cu    B1 without the TwoSum compensation
                                   rows per chunk (the sweep's tile axis)
 ====  ==========================  ======================================
 
-V1 and V4 are redesigns on B1's second design (crossprod_v2.cu), each
-bit for bit its first design, which stays in crossprod_variants.cu as
-``crossprod_stacked_v1_p`` and ``crossprod_nocomp_v1_p`` (``FIRST_DESIGNS``);
-the sweep times each beside its redesign and B1.
+V1, V2 and V4 are redesigns on B1's second design (crossprod_v2.cu), V3 a
+redesign of its own on the tensor cores, each bit for bit its first
+design, which stays as ``crossprod_stacked_v1_p``,
+``crossprod_intsub_v1_p``, ``crossprod_nocomp_v1_p`` (crossprod_variants.cu)
+and ``crossprod_split3_v1_p`` (crossprod_split3.cu), in ``FIRST_DESIGNS``;
+the sweep times each beside its redesign and B1.  V3's wrapper also
+allocates the scratch panel its kernel's pre-pass fills with x split into
+bf16 (``split3_scratch``).
 
 The sweep's docstring (.claude/skills/verify/kernel_sweep.py) calls
 ``nocomp`` V3 and its comment calls ``split3`` V4; the port numbers them
@@ -43,9 +47,11 @@ from .packed_matvec import (_byte_chunk, _check_cuda, _check_shapes,
 TILE_TM = (128, 256, 512)     # B1 rows per block; production 256
 TILE_CR = (32, 64, 128)       # B2 SNP rows per chunk; production 64
 # packed bytes per chunk of the kernels whose plain versions fold where
-# they do: V1 (stacked_kernel's S_CB) and V4 (B1's CB, nocomp_kernel)
+# they do: V1 (stacked_kernel's S_CB) and V4 (B1's CB, nocomp_kernel);
+# and V3's fold unit, the chunk of its pre-split panel
 STACKED_CB = 16
 NOCOMP_CB = 32
+SPLIT3_CB = 32
 
 
 # ---------------------------------------------------------------------------
@@ -176,28 +182,40 @@ def crossprod_nocomp_plain(packed, mean, invsd, xp):
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _launch_over_widths(name, packed, coeffs, xp, rows, *extra):
+def split3_scratch(nb, kc, device):
+    """V3's pre-split panel, which its kernel's pre-pass writes: per
+    32-byte chunk of the ``nb`` packed bytes, x's bf16 hi and lo planes
+    as [hi/lo][plane][column][32 samples], ``kc`` columns."""
+    nchunk = -(-nb // SPLIT3_CB)
+    return torch.empty(nchunk * 2 * 4 * kc * SPLIT3_CB, dtype=torch.bfloat16,
+                       device=device)
+
+
+def _launch_over_widths(name, packed, coeffs, xp, rows, *extra,
+                        scratch=None):
     """Launch kernel ``name`` once per column chunk of ``xp``; ``rows``
-    is the output's row count (p for z, n4 for y)."""
+    is the output's row count (p for z, n4 for y).  ``scratch(nb, kc,
+    device)``, if given, makes a tensor passed after the panel."""
     _check_cuda(packed, xp, *coeffs)
     p, nb = packed.shape
     outs = []
     for c0, c1, kc in _widths(xp.shape[1]):
         out = torch.empty((rows, kc), dtype=torch.float32,
                           device=packed.device)
-        _run(name, packed, *coeffs, _padded(xp, c0, c1, kc), out, p, nb,
-             *extra, kc)
+        tmp = () if scratch is None else (scratch(nb, kc, packed.device),)
+        _run(name, packed, *coeffs, _padded(xp, c0, c1, kc), *tmp, out, p,
+             nb, *extra, kc)
         outs.append(out[:, : c1 - c0])
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
-def _variant(name, plain, coeffs_of):
+def _variant(name, plain, coeffs_of, scratch=None):
     def wrapper(packed, mean, invsd, xp):
         _check_shapes(4 * packed.shape[1], xp, name)
         if xp.device.type == "cpu":
             return plain(packed, mean, invsd, xp)
         return _launch_over_widths(name, packed, coeffs_of(mean, invsd), xp,
-                                   packed.shape[0])
+                                   packed.shape[0], scratch=scratch)
 
     wrapper.__name__ = f"{name}_p"
     wrapper.__doc__ = (f"z = W xp: (n4, k) -> (p, k).  Kernel ``{name}`` "
@@ -210,15 +228,19 @@ crossprod_stacked_p = _variant("crossprod_stacked", crossprod_stacked_plain,
 crossprod_intsub_p = _variant("crossprod_intsub", crossprod_intsub_plain,
                               coeff_rows_intsub)
 crossprod_split3_p = _variant("crossprod_split3", crossprod_split3_plain,
-                              coeff_rows)
+                              coeff_rows, scratch=split3_scratch)
 crossprod_nocomp_p = _variant("crossprod_nocomp", crossprod_nocomp_plain,
                               coeff_rows)
-# V1's and V4's first designs (crossprod_variants.cu), the sums of the
-# two above bit for bit
+# the first designs (crossprod_variants.cu, crossprod_split3.cu), the sums
+# of the four above bit for bit
 crossprod_stacked_v1_p = _variant("crossprod_stacked_v1",
                                   crossprod_stacked_plain, coeff_rows)
+crossprod_intsub_v1_p = _variant("crossprod_intsub_v1",
+                                 crossprod_intsub_plain, coeff_rows_intsub)
 crossprod_nocomp_v1_p = _variant("crossprod_nocomp_v1",
                                  crossprod_nocomp_plain, coeff_rows)
+crossprod_split3_v1_p = _variant("crossprod_split3_v1",
+                                 crossprod_split3_plain, coeff_rows)
 
 
 def crossprod_tiled_p(packed, mean, invsd, xp, tm):
@@ -257,9 +279,11 @@ VARIANTS = {
     "crossprod_nocomp": (crossprod_nocomp_p, crossprod_nocomp_plain),
     "crossprod_split3": (crossprod_split3_p, crossprod_split3_plain),
 }
-# V1's and V4's first designs: name (the redesign's and ``_v1``) ->
-# (wrapper, plain version, the redesign's)
+# the four first designs: name (the redesign's and ``_v1``) -> (wrapper,
+# plain version, the redesign's)
 FIRST_DESIGNS = {
     "crossprod_stacked_v1": (crossprod_stacked_v1_p, crossprod_stacked_plain),
+    "crossprod_intsub_v1": (crossprod_intsub_v1_p, crossprod_intsub_plain),
     "crossprod_nocomp_v1": (crossprod_nocomp_v1_p, crossprod_nocomp_plain),
+    "crossprod_split3_v1": (crossprod_split3_v1_p, crossprod_split3_plain),
 }

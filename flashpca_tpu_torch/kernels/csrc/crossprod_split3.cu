@@ -1,7 +1,9 @@
 // V3 ("split3"): B1's z = W x with every product taken on the tensor
 // cores as three bf16 products with float32 accumulation,
 // wh xh + wh xl + wl xh (the lo * lo term dropped), for the kernel sweep
-// (tools/kernel_sweep.py).
+// (tools/kernel_sweep.py).  This is V3's first design, kept for
+// comparison as fp_crossprod_split3_v1: crossprod_split3_v2.cu holds its
+// redesign, bit for bit these sums.
 //
 // Replaces .claude/skills/verify/kernel_sweep.py::_crossprod_kernel_split3
 // (its _split_bf16 and _dot3).
@@ -182,10 +184,10 @@ split_kernel(const uint8_t* __restrict__ packed,
 
 // B1's arguments: packed (p, nb) u8; cf0..cf2 (p,) f32; x (4*nb, kc) f32;
 // z (p, kc) f32.
-extern "C" int fp_crossprod_split3(const void* packed, const void* cf0,
-                                   const void* cf1, const void* cf2,
-                                   const void* x, void* z, long long p,
-                                   long long nb, int kc, void* stream) {
+extern "C" int fp_crossprod_split3_v1(const void* packed, const void* cf0,
+                                      const void* cf1, const void* cf2,
+                                      const void* x, void* z, long long p,
+                                      long long nb, int kc, void* stream) {
   if (p <= 0 || nb <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((p + TM - 1) / TM));
   cudaStream_t st = static_cast<cudaStream_t>(stream);

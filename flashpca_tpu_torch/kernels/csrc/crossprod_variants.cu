@@ -1,8 +1,9 @@
 // V1, V2 and V4: three measurement variants of B1 (crossprod.cu),
-// z = W x, for the kernel sweep (tools/kernel_sweep.py).  V1's and V4's
-// entries here are their first designs, fp_crossprod_stacked_v1 and
-// fp_crossprod_nocomp_v1, kept for comparison: crossprod_variants_v2.cu
-// holds their redesigns on B1's second design, bit for bit these sums.
+// z = W x, for the kernel sweep (tools/kernel_sweep.py).  The entries
+// here are their first designs, fp_crossprod_stacked_v1,
+// fp_crossprod_intsub_v1 and fp_crossprod_nocomp_v1, kept for
+// comparison: crossprod_variants_v2.cu holds their redesigns on B1's
+// second design, bit for bit these sums.
 //
 // Replaces .claude/skills/verify/kernel_sweep.py::_crossprod_kernel_stacked
 // (V1), ::_crossprod_kernel_intsub (V2) and ::_crossprod_kernel_nocomp (V4).
@@ -290,10 +291,10 @@ extern "C" int fp_crossprod_stacked_v1(const void* packed, const void* cf0,
   FP_KC_LAUNCH(stacked_kernel, S_TM)
 }
 
-extern "C" int fp_crossprod_intsub(const void* packed, const void* cf0,
-                                   const void* cf1, const void* cf2,
-                                   const void* x, void* z, long long p,
-                                   long long nb, int kc, void* stream) {
+extern "C" int fp_crossprod_intsub_v1(const void* packed, const void* cf0,
+                                      const void* cf1, const void* cf2,
+                                      const void* x, void* z, long long p,
+                                      long long nb, int kc, void* stream) {
   FP_KC_LAUNCH(intsub_kernel, TM)
 }
 

@@ -1,10 +1,11 @@
-// V1 and V4 on B1's design (crossprod_v2.cu): two measurement variants
-// of B1, z = W x, for the kernel sweep (tools/kernel_sweep.py), each
-// differing from B1 in the one thing it isolates.
+// V1, V2 and V4 on B1's design (crossprod_v2.cu): three measurement
+// variants of B1, z = W x, for the kernel sweep (tools/kernel_sweep.py),
+// each differing from B1 in the one thing it isolates.
 //
 // Replaces .claude/skills/verify/kernel_sweep.py::_crossprod_kernel_stacked
-// (V1) and ::_crossprod_kernel_nocomp (V4).  crossprod_variants.cu keeps
-// their first designs as fp_crossprod_stacked_v1 and
+// (V1), ::_crossprod_kernel_intsub (V2) and ::_crossprod_kernel_nocomp
+// (V4).  crossprod_variants.cu keeps their first designs as
+// fp_crossprod_stacked_v1, fp_crossprod_intsub_v1 and
 // fp_crossprod_nocomp_v1, for comparison.
 //
 // Bound: as B1, float32 FMAs on the CUDA cores, 2*KC*p*n4 operations (the
@@ -15,20 +16,30 @@
 // * V4 (nocomp): acc = fmaf(w(row, j, s), x[s][j][c], acc) over the bytes
 //   j of a 32-byte chunk in order and, within a byte, the planes s = 0..3;
 //   sum = __fadd_rn(sum, acc) at the chunk's end; no err.
+// * V2 (intsub): B1's order -- V4's FMAs, then two_sum(sum, acc) and err
+//   += e at the chunk's end; sum + err at the end -- with w decoded by
+//   fp::decode_intsub (u = code - 1 in int and the g-coefficients).
 // * V1 (stacked): per 16-byte chunk (64 samples) the stacked order
 //   s * 16 + j -- the planes s = 0..3 and, within a plane, the chunk's
 //   bytes j in order; acc = fmaf(w, x, acc); two_sum(sum, acc) and
 //   err += e at the chunk's end; sum + err at the end.
-// Both decode with fp::decode_cubic (missing decodes to exactly 0) and
-// keep the first designs' ragged edges: byte 0x55 and zero x rows.
+// V1 and V4 decode with fp::decode_cubic (missing decodes to exactly 0 in
+// both decodes) and all three keep the first designs' ragged edges: byte
+// 0x55 and zero x rows.
 //
 // Design: B1's.  A block of TM SNP rows (B1's 128); a thread tile of R
 // rows x C columns, the 32 lanes of a warp on 32 consecutive rows of one
 // column group, so each float4 of x is a broadcast; each row's four decoded
-// values fp::decode_cubic(t, b0, b1, b2), t = 0..3, computed once a
-// kernel and a sample's w picked from them (fp::pick: the same float as
-// decoding at every sample); cp.async double buffering of 32-byte chunks
-// (fp::stage_chunk); the per-KC launch table.
+// values fp::decode_cubic(t, b0, b1, b2) (V2: fp::decode_intsub(t, g0,
+// g1, g2)), t = 0..3, computed once a kernel and a sample's w picked from
+// them (fp::pick: the same float as decoding at every sample); cp.async
+// double buffering of 32-byte chunks (fp::stage_chunk); the per-KC launch
+// table.
+// * V2 is B1 with the other decode: B1's kernel, its tile at every KC
+//   (the sum in shared memory, err in registers), and only the row
+//   values' arithmetic changed.  Since a sample's w is picked, that
+//   arithmetic runs 4 times a row and kernel, so V2's time beside B1's
+//   in one run is what the decode's form costs once it is picked.
 // * V4 is B1 without the compensation: no err registers and no TwoSum,
 //   one __fadd_rn a chunk into the running sum, kept in registers
 //   (SREG = 1) or, as B1 keeps it, in shared memory (SREG = 0).  Its
@@ -63,8 +74,9 @@
 // compensation alone; V1 at KC = 16, the sweep's width, takes the fastest
 // shape tried there (4 rows x 4 columns a thread, 128 rows a block; how
 // many planes are unrolled made no difference beyond the run-to-run
-// spread); its other KCs are untimed.  The tiles tried and their times
-// are in PERF.md.
+// spread); its other KCs are untimed.  V2 takes B1's tile at every KC and
+// has no macro: it is not tiled apart from B1.  The tiles tried and their
+// times are in PERF.md.
 #include "common.cuh"
 
 #ifndef CROSSPROD_NOCOMP_TILE_8
@@ -150,6 +162,12 @@ struct NocompTile<24> : NocompShape<24, CROSSPROD_NOCOMP_TILE_24> {};
 template <>
 struct NocompTile<32> : NocompShape<32, CROSSPROD_NOCOMP_TILE_32> {};
 
+// V2's tile: B1's (crossprod_v2.cu's Tile<KC>) at every KC, the sum in
+// shared memory.
+template <int KC>
+struct IntsubTile : NocompShape<KC, 2, KC == 24 ? 12 : KC == 32 ? 16 : 8,
+                                KC <= 16 ? 768 : 384, 0> {};
+
 template <int KC>
 struct StackedTile;
 template <>
@@ -161,7 +179,9 @@ struct StackedTile<24> : StackedShape<24, CROSSPROD_STACKED_TILE_24> {};
 template <>
 struct StackedTile<32> : StackedShape<32, CROSSPROD_STACKED_TILE_32> {};
 
-// Row ``gr``'s four decoded values (0 past row p).
+// Row ``gr``'s four decoded values (0 past row p): fp::decode_cubic of
+// the b-coefficients, or with INTSUB fp::decode_intsub of the g ones.
+template <bool INTSUB = false>
 __device__ __forceinline__ void row_values(long long gr, long long p,
                                            const float* __restrict__ cf0,
                                            const float* __restrict__ cf1,
@@ -173,7 +193,8 @@ __device__ __forceinline__ void row_values(long long gr, long long p,
   const float b2 = live ? cf2[gr] : 0.0f;
 #pragma unroll
   for (int c = 0; c < 4; ++c)
-    t[c] = fp::decode_cubic(static_cast<uint32_t>(c), b0, b1, b2);
+    t[c] = INTSUB ? fp::decode_intsub(static_cast<uint32_t>(c), b0, b1, b2)
+                  : fp::decode_cubic(static_cast<uint32_t>(c), b0, b1, b2);
 }
 
 __device__ __forceinline__ float lane(const float4& v, int k) {
@@ -200,18 +221,17 @@ __device__ __forceinline__ void write_out(float* __restrict__ z, long long p,
   }
 }
 
-// ---- V4: B1 without the compensation ---------------------------------------
+// ---- V2 and V4: B1's kernel with one thing changed --------------------------
 
-template <int KC>
-__global__ void __launch_bounds__(NocompTile<KC>::NT,
-                                  NocompTile<KC>::MIN_BLOCKS)
-nocomp_tile_kernel(const uint8_t* __restrict__ packed,
-                   const float* __restrict__ cf0,
-                   const float* __restrict__ cf1,
-                   const float* __restrict__ cf2,
-                   const float* __restrict__ x, float* __restrict__ z,
-                   long long p, long long nb, bool bytes16, bool x16) {
-  using T = NocompTile<KC>;
+// B1's tile loop at tile T: the row values of fp::decode_intsub (INTSUB)
+// or fp::decode_cubic, each chunk's partial folded with TwoSum into (sum,
+// err) (COMP, B1's fold) or added plainly into sum.
+template <int KC, typename T, bool INTSUB, bool COMP>
+__device__ __forceinline__ void b1_tile_body(
+    const uint8_t* __restrict__ packed, const float* __restrict__ cf0,
+    const float* __restrict__ cf1, const float* __restrict__ cf2,
+    const float* __restrict__ x, float* __restrict__ z, long long p,
+    long long nb, bool bytes16, bool x16) {
   constexpr int TM = T::TM, R = T::R, C = T::C, NT = T::NT;
   constexpr int SLOTS = TM / R;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -227,15 +247,16 @@ nocomp_tile_kernel(const uint8_t* __restrict__ packed,
   float tab[R][4];
 #pragma unroll
   for (int i = 0; i < R; ++i)
-    row_values(row0 + slot + i * SLOTS, p, cf0, cf1, cf2, tab[i]);
+    row_values<INTSUB>(row0 + slot + i * SLOTS, p, cf0, cf1, cf2, tab[i]);
 
-  float sum[R][C], acc[R][C];
+  float sum[R][C], err[R][C], acc[R][C];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       if constexpr (T::SREG) sum[i][c] = 0.0f;
       else ssum[(i * C + c) * NT + tid] = 0.0f;
+      err[i][c] = 0.0f;
       acc[i][c] = 0.0f;
     }
   }
@@ -298,12 +319,18 @@ nocomp_tile_kernel(const uint8_t* __restrict__ packed,
     for (int i = 0; i < R; ++i) {
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        if constexpr (T::SREG) {
-          sum[i][c] = __fadd_rn(sum[i][c], acc[i][c]);
-        } else {
-          const int o = (i * C + c) * NT + tid;
-          ssum[o] = __fadd_rn(ssum[o], acc[i][c]);
+        const int o = (i * C + c) * NT + tid;
+        float s;
+        if constexpr (T::SREG) s = sum[i][c];
+        else s = ssum[o];
+        float t = __fadd_rn(s, acc[i][c]);
+        if constexpr (COMP) {
+          float e;
+          fp::two_sum(s, acc[i][c], t, e);
+          err[i][c] = __fadd_rn(err[i][c], e);
         }
+        if constexpr (T::SREG) sum[i][c] = t;
+        else ssum[o] = t;
         acc[i][c] = 0.0f;
       }
     }
@@ -315,7 +342,38 @@ nocomp_tile_kernel(const uint8_t* __restrict__ packed,
         if constexpr (T::SREG) return sum[i][c];
         else return ssum[(i * C + c) * NT + tid];
       },
-      [](float s, int, int) { return s; });
+      [&](float s, int i, int c) {
+        if constexpr (COMP) return __fadd_rn(s, err[i][c]);
+        else return s;
+      });
+}
+
+// V4: B1 without the compensation.
+template <int KC>
+__global__ void __launch_bounds__(NocompTile<KC>::NT,
+                                  NocompTile<KC>::MIN_BLOCKS)
+nocomp_tile_kernel(const uint8_t* __restrict__ packed,
+                   const float* __restrict__ cf0,
+                   const float* __restrict__ cf1,
+                   const float* __restrict__ cf2,
+                   const float* __restrict__ x, float* __restrict__ z,
+                   long long p, long long nb, bool bytes16, bool x16) {
+  b1_tile_body<KC, NocompTile<KC>, false, false>(packed, cf0, cf1, cf2, x, z,
+                                                 p, nb, bytes16, x16);
+}
+
+// V2: B1 with the integer (t - 1) shift; cf0..cf2 hold g0..g2.
+template <int KC>
+__global__ void __launch_bounds__(IntsubTile<KC>::NT,
+                                  IntsubTile<KC>::MIN_BLOCKS)
+intsub_tile_kernel(const uint8_t* __restrict__ packed,
+                   const float* __restrict__ g0,
+                   const float* __restrict__ g1,
+                   const float* __restrict__ g2,
+                   const float* __restrict__ x, float* __restrict__ z,
+                   long long p, long long nb, bool bytes16, bool x16) {
+  b1_tile_body<KC, IntsubTile<KC>, true, true>(packed, g0, g1, g2, x, z, p,
+                                               nb, bytes16, x16);
 }
 
 // ---- V1: decode once a block, then one contraction over the stacked
@@ -517,8 +575,25 @@ int start_stacked(const Args& a, cudaStream_t st) {
   return start(stacked_tile_kernel<KC>, T::TM, T::NT, T::SMEM, a, st);
 }
 
-// Check the operands and launch V1 (``stacked``) or V4 at KC = kc.
-int launch(bool stacked, const void* packed, const void* cf0,
+template <int KC>
+int start_intsub(const Args& a, cudaStream_t st) {
+  using T = IntsubTile<KC>;
+  return start(intsub_tile_kernel<KC>, T::TM, T::NT, T::SMEM, a, st);
+}
+
+enum Variant { kStacked, kIntsub, kNocomp };
+
+template <int KC>
+int start_variant(Variant v, const Args& a, cudaStream_t st) {
+  switch (v) {
+    case kStacked: return start_stacked<KC>(a, st);
+    case kIntsub: return start_intsub<KC>(a, st);
+    default: return start_nocomp<KC>(a, st);
+  }
+}
+
+// Check the operands and launch V1, V2 or V4 at KC = kc.
+int launch(Variant v, const void* packed, const void* cf0,
            const void* cf1, const void* cf2, const void* x, void* z,
            long long p, long long nb, int kc, void* stream) {
   if (p <= 0 || nb <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -536,14 +611,10 @@ int launch(bool stacked, const void* packed, const void* cf0,
                reinterpret_cast<uintptr_t>(x) % 16 == 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kc) {
-    case 8:
-      return stacked ? start_stacked<8>(a, st) : start_nocomp<8>(a, st);
-    case 16:
-      return stacked ? start_stacked<16>(a, st) : start_nocomp<16>(a, st);
-    case 24:
-      return stacked ? start_stacked<24>(a, st) : start_nocomp<24>(a, st);
-    case 32:
-      return stacked ? start_stacked<32>(a, st) : start_nocomp<32>(a, st);
+    case 8: return start_variant<8>(v, a, st);
+    case 16: return start_variant<16>(v, a, st);
+    case 24: return start_variant<24>(v, a, st);
+    case 32: return start_variant<32>(v, a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -552,18 +623,28 @@ int launch(bool stacked, const void* packed, const void* cf0,
 
 }  // namespace
 
-// Both take B1's arguments: packed (p, nb) u8; cf0..cf2 (p,) f32; x
-// (4*nb, kc) f32; z (p, kc) f32.
+// All three take B1's arguments: packed (p, nb) u8; cf0..cf2 (p,) f32
+// (the g-coefficients for V2); x (4*nb, kc) f32; z (p, kc) f32.
 extern "C" int fp_crossprod_stacked(const void* packed, const void* cf0,
                                     const void* cf1, const void* cf2,
                                     const void* x, void* z, long long p,
                                     long long nb, int kc, void* stream) {
-  return var2::launch(true, packed, cf0, cf1, cf2, x, z, p, nb, kc, stream);
+  return var2::launch(var2::kStacked, packed, cf0, cf1, cf2, x, z, p, nb, kc,
+                      stream);
+}
+
+extern "C" int fp_crossprod_intsub(const void* packed, const void* cf0,
+                                   const void* cf1, const void* cf2,
+                                   const void* x, void* z, long long p,
+                                   long long nb, int kc, void* stream) {
+  return var2::launch(var2::kIntsub, packed, cf0, cf1, cf2, x, z, p, nb, kc,
+                      stream);
 }
 
 extern "C" int fp_crossprod_nocomp(const void* packed, const void* cf0,
                                    const void* cf1, const void* cf2,
                                    const void* x, void* z, long long p,
                                    long long nb, int kc, void* stream) {
-  return var2::launch(false, packed, cf0, cf1, cf2, x, z, p, nb, kc, stream);
+  return var2::launch(var2::kNocomp, packed, cf0, cf1, cf2, x, z, p, nb, kc,
+                      stream);
 }

@@ -67,9 +67,10 @@ OPERATOR_KERNELS = ("crossprod", "matvec", "crossprod_ff", "matvec_ff",
                     "matvec_ff_novl")
 SWEEP_KERNELS = ("crossprod_tiled", "matvec_tiled", "crossprod_stacked",
                  "crossprod_intsub", "crossprod_split3", "crossprod_nocomp")
-# V1's and V4's first designs, which the sweep times beside their
-# redesigns (kernels/crossprod_variants.py)
-VARIANT_FIRST_KERNELS = ("crossprod_stacked_v1", "crossprod_nocomp_v1")
+# V1's, V2's, V4's and V3's first designs, which the sweep times beside
+# their redesigns (kernels/crossprod_variants.py)
+VARIANT_FIRST_KERNELS = ("crossprod_stacked_v1", "crossprod_intsub_v1",
+                         "crossprod_nocomp_v1", "crossprod_split3_v1")
 # B1's, B2's, B3's, B4's and B5's comparison entries, which no operator
 # launches either
 B1_KERNELS = ("crossprod_v1",)

@@ -22,7 +22,7 @@ without one, or when a tile is not bit-equal.
 
 The build, the check, the timing and the command line
 (:func:`build_tiles`, :func:`run_tiles`, :func:`tool_main`) serve B2's,
-B4's and V1/V4's tile tools too, as do the occupancy counts of the W^T
+B4's and V1/V3/V4's tile tools too, as do the occupancy counts of the W^T
 tiles (:func:`reg_cap`, :func:`wt_occupancy`, :func:`wt_grid`,
 :func:`waves`).
 """
@@ -136,6 +136,13 @@ def wt_grid(tile, p, nb):
     return -(-nb // tile[1])
 
 
+def instantiation(kernel, kc):
+    """The ptxas name of ``kernel`` at ``kc``: ``kernel<kc>``, or
+    ``kernel`` formatted with kc where it names more template arguments
+    (V3's ``split_tile_kernel<{kc}, 1>``)."""
+    return kernel.format(kc=kc) if "{kc}" in kernel else f"{kernel}<{kc}>"
+
+
 def build_tiles(tiles, name=NAME, macro=MACRO, kernel=KERNEL):
     """Compile one library per (kc, tile) of the production source of
     ``_build.KERNELS[name]`` (by default B3's), all ``nvcc`` together;
@@ -177,7 +184,7 @@ def build_tiles(tiles, name=NAME, macro=MACRO, kernel=KERNEL):
         fn.restype = ctypes.c_int
         with open(log) as fh:
             usage = dict(_build.ptxas_usage(fh))
-        out[kc, tile] = (fn, usage.get(f"{kernel}<{kc}>", "?"))
+        out[kc, tile] = (fn, usage.get(instantiation(kernel, kc), "?"))
     return out
 
 
@@ -283,8 +290,8 @@ def run_tiles(device, name, macro, kernel, tiles, shapes, data, panel,
             if tag == "first design":
                 tile, usage = None, ""
             elif tag.startswith("production"):
-                tile, usage = prod[kc], prod_usage.get(f"{kernel}<{kc}>",
-                                                       "?")
+                tile, usage = prod[kc], prod_usage.get(
+                    instantiation(kernel, kc), "?")
             else:
                 tile = tuple(int(t) for t in tag.strip("()").split(","))
                 usage = libs[kc, tile][1]

@@ -7,21 +7,23 @@ biobank shape.
 Defaults 100,352 SNPs x 125,440 bytes (501,760 samples), k = 16: the wide
 headline.  The steps, in this order:
 
-1. correctness: each variant (kernels/crossprod_variants.py), and V1's
-   and V4's first designs, against B1 on a 512-SNP slice at the full
-   width, as a relative norm;
+1. correctness: each variant (kernels/crossprod_variants.py), and their
+   first designs, against B1 on a 512-SNP slice at the full width, as a
+   relative norm;
 2. the tile sweep: B1 at 128/256/512 rows per block beside B2 at 32/64/
    128 SNP rows per chunk (ms and packed GB/s);
 3. the k-scan: B1 at k in {8, 16, 32, 64};
-4. V1 and V4 against their first designs at the full shape, bit for bit
+4. V1-V4 against their first designs at the full shape, bit for bit
    (``torch.equal``);
-5. B1, the four variants and V1's and V4's first designs timed at the
-   full shape in turns, each printed beside B1 with the difference; for
-   V4, B1's time less V4's is what the TwoSum compensation costs B1.
+5. B1, the four variants and their first designs timed at the full shape
+   in turns, each printed beside B1 with the difference; for V4, B1's
+   time less V4's is what the TwoSum compensation costs B1, and for V2,
+   V2's less B1's what the integer-shifted decode costs it.
 
-V1 and V4 are built on B1's own design (crossprod_variants_v2.cu), so
-each differs from B1 in the one thing it isolates; their first designs,
-built on B1's first design, are timed for comparison and labelled so.
+V1, V2 and V4 are built on B1's own design (crossprod_variants_v2.cu), so
+each differs from B1 in the one thing it isolates, and V3 on a
+tensor-core design of its own (crossprod_split3_v2.cu); their first
+designs are timed for comparison and labelled so.
 Times are the median of CUDA-event times after one warm-up run (in
 step 5, the mean of two such medians: every kernel once in order, then
 once in reverse).  The
@@ -52,9 +54,11 @@ LABELS = {"crossprod": "B1",
           "crossprod_stacked": "V1 stacked",
           "crossprod_stacked_v1": "V1 stacked, first design",
           "crossprod_intsub": "V2 intsub",
+          "crossprod_intsub_v1": "V2 intsub, first design",
           "crossprod_nocomp": "V4 nocomp",
           "crossprod_nocomp_v1": "V4 nocomp, first design",
-          "crossprod_split3": "V3 split3"}
+          "crossprod_split3": "V3 split3",
+          "crossprod_split3_v1": "V3 split3, first design"}
 
 
 def say(msg: str) -> None:
@@ -92,8 +96,8 @@ def planes_to_permuted(xt, device):
 
 
 def _variants():
-    """{name: wrapper} of V1-V4 and, after V1 and V4, their first
-    designs: the sweep's order."""
+    """{name: wrapper} of V1-V4, each followed by its first design: the
+    sweep's order."""
     out = {}
     for name, (wrapper, _) in cv.VARIANTS.items():
         out[name] = wrapper
@@ -191,7 +195,7 @@ def k_scan(data, ks=K_SCAN, reps=5):
 
 
 def time_variants(data, reps=5):
-    """B1, V1-V4 and V1's and V4's first designs at the full shape, timed
+    """B1, V1-V4 and their first designs at the full shape, timed
     in turns (each once in order, then once in reverse); returns {"ms":
     {kernel: mean of its two medians}, "turns": {kernel: [ms, ms]},
     "minus_b1_ms": {kernel: its ms less B1's}, "compensation_ms": B1's ms

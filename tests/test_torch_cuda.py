@@ -154,11 +154,12 @@ def test_b1_is_bit_equal_to_its_first_design(cuda, k, p, n):
                                   x.cpu()))
 
 
-def _variant_is_bit_equal(cuda, name, k, p, n):
-    """The redesigned variant ``name`` (crossprod_variants_v2.cu) against
-    its first design (crossprod_variants.cu): launch counts, torch.equal,
-    an all-missing SNP (row 7) giving an exact zero row, and its plain
-    version's values."""
+def _variant_is_bit_equal(cuda, name, k, p, n, atol=2e-4):
+    """The redesigned variant ``name`` (crossprod_variants_v2.cu,
+    crossprod_split3_v2.cu) against its first design
+    (crossprod_variants.cu, crossprod_split3.cu): launch counts,
+    torch.equal, an all-missing SNP (row 7) giving an exact zero row, and
+    its plain version's values at ``atol``."""
     from flashpca_tpu_torch.kernels import crossprod_variants as cv
 
     packed, mean, invsd, nb = _operands(cuda, n, p)
@@ -174,7 +175,8 @@ def _variant_is_bit_equal(cuda, name, k, p, n):
     assert tpk.launch_counts["crossprod"] == 0
     assert torch.equal(z, z1)
     assert bool((z[7] == 0).all())
-    _close(z, plain(packed.cpu(), mean.cpu(), invsd.cpu(), x.cpu()))
+    _close(z, plain(packed.cpu(), mean.cpu(), invsd.cpu(), x.cpu()),
+           atol=atol)
 
 
 @pytest.mark.cuda
@@ -202,6 +204,36 @@ def test_v4_is_bit_equal_to_its_first_design(cuda, k, p, n):
     and the same plain float32 add of each 32-byte chunk's partial.
     Shapes as for V1."""
     _variant_is_bit_equal(cuda, "crossprod_nocomp", k, p, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 5, 16, 24, 28, 40])
+@pytest.mark.parametrize("p,n", [(333, 1001), (333, 1024), (133, 1001),
+                                 (133, 1024), (333, 1063)])
+def test_v2_is_bit_equal_to_its_first_design(cuda, k, p, n):
+    """V2 (``intsub``, crossprod_variants_v2.cu) gives its first design's
+    sums bit for bit at every KC: B1's FMA sequence and TwoSum fold every
+    32 bytes, with each row's four integer-shifted values decoded once
+    and picked per sample.  Shapes as for V1."""
+    _variant_is_bit_equal(cuda, "crossprod_intsub", k, p, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 5, 16, 24, 28, 40])
+@pytest.mark.parametrize("p,n", [(333, 1001), (333, 1024), (133, 1001),
+                                 (133, 1024), (333, 1063)])
+def test_v3_is_bit_equal_to_its_first_design(cuda, k, p, n):
+    """V3 (``split3``, crossprod_split3_v2.cu) gives its first design's
+    sums bit for bit at every KC: the same mma.sync products on the same
+    bf16 fragments (A picked from each row's split table, B from the
+    panel split by the pre-pass), in the same order within each 32-byte
+    fold unit, and the same TwoSum fold.  p = 133 is ragged on the 128-row
+    blocks; n = 1001 gives 251 bytes (a ragged fold unit, rows not 16-byte
+    aligned), n = 1063 266, whose last 64-byte stage holds one fold
+    unit.  Against its plain version at sqrt(3) x the atol: three
+    products, tensor-core sums."""
+    _variant_is_bit_equal(cuda, "crossprod_split3", k, p, n,
+                          atol=2e-4 * 3 ** 0.5)
 
 
 @pytest.mark.cuda

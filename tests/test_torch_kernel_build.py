@@ -61,12 +61,16 @@ def _chip_smoke():
     ("crossprod_nocomp", "crossprod_variants_v2.cu", "fp_crossprod_nocomp"),
     ("crossprod_nocomp_v1", "crossprod_variants.cu",
      "fp_crossprod_nocomp_v1"),
-    ("crossprod_intsub", "crossprod_variants.cu", "fp_crossprod_intsub"),
+    ("crossprod_intsub", "crossprod_variants_v2.cu", "fp_crossprod_intsub"),
+    ("crossprod_intsub_v1", "crossprod_variants.cu",
+     "fp_crossprod_intsub_v1"),
+    ("crossprod_split3", "crossprod_split3_v2.cu", "fp_crossprod_split3"),
+    ("crossprod_split3_v1", "crossprod_split3.cu", "fp_crossprod_split3_v1"),
 ])
 def test_b5_entries_map_to_their_sources(name, src, entry):
-    """B5's and (since their redesigns) B1's, B2's, B3's, B4's, V1's and
+    """B5's and (since their redesigns) B1's, B2's, B3's, B4's and V1's to
     V4's entries: the redesign in the new source, the first design (and
-    B1's and B2's sweep tile entries, and V2) in the old one."""
+    B1's and B2's sweep tile entries) in the old one."""
     assert _build.KERNELS[name][:2] == (src, entry)
 
 
@@ -100,7 +104,7 @@ def test_b5_is_built_from_its_new_source():
 
 def test_b1_is_built_from_its_new_source():
     assert {"crossprod_v2.cu", "crossprod.cu"} <= set(_build.sources())
-    assert len(_build.sources()) == 13 and len(_build.KERNELS) == 20
+    assert len(_build.sources()) == 14 and len(_build.KERNELS) == 22
 
 
 def test_b3_is_built_from_its_new_source():
@@ -174,10 +178,10 @@ def test_production_b1_library_holds_only_b1():
 
 
 def test_v1_and_v4_are_built_from_their_new_source():
-    """The redesigns' source defines V1's and V4's entries and no other;
-    the first designs keep theirs in crossprod_variants.cu beside V2,
-    with B1's argument list; the note names the TPU kernels replaced,
-    the bound and the bits kept."""
+    """The redesigns' source defines V1's, V2's and V4's entries and no
+    other; the first designs keep theirs in crossprod_variants.cu, with
+    B1's argument list; the note names the TPU kernels replaced, the
+    bound and the bits kept."""
     assert {"crossprod_variants_v2.cu", "crossprod_variants.cu"} <= set(
         _build.sources())
     with open(os.path.join(_build.CSRC, "crossprod_variants_v2.cu")) as fh:
@@ -185,14 +189,15 @@ def test_v1_and_v4_are_built_from_their_new_source():
     with open(os.path.join(_build.CSRC, "crossprod_variants.cu")) as fh:
         first = fh.read()
     assert re.findall(r'extern "C" int (\w+)\(', new) == [
-        "fp_crossprod_stacked", "fp_crossprod_nocomp"]
+        "fp_crossprod_stacked", "fp_crossprod_intsub", "fp_crossprod_nocomp"]
     assert re.findall(r'extern "C" int (\w+)\(', first) == [
-        "fp_crossprod_stacked_v1", "fp_crossprod_intsub",
+        "fp_crossprod_stacked_v1", "fp_crossprod_intsub_v1",
         "fp_crossprod_nocomp_v1"]
-    for name in ("crossprod_stacked", "crossprod_nocomp"):
+    for name in ("crossprod_stacked", "crossprod_intsub", "crossprod_nocomp"):
         assert _build.KERNELS[name][2] == _build.KERNELS[name + "_v1"][2]
         assert _build.KERNELS[name][2] == _build.KERNELS["crossprod"][2]
     assert "kernel_sweep.py::_crossprod_kernel_stacked" in new
+    assert "::_crossprod_kernel_intsub" in new
     assert "::_crossprod_kernel_nocomp" in new
     assert "2*KC*p*n4 operations" in new
     assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
@@ -200,11 +205,42 @@ def test_v1_and_v4_are_built_from_their_new_source():
     assert "crossprod_v2.cu" not in re.findall(r'#include "([^"]+)"', new)
 
 
+def test_v3_is_built_from_its_new_source():
+    """V3's redesign has a source of its own holding its one entry, which
+    takes B1's arguments and, after x, the scratch panel; its first design
+    keeps its entry, alone, in crossprod_split3.cu; the note names the
+    TPU kernel replaced, the bound's three terms and the bits kept; the
+    build hash covers the new source; the tile macro has a default at
+    every KC."""
+    assert {"crossprod_split3_v2.cu", "crossprod_split3.cu"} <= set(
+        _build.sources())
+    with open(os.path.join(_build.CSRC, "crossprod_split3_v2.cu")) as fh:
+        new = fh.read()
+    with open(os.path.join(_build.CSRC, "crossprod_split3.cu")) as fh:
+        first = fh.read()
+    assert re.findall(r'extern "C" int (\w+)\(', new) == [
+        "fp_crossprod_split3"]
+    assert re.findall(r'extern "C" int (\w+)\(', first) == [
+        "fp_crossprod_split3_v1"]
+    b1 = _build.KERNELS["crossprod"][2]
+    assert _build.KERNELS["crossprod_split3_v1"][2] == b1
+    assert _build.KERNELS["crossprod_split3"][2] == b1[:6] + [b1[0]] + b1[6:]
+    assert "kernel_sweep.py::_crossprod_kernel_split3" in new
+    assert "989 TFLOP/s" in new and "bit for bit" in new
+    assert "mma.sync.aligned.m16n8k16" in new and "wgmma" not in new
+    for kc in (8, 16, 24, 32):
+        assert f"#ifndef CROSSPROD_SPLIT3_TILE_{kc}\n" in new
+    assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
+    assert "crossprod_split3_v2.cu" in _build.sources()
+
+
 def test_variant_first_designs_are_counted_and_off_the_main_path():
     from flashpca_tpu_torch.kernels import crossprod_variants as cv
 
     assert tpk.VARIANT_FIRST_KERNELS == ("crossprod_stacked_v1",
-                                         "crossprod_nocomp_v1")
+                                         "crossprod_intsub_v1",
+                                         "crossprod_nocomp_v1",
+                                         "crossprod_split3_v1")
     assert set(cv.FIRST_DESIGNS) == set(tpk.VARIANT_FIRST_KERNELS)
     for first, (wrapper, plain) in cv.FIRST_DESIGNS.items():
         redesign = first.removesuffix("_v1")
@@ -223,9 +259,11 @@ def test_variant_first_designs_are_counted_and_off_the_main_path():
 
 @pytest.mark.parametrize("k", [3, 16, 40])
 @pytest.mark.parametrize("name", ["crossprod_stacked", "crossprod_stacked_v1",
-                                  "crossprod_nocomp", "crossprod_nocomp_v1"])
+                                  "crossprod_intsub", "crossprod_intsub_v1",
+                                  "crossprod_nocomp", "crossprod_nocomp_v1",
+                                  "crossprod_split3", "crossprod_split3_v1"])
 def test_variant_wrappers_on_cpu_are_plain(novl_operands, name, k):
-    """V1, V4 and their first designs take their plain versions on CPU
+    """V1-V4 and their first designs take their plain versions on CPU
     tensors, bit for bit, and launch nothing."""
     from flashpca_tpu_torch.kernels import crossprod_variants as cv
 
@@ -404,14 +442,33 @@ def test_chip_smoke_has_rows_for_v1_v4_and_their_first_designs(name):
     assert (name in cs.VARIANT_FIRSTS) == name.endswith("_v1")
 
 
+@pytest.mark.parametrize("name", ["crossprod_intsub", "crossprod_intsub_v1",
+                                  "crossprod_split3", "crossprod_split3_v1"])
+def test_chip_smoke_has_rows_for_v2_v3_and_their_first_designs(name):
+    """The rows chip_smoke's sweep phase reads for V2, V3 and their first
+    designs: sources, the TPU kernel replaced, the float64 bar (V3's
+    5e-5 for its dropped lo * lo term), V2's one float32 product a
+    genotype (V3's bound is apart), and the sweep's launches."""
+    cs = _chip_smoke()
+    assert cs.SOURCE[name] == ("flashpca_tpu_torch/kernels/csrc/"
+                               + _build.KERNELS[name][0])
+    assert os.path.exists(os.path.join(ROOT, cs.SOURCE[name]))
+    base = name.removesuffix("_v1")
+    line = {"crossprod_intsub": 128, "crossprod_split3": 209}[base]
+    assert cs.TPU_KERNEL[name] == f".claude/skills/verify/kernel_sweep.py:{line}"
+    assert cs.F64_BAR[name] == (5e-5 if base == "crossprod_split3" else 1e-5)
+    assert (cs.DOTS.get(name) == 1) == (base == "crossprod_intsub")
+    assert name in cs.SWEEP_PATH
+    assert (name in cs.VARIANT_FIRSTS) == name.endswith("_v1")
+
+
 def test_chip_smoke_requires_variant_equal():
-    """V1 and V4 against their first designs: one ulp in either fails."""
+    """V1-V4 against their first designs: one ulp in any fails."""
     cs = _chip_smoke()
     z = torch.arange(8.0).reshape(4, 2)
-    outs = {name: z.clone() for name in ("crossprod_stacked",
-                                         "crossprod_stacked_v1",
-                                         "crossprod_nocomp",
-                                         "crossprod_nocomp_v1")}
+    outs = {name: z.clone() for first in cs.VARIANT_FIRSTS
+            for name in (first.removesuffix("_v1"), first)}
+    assert len(outs) == 8
     cs.require_variant_equal(outs, "same")
     for name in outs:
         b = z.clone()
@@ -422,9 +479,11 @@ def test_chip_smoke_requires_variant_equal():
 
 def test_chip_smoke_sweep_phase_rows_and_bit_equality(monkeypatch):
     """The sweep phase on the CPU with the tool's run stubbed: a row for
-    each variant and for V1's and V4's first designs (marked first, 0
-    launches on the main path, beside B1's time and the difference), and
-    a failure when a redesign is not bit-equal at the sweep's shape."""
+    each variant and for its first design (marked first, 0 launches on
+    the main path, beside B1's time and the difference), V3's bound from
+    its SASS count and its first design's from its 9 instructions a
+    genotype, and a failure when a redesign is not bit-equal at the
+    sweep's shape."""
     from flashpca_tpu_torch.kernels import crossprod_variants as cv
     from flashpca_tpu_torch.tools import kernel_sweep as ks
 
@@ -439,7 +498,9 @@ def test_chip_smoke_sweep_phase_rows_and_bit_equality(monkeypatch):
         data = ks.sweep_data(p, nb, k, "cpu")
         return ({"correctness": dict.fromkeys(names, 1e-7),
                  "first_designs_equal": {"crossprod_stacked_v1": True,
-                                         "crossprod_nocomp_v1": equal},
+                                         "crossprod_intsub_v1": True,
+                                         "crossprod_nocomp_v1": equal,
+                                         "crossprod_split3_v1": True},
                  "variants": {"ms": ms, "minus_b1_ms": {
                      nm: t - 50.0 for nm, t in ms.items()
                      if nm != "crossprod"}}}, data)
@@ -449,8 +510,15 @@ def test_chip_smoke_sweep_phase_rows_and_bit_equality(monkeypatch):
     monkeypatch.setattr(ks, "event_ms", lambda fn, reps: 7.0)
     worst = dict.fromkeys(tpk.launch_counts, 1e-3)
     main = dict.fromkeys(tpk.launch_counts, 0)
-    rows, out = cs.kernel_sweep("cpu", 64, 203, worst, 9.0, main)
+    rows, out = cs.kernel_sweep("cpu", 64, 203, worst, 9.0, main, 2.5)
     assert [r["name"] for r in rows] == list(names)
+    by = {r["name"]: r for r in rows}
+    n4 = 4 * ((203 + 3) // 4)
+    for name, ops in (("crossprod_split3", 2.5), ("crossprod_split3_v1", 9)):
+        assert by[name]["ops_per_genotype"] == ops
+        assert by[name]["bound_ms"] >= (ops * 64 * n4 / cs.PEAK_FP32_INSTR
+                                        * 1e3)
+    assert "ops_per_genotype" not in by["crossprod_intsub"]
     for r in rows:
         assert r["launches"] == 2 and r["main_path_launches"] == 0
         assert r["ms"] == ms[r["name"]] and r["b1_ms"] == 50.0
@@ -461,7 +529,7 @@ def test_chip_smoke_sweep_phase_rows_and_bit_equality(monkeypatch):
     assert out["launches"] == dict.fromkeys(cs.SWEEP_PATH, 2)
     monkeypatch.setattr(ks, "run", functools.partial(fake_run, equal=False))
     with pytest.raises(AssertionError, match="crossprod_nocomp_v1"):
-        cs.kernel_sweep("cpu", 64, 203, worst, 9.0, main)
+        cs.kernel_sweep("cpu", 64, 203, worst, 9.0, main, 2.5)
 
 
 def test_chip_smoke_names_v1_v4_instantiations_and_reads_them():
@@ -483,6 +551,57 @@ def test_chip_smoke_names_v1_v4_instantiations_and_reads_them():
     assert "crossprod_variants_v2.cu" in cs.NO_SPILL_SOURCES
     assert set(cs.SASS_SOURCES) | set(cs.NO_SPILL_SOURCES) <= set(
         _build.sources())
+
+
+def test_chip_smoke_names_v2_v3_instantiations_and_reads_them():
+    """V2's and V3's symbols as ptxas and cuobjdump name them (V3's with
+    its aligned-bytes flag; its first design's kernel is not read), the
+    smoke reads both inner loops, names the one V3's bound reads, and
+    requires no spill in V3's source."""
+    cs = _chip_smoke()
+    pre = "_ZN47_GLOBAL__N__9a1b2c3d_24_crossprod_variants_v2_cu_1f2e3d4c4var2"
+    sym = f"{pre}18intsub_tile_kernelILi16EEEvPKhPKfS5_S5_S5_Pfxxbb"
+    assert cs.kernel_name(sym) == "intsub_tile_kernel<16>"
+    assert cs.sass_read("intsub_tile_kernel<16>")
+    pre = "_ZN45_GLOBAL__N__9a1b2c3d_21_crossprod_split3_v2_cu_1f2e3d4c2s3"
+    sym = f"{pre}17split_tile_kernelILi16ELb1EEEvPKhPKfS6_S6_PKtPfxx"
+    assert cs.kernel_name(sym) == "split_tile_kernel<16, 1>" == cs.SPLIT3_SASS
+    assert cs.sass_read(cs.SPLIT3_SASS)
+    assert not cs.sass_read("split_kernel<16>")
+    assert not cs.sass_read("split_panel_kernel<16>")
+    assert "crossprod_split3_v2.cu" in cs.SASS_SOURCES
+    assert "crossprod_split3_v2.cu" in cs.NO_SPILL_SOURCES
+
+
+def test_chip_smoke_reads_v3s_loop_by_its_hmma():
+    """A function whose loops hold HMMA is read by them: the shortest
+    loop with at least 90% of the most HMMA, not the FFMA-richer fold
+    loop; its CUDA-core instructions a genotype are all but the HMMA over
+    the genotypes the HMMA consume (8 a thread each, each feeding 3 kc /
+    8 of them)."""
+    cs = _chip_smoke()
+    sym = "_ZN5_GLOBAL__N_117split_tile_kernelILi16ELb1EEEvPKh"
+    lines = ["\tcode for sm_90a", f"\t\tFunction : {sym}",
+             "        /*0000*/                   MOV R1, c[0x0][0x28] ;"]
+    addr = 0x10
+    for op in (["HMMA.16816.F32.BF16 R4, R8, R12, R4"] * 6
+               + ["PRMT R9, R2, R3, R5", "LOP3.LUT R5, R6, 0x3030303, RZ, "
+                  "0xc0, !PT", "IMAD R5, R5, 0x22, R7"]
+               + ["FFMA R4, R5, R6, R4"] * 2):
+        lines.append(f"        /*{addr:04x}*/                   {op} ;")
+        addr += 0x10
+    lines.append(f"        /*{addr:04x}*/              @P0  BRA 0x10 ;")
+    addr += 0x10
+    for _ in range(20):
+        lines.append(f"        /*{addr:04x}*/                   "
+                     "FFMA R4, R5, R6, R4 ;")
+        addr += 0x10
+    lines.append(f"        /*{addr:04x}*/              @!P1 BRA 0x0 ;")
+    loop = cs.sass_hot_loops("\n".join(lines))["split_tile_kernel<16, 1>"]
+    assert dict(loop) == {"HMMA": 6, "PRMT": 1, "LOP3": 1, "IMAD": 1,
+                          "FFMA": 2, "BRA": 1}
+    # 6 HMMA at kc=16: 6 x 64 / 48 = 8 genotypes; 6 other instructions
+    assert cs.split3_ops_per_genotype(loop, 16) == 6 / 8
 
 
 def test_chip_smoke_names_b1s_instantiations():
@@ -885,7 +1004,49 @@ def test_variant_tile_tool_reads_production_tiles():
     assert "#ifndef CROSSPROD_STACKED_TILE_16\n" in text
     assert "#ifndef CROSSPROD_NOCOMP_TILE_16\n" in text
     assert [t["name"] for t in vt.trials()] == ["crossprod_nocomp",
-                                                "crossprod_stacked"]
+                                                "crossprod_stacked",
+                                                "crossprod_split3"]
+
+
+def test_variant_tile_tool_reads_v3s_production_tiles():
+    """V3's production tiles are its source's defaults at every KC, and
+    every tile tried is one the source takes: whole fold units a stage,
+    a block's threads staging whole rows, shared memory within an SM's
+    227 KB for one block; the trial reads
+    ptxas's line of the aligned-bytes instantiation."""
+    from flashpca_tpu_torch.tools import b3_tiles, variant_tiles as vt
+
+    prod = b3_tiles.production_tiles(vt.SPLIT3_SOURCE, vt.SPLIT3[1])
+    assert sorted(prod) == [8, 16, 24, 32]
+    assert _build.KERNELS[vt.SPLIT3[0]][0] == vt.SPLIT3_SOURCE
+    for kc, ts in list(vt.SPLIT3_TILES.items()) + [(kc, [t]) for kc, t
+                                                   in prod.items()]:
+        for tile in ts:
+            mt, nw, sb, tps = tile
+            assert mt >= 1 and nw >= 1 and sb % 32 == 0 and tps % 32 == 0
+            assert 32 * nw % (sb // 16) == 0    # threads cover whole rows
+            nt, smem, blocks = vt.split3_occupancy(kc, tile, 128)
+            assert nt == 32 * nw and smem + 1024 <= 233_472 and blocks >= 1
+    assert len(vt.SPLIT3_TILES[16]) >= 2 and prod[16] not in vt.SPLIT3_TILES[16]
+    assert b3_tiles.instantiation(vt.SPLIT3[2], 16) == "split_tile_kernel<16, 1>"
+    assert b3_tiles.instantiation("nocomp_tile_kernel", 16) == (
+        "nocomp_tile_kernel<16>")
+
+
+def test_variant_tile_tool_counts_v3s_blocks_an_sm():
+    """V3 at its kc=16 production tile (2, 4, 64, 384): 128 threads, 60
+    KB of shared memory (two stages of a 128 x 80-byte byte tile and 256
+    panel rows of 80 bytes), three blocks an SM at the 168 registers 384
+    threads leave, 784 blocks of 128 rows on the sweep's shape; one M
+    tile a warp halves the rows, four double them."""
+    from flashpca_tpu_torch.tools import variant_tiles as vt
+
+    assert vt.split3_occupancy(16, (2, 4, 64, 384), 168) == (128, 61_440, 3)
+    assert vt.split3_occupancy(16, (2, 8, 128, 256), 168) == (256, 155_648, 1)
+    assert vt.split3_occupancy(16, (2, 4, 32, 512), 128) == (128, 32_768, 4)
+    assert vt.split3_grid((2, 4, 64, 384), 100_352, 125_440) == 784
+    assert vt.split3_grid((1, 4, 64, 512), 100_352, 125_440) == 1568
+    assert vt.split3_grid((4, 4, 64, 256), 100_352, 125_440) == 392
 
 
 def test_variant_tile_tool_counts_blocks_an_sm():

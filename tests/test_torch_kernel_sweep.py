@@ -42,7 +42,8 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F64_BAR = {"crossprod_stacked": 1e-5, "crossprod_intsub": 1e-5,
            "crossprod_nocomp": 1e-5, "crossprod_split3": 5e-5,
-           "crossprod_stacked_v1": 1e-5, "crossprod_nocomp_v1": 1e-5}
+           "crossprod_stacked_v1": 1e-5, "crossprod_intsub_v1": 1e-5,
+           "crossprod_nocomp_v1": 1e-5, "crossprod_split3_v1": 5e-5}
 PRODUCTS = {"crossprod_split3": 3}
 
 
@@ -130,10 +131,12 @@ def test_variant_plain_matches_pallas(jsweep, fix, name, k):
 @pytest.mark.parametrize("first", list(cv.FIRST_DESIGNS))
 @pytest.mark.parametrize("k", [8, 16])
 def test_first_design_plain_matches_pallas(jsweep, fix, first, k):
-    """V1's and V4's first designs (``crossprod_stacked_v1_p``,
-    ``crossprod_nocomp_v1_p``) on the CPU: their redesign's plain version
+    """The first designs of V1-V4 (``crossprod_stacked_v1_p``,
+    ``crossprod_intsub_v1_p``, ``crossprod_nocomp_v1_p``,
+    ``crossprod_split3_v1_p``) on the CPU: their redesign's plain version
     bit for bit, so the sweep's Pallas kernel in interpret mode at the
-    bars above."""
+    bars above (V3's three products at sqrt(3) x the atol), and float64
+    at their redesign's bar."""
     packed, mean, invsd, rng = fix
     xt = rng.standard_normal((4, k, packed.shape[1])).astype(np.float32)
     wrapper, _ = cv.FIRST_DESIGNS[first]
@@ -146,6 +149,9 @@ def test_first_design_plain_matches_pallas(jsweep, fix, first, k):
         cv.VARIANTS[redesign][0](_t(packed), _t(mean), _t(invsd), xp).numpy())
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5,
                                atol=_atol(redesign, xp.shape[0]))
+    ref = _f64_product(packed, mean, invsd, xp.numpy())
+    rel = np.linalg.norm(got.numpy() - ref) / np.linalg.norm(ref)
+    assert rel < F64_BAR[first]
 
 
 def test_coeff_rows_intsub_bit_equal(jsweep, fix):
@@ -295,9 +301,10 @@ def test_tool_times_each_variant_beside_b1(monkeypatch, capsys):
     first designs labelled, and B1 less V4 as the compensation's cost."""
     data = ks.sweep_data(64, 40, 8, "cpu")
     order = ["crossprod", "crossprod_stacked", "crossprod_stacked_v1",
-             "crossprod_intsub", "crossprod_nocomp", "crossprod_nocomp_v1",
-             "crossprod_split3"]
-    first = dict(zip(order, [57.0, 60.0, 114.0, 99.0, 55.0, 76.0, 73.0]))
+             "crossprod_intsub", "crossprod_intsub_v1", "crossprod_nocomp",
+             "crossprod_nocomp_v1", "crossprod_split3", "crossprod_split3_v1"]
+    first = dict(zip(order, [57.0, 60.0, 114.0, 57.5, 99.0, 55.0, 76.0, 15.0,
+                             73.0]))
     times = iter([first[n] for n in order]
                  + [first[n] + 1.0 for n in order[::-1]])
     monkeypatch.setattr(ks, "event_ms", lambda fn, reps: (fn(), next(times))[1])
@@ -309,8 +316,8 @@ def test_tool_times_each_variant_beside_b1(monkeypatch, capsys):
     assert "crossprod" not in out["minus_b1_ms"]
     assert out["compensation_ms"] == 57.5 - 55.5
     text = capsys.readouterr().out
-    assert "V1 stacked, first design" in text
-    assert "V4 nocomp, first design" in text
+    for label in ("V1 stacked", "V2 intsub", "V4 nocomp", "V3 split3"):
+        assert f"{label}, first design" in text
     assert ("B1 - V4 nocomp = +2.00 ms: what the compensation costs B1"
             in text)
     assert "difference -2.00 ms" in text
