@@ -14,9 +14,10 @@ Phases, all in this one process; any failure raises and exits nonzero:
    set-up); each instantiation's registers and spills (ptxas; production
    B2, B3 and B4 and the redesigned V1-V4 must spill nothing), and the
    instruction mix of B5's, B4's, B3's, B2's, B1's, V1's, V2's and V4's
-   inner loops in each (cuobjdump), and of V3's tensor-core loop its
-   HMMA and its CUDA-core instructions a genotype (the third term of
-   its bound);
+   inner loops in each (cuobjdump; V2's loop at kc 16 must have B1's
+   length and FFMA count), and of V3's tensor-core loop its
+   HMMA and its CUDA-core instructions a genotype (printed beside its
+   bound, which counts only the work the function needs);
 3. hold each kernel against its plain PyTorch version on the card, at
    full width (501,760 samples) on a 4,096-SNP slice and on a small odd
    case (n % 4 != 0, some inv_sd == 0), panels k in {3, 16, 24}, and
@@ -53,8 +54,10 @@ Phases, all in this one process; any failure raises and exits nonzero:
    bit-equal to their first designs at the full shape, and B1, V1-V4
    and the four first designs timed in turns, each beside B1 (B1 less
    V4: what the compensation costs B1), their plain versions and bounds
-   (V3's from its SASS reading, its first design's from its own
-   count); launch counts reset just before it and read just after
+   (V3's and its first design's: the largest of its tensor-core
+   products, its bytes and the CUDA-core work the function needs, with
+   each design's own CUDA-core instructions a genotype beside it, V3's
+   from its SASS); launch counts reset just before it and read just after
    (V1-V4, the first designs and the tile entries must have launched;
    none of them is on the main path, whose count of each is 0);
 7. the tall headline: 1,003,520 x 50,176 generated the same way, held
@@ -166,14 +169,23 @@ DOTS = {"crossprod": 1, "crossprod_v1": 1, "matvec": 1, "matvec_v1": 1,
         "crossprod_nocomp": 1, "crossprod_nocomp_v1": 1}
 SPLIT3_BF16_DOTS = 3
 PEAK_BF16_FLOPS = 989e12      # dense tensor-core rate, H100 SXM
-# V3's first design's CUDA-core work per genotype, counted from
+# V3's first design's own CUDA-core work per genotype, counted from
 # crossprod_split3.cu: code to float, the factored cubic's sub, 2 muls, 2
 # adds and mul (unfused, as its plain version rounds them), the split's
 # sub and one paired bf16 conversion per piece (half an instruction per
 # value each) -- 9 instructions, at one per lane and clock, 33.5e12/s.
-# The redesign's count is read from its SASS (split3_ops_per_genotype).
+# The redesign's is read from its SASS (split3_ops_per_genotype).  Both
+# are reported beside the bound, which counts only what the function
+# needs (split3_needed_ops_per_genotype).
 SPLIT3_OPS_PER_GENOTYPE = 9
 PEAK_FP32_INSTR = PEAK_FP32_FLOPS / 2
+# the CUDA-core work V3's function needs per genotype, whatever the
+# design: the A words' pick (a 32-bit A register holds two genotypes of
+# a row, and its hi and lo words are one byte permute each: 1 a
+# genotype) and the TwoSum fold every 32 bytes (128 samples) that the
+# first design's bits fix (6 adds and err += e, 7 a column: 7 kc / 128)
+SPLIT3_PICK_OPS = 1
+SPLIT3_FOLD_OPS, SPLIT3_FOLD_SAMPLES = 7, 128
 # the kernel sweep's variants (kernels/crossprod_variants.py) and their
 # first designs, and V3's bars: against its plain version three
 # float32 contractions' worth of plain_bar (tensor-core sums are not IEEE
@@ -250,8 +262,11 @@ SASS_SOURCES = ("matvec_ff_novl.cu", "matvec_ff_novl_variants.cu",
                 "crossprod_v2.cu", "crossprod_variants_v2.cu",
                 "crossprod_split3_v2.cu")
 # V3's instantiation at the sweep's width on 16-byte aligned rows, whose
-# count is the third term of its bound
+# count its sweep row reports beside its bound
 SPLIT3_SASS = "split_tile_kernel<16, 1>"
+# B1's and V2's loops at the sweep's width: one loop (b1_tile.cuh), the
+# decode's form outside it, so the same instructions
+SAME_LOOP = ("crossprod_tile_kernel<16>", "intsub_tile_kernel<16>")
 
 
 def sass_read(fn):
@@ -264,6 +279,12 @@ def sass_read(fn):
             or (fn.startswith("matvec_kernel<") and fn.endswith(", 64>")))
 
 
+def split3_needed_ops_per_genotype(kc):
+    """The CUDA-core instructions a genotype that V3's function needs at
+    ``kc`` columns: the pick and the fold (1.875 at kc 16)."""
+    return SPLIT3_PICK_OPS + SPLIT3_FOLD_OPS * kc / SPLIT3_FOLD_SAMPLES
+
+
 def split3_ops_per_genotype(loop, kc):
     """CUDA-core instructions a genotype in V3's inner ``loop`` (a Counter
     of opcodes) at ``kc``: every instruction but its HMMA, over the
@@ -272,6 +293,16 @@ def split3_ops_per_genotype(loop, kc):
     n-tiles)."""
     hmma = loop["HMMA"]
     return (sum(loop.values()) - hmma) / (hmma * 64 / (3 * kc))
+
+
+def require_same_loop(sass_mix, a, b):
+    """Instantiations ``a`` and ``b`` read in ``sass_mix`` have inner
+    loops of the same length and FFMA count."""
+    keys = ("instructions", "ffma")
+    if a not in sass_mix or b not in sass_mix or any(
+            sass_mix[a][k] != sass_mix[b][k] for k in keys):
+        raise AssertionError(f"{b}'s inner loop is not {a}'s: "
+                             f"{sass_mix.get(b)} against {sass_mix.get(a)}")
 
 
 def require_no_spills(src, usages):
@@ -1422,7 +1453,7 @@ def with_first_designs(rows, firsts, launches, worst):
 # ---------------------------------------------------------------------------
 
 def kernel_sweep(dev, p, n, worst, b1_library_ms, main_launches,
-                 split3_ops):
+                 split3_sass_ops):
     """The sweep tool's five steps at p x n, k = SWEEP_K, then the plain
     versions of V1-V4 timed at that shape (their first designs share
     them); V1-V4 must be bit-equal to their first designs there.  One row
@@ -1430,11 +1461,14 @@ def kernel_sweep(dev, p, n, worst, b1_library_ms, main_launches,
     B1's torch.matmul time at the same shape, passed in, since it
     computes the same z = W x; launches: the sweep's, beside the main
     path's ``main_launches``; ms: the mean of its two turn medians,
-    beside B1's and the difference).  V3's bound is the largest of its
-    tensor-core products, its bytes and ``split3_ops`` CUDA-core
-    instructions a genotype (its SASS reading); its first design's has
-    SPLIT3_OPS_PER_GENOTYPE in that place.  Returns (rows, the sweep's
-    readings)."""
+    beside B1's and the difference).  V3's bound, and its first
+    design's, is the largest of its tensor-core products, its bytes and
+    the CUDA-core work the function needs
+    (:func:`split3_needed_ops_per_genotype`); each row also carries its
+    design's own CUDA-core instructions a genotype and their time at the
+    CUDA-core rate: ``split3_sass_ops`` (V3's SASS reading), or
+    SPLIT3_OPS_PER_GENOTYPE for the first design.  Returns (rows, the
+    sweep's readings)."""
     import torch
 
     from flashpca_tpu_torch.kernels import crossprod_variants as cv
@@ -1475,8 +1509,10 @@ def kernel_sweep(dev, p, n, worst, b1_library_ms, main_launches,
                     lambda: plain(pk, m, iv, xp), reps=1)
             plain_ms = plain_times[base]
             if base == "crossprod_split3":
-                ops = (split3_ops if name == base
+                ops = split3_needed_ops_per_genotype(k)
+                own = (split3_sass_ops if name == base
                        else SPLIT3_OPS_PER_GENOTYPE)
+                own_ms = own * p * n4 / PEAK_FP32_INSTR * 1e3
                 t_ops = max(
                     SPLIT3_BF16_DOTS * 2.0 * k * p * n4 / PEAK_BF16_FLOPS,
                     ops * p * n4 / PEAK_FP32_INSTR) * 1e3
@@ -1491,7 +1527,10 @@ def kernel_sweep(dev, p, n, worst, b1_library_ms, main_launches,
                 f" ms, bound {bound:.2f} ms "
                 f"({'operations' if t_ops >= t_bytes else 'bytes'}), "
                 f"{launches[name]} sweep launches, {main_launches[name]} on "
-                "the main path")
+                "the main path"
+                + (f"; its own {own:.3f} CUDA-core instructions a genotype "
+                   f"would take {own_ms:.2f} ms, the function needs {ops:.3f}"
+                   if base == "crossprod_split3" else ""))
             rows.append({
                 "name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": TPU_KERNEL[name], "launches": launches[name],
@@ -1504,7 +1543,8 @@ def kernel_sweep(dev, p, n, worst, b1_library_ms, main_launches,
                 "b1_ms": timed["ms"]["crossprod"],
                 "minus_b1_ms": timed["minus_b1_ms"][name],
                 **({"design": "first"} if name in VARIANT_FIRSTS else {}),
-                **({"ops_per_genotype": ops}
+                **({"ops_per_genotype": ops, "own_ops_per_genotype": own,
+                    "own_ops_ms": own_ms}
                    if base == "crossprod_split3" else {}),
             })
         del data, pk, m, iv, xp
@@ -1570,7 +1610,8 @@ def main(argv=None) -> int:
                                 sum(c.values()), "ops_per_genotype": ops}
                 say(f"   {src} {fn} inner loop: {c['HMMA']} HMMA of "
                     f"{sum(c.values())} instructions; {ops:.3f} CUDA-core "
-                    f"instructions a genotype; {top}")
+                    f"instructions a genotype (the function needs "
+                    f"{split3_needed_ops_per_genotype(kc):.3f}); {top}")
             else:
                 share = c["FFMA"] / sum(c.values())
                 sass_mix[fn] = {"ffma": c["FFMA"], "instructions":
@@ -1579,8 +1620,9 @@ def main(argv=None) -> int:
                     f"{sum(c.values())} instructions ({share:.1%}); {top}")
     if SPLIT3_SASS not in sass_mix:
         raise AssertionError(f"V3's inner loop ({SPLIT3_SASS}) not read: "
-                             "its bound needs its CUDA-core instructions a "
+                             "its row reports its CUDA-core instructions a "
                              "genotype")
+    require_same_loop(sass_mix, *SAME_LOOP)
     with Phase("kernels against their plain versions"):
         worst = check_kernels(dev)
     torch.cuda.empty_cache()

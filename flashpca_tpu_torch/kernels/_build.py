@@ -39,7 +39,7 @@ import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "b1_tile.cuh")
 
 # kernel name -> (source, C entry point, argument types)
 _P = ctypes.c_void_p

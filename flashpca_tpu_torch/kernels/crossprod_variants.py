@@ -191,31 +191,28 @@ def split3_scratch(nb, kc, device):
                        device=device)
 
 
-def _launch_over_widths(name, packed, coeffs, xp, rows, *extra,
-                        scratch=None):
+def _launch_over_widths(name, packed, coeffs, xp, rows, *extra):
     """Launch kernel ``name`` once per column chunk of ``xp``; ``rows``
-    is the output's row count (p for z, n4 for y).  ``scratch(nb, kc,
-    device)``, if given, makes a tensor passed after the panel."""
+    is the output's row count (p for z, n4 for y)."""
     _check_cuda(packed, xp, *coeffs)
     p, nb = packed.shape
     outs = []
     for c0, c1, kc in _widths(xp.shape[1]):
         out = torch.empty((rows, kc), dtype=torch.float32,
                           device=packed.device)
-        tmp = () if scratch is None else (scratch(nb, kc, packed.device),)
-        _run(name, packed, *coeffs, _padded(xp, c0, c1, kc), *tmp, out, p,
-             nb, *extra, kc)
+        _run(name, packed, *coeffs, _padded(xp, c0, c1, kc), out, p, nb,
+             *extra, kc)
         outs.append(out[:, : c1 - c0])
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
-def _variant(name, plain, coeffs_of, scratch=None):
+def _variant(name, plain, coeffs_of):
     def wrapper(packed, mean, invsd, xp):
         _check_shapes(4 * packed.shape[1], xp, name)
         if xp.device.type == "cpu":
             return plain(packed, mean, invsd, xp)
         return _launch_over_widths(name, packed, coeffs_of(mean, invsd), xp,
-                                   packed.shape[0], scratch=scratch)
+                                   packed.shape[0])
 
     wrapper.__name__ = f"{name}_p"
     wrapper.__doc__ = (f"z = W xp: (n4, k) -> (p, k).  Kernel ``{name}`` "
@@ -227,10 +224,30 @@ crossprod_stacked_p = _variant("crossprod_stacked", crossprod_stacked_plain,
                                coeff_rows)
 crossprod_intsub_p = _variant("crossprod_intsub", crossprod_intsub_plain,
                               coeff_rows_intsub)
-crossprod_split3_p = _variant("crossprod_split3", crossprod_split3_plain,
-                              coeff_rows, scratch=split3_scratch)
 crossprod_nocomp_p = _variant("crossprod_nocomp", crossprod_nocomp_plain,
                               coeff_rows)
+
+
+def crossprod_split3_p(packed, mean, invsd, xp):
+    """z = W xp: (n4, k) -> (p, k).  Kernel ``crossprod_split3`` on CUDA,
+    each column chunk with the scratch panel its pre-pass fills
+    (:func:`split3_scratch`); :func:`crossprod_split3_plain` on the
+    CPU."""
+    _check_shapes(4 * packed.shape[1], xp, "crossprod_split3")
+    if xp.device.type == "cpu":
+        return crossprod_split3_plain(packed, mean, invsd, xp)
+    coeffs = coeff_rows(mean, invsd)
+    _check_cuda(packed, xp, *coeffs)
+    p, nb = packed.shape
+    outs = []
+    for c0, c1, kc in _widths(xp.shape[1]):
+        out = torch.empty((p, kc), dtype=torch.float32, device=packed.device)
+        _run("crossprod_split3", packed, *coeffs, _padded(xp, c0, c1, kc),
+             split3_scratch(nb, kc, packed.device), out, p, nb, kc)
+        outs.append(out[:, : c1 - c0])
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
 # the first designs (crossprod_variants.cu, crossprod_split3.cu), the sums
 # of the four above bit for bit
 crossprod_stacked_v1_p = _variant("crossprod_stacked_v1",

@@ -9,10 +9,15 @@
 //
 // Bound: the largest of three terms.  The three bf16 products need
 // 6*KC*p*n4 operations at 989 TFLOP/s (4.9 ms at KC = 16 on the wide
-// headline), the packed bytes 3.8 ms, and the CUDA-core instructions that
-// the inner loop issues per genotype (chip_smoke.py counts them from this
-// kernel's SASS) at one per lane and clock.  The first design spent 9
-// such instructions a genotype on the decode and the split alone.
+// headline) and the packed bytes 3.8 ms.  The CUDA-core work that the
+// function needs, at one instruction per lane and clock, is the pick (a
+// byte permute for each of the hi and lo words of two genotypes: 1 a
+// genotype) and the TwoSum fold every 32 bytes (7 adds a column: 7 KC /
+// 128 a genotype), 1.875 a genotype or 2.8 ms at KC = 16.  So the tensor
+// products bound it.  chip_smoke.py prints beside the bound the
+// CUDA-core instructions that this kernel's loop issues per genotype,
+// read from its SASS; the first design spent 9 a genotype on the decode
+// and the split alone.
 //
 // The sums are bit for bit the first design's.  Both issue
 // mma.sync.m16n8k16 (bf16 in, float32 accumulate) with the same fragment
@@ -59,10 +64,13 @@
 // A source that defines CROSSPROD_SPLIT3_TILE_<KC> as "MT, NW, SB, TPS"
 // (TPS: the threads an SM that __launch_bounds__ asks for) and then
 // includes this one builds V3 at another tile: tools/variant_tiles.py
-// times other tiles that way.  The production tile at KC = 16, the
-// sweep's width, is the fastest one tried there; the other KCs take the
-// same shape, with TPS as shared memory allows, untimed.  The tiles tried
-// and their times are in PERF.md.
+// times other tiles that way.  At KC = 16, the sweep's width, the
+// production tile had the lowest mean of the tiles tried over six turns,
+// but the three next to it came within 3% of it, less than the spread
+// between turns of one tile, so which tile is fastest is not resolved.
+// Production is the steadiest of the four.  The other KCs take the same
+// shape, with TPS as shared memory allows, untimed.  The tiles tried and
+// their times are in PERF.md.
 #include "common.cuh"
 
 #ifndef CROSSPROD_SPLIT3_TILE_8

@@ -56,37 +56,21 @@
 //   plain stores; rows whose bytes are not 16-byte aligned (nb % 16 !=
 //   0) are staged byte by byte.
 //
-// The tiles tried on the card are named in PERF.md.
-#include "common.cuh"
+// The tile and the chunk loop are in b1_tile.cuh, which the kernel
+// sweep's V2 and V4 (crossprod_variants_v2.cu) instantiate too.  The
+// tiles tried on the card are named in PERF.md.
+#include "b1_tile.cuh"
 
 namespace {
 
 namespace v2 {
 
-constexpr int CB = fp::kChunkBytes;  // bytes a chunk (128 samples): one fold
-constexpr int BSTRIDE = CB + 16;   // byte-tile row stride: 12 words
-constexpr int R = 2;               // SNP rows a thread
-constexpr int TM = 128;            // SNP rows a block
+constexpr int TM = b1::TM;  // SNP rows a block
 
-// One stage of the double buffer: a chunk's byte tile and x rows.
+// The tile at KC: its threads a block (NT), the blocks an SM that
+// __launch_bounds__ asks for and its dynamic shared memory (SMEM).
 template <int KC>
-using Stage = fp::ChunkStage<TM, BSTRIDE, KC>;
-
-// The tile at KC: C columns a thread (8 at KC 8 and 16, 12 at 24, 16 at
-// 32), threads per block (TM / R row slots x KC / C column groups), the
-// threads an SM that __launch_bounds__ asks for (768: 80 registers a
-// thread; 384 at KC 24 and 32: up to 168), and the dynamic shared
-// memory: two stages and the running sums.
-template <int KC>
-struct Tile {
-  static constexpr int C = KC == 24 ? 12 : KC == 32 ? 16 : 8;
-  static constexpr int TPS = KC <= 16 ? 768 : 384;
-  static_assert(KC % C == 0 && C % 4 == 0, "C must divide KC, 4 | C");
-  static_assert(TM % (32 * R) == 0, "a warp takes 32 row slots");
-  static constexpr int NT = TM / R * (KC / C);
-  static constexpr int MIN_BLOCKS = TPS / NT > 0 ? TPS / NT : 1;
-  static constexpr int SMEM = 2 * sizeof(Stage<KC>) + R * C * NT * 4;
-};
+using Tile = b1::Tile<KC>;
 
 template <int KC>
 __global__ void __launch_bounds__(Tile<KC>::NT, Tile<KC>::MIN_BLOCKS)
@@ -96,129 +80,8 @@ crossprod_tile_kernel(const uint8_t* __restrict__ packed,
                       const float* __restrict__ cf2,
                       const float* __restrict__ x, float* __restrict__ z,
                       long long p, long long nb, bool bytes16, bool x16) {
-  constexpr int C = Tile<KC>::C;
-  constexpr int NT = Tile<KC>::NT;
-  constexpr int SLOTS = TM / R;
-  extern __shared__ __align__(16) unsigned char smem[];
-  Stage<KC>* sg = reinterpret_cast<Stage<KC>*>(smem);
-  // sum[i][c] of thread tid at ssum[(i * C + c) * NT + tid]: read and
-  // written once per chunk, by the fold
-  float* ssum = reinterpret_cast<float*>(smem + 2 * sizeof(Stage<KC>));
-
-  const int tid = threadIdx.x;
-  // rows slot + i * SLOTS (i < R): 32 lanes take 32 consecutive rows
-  const int slot = tid % SLOTS;
-  const int cg = tid / SLOTS;
-  const long long row0 = static_cast<long long>(blockIdx.x) * TM;
-
-  // each row's four decoded values, the same floats as decoding at
-  // every sample
-  float tab[R][4];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const long long gr = row0 + slot + i * SLOTS;
-    const bool live = gr < p;
-    const float b0 = live ? cf0[gr] : 0.0f;
-    const float b1 = live ? cf1[gr] : 0.0f;
-    const float b2 = live ? cf2[gr] : 0.0f;
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      tab[i][t] = fp::decode_cubic(static_cast<uint32_t>(t), b0, b1, b2);
-  }
-
-  float err[R][C], acc[R][C];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      ssum[(i * C + c) * NT + tid] = 0.0f;
-      err[i][c] = 0.0f;
-      acc[i][c] = 0.0f;
-    }
-  }
-
-  const long long nchunk = (nb + CB - 1) / CB;
-  fp::stage_chunk<TM, BSTRIDE, KC, NT>(sg[0], packed, x, p, nb, row0, 0,
-                                       bytes16, x16, tid);
-  fp::cp_async_commit();
-  for (long long ch = 0; ch < nchunk; ++ch) {
-    // chunk ch has landed for every thread, and every thread is done
-    // with chunk ch - 1, whose buffer the next copies overwrite
-    fp::cp_async_wait_all();
-    __syncthreads();
-    if (ch + 1 < nchunk)
-      fp::stage_chunk<TM, BSTRIDE, KC, NT>(sg[(ch + 1) & 1], packed, x, p,
-                                           nb, row0, (ch + 1) * CB, bytes16,
-                                           x16, tid);
-    fp::cp_async_commit();
-
-    const Stage<KC>& cur = sg[ch & 1];
-#pragma unroll 1
-    for (int h = 0; h < CB / 16; ++h) {
-      uint32_t wd[R][4];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const uint4 words = *reinterpret_cast<const uint4*>(
-            &cur.bytes[slot + i * SLOTS][16 * h]);
-        wd[i][0] = words.x;
-        wd[i][1] = words.y;
-        wd[i][2] = words.z;
-        wd[i][3] = words.w;
-      }
-#pragma unroll
-      for (int jj = 0; jj < 16; ++jj) {
-        const int j = 16 * h + jj;
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          float w[R];
-#pragma unroll
-          for (int i = 0; i < R; ++i)
-            w[i] = fp::pick(wd[i][jj / 4], 8 * (jj % 4) + 2 * s, tab[i]);
-          const float4* xr =
-              reinterpret_cast<const float4*>(&cur.x[s][j][cg * C]);
-#pragma unroll
-          for (int q = 0; q < C / 4; ++q) {
-            const float4 xv = xr[q];
-#pragma unroll
-            for (int i = 0; i < R; ++i) {
-              acc[i][4 * q + 0] = fmaf(w[i], xv.x, acc[i][4 * q + 0]);
-              acc[i][4 * q + 1] = fmaf(w[i], xv.y, acc[i][4 * q + 1]);
-              acc[i][4 * q + 2] = fmaf(w[i], xv.z, acc[i][4 * q + 2]);
-              acc[i][4 * q + 3] = fmaf(w[i], xv.w, acc[i][4 * q + 3]);
-            }
-          }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int o = (i * C + c) * NT + tid;
-        float t, e;
-        fp::two_sum(ssum[o], acc[i][c], t, e);
-        ssum[o] = t;
-        err[i][c] = __fadd_rn(err[i][c], e);
-        acc[i][c] = 0.0f;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const long long row = row0 + slot + i * SLOTS;
-    if (row < p) {
-      float4* out = reinterpret_cast<float4*>(z + row * KC + cg * C);
-      const float* sum = &ssum[i * C * NT + tid];
-#pragma unroll
-      for (int q = 0; q < C / 4; ++q)
-        out[q] = make_float4(__fadd_rn(sum[(4 * q + 0) * NT], err[i][4 * q + 0]),
-                             __fadd_rn(sum[(4 * q + 1) * NT], err[i][4 * q + 1]),
-                             __fadd_rn(sum[(4 * q + 2) * NT], err[i][4 * q + 2]),
-                             __fadd_rn(sum[(4 * q + 3) * NT], err[i][4 * q + 3]));
-    }
-  }
+  b1::body<KC, Tile<KC>, false, true>(packed, cf0, cf1, cf2, x, z, p, nb,
+                                      bytes16, x16);
 }
 
 template <int KC>

@@ -35,6 +35,9 @@
 // them (fp::pick: the same float as decoding at every sample); cp.async
 // double buffering of 32-byte chunks (fp::stage_chunk); the per-KC launch
 // table.
+// V2 and V4 instantiate B1's own loop (b1::body in b1_tile.cuh, which
+// crossprod_v2.cu instantiates as B1), V2 at B1's own tile (b1::Tile),
+// so neither can drift from B1.
 // * V2 is B1 with the other decode: B1's kernel, its tile at every KC
 //   (the sum in shared memory, err in registers), and only the row
 //   values' arithmetic changed.  Since a sample's w is picked, that
@@ -74,10 +77,10 @@
 // compensation alone; V1 at KC = 16, the sweep's width, takes the fastest
 // shape tried there (4 rows x 4 columns a thread, 128 rows a block; how
 // many planes are unrolled made no difference beyond the run-to-run
-// spread); its other KCs are untimed.  V2 takes B1's tile at every KC and
-// has no macro: it is not tiled apart from B1.  The tiles tried and their
-// times are in PERF.md.
-#include "common.cuh"
+// spread); its other KCs are untimed.  V2 takes B1's tile (b1::Tile) at
+// every KC and has no macro: it is not tiled apart from B1.  The tiles
+// tried and their times are in PERF.md.
+#include "b1_tile.cuh"
 
 #ifndef CROSSPROD_NOCOMP_TILE_8
 #define CROSSPROD_NOCOMP_TILE_8 2, 8, 768, 0
@@ -108,36 +111,15 @@ namespace {
 
 namespace var2 {
 
-constexpr int CB = fp::kChunkBytes;  // bytes a staged chunk (128 samples)
-constexpr int BSTRIDE = CB + 16;     // byte-tile row stride: 12 words
-constexpr int B1_TM = 128;           // SNP rows a block of B1's, V4's
+using b1::BSTRIDE;
+using b1::CB;
+using b1::Shape;
+using b1::Stage;
+using b1::row_values;
+using b1::write_out;
+
 constexpr int HB = 16;               // bytes a V1 fold (64 stacked samples)
 constexpr int WSTRIDE = 4 * HB + 4;  // V1's W row stride: 68 floats
-
-template <int TM, int KC>
-using Stage = fp::ChunkStage<TM, BSTRIDE, KC>;
-
-// A thread tile: TM rows a block, R rows and C columns a thread, TPS
-// threads an SM; its threads per block (TM / R row slots x KC / C column
-// groups).
-template <int KC_, int TM_, int R_, int C_, int TPS_>
-struct Shape {
-  static constexpr int KC = KC_, TM = TM_, R = R_, C = C_, TPS = TPS_;
-  static_assert(KC % C == 0 && C % 4 == 0, "C must divide KC, 4 | C");
-  static_assert(TM % (32 * R) == 0, "a warp takes 32 row slots");
-  static constexpr int NT = TM / R * (KC / C);
-  static constexpr int MIN_BLOCKS = TPS / NT > 0 ? TPS / NT : 1;
-  static constexpr int SUMS = R * C * NT * 4;  // running sums in shared
-};
-
-// V4's tile; its dynamic shared memory: two stages and, at SREG = 0, the
-// running sums.
-template <int KC_, int R_, int C_, int TPS_, int SREG_>
-struct NocompShape : Shape<KC_, B1_TM, R_, C_, TPS_> {
-  static constexpr int SREG = SREG_;
-  static constexpr int SMEM = 2 * sizeof(Stage<B1_TM, KC_>)
-      + (SREG ? 0 : Shape<KC_, B1_TM, R_, C_, TPS_>::SUMS);
-};
 
 // V1's tile; its dynamic shared memory: two stages, WBUF decoded tiles,
 // the rows' four values and the running sums.
@@ -151,22 +133,17 @@ struct StackedShape : Shape<KC_, TM_, R_, C_, TPS_> {
       + Shape<KC_, TM_, R_, C_, TPS_>::SUMS;
 };
 
+// V4's tile: B1's loop at R, C, TPS and SREG.
 template <int KC>
 struct NocompTile;
 template <>
-struct NocompTile<8> : NocompShape<8, CROSSPROD_NOCOMP_TILE_8> {};
+struct NocompTile<8> : b1::LoopShape<8, CROSSPROD_NOCOMP_TILE_8> {};
 template <>
-struct NocompTile<16> : NocompShape<16, CROSSPROD_NOCOMP_TILE_16> {};
+struct NocompTile<16> : b1::LoopShape<16, CROSSPROD_NOCOMP_TILE_16> {};
 template <>
-struct NocompTile<24> : NocompShape<24, CROSSPROD_NOCOMP_TILE_24> {};
+struct NocompTile<24> : b1::LoopShape<24, CROSSPROD_NOCOMP_TILE_24> {};
 template <>
-struct NocompTile<32> : NocompShape<32, CROSSPROD_NOCOMP_TILE_32> {};
-
-// V2's tile: B1's (crossprod_v2.cu's Tile<KC>) at every KC, the sum in
-// shared memory.
-template <int KC>
-struct IntsubTile : NocompShape<KC, 2, KC == 24 ? 12 : KC == 32 ? 16 : 8,
-                                KC <= 16 ? 768 : 384, 0> {};
+struct NocompTile<32> : b1::LoopShape<32, CROSSPROD_NOCOMP_TILE_32> {};
 
 template <int KC>
 struct StackedTile;
@@ -179,174 +156,11 @@ struct StackedTile<24> : StackedShape<24, CROSSPROD_STACKED_TILE_24> {};
 template <>
 struct StackedTile<32> : StackedShape<32, CROSSPROD_STACKED_TILE_32> {};
 
-// Row ``gr``'s four decoded values (0 past row p): fp::decode_cubic of
-// the b-coefficients, or with INTSUB fp::decode_intsub of the g ones.
-template <bool INTSUB = false>
-__device__ __forceinline__ void row_values(long long gr, long long p,
-                                           const float* __restrict__ cf0,
-                                           const float* __restrict__ cf1,
-                                           const float* __restrict__ cf2,
-                                           float (&t)[4]) {
-  const bool live = gr < p;
-  const float b0 = live ? cf0[gr] : 0.0f;
-  const float b1 = live ? cf1[gr] : 0.0f;
-  const float b2 = live ? cf2[gr] : 0.0f;
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    t[c] = INTSUB ? fp::decode_intsub(static_cast<uint32_t>(c), b0, b1, b2)
-                  : fp::decode_cubic(static_cast<uint32_t>(c), b0, b1, b2);
-}
-
 __device__ __forceinline__ float lane(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-// z rows slot + i * SLOTS, columns cg * C + [0, C): sum(i, c) + err(i, c).
-template <int KC, int R, int C, int SLOTS, typename Sum, typename Err>
-__device__ __forceinline__ void write_out(float* __restrict__ z, long long p,
-                                          long long row0, int slot, int cg,
-                                          Sum sum, Err err) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const long long row = row0 + slot + i * SLOTS;
-    if (row < p) {
-      float4* out = reinterpret_cast<float4*>(z + row * KC + cg * C);
-#pragma unroll
-      for (int q = 0; q < C / 4; ++q)
-        out[q] = make_float4(err(sum(i, 4 * q + 0), i, 4 * q + 0),
-                             err(sum(i, 4 * q + 1), i, 4 * q + 1),
-                             err(sum(i, 4 * q + 2), i, 4 * q + 2),
-                             err(sum(i, 4 * q + 3), i, 4 * q + 3));
-    }
-  }
-}
-
 // ---- V2 and V4: B1's kernel with one thing changed --------------------------
-
-// B1's tile loop at tile T: the row values of fp::decode_intsub (INTSUB)
-// or fp::decode_cubic, each chunk's partial folded with TwoSum into (sum,
-// err) (COMP, B1's fold) or added plainly into sum.
-template <int KC, typename T, bool INTSUB, bool COMP>
-__device__ __forceinline__ void b1_tile_body(
-    const uint8_t* __restrict__ packed, const float* __restrict__ cf0,
-    const float* __restrict__ cf1, const float* __restrict__ cf2,
-    const float* __restrict__ x, float* __restrict__ z, long long p,
-    long long nb, bool bytes16, bool x16) {
-  constexpr int TM = T::TM, R = T::R, C = T::C, NT = T::NT;
-  constexpr int SLOTS = TM / R;
-  extern __shared__ __align__(16) unsigned char smem[];
-  Stage<TM, KC>* sg = reinterpret_cast<Stage<TM, KC>*>(smem);
-  // at SREG = 0, sum[i][c] of thread tid at ssum[(i * C + c) * NT + tid]
-  float* ssum = reinterpret_cast<float*>(smem + 2 * sizeof(Stage<TM, KC>));
-
-  const int tid = threadIdx.x;
-  const int slot = tid % SLOTS;
-  const int cg = tid / SLOTS;
-  const long long row0 = static_cast<long long>(blockIdx.x) * TM;
-
-  float tab[R][4];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-    row_values<INTSUB>(row0 + slot + i * SLOTS, p, cf0, cf1, cf2, tab[i]);
-
-  float sum[R][C], err[R][C], acc[R][C];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if constexpr (T::SREG) sum[i][c] = 0.0f;
-      else ssum[(i * C + c) * NT + tid] = 0.0f;
-      err[i][c] = 0.0f;
-      acc[i][c] = 0.0f;
-    }
-  }
-
-  const long long nchunk = (nb + CB - 1) / CB;
-  fp::stage_chunk<TM, BSTRIDE, KC, NT>(sg[0], packed, x, p, nb, row0, 0,
-                                       bytes16, x16, tid);
-  fp::cp_async_commit();
-  for (long long ch = 0; ch < nchunk; ++ch) {
-    // chunk ch has landed for every thread, and every thread is done
-    // with chunk ch - 1, whose buffer the next copies overwrite
-    fp::cp_async_wait_all();
-    __syncthreads();
-    if (ch + 1 < nchunk)
-      fp::stage_chunk<TM, BSTRIDE, KC, NT>(sg[(ch + 1) & 1], packed, x, p,
-                                           nb, row0, (ch + 1) * CB, bytes16,
-                                           x16, tid);
-    fp::cp_async_commit();
-
-    const Stage<TM, KC>& cur = sg[ch & 1];
-#pragma unroll 1
-    for (int h = 0; h < CB / 16; ++h) {
-      uint32_t wd[R][4];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const uint4 words = *reinterpret_cast<const uint4*>(
-            &cur.bytes[slot + i * SLOTS][16 * h]);
-        wd[i][0] = words.x;
-        wd[i][1] = words.y;
-        wd[i][2] = words.z;
-        wd[i][3] = words.w;
-      }
-#pragma unroll
-      for (int jj = 0; jj < 16; ++jj) {
-        const int j = 16 * h + jj;
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          float w[R];
-#pragma unroll
-          for (int i = 0; i < R; ++i)
-            w[i] = fp::pick(wd[i][jj / 4], 8 * (jj % 4) + 2 * s, tab[i]);
-          const float4* xr =
-              reinterpret_cast<const float4*>(&cur.x[s][j][cg * C]);
-#pragma unroll
-          for (int q = 0; q < C / 4; ++q) {
-            const float4 xv = xr[q];
-#pragma unroll
-            for (int i = 0; i < R; ++i) {
-              acc[i][4 * q + 0] = fmaf(w[i], xv.x, acc[i][4 * q + 0]);
-              acc[i][4 * q + 1] = fmaf(w[i], xv.y, acc[i][4 * q + 1]);
-              acc[i][4 * q + 2] = fmaf(w[i], xv.z, acc[i][4 * q + 2]);
-              acc[i][4 * q + 3] = fmaf(w[i], xv.w, acc[i][4 * q + 3]);
-            }
-          }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int o = (i * C + c) * NT + tid;
-        float s;
-        if constexpr (T::SREG) s = sum[i][c];
-        else s = ssum[o];
-        float t = __fadd_rn(s, acc[i][c]);
-        if constexpr (COMP) {
-          float e;
-          fp::two_sum(s, acc[i][c], t, e);
-          err[i][c] = __fadd_rn(err[i][c], e);
-        }
-        if constexpr (T::SREG) sum[i][c] = t;
-        else ssum[o] = t;
-        acc[i][c] = 0.0f;
-      }
-    }
-  }
-
-  write_out<KC, R, C, SLOTS>(
-      z, p, row0, slot, cg,
-      [&](int i, int c) {
-        if constexpr (T::SREG) return sum[i][c];
-        else return ssum[(i * C + c) * NT + tid];
-      },
-      [&](float s, int i, int c) {
-        if constexpr (COMP) return __fadd_rn(s, err[i][c]);
-        else return s;
-      });
-}
 
 // V4: B1 without the compensation.
 template <int KC>
@@ -358,22 +172,22 @@ nocomp_tile_kernel(const uint8_t* __restrict__ packed,
                    const float* __restrict__ cf2,
                    const float* __restrict__ x, float* __restrict__ z,
                    long long p, long long nb, bool bytes16, bool x16) {
-  b1_tile_body<KC, NocompTile<KC>, false, false>(packed, cf0, cf1, cf2, x, z,
-                                                 p, nb, bytes16, x16);
+  b1::body<KC, NocompTile<KC>, false, false>(packed, cf0, cf1, cf2, x, z, p,
+                                            nb, bytes16, x16);
 }
 
 // V2: B1 with the integer (t - 1) shift; cf0..cf2 hold g0..g2.
 template <int KC>
-__global__ void __launch_bounds__(IntsubTile<KC>::NT,
-                                  IntsubTile<KC>::MIN_BLOCKS)
+__global__ void __launch_bounds__(b1::Tile<KC>::NT,
+                                  b1::Tile<KC>::MIN_BLOCKS)
 intsub_tile_kernel(const uint8_t* __restrict__ packed,
                    const float* __restrict__ g0,
                    const float* __restrict__ g1,
                    const float* __restrict__ g2,
                    const float* __restrict__ x, float* __restrict__ z,
                    long long p, long long nb, bool bytes16, bool x16) {
-  b1_tile_body<KC, IntsubTile<KC>, true, true>(packed, g0, g1, g2, x, z, p,
-                                               nb, bytes16, x16);
+  b1::body<KC, b1::Tile<KC>, true, true>(packed, g0, g1, g2, x, z, p, nb,
+                                         bytes16, x16);
 }
 
 // ---- V1: decode once a block, then one contraction over the stacked
@@ -577,7 +391,7 @@ int start_stacked(const Args& a, cudaStream_t st) {
 
 template <int KC>
 int start_intsub(const Args& a, cudaStream_t st) {
-  using T = IntsubTile<KC>;
+  using T = b1::Tile<KC>;
   return start(intsub_tile_kernel<KC>, T::TM, T::NT, T::SMEM, a, st);
 }
 

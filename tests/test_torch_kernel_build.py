@@ -201,8 +201,32 @@ def test_v1_and_v4_are_built_from_their_new_source():
     assert "::_crossprod_kernel_nocomp" in new
     assert "2*KC*p*n4 operations" in new
     assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
-    # B1's source is not the variants': the redesigns copy from it
+    # B1's source is not the variants': both include B1's loop instead
     assert "crossprod_v2.cu" not in re.findall(r'#include "([^"]+)"', new)
+
+
+def test_v2_and_v4_instantiate_b1s_own_loop():
+    """B1's tile and chunk loop are one copy, b1_tile.cuh, which the
+    build hash covers: B1 instantiates it with the cubic decode and the
+    TwoSum fold, V2 at B1's own tile with the intsub decode, V4 without
+    the fold; neither source holds a loop of its own."""
+    assert "b1_tile.cuh" in _build.HEADERS
+    texts = {}
+    for src in ("crossprod_v2.cu", "crossprod_variants_v2.cu"):
+        with open(os.path.join(_build.CSRC, src)) as fh:
+            texts[src] = fh.read()
+        assert "b1_tile.cuh" in re.findall(r'#include "([^"]+)"', texts[src])
+    assert "b1::body<KC, Tile<KC>, false, true>" in texts["crossprod_v2.cu"]
+    assert "using Tile = b1::Tile<KC>;" in texts["crossprod_v2.cu"]
+    var = texts["crossprod_variants_v2.cu"]
+    assert "b1::body<KC, b1::Tile<KC>, true, true>" in var
+    assert "b1::body<KC, NocompTile<KC>, false, false>" in var
+    assert "fp::two_sum" not in texts["crossprod_v2.cu"]
+    with open(os.path.join(_build.CSRC, "b1_tile.cuh")) as fh:
+        shared = fh.read()
+    assert "fp::two_sum(s, acc[i][c], t, e);" in shared
+    assert "struct Tile : LoopShape<KC, 2, KC == 24 ? 12 : KC == 32 ? 16 : 8," \
+        in shared
 
 
 def test_v3_is_built_from_its_new_source():
@@ -480,10 +504,11 @@ def test_chip_smoke_requires_variant_equal():
 def test_chip_smoke_sweep_phase_rows_and_bit_equality(monkeypatch):
     """The sweep phase on the CPU with the tool's run stubbed: a row for
     each variant and for its first design (marked first, 0 launches on
-    the main path, beside B1's time and the difference), V3's bound from
-    its SASS count and its first design's from its 9 instructions a
-    genotype, and a failure when a redesign is not bit-equal at the
-    sweep's shape."""
+    the main path, beside B1's time and the difference), V3's bound and
+    its first design's from the work the function needs, each design's
+    own CUDA-core count beside it (V3's from its SASS, the first
+    design's 9 instructions a genotype), and a failure when a redesign is
+    not bit-equal at the sweep's shape."""
     from flashpca_tpu_torch.kernels import crossprod_variants as cv
     from flashpca_tpu_torch.tools import kernel_sweep as ks
 
@@ -514,10 +539,18 @@ def test_chip_smoke_sweep_phase_rows_and_bit_equality(monkeypatch):
     assert [r["name"] for r in rows] == list(names)
     by = {r["name"]: r for r in rows}
     n4 = 4 * ((203 + 3) // 4)
-    for name, ops in (("crossprod_split3", 2.5), ("crossprod_split3_v1", 9)):
-        assert by[name]["ops_per_genotype"] == ops
-        assert by[name]["bound_ms"] >= (ops * 64 * n4 / cs.PEAK_FP32_INSTR
-                                        * 1e3)
+    def own_ms(ops):
+        return ops * 64 * n4 / cs.PEAK_FP32_INSTR * 1e3
+
+    tensor = 3 * 2.0 * 16 * 64 * n4 / cs.PEAK_BF16_FLOPS * 1e3
+    needed = 1.875 * 64 * n4 / cs.PEAK_FP32_INSTR * 1e3
+    nbytes = 64 * (n4 // 4) + n4 * 16 * 4 + 3 * 64 * 4 + 64 * 16 * 4
+    for name, own in (("crossprod_split3", 2.5), ("crossprod_split3_v1", 9)):
+        assert by[name]["ops_per_genotype"] == 1.875
+        assert by[name]["own_ops_per_genotype"] == own
+        assert by[name]["own_ops_ms"] == pytest.approx(own_ms(own))
+        assert by[name]["bound_ms"] == pytest.approx(
+            max(tensor, needed, nbytes / cs.PEAK_BYTES_S * 1e3))
     assert "ops_per_genotype" not in by["crossprod_intsub"]
     for r in rows:
         assert r["launches"] == 2 and r["main_path_launches"] == 0
@@ -602,6 +635,41 @@ def test_chip_smoke_reads_v3s_loop_by_its_hmma():
                           "FFMA": 2, "BRA": 1}
     # 6 HMMA at kc=16: 6 x 64 / 48 = 8 genotypes; 6 other instructions
     assert cs.split3_ops_per_genotype(loop, 16) == 6 / 8
+
+
+def test_v3s_bound_counts_the_work_its_function_needs():
+    """V3's bound counts the pick (one byte permute a genotype: a 32-bit
+    A register holds two genotypes, hi and lo one permute each) and the
+    TwoSum fold every 128 samples (7 adds a column), not the shipped
+    loop's selectors, addresses and loads; at the sweep's shape the
+    tensor-core products bound it."""
+    cs = _chip_smoke()
+    assert cs.split3_needed_ops_per_genotype(16) == 1.875
+    assert cs.split3_needed_ops_per_genotype(32) == 2.75
+    p, n4 = 100_352, 501_760
+    tensor = cs.SPLIT3_BF16_DOTS * 2.0 * 16 * p * n4 / cs.PEAK_BF16_FLOPS
+    needed = 1.875 * p * n4 / cs.PEAK_FP32_INSTR
+    assert tensor * 1e3 == pytest.approx(4.89, abs=0.01)
+    assert needed * 1e3 == pytest.approx(2.82, abs=0.01)
+    assert cs.SPLIT3_OPS_PER_GENOTYPE * p * n4 / cs.PEAK_FP32_INSTR > tensor
+
+
+def test_chip_smoke_holds_v2s_loop_to_b1s():
+    """The smoke fails unless V2's inner loop at kc 16 has B1's length
+    and FFMA count (both instantiate b1_tile.cuh's loop)."""
+    cs = _chip_smoke()
+    assert cs.SAME_LOOP == ("crossprod_tile_kernel<16>",
+                            "intsub_tile_kernel<16>")
+    assert cs.sass_read(cs.SAME_LOOP[0]) and cs.sass_read(cs.SAME_LOOP[1])
+    b1 = {"ffma": 1024, "instructions": 1605, "ffma_share": 0.638}
+    cs.require_same_loop({cs.SAME_LOOP[0]: b1, cs.SAME_LOOP[1]: dict(b1)},
+                         *cs.SAME_LOOP)
+    for bad in ({cs.SAME_LOOP[0]: b1},
+                {cs.SAME_LOOP[0]: b1,
+                 cs.SAME_LOOP[1]: dict(b1, instructions=1606)},
+                {cs.SAME_LOOP[0]: b1, cs.SAME_LOOP[1]: dict(b1, ffma=1023)}):
+        with pytest.raises(AssertionError, match="intsub_tile_kernel<16>"):
+            cs.require_same_loop(bad, *cs.SAME_LOOP)
 
 
 def test_chip_smoke_names_b1s_instantiations():
