@@ -34,9 +34,20 @@ Phases, all in this one process; any failure raises and exits nonzero:
    1.5e-7 of float64, which the plain float32 gram (B2, mask, B1) must
    miss at the tall width (the gram with B5 at CR = 128 is measured
    against float64 beside it);
-4. a mid-size PLINK fileset (8,001 x 4,096, written by the port's
+4. the streaming operator (StreamingPackedOperator): the bytes of a
+   full-width slice (4,096 SNPs in eleven blocks at ``memory_mb=98``) and
+   of the small odd case (nine blocks), generated on the card, copied to
+   the host and streamed back with the prefetch worker on and off and
+   with three blocks cached; three back-to-back products of each kind
+   (the plain gram at kc 16, ``crossprod``, ``prod``, the two-float
+   gram at kc 24), no synchronisation between them, each torch.equal to
+   the same blocks' products summed in the same order from the bytes
+   held whole, and ``crossprod`` to B1 on all of them;
+   a mid-size PLINK fileset (8,001 x 4,096, written by the port's
    write_bed) through ``pca(root, 10)`` and ``check()``, against a
-   float64 dense eigendecomposition;
+   float64 dense eigendecomposition, and then streamed from its .bed
+   memmap (``streaming=True, memory_mb=1``): eigenvalues within 2e-6
+   relative of the resident run, check mse < 1e-8;
 5. the wide headline: structured genotypes 501,760 x 100,352 generated
    on the card (12.6 GB packed, never decoded whole), ``pca(op, 20)``
    with ``polish="contract"`` at float32, then ``check(op, U, d)``; the
@@ -46,7 +57,21 @@ Phases, all in this one process; any failure raises and exits nonzero:
    B3/B4 at 24) beside their bounds, their plain versions and the
    torch.matmul calls on the same block decoded to float32, and B1 (kc
    16), B2 (kc 16 and 24), B3 (kc 24) and B4 (kc 24) beside their first
-   designs in turns;
+   designs in turns; then the same bytes, copied to the host and the
+   resident operator freed, streamed under ``memory_mb=2048`` (the
+   reference's "2GB": twelve blocks of up to 8,559 SNPs, no cache): a
+   staging trial (gram passes with the prefetch worker on and off, in
+   turns) and the link's rate on one block, then ``pca(op, 20)`` and
+   ``check()`` (counts reset just before, read just after: B1-B4 must
+   have run, no first design) held to the resident run -- check mse <
+   1e-8, eigenvalues within 2e-6 relative, every vector's |cos| >= 1 -
+   1e-6 (in a cluster of pairs closer than BULK_BAR of the largest,
+   which a float32 solve does not resolve one by one, its cluster's
+   span may hold it instead), the packed bytes on the card within
+   2048 MiB -- with the
+   staging seconds, the packed GB/s, the kernels' busy share and their
+   per-launch medians on the blocks; then B1-B4 timed on one block held
+   resident;
 6. the kernel sweep (flashpca_tpu_torch.tools.kernel_sweep) at the wide
    headline's shape, 100,352 x 501,760, k=16, after the headline's
    operator is freed: V1-V4 and their first designs against B1 on a
@@ -83,7 +108,9 @@ launch of a first design or comparison entry on either main path.  The
 line before the last is the JSON ``{"kernels": [...]}`` (B1-B5 at the
 widths the headlines launch and B4 at the tall bytes' kc 24, the first
 designs of B1-B5 from the timing phases, V1-V4 and their first designs
-from the sweep); the last
+from the sweep, B1-B4 at the streamed block's shape with ``"path":
+"streaming"``), with a ``streaming`` entry (the streamed path's launches
+and per-launch medians); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside it, the script exits nonzero and prints no
 result.
@@ -783,6 +810,7 @@ def mid_size(dev, workdir, n=8001, p=4096, k=10, seed=5):
 
     from flashpca_tpu_torch import PlinkDataset, check, pca
     from flashpca_tpu_torch.io.plink import write_bed
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
     from flashpca_tpu_torch.ops.genotypes import dense_standardized_np
 
     rng = np.random.default_rng(seed)
@@ -839,10 +867,193 @@ def mid_size(dev, workdir, n=8001, p=4096, k=10, seed=5):
         raise AssertionError(f"mid-size: vector RMSE {rmse.max():.2e}")
     if not chk.mse < 1e-8:
         raise AssertionError(f"mid-size: check mse {chk.mse:.3e}")
+
+    # the same fileset streamed from its .bed memmap, 1 MB of device
+    # block buffers: held to the resident run of this phase
+    tpk.reset_launch_counts()
+    t0 = time.time()
+    res_s = pca(root, k, device=dev, streaming=True, memory_mb=1)
+    sync()
+    t_stream = time.time() - t0
+    chk_s = check(ds, res_s.vectors, res_s.values, device=dev,
+                  streaming=True, memory_mb=1)
+    launches = dict(tpk.launch_counts)
+    rel_s = np.abs(res_s.values - res.values) / res.values
+    say(f"   streamed (memory_mb=1): {t_stream:.2f} s, n_ops "
+        f"{res_s.n_ops}, gate mse {res_s.gate_mse}, check mse "
+        f"{chk_s.mse:.3e}; eigenvalues vs resident rel err max "
+        f"{rel_s.max():.2e}")
+    require_launched(launches, WIDE_PATH, "mid-size streamed path")
+    require_no_first_design(launches, "mid-size streamed path")
+    if not rel_s.max() <= 2e-6:
+        raise AssertionError(f"mid-size streamed: eigenvalues {rel_s.max():.2e}"
+                             " relative off the resident run")
+    if not chk_s.mse < 1e-8:
+        raise AssertionError(f"mid-size streamed: check mse {chk_s.mse:.3e}")
     return {"n_ops": res.n_ops, "check_mse": chk.mse, "pca_s": t_pca,
             "eig_rel_err": float(rel.max()),
             "eig_err_of_largest": float(rel_norm.max()),
-            "vec_rmse": float(rmse.max())}
+            "vec_rmse": float(rmse.max()),
+            "streamed": {"pca_s": t_stream, "n_ops": res_s.n_ops,
+                         "gate_mse": res_s.gate_mse, "check_mse": chk_s.mse,
+                         "eig_rel_err_vs_resident": float(rel_s.max()),
+                         "launches": {nm: launches[nm] for nm in WIDE_PATH}}}
+
+
+# ---------------------------------------------------------------------------
+# Streaming: the wide operator with its bytes on the host
+# ---------------------------------------------------------------------------
+
+# streamed same-order cases (label, SNPs, samples, seed, block geometry):
+# a full-width slice in eleven blocks of 409 rows at memory_mb=98 (the
+# last block 6 rows), and a small odd case (nb % 16 != 0) in nine blocks
+STREAM_CASES = (("full width 4096 x 501760", 4096, 501_760, 24,
+                 {"memory_mb": 98}),
+                ("odd 333 x 1001", 333, 1001, 25, {"block_snps": 40}))
+# the staging configurations each case runs: (prefetch, blocks cached)
+STREAM_CONFIGS = ((True, 0), (False, 0), (True, 3))
+# the streamed headline: the reference's "2GB" (flashpca README)
+STREAM_MEMORY_MB = 2048
+
+
+def same_order_streamed(op, P, seed):
+    """Three back-to-back products of each kind through the streaming
+    operator ``op``, with no synchronisation between them -- the plain
+    gram at kc 16, ``crossprod``, ``prod`` and the two-float gram at kc
+    24 -- each ``torch.equal`` to the same blocks' products summed in the
+    same order from the row slices of ``P``, the same bytes held whole
+    (the plain gram as B2 of B1 per block, the two-float one as the
+    TwoSum fold of B3 then B4 per block); on the card ``crossprod`` also
+    to B1 on all of ``P``.  Returns the number of products checked."""
+    import torch
+
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+    from flashpca_tpu_torch.ops.compensated import twosum
+    from flashpca_tpu_torch.ops.genotypes import (permute_samples,
+                                                  unpermute_samples)
+
+    dev = P.device
+    m, iv = op.mean, op.invsd
+    lh, ll = op._ff_luts()
+    v = op._valid[:, None]
+    rows = [op._bounds(i) for i in range(op.n_blocks)]
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(r, k):
+        return [torch.randn((r, k), generator=g, device=dev) for _ in range(3)]
+
+    ins = {"gram": draw(op.n4, 16), "crossprod": draw(op.n_samples, 16),
+           "prod": draw(op.n_snps, 16), "gram_ff": draw(op.n4, 24)}
+    # the products, back to back
+    outs = {"gram": [op.gram_permuted(x) for x in ins["gram"]],
+            "crossprod": [op.crossprod(x) for x in ins["crossprod"]],
+            "prod": [op.prod(w) for w in ins["prod"]],
+            "gram_ff": [op.gram_ff_permuted(x) for x in ins["gram_ff"]]}
+
+    def gram(x):
+        x = x * v
+        acc = torch.zeros_like(x)
+        for lo, hi in rows:
+            z = tpk.crossprod_p(P[lo:hi], m[lo:hi], iv[lo:hi], x)
+            acc = acc + tpk.matvec_p(P[lo:hi], m[lo:hi], iv[lo:hi], z)
+        return acc * v
+
+    def cross(x):
+        xp = permute_samples(x, op.nbytes) * v
+        return (torch.cat([tpk.crossprod_p(P[lo:hi], m[lo:hi], iv[lo:hi], xp)
+                           for lo, hi in rows]),
+                tpk.crossprod_p(P, m, iv, xp))
+
+    def prod(w):
+        acc = torch.zeros((op.n4, w.shape[1]), device=dev)
+        for lo, hi in rows:
+            acc = acc + tpk.matvec_p(P[lo:hi], m[lo:hi], iv[lo:hi], w[lo:hi])
+        return unpermute_samples(acc * v, op.n_samples)
+
+    def gram_ff(x):
+        x = x * v
+        y_hi, y_err = torch.zeros_like(x), torch.zeros_like(x)
+        for lo, hi in rows:
+            t_hi, t_err = tpk.gram_ff_p(P[lo:hi], lh[lo:hi], ll[lo:hi], x)
+            y_hi, e = twosum(y_hi, t_hi)
+            y_err = y_err + e + t_err
+        return y_hi * v, y_err * v
+
+    def require_equal(what, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"streamed {what}: not bit-equal to its same-order "
+                f"reference (max diff {float((got - want).abs().max()):.3e})")
+
+    for i in range(3):
+        require_equal(f"gram #{i}", outs["gram"][i], gram(ins["gram"][i]))
+        blocks, whole = cross(ins["crossprod"][i])
+        require_equal(f"crossprod #{i}", outs["crossprod"][i], blocks)
+        if dev.type == "cuda":
+            # B1's row sums do not depend on the rows around them (the
+            # plain version's byte chunks do: they follow the row count)
+            require_equal(f"crossprod #{i} (resident B1)",
+                          outs["crossprod"][i], whole)
+        require_equal(f"prod #{i}", outs["prod"][i], prod(ins["prod"][i]))
+        for half, a, b in zip(("y_hi", "y_err"), outs["gram_ff"][i],
+                              gram_ff(ins["gram_ff"][i])):
+            require_equal(f"gram_ff #{i} {half}", a, b)
+    return 3 * len(outs)
+
+
+def check_streamed(dev, cases=STREAM_CASES, **op_kw):
+    """Smoke phase: for each case, the bytes generated on the card, copied
+    to the host and streamed back by a StreamingPackedOperator in each
+    staging configuration (prefetch on and off with no block cached, and
+    three blocks cached), every product bit-equal to its same-order
+    reference (:func:`same_order_streamed`); the blocks staged and the
+    device bytes held as the configuration says.  ``op_kw`` goes to the
+    operators (a CPU rehearsal passes float32 and ``use_kernels=True``,
+    whose plain versions stand in for the kernels).  Returns a
+    summary."""
+    import torch
+
+    from flashpca_tpu_torch import StreamingPackedOperator
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    out = {}
+    for label, p, n, seed, geometry in cases:
+        packed, mean, sd, _ = card_data(dev, n, p, seed)
+        host = packed.cpu().numpy()
+        for prefetch, n_cached in STREAM_CONFIGS:
+            op = StreamingPackedOperator(host, mean, sd, n, device=dev,
+                                         cache_mb=0, prefetch=prefetch,
+                                         **geometry, **op_kw)
+            op._n_cached = n_cached
+            tpk.reset_launch_counts()
+            products = same_order_streamed(op, packed, seed + 100)
+            launches = dict(tpk.launch_counts)
+            st = op.stats()
+            # every product (and no reference) staged the uncached blocks
+            want = op.n_blocks + (products - 1) * (op.n_blocks - n_cached)
+            bound = (2 + n_cached) * st["block_bytes"]
+            say(f"   {label}, prefetch {prefetch}, {n_cached} cached: "
+                f"{op.n_blocks} blocks of {op.block_snps} rows, {products} "
+                f"products bit-equal; staged {st['staged_host_blocks']} "
+                f"blocks, device bytes {st['device_bytes']}, fill "
+                f"{st['fill_s']:.3f} s, wait {st['wait_s']:.3f} s")
+            if st["staged_host_blocks"] != want or st["nops"] != products:
+                raise AssertionError(
+                    f"streamed {label}: staged {st['staged_host_blocks']} "
+                    f"blocks in {st['nops']} products, not {want} in "
+                    f"{products}")
+            if dev.type == "cuda" and not 0 < st["device_bytes"] <= bound:
+                raise AssertionError(
+                    f"streamed {label}: {st['device_bytes']} device bytes, "
+                    f"bound {bound}")
+            require_launched(launches, WIDE_PATH, f"streamed {label}")
+            require_no_first_design(launches, f"streamed {label}")
+            op.close()
+            out[f"{label}/{int(prefetch)}/{n_cached}"] = {
+                "n_blocks": op.n_blocks, "block_snps": op.block_snps,
+                "products": products, **st}
+        del packed, host
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -994,7 +1205,209 @@ def headline(dev, n, p, k, seed=7):
     out.update(n_ops=res.n_ops, n_restarts=res.n_restarts,
                gate_mse=res.gate_mse, check_mse=chk.mse,
                launches=launches, launch_ms=launch_ms)
-    return op, out
+    return op, out, res
+
+
+def twin_cosines(U, U_r, d_r, near):
+    """Each vector of ``U`` against its twin in ``U_r`` (columns in the
+    order of the eigenvalues ``d_r``, descending): |cos| of the pair,
+    and the value a bar holds -- that |cos|, or, for a vector whose
+    eigenvalue lies within ``near`` of a neighbour's (a cluster that a
+    float32 solve does not resolve pair by pair), the cosine of the
+    largest principal angle between the cluster's span in ``U`` and in
+    ``U_r``.  Returns (|cos|, held, clusters of two or more)."""
+    U = U / np.linalg.norm(U, axis=0)
+    U_r = U_r / np.linalg.norm(U_r, axis=0)
+    cos = np.abs(np.sum(U * U_r, axis=0))
+    held = cos.copy()
+    clusters, start = [], 0
+    for j in range(1, len(d_r) + 1):
+        if j == len(d_r) or d_r[j - 1] - d_r[j] > near:
+            if j - start > 1:
+                c = list(range(start, j))
+                held[c] = np.linalg.svd(U_r[:, c].T @ U[:, c],
+                                        compute_uv=False).min()
+                clusters.append(c)
+            start = j
+    return cos, held, clusters
+
+
+def streamed_headline(dev, host, center, scale, sumsq, resident, worst,
+                      resident_launch_ms, memory_mb=STREAM_MEMORY_MB):
+    """The reference's headline job under its 2 GB bound: the headline's
+    bytes, copied to the host after the resident phase, streamed by a
+    StreamingPackedOperator with two device block buffers of
+    ``memory_mb`` MB in all and no block cache.  First a staging trial
+    (plain gram passes at kc 16 with the prefetch worker on, off, off,
+    on, after a warm-up pass) and the link's rate on one block; then the main path, counts set
+    to 0 just before ``pca(op, k)`` and read just after ``check()``,
+    held to the resident run ``resident`` (its PCAResult): check mse <
+    1e-8, eigenvalues within 2e-6 relative, every vector's |cos| with
+    its resident twin >= 1 - 1e-6 -- or, for a vector of a cluster that
+    a float32 solve does not resolve pair by pair, the cluster's span
+    (:func:`twin_cosines`) -- the packed bytes on the device within
+    ``memory_mb``, B1-B4 launched and no first design.  Then B1-B4 timed
+    on one resident block of the streamed shape.  Returns (the kernels
+    rows of the block shape, a summary)."""
+    import torch
+
+    from flashpca_tpu_torch import PackedOperator, StreamingPackedOperator
+    from flashpca_tpu_torch import check, pca
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    n, k = resident.vectors.shape
+    op = StreamingPackedOperator(host, center, scale, n, memory_mb=memory_mb,
+                                 cache_mb=0, device=dev, snp_sumsq=sumsq)
+    st = op.stats()
+    say(f"   {op.n_blocks} blocks of {op.block_snps} SNPs "
+        f"({st['block_bytes'] / 1e9:.3f} GB each) of "
+        f"{st['packed_bytes'] / 1e9:.2f} GB on the host, prefetch "
+        f"default {op._prefetch}")
+    out = {"memory_mb": memory_mb, "n_blocks": op.n_blocks,
+           "block_snps": op.block_snps, "block_bytes": st["block_bytes"],
+           "prefetch": op._prefetch}
+
+    # staging trial: one plain gram pass at kc 16 per turn, after one
+    # that allocates the staging buffers
+    default = op._prefetch
+    x = torch.randn((op.n4, 16), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(93))
+    trial = {}
+    with Phase("streamed gram passes, prefetch on / off in turns"):
+        op.gram_permuted(x)
+        for pf in (True, False, False, True):
+            op._prefetch = pf
+            op.reset_stats()
+            sync()
+            t0 = time.perf_counter()
+            op.gram_permuted(x)
+            sync()
+            s = op.stats()
+            row = {"wall_s": time.perf_counter() - t0,
+                   **{key: s[key] for key in ("fill_s", "put_s", "sync_s",
+                                              "wait_s")}}
+            trial.setdefault(f"prefetch_{pf}", []).append(row)
+            say(f"   prefetch {pf}: pass {row['wall_s']:.3f} s, "
+                + ", ".join(f"{key} {row[key]:.3f}" for key in
+                            ("fill_s", "put_s", "sync_s", "wait_s"))
+                + f"; {s['staged_bytes'] / row['wall_s'] / 1e9:.2f} packed "
+                "GB/s")
+        op._prefetch = default
+        # the link alone: one block, pinned host buffer to device buffer
+        link_ms = event_ms(lambda: op._dev[0].copy_(op._host[0],
+                                                    non_blocking=True), 3)
+        out["link_gb_s"] = st["block_bytes"] / link_ms / 1e6
+        say(f"   one block host to device: {link_ms:.2f} ms, "
+            f"{out['link_gb_s']:.2f} GB/s")
+    out["prefetch_trial"] = trial
+    del x
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    op.reset_stats()
+    # the streamed path: counts set to 0 just before pca(), read just
+    # after check(); B1-B4 must have launched
+    tpk.reset_launch_counts()
+    with tpk.time_launches() as log:
+        with Phase(f"streamed pca(op, {k}) polish='contract' float32, "
+                   f"memory_mb={memory_mb}") as ph:
+            res = pca(op, k)
+        out["pca_s"] = ph.seconds
+        with Phase("streamed check(op, U, d)") as ph:
+            chk = check(op, res.vectors, res.values)
+        out["check_s"] = ph.seconds
+    launches = dict(tpk.launch_counts)
+    sync()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    st = op.stats()
+    wall = out["pca_s"] + out["check_s"]
+    passes = st["staged_host_blocks"] / op.n_blocks
+    busy = sum(a.elapsed_time(b) for _, _, a, b in log) / 1e3
+    launch_ms = launch_medians(log)
+    d, d_r = res.values, resident.values
+    rel = np.abs(d - d_r) / d_r
+    # pairs closer than the float32 paths resolve one by one (BULK_BAR
+    # of the largest: the float32 bulk pairs' distance from float64 at
+    # the tall headline) are held by their cluster's span
+    cos, held, clusters = twin_cosines(res.vectors, resident.vectors, d_r,
+                                       BULK_BAR * d_r[0])
+    say(f"   n_ops {res.n_ops}, n_restarts {res.n_restarts}, contract gate "
+        f"mse {res.gate_mse!r}, check mse {chk.mse!r}, converged "
+        f"{res.converged}")
+    say(f"   pca wall {out['pca_s']:.2f} s, check wall {out['check_s']:.2f} "
+        f"s, peak device memory {out['peak_gb']:.2f} GB, packed bytes on "
+        f"the device {st['device_bytes']} (bound {memory_mb << 20})")
+    say(f"   {passes:.0f} passes, {st['staged_bytes'] / 1e9:.2f} GB streamed,"
+        f" {st['staged_bytes'] / wall / 1e9:.2f} packed GB/s over the walls;"
+        f" per pass fill {st['fill_s'] / passes:.3f} s ("
+        f"{st['staged_bytes'] / st['fill_s'] / 1e9:.2f} GB/s), put "
+        f"{st['put_s'] / passes:.3f} s, sync {st['sync_s'] / passes:.3f} s,"
+        f" wait {st['wait_s'] / passes:.3f} s; kernels busy {busy:.2f} s "
+        f"({busy / wall:.1%} of the walls)")
+    say("   per-launch medians beside the resident headline's: "
+        + ", ".join(f"{key} {ms:.2f} ({resident_launch_ms.get(key, 0):.2f})"
+                    for key, ms in sorted(launch_ms.items())))
+    say("   eigenvalues vs resident, relative: "
+        + " ".join(f"{e:.1e}" for e in rel))
+    say("   d_resident " + " ".join(f"{x:.6f}" for x in d_r))
+    say("   gaps to the next, of the largest: "
+        + " ".join(f"{g:.1e}" for g in -np.diff(d_r) / d_r[0]))
+    say("   |cos| with the resident vectors: "
+        + " ".join(f"{c:.8f}" for c in cos))
+    say(f"   clusters within {BULK_BAR} of the largest: {clusters}; "
+        "|cos|, or the cluster's largest principal angle's cosine: "
+        + " ".join(f"{c:.8f}" for c in held))
+    out.update(n_ops=res.n_ops, n_restarts=res.n_restarts,
+               gate_mse=res.gate_mse, check_mse=chk.mse, stats=st,
+               passes=passes, streamed_gb=st["staged_bytes"] / 1e9,
+               packed_gb_s=st["staged_bytes"] / wall / 1e9,
+               fill_gb_s=st["staged_bytes"] / st["fill_s"] / 1e9,
+               kernel_busy_s=busy, busy_share=busy / wall,
+               launches={nm: launches[nm] for nm in WIDE_PATH},
+               launch_ms=launch_ms,
+               eig_rel_err_vs_resident=float(rel.max()),
+               min_abs_cos=float(cos.min()),
+               held_by_span=np.flatnonzero(cos < 1 - 1e-6).tolist(),
+               min_span_cos=float(held.min()), clusters=clusters)
+    require_launched(launches, WIDE_PATH, "streamed headline")
+    require_no_first_design(launches, "streamed headline")
+    if not (res.vectors.shape == (n, k) and np.isfinite(res.vectors).all()
+            and np.isfinite(res.values).all()):
+        raise AssertionError("streamed headline: non-finite or misshapen "
+                             "result")
+    if not chk.mse < 1e-8:
+        raise AssertionError(f"streamed headline: check mse {chk.mse:.3e}")
+    if not rel.max() <= 2e-6:
+        raise AssertionError(f"streamed headline: eigenvalues "
+                             f"{rel.max():.2e} relative off the resident run")
+    bad = (cos < 1 - 1e-6) & (held < 1 - 1e-6)
+    if bad.any():
+        raise AssertionError(
+            f"streamed headline: vectors {np.flatnonzero(bad)} off the "
+            f"resident ones (|cos| {cos[bad]}, their clusters' spans "
+            f"{held[bad]})")
+    if dev.type == "cuda" and not 0 < st["device_bytes"] <= memory_mb << 20:
+        raise AssertionError(f"streamed headline: {st['device_bytes']} "
+                             f"packed bytes on the device, bound {memory_mb} "
+                             "MiB")
+    bs = op.block_snps
+    op.close()
+    del op
+    torch.cuda.empty_cache()
+
+    # B1-B4 at the streamed block's shape, on one block held resident
+    with Phase(f"kernel times on one {bs}-SNP block"):
+        bop = PackedOperator(host[:bs], center[:bs], scale[:bs], n,
+                             device=dev, snp_sumsq=sumsq[:bs])
+        rows = time_kernels(bop, [("crossprod", 16), ("matvec", 16),
+                                  ("crossprod_ff", 24), ("matvec_ff", 24)],
+                            launches, worst, slices=4)
+        del bop
+    for row in rows:
+        row.update(path="streaming",
+                   stream_launch_ms=launch_ms.get(f"{row['name']}/"
+                                                  f"{row['k']}"))
+    return rows, out
 
 
 def f64_reference(top, nev, rows=2048):
@@ -1631,11 +2044,15 @@ def main(argv=None) -> int:
         for name, e in tall_worst.items():
             worst[name] = max(worst.get(name, 0.0), e)
     torch.cuda.empty_cache()
+    with Phase("streamed products against their same-order references"):
+        streamed_checks = check_streamed(dev)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        with Phase("mid-size PLINK fileset against float64 eigh"):
+        with Phase("mid-size PLINK fileset against float64 eigh, resident "
+                   "and streamed"):
             mid = mid_size(dev, tmp)
     torch.cuda.empty_cache()
-    op, head = headline(dev, args.n, args.p, args.k)
+    op, head, head_res = headline(dev, args.n, args.p, args.k)
     torch.cuda.empty_cache()
     with Phase("kernel times at the headline shapes"):
         # B1/B2 at the solver panel and the polish sweeps' width, B3/B4
@@ -1656,7 +2073,16 @@ def main(argv=None) -> int:
         head["launches"], worst)
     b1_library_ms = next(r["library_ms"] for r in kernels
                          if r["name"] == "crossprod" and r["k"] == 16)
+    # the same bytes streamed from the host: the card cannot hold them
+    # twice, so the resident operator goes first
+    with Phase("headline bytes to the host"):
+        host = op.packed.cpu().numpy()
+        center, scale, sumsq = op.center, op.scale, op.snp_sumsq
     del op
+    torch.cuda.empty_cache()
+    stream_rows, stream = streamed_headline(
+        dev, host, center, scale, sumsq, head_res, worst, head["launch_ms"])
+    del host, head_res
     torch.cuda.empty_cache()
     sweep_rows, sweep = kernel_sweep(
         dev, args.p, args.n, worst, b1_library_ms, head["launches"],
@@ -1690,9 +2116,11 @@ def main(argv=None) -> int:
                     "matvec_ff": ("matvec_ff_v1", b4_tall_turns)},
         tall["launches"], worst))
     kernels.extend(sweep_rows)
+    kernels.extend(stream_rows)
     say(json.dumps({"summary": {
         "card": smi, "n": args.n, "p": args.p, "k": args.k,
         "build_s": build_s, "sass_mix": sass_mix, "mid": mid,
+        "streaming": {**stream, "same_order": streamed_checks},
         **{key: val for key, val in head.items()},
         "gram_tall_ff_max_abs_err": worst["gram_tall_ff"],
         "tall_kernels_f64_rel": tall_f64,
@@ -1706,7 +2134,10 @@ def main(argv=None) -> int:
                  "b4_turns_ms": b4_tall_turns},
         "sweep": sweep,
         "total_s": time.time() - t_start}}))
-    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"kernels": kernels, "streaming": {
+        "launches": stream["launches"], "launch_ms": stream["launch_ms"],
+        "block_snps": stream["block_snps"], "n_blocks": stream["n_blocks"],
+        "memory_mb": stream["memory_mb"]}}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

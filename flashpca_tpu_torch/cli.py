@@ -6,8 +6,10 @@ maxiter=500, seed=1, precision=7, suffix=.txt) and output files and
 formats (:755-878) for the two modes this package ports: PCA (the
 default) and ``--check``.  ``--scca``, ``--ucca``, ``--project`` and
 ``--batch`` exit with an error naming the ROADMAP item that ports them,
-as do the JAX CLI's options not ported yet: ``--stream on``, ``--shards``
-above 1, ``--checkpoint-every`` above 0 and ``--profile``.  ``--debug`` is
+as do the JAX CLI's options not ported yet: ``--stream on`` with
+``--opmode tall``, ``--shards`` above 1, ``--checkpoint-every`` above 0
+and ``--profile``.  ``--stream on`` streams the wide operator from the
+host, its two device block buffers bounded by ``--memory``.  ``--debug`` is
 the reference's no-op; ``--outstate``/``--instate`` write and resume the
 JAX package's .npz checkpoint.  ``--device`` (default ``cuda``) selects
 the card or the CPU path.
@@ -34,7 +36,7 @@ NOT_PORTED = {
     "project": "A11 'project()'",
     "batch": "A12 'Dense and matrix inputs'",
     # options of the ported modes
-    "stream on": "A15 'Streaming, wide and tall'",
+    "stream on --opmode tall": "A15 'Streaming, wide and tall', tall half",
     "shards": "A18 'Multi-GPU'",
     "checkpoint-every": "A17 'Checkpoints'",
     "profile": "A10 'Bench script and --profile'",
@@ -98,9 +100,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "ported yet)")
     p.add_argument("--stream", default="auto",
                    choices=["auto", "on", "off"],
-                   help="stream packed genotypes from host per block "
-                        "('on' is not ported yet; 'auto' and 'off' keep "
-                        "the operator on the device)")
+                   help="stream packed genotypes from host per block, "
+                        "two device block buffers of --memory MB in all "
+                        "('auto': when they exceed 0.7 x the card's "
+                        "memory; 'on' is not ported for --opmode tall)")
     p.add_argument("--outstate", metavar="FILE", default=None,
                    help="write an .npz restart checkpoint (the Ritz panel "
                         "after the solve; the JAX package's format)")
@@ -185,7 +188,8 @@ def main(argv=None) -> int:
                         f"yet (ROADMAP {NOT_PORTED[flag]})")
     if unknown:
         return _die("unrecognized arguments: " + " ".join(unknown))
-    for flag, asked in (("stream on", args.stream == "on"),
+    for flag, asked in (("stream on --opmode tall",
+                         args.stream == "on" and args.opmode == "tall"),
                         ("shards", (args.shards or 1) > 1),
                         ("checkpoint-every", args.checkpoint_every > 0),
                         ("profile", args.profile is not None)):
@@ -200,7 +204,7 @@ def main(argv=None) -> int:
     if (args.outstate or args.instate) and mode != "pca":
         return _die("--outstate/--instate apply to PCA mode only (this "
                     "mode has no restart state)")
-    stream = {"auto": "auto", "off": False}[args.stream]
+    stream = {"auto": "auto", "on": True, "off": False}[args.stream]
     if args.numthreads is not None and args.numthreads > 0:
         from .io.cbed import set_num_threads
 
@@ -285,7 +289,8 @@ def main(argv=None) -> int:
                 block_size=block_size, do_loadings=bool(args.outload),
                 dtype=args.dtype, device=args.device, verbose=args.verbose,
                 operator_mode=args.opmode, polish=args.polish,
-                streaming=stream, state_in=args.instate,
+                streaming=stream, memory_mb=args.memory,
+                state_in=args.instate,
                 state_out=args.outstate)
             print(timestamp() + "PCA done")
             save_text(res.values.reshape(-1, 1), out["val"], precision=prec)

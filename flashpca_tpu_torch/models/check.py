@@ -6,8 +6,9 @@ per-component squared error of ``(X X^T U)/div - U diag(d)``, plus
 
 The error reduction runs on the operator's device and fetches only the
 (K,) per-component sums.  ``data`` may be a PLINK root /
-:class:`PlinkDataset` or a prebuilt :class:`PackedOperator`; ``evec``
-may be a numpy array or a device tensor.
+:class:`PlinkDataset` or a prebuilt :class:`PackedOperator` or
+:class:`StreamingPackedOperator`; ``evec`` may be a numpy array or a
+device tensor.
 """
 
 from __future__ import annotations
@@ -18,8 +19,13 @@ import numpy as np
 import torch
 
 from ..io.plink import PlinkDataset
-from ..ops.operator import (PackedOperator, TallPackedOperator,
-                            build_packed_operator, check_operator_conflicts)
+from ..ops.operator import (PackedOperator, StreamingPackedOperator,
+                            TallPackedOperator, build_packed_operator,
+                            check_operator_conflicts)
+
+# the prebuilt operators check() takes: the wide gram, resident or
+# streamed
+WIDE_OPERATORS = (PackedOperator, StreamingPackedOperator)
 from ._common import not_ported
 from ._common import resolve_divisor as _div
 
@@ -66,10 +72,10 @@ def check(data, evec, eval_, *, stand: str | None = None,
             "check() verifies the WIDE decomposition X X^T U = U d "
             "(randompca.cpp:663-703); a tall operator exposes X^T X -- "
             "pass the PLINK data (or a wide operator) instead")
-    if not isinstance(data, (PlinkDataset, PackedOperator)):
+    if not isinstance(data, (PlinkDataset, *WIDE_OPERATORS)):
         raise not_ported("check() on a numeric matrix",
                          "A12 'Dense and matrix inputs'")
-    if stand is not None and isinstance(data, PackedOperator):
+    if stand is not None and isinstance(data, WIDE_OPERATORS):
         raise ValueError(
             "stand= was passed with a prebuilt operator, whose "
             "standardization is baked in; rebuild the operator with the "
@@ -86,7 +92,7 @@ def check(data, evec, eval_, *, stand: str | None = None,
             "Eigenvector dimension doesn't match the number of eigenvalues")
     _div(divisor, data.n_samples, data.n_snps)
 
-    if isinstance(data, PackedOperator):
+    if isinstance(data, WIDE_OPERATORS):
         check_operator_conflicts(data, dtype=dtype, streaming=streaming,
                                  memory_mb=memory_mb, block_size=block_size,
                                  device=device)

@@ -12,12 +12,14 @@ with identical post-processing:
 plus the dimension cap ``ndim <= (min(N, p) - 1) / 2``
 (flashpca.cpp:614-633).
 
-This package ports the device-resident, single-device paths: a PLINK
-fileset, a prebuilt :class:`PackedOperator` (the wide gram X X^T) or a
-prebuilt :class:`TallPackedOperator` (the tall gram X^T X, taken by
-``operator_mode="auto"`` when n > 2p).  Streaming, multi-GPU, dense
-matrix input, ``batch=True`` and mid-run checkpoints raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+This package ports the single-device paths: a PLINK fileset, a
+prebuilt :class:`PackedOperator` (the wide gram X X^T), a prebuilt
+:class:`StreamingPackedOperator` (the same gram with the bytes streamed
+from the host) or a prebuilt :class:`TallPackedOperator` (the tall gram
+X^T X, taken by ``operator_mode="auto"`` when n > 2p).  Streaming the
+tall gram, multi-GPU, dense matrix input, ``batch=True`` and mid-run
+checkpoints raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ import numpy as np
 import torch
 
 from ..io.plink import PlinkDataset
-from ..ops.operator import (PackedOperator, TallPackedOperator,
-                            build_packed_operator, check_operator_conflicts)
+from ..ops.operator import (PackedOperator, StreamingPackedOperator,
+                            TallPackedOperator, build_packed_operator,
+                            check_operator_conflicts)
 from ..solvers.block_lanczos import eigsh_block, polish_subspace
 from ..utils.device import host64
 from ._common import not_ported
@@ -85,10 +88,14 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
     """Compute the top ``ndim`` principal components.
 
     ``data`` is a PLINK root path / :class:`PlinkDataset` or a prebuilt
-    :class:`PackedOperator` / :class:`TallPackedOperator` (e.g.
-    genotypes generated on the card).  ``operator_mode`` picks the gram
-    for PLINK input: ``"wide"`` (X X^T), ``"tall"`` (X^T X, for n >> p)
-    or ``"auto"`` (tall when n > 2p).
+    :class:`PackedOperator` / :class:`StreamingPackedOperator` /
+    :class:`TallPackedOperator` (e.g. genotypes generated on the card).
+    ``operator_mode`` picks the gram for PLINK input: ``"wide"``
+    (X X^T), ``"tall"`` (X^T X, for n >> p) or ``"auto"`` (tall when
+    n > 2p).  ``streaming`` (``"auto"``, True, False) streams the wide
+    gram's bytes from the host in blocks (``"auto"``: when they exceed
+    0.7 x the card's memory); ``memory_mb`` bounds the two device block
+    buffers it stages through (the CLI's ``--memory``).
     ``device`` defaults to ``cuda`` and raises without a GPU; pass
     ``device="cpu"`` for the PyTorch CPU path (float64 by default).
 
@@ -134,7 +141,8 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
     if isinstance(data, str):
         data = PlinkDataset.open(data)
 
-    if isinstance(data, (PackedOperator, TallPackedOperator)):
+    if isinstance(data, (PackedOperator, StreamingPackedOperator,
+                         TallPackedOperator)):
         check_operator_conflicts(data, dtype=dtype, streaming=streaming,
                                  memory_mb=memory_mb, block_size=block_size,
                                  device=device)

@@ -15,9 +15,12 @@ from .genotypes import (
 )
 from .operator import (
     PackedOperator,
+    StreamingPackedOperator,
     TallPackedOperator,
     build_packed_operator,
     check_operator_conflicts,
     packed_operator_from_numpy,
+    resolve_streaming,
+    streaming_operator_from_numpy,
     tall_operator_from_numpy,
 )

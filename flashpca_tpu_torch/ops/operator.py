@@ -6,6 +6,9 @@ genotype matrix X (N samples x p SNPs), where X never materializes --
 the packed 2-bit bytes decode to standardized floats on the fly.
 ``TallPackedOperator`` holds the same bytes for the tall path, whose
 eigenproblem is the p x p gram X^T X (for N >> p).
+``StreamingPackedOperator`` computes the wide products with the bytes
+left on the host, staged to the card block by block (bounded device
+memory, the reference's ``SVDWideOnline``).
 
 Wide products (reference naming in parens):
 
@@ -30,6 +33,8 @@ input and output of every gram product, which keeps it symmetric.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -125,39 +130,32 @@ def _host_sumsq(snp_sumsq, n_snps: int) -> np.ndarray | None:
 # The operators
 # ---------------------------------------------------------------------------
 
-class _ResidentPacked:
-    """What the wide and the tall operator share: the packed bytes held
-    on one device, the decode constants, the valid-sample mask, the
-    per-SNP sums of squares and the two-float code tables.
+class _PackedBase:
+    """What every packed-genotype operator shares: the device and dtype,
+    the decode constants, the valid-sample mask, the per-SNP sums of
+    squares and the two-float code tables.
 
     Parameters
     ----------
-    packed : (p, nbytes) uint8, the raw .bed payload (numpy or a torch
-        tensor, e.g. generated on the card).
     mean, sd : per-SNP standardization stats (float64, exact).
     n_samples : true N.
+    n_snps : p.
     device : ``None`` -> ``cuda`` (raises without a GPU); ``"cpu"`` runs
         the PyTorch path.
     dtype : float32 (CUDA default, the kernels' type) or float64 (CPU
         default).  float64 on CUDA is not ported yet.
-    block_size : SNPs decoded per block on the CPU path (the analog of
-        the reference's --blocksize).
     use_kernels : run the products through kernels/packed_matvec.py:
         always on CUDA; on the CPU ``True`` selects the kernels' plain
         versions (float32) instead of the functional core.
+    snp_sumsq : optional precomputed per-SNP sums of squares (makes
+        ``trace`` free).
     """
 
-    def __init__(self, packed, mean, sd, n_samples: int, *, device=None,
-                 dtype=None, block_size: int | None = None,
-                 use_kernels: bool | None = None, n_snps: int | None = None,
+    def __init__(self, mean, sd, n_samples: int, n_snps: int, *,
+                 device=None, dtype=None, use_kernels: bool | None = None,
                  snp_sumsq=None):
         self.device = resolve_device(device)
         dtype = as_torch_dtype(dtype) or default_dtype(self.device)
-        nbytes = bytes_per_snp(n_samples)
-        p = int(n_snps) if n_snps is not None else int(packed.shape[0])
-        if tuple(packed.shape) != (p, nbytes):
-            raise ValueError(f"packed shape {tuple(packed.shape)} is not "
-                             f"the raw ({p}, {nbytes}) layout")
         if self.device.type == "cuda":
             if dtype != torch.float32:
                 raise NotImplementedError(
@@ -171,45 +169,23 @@ class _ResidentPacked:
                              "plain versions; pass dtype=float32")
         self.use_kernels = bool(use_kernels)
         self.n_samples = int(n_samples)
-        self.n_snps = p
-        self.nbytes = int(nbytes)
+        self.n_snps = int(n_snps)
+        self.nbytes = bytes_per_snp(n_samples)
         self.n4 = self.nbytes * PACK_DENSITY
         self.dtype = dtype
         # exact f64 standardization stats (reported as center/scale)
         self.center = np.asarray(mean, dtype=np.float64)
         self.scale = np.asarray(sd, dtype=np.float64)
-        self.block_size = self.plan_layout(p, nbytes, block_size=block_size,
-                                           dtype=dtype)["block_size"]
-
-        if isinstance(packed, torch.Tensor):
-            self.packed = packed.to(self.device, torch.uint8).contiguous()
-        else:
-            # np.require copies read-only (memory-mapped) input once
-            self.packed = torch.from_numpy(
-                np.require(packed, np.uint8, ["C", "W"])).to(self.device)
         np_dtype = np.float32 if dtype == torch.float32 else np.float64
         mean_f, invsd_f = lookup_tables(mean, sd, dtype=np_dtype)
         self.mean = torch.as_tensor(mean_f, device=self.device)
         self.invsd = torch.as_tensor(invsd_f, device=self.device)
         self._valid = valid_mask_permuted(n_samples, self.nbytes, dtype,
                                           self.device)
-        self._sumsq = _host_sumsq(snp_sumsq, p)
+        self._sumsq = _host_sumsq(snp_sumsq, self.n_snps)
         self._trace = None
         self._luts = None
         self.nops = 0
-
-    @staticmethod
-    def plan_layout(p, nbytes, *, block_size=None, dtype=torch.float64):
-        """Layout of (p, nbytes) packed data.  The kernels mask their own
-        ragged edges, so nothing is padded (``p_pad == p``,
-        ``nbytes_pad == nbytes``); ``block_size`` is the CPU core's SNPs
-        per decoded block (~128 MiB of decoded floats)."""
-        if block_size is None:
-            itemsize = torch.finfo(dtype).bits // 8
-            block_size = max(128, (128 << 20)
-                             // (nbytes * PACK_DENSITY * itemsize))
-        return dict(p_pad=int(p), nbytes_pad=int(nbytes),
-                    block_size=int(max(1, min(block_size, p))))
 
     def _as_2d(self, x, length, name):
         x = torch.as_tensor(x, device=self.device).to(self.dtype)
@@ -225,10 +201,8 @@ class _ResidentPacked:
     def snp_sumsq(self) -> np.ndarray:
         """Per-SNP sum of squared standardized genotypes (float64 host)."""
         if self._sumsq is None:
-            bs = budget_block_size(self.n_snps, self.n4)
-            sq = snp_sumsq_p(self.packed, self.mean, self.invsd, self._valid,
-                             block_size=bs)
-            self._sumsq = sq.to("cpu", torch.float64).numpy()
+            self._sumsq = self._snp_sumsq_dev().to("cpu", torch.float64
+                                                   ).numpy()
         return self._sumsq
 
     @property
@@ -246,6 +220,59 @@ class _ResidentPacked:
             self._luts = (torch.as_tensor(lh, device=self.device),
                           torch.as_tensor(ll, device=self.device))
         return self._luts
+
+
+class _ResidentPacked(_PackedBase):
+    """What the wide and the tall resident operator share: the packed
+    bytes held on one device, beside :class:`_PackedBase`'s constants.
+
+    Parameters
+    ----------
+    packed : (p, nbytes) uint8, the raw .bed payload (numpy or a torch
+        tensor, e.g. generated on the card).
+    mean, sd, n_samples, device, dtype, use_kernels, snp_sumsq : as
+        :class:`_PackedBase`.
+    block_size : SNPs decoded per block on the CPU path (the analog of
+        the reference's --blocksize).
+    """
+
+    def __init__(self, packed, mean, sd, n_samples: int, *, device=None,
+                 dtype=None, block_size: int | None = None,
+                 use_kernels: bool | None = None, n_snps: int | None = None,
+                 snp_sumsq=None):
+        nbytes = bytes_per_snp(n_samples)
+        p = int(n_snps) if n_snps is not None else int(packed.shape[0])
+        if tuple(packed.shape) != (p, nbytes):
+            raise ValueError(f"packed shape {tuple(packed.shape)} is not "
+                             f"the raw ({p}, {nbytes}) layout")
+        super().__init__(mean, sd, n_samples, p, device=device, dtype=dtype,
+                         use_kernels=use_kernels, snp_sumsq=snp_sumsq)
+        self.block_size = self.plan_layout(p, nbytes, block_size=block_size,
+                                           dtype=self.dtype)["block_size"]
+        if isinstance(packed, torch.Tensor):
+            self.packed = packed.to(self.device, torch.uint8).contiguous()
+        else:
+            # np.require copies read-only (memory-mapped) input once
+            self.packed = torch.from_numpy(
+                np.require(packed, np.uint8, ["C", "W"])).to(self.device)
+
+    @staticmethod
+    def plan_layout(p, nbytes, *, block_size=None, dtype=torch.float64):
+        """Layout of (p, nbytes) packed data.  The kernels mask their own
+        ragged edges, so nothing is padded (``p_pad == p``,
+        ``nbytes_pad == nbytes``); ``block_size`` is the CPU core's SNPs
+        per decoded block (~128 MiB of decoded floats)."""
+        if block_size is None:
+            itemsize = torch.finfo(dtype).bits // 8
+            block_size = max(128, (128 << 20)
+                             // (nbytes * PACK_DENSITY * itemsize))
+        return dict(p_pad=int(p), nbytes_pad=int(nbytes),
+                    block_size=int(max(1, min(block_size, p))))
+
+    def _snp_sumsq_dev(self):
+        bs = budget_block_size(self.n_snps, self.n4)
+        return snp_sumsq_p(self.packed, self.mean, self.invsd, self._valid,
+                           block_size=bs)
 
     def stats(self) -> dict:
         """Observability counters: operator products dispatched, packed
@@ -268,16 +295,25 @@ class _ResidentPacked:
         }
 
 
-class PackedOperator(_ResidentPacked):
-    """Device-resident packed-genotype operator for the wide gram
-    X X^T (one device, no mesh); parameters as :class:`_ResidentPacked`.
-    """
+class _WideProducts:
+    """The wide gram's public products (permuted-space interface for the
+    eigensolver, sample-space products for the models), written over
+    four raw products of a subclass, each on byte-masked input in
+    permuted sample space: ``_gram_raw`` (W^T W xp), ``_cross_raw``
+    (W xp), ``_mv_raw`` (W^T v) and ``_ff_raw`` (the two-float
+    W^T W xp)."""
 
     # -- permuted-space interface (used by the eigensolver) ------------------
     @property
     def op_dim(self) -> int:
         """Length of permuted-space vectors."""
         return self.n4
+
+    @property
+    def supports_ff(self) -> bool:
+        """The wide two-float gram runs on every path (kernels, their
+        plain versions, or the float64 functional core)."""
+        return True
 
     def permute(self, x):
         x = torch.as_tensor(x, device=self.device).to(self.dtype)
@@ -293,35 +329,13 @@ class PackedOperator(_ResidentPacked):
     # -- raw products (permuted space, masked) -------------------------------
     def _gram_p(self, xp):
         v = self._valid[:, None]
-        xp = xp * v
-        if self.use_kernels:
-            from ..kernels import packed_matvec as kpm
-
-            y = kpm.gram_matvec_p(self.packed, self.mean, self.invsd, xp)
-        else:
-            y = gram_matvec_p(self.packed, self.mean, self.invsd, xp,
-                              block_size=self.block_size)
-        return y.to(self.dtype) * v
+        return self._gram_raw(xp * v).to(self.dtype) * v
 
     def _cross_p(self, xp):
-        xp = xp * self._valid[:, None]
-        if self.use_kernels:
-            from ..kernels import packed_matvec as kpm
-
-            return kpm.crossprod_p(self.packed, self.mean, self.invsd,
-                                   xp).to(self.dtype)
-        return crossprod_p(self.packed, self.mean, self.invsd, xp,
-                           block_size=self.block_size)
+        return self._cross_raw(xp * self._valid[:, None]).to(self.dtype)
 
     def _mv_p(self, v2):
-        if self.use_kernels:
-            from ..kernels import packed_matvec as kpm
-
-            y = kpm.matvec_p(self.packed, self.mean, self.invsd, v2)
-        else:
-            y = matvec_p(self.packed, self.mean, self.invsd, v2,
-                         block_size=self.block_size)
-        return y.to(self.dtype) * self._valid[:, None]
+        return self._mv_raw(v2).to(self.dtype) * self._valid[:, None]
 
     def gram_permuted(self, xp):
         """yp = X X^T xp in permuted space; (n4,) or (n4, k) -> same.
@@ -359,21 +373,10 @@ class PackedOperator(_ResidentPacked):
     def gram_ff_permuted(self, xp):
         """(y_hi, y_lo) two-float pair of X X^T xp, permuted space: the
         float64-grade product behind the contract polish and check()."""
-        lut_hi, lut_lo = self._ff_luts()
         vec = xp.ndim == 1
         xp2 = (xp[:, None] if vec else xp).to(self.dtype)
         v = self._valid[:, None]
-        if self.use_kernels:
-            from ..kernels import packed_matvec as kpm
-
-            hi, lo = kpm.gram_ff_p(self.packed, lut_hi, lut_lo, xp2 * v)
-        else:
-            from .compensated import default_chunk, gram_ff_p
-
-            bs = budget_block_size(self.n_snps, self.n4, itemsize=8,
-                                   cap=default_chunk())
-            hi, lo = gram_ff_p(self.packed, lut_hi, lut_lo, xp2 * v,
-                               block_size=bs)
+        hi, lo = self._ff_raw(xp2 * v)
         hi, lo = hi * v, lo * v
         self.nops += 1
         return (hi[:, 0], lo[:, 0]) if vec else (hi, lo)
@@ -385,6 +388,48 @@ class PackedOperator(_ResidentPacked):
         hi = unpermute_samples(hi, self.n_samples)
         lo = unpermute_samples(lo, self.n_samples)
         return (hi[:, 0], lo[:, 0]) if vec else (hi, lo)
+
+
+class PackedOperator(_WideProducts, _ResidentPacked):
+    """Device-resident packed-genotype operator for the wide gram
+    X X^T (one device, no mesh); parameters as :class:`_ResidentPacked`.
+    """
+
+    def _gram_raw(self, xp):
+        if self.use_kernels:
+            from ..kernels import packed_matvec as kpm
+
+            return kpm.gram_matvec_p(self.packed, self.mean, self.invsd, xp)
+        return gram_matvec_p(self.packed, self.mean, self.invsd, xp,
+                             block_size=self.block_size)
+
+    def _cross_raw(self, xp):
+        if self.use_kernels:
+            from ..kernels import packed_matvec as kpm
+
+            return kpm.crossprod_p(self.packed, self.mean, self.invsd, xp)
+        return crossprod_p(self.packed, self.mean, self.invsd, xp,
+                           block_size=self.block_size)
+
+    def _mv_raw(self, v2):
+        if self.use_kernels:
+            from ..kernels import packed_matvec as kpm
+
+            return kpm.matvec_p(self.packed, self.mean, self.invsd, v2)
+        return matvec_p(self.packed, self.mean, self.invsd, v2,
+                        block_size=self.block_size)
+
+    def _ff_raw(self, xp):
+        lut_hi, lut_lo = self._ff_luts()
+        if self.use_kernels:
+            from ..kernels import packed_matvec as kpm
+
+            return kpm.gram_ff_p(self.packed, lut_hi, lut_lo, xp)
+        from .compensated import default_chunk, gram_ff_p
+
+        bs = budget_block_size(self.n_snps, self.n4, itemsize=8,
+                               cap=default_chunk())
+        return gram_ff_p(self.packed, lut_hi, lut_lo, xp, block_size=bs)
 
 
 class TallPackedOperator(_ResidentPacked):
@@ -472,6 +517,368 @@ class TallPackedOperator(_ResidentPacked):
         return (hi[:, 0], lo[:, 0]) if vec else (hi, lo)
 
 
+class StreamingPackedOperator(_WideProducts, _PackedBase):
+    """Bounded-device-memory operator for the wide gram X X^T: the packed
+    genotypes stay on the HOST (a numpy array or a .bed memmap) and
+    stream to the device block by block during each product -- the
+    analog of the reference's disk-streaming ``SVDWideOnline``
+    (svdwide.cpp:21-68), with the host->device boundary in place of
+    disk->RAM.  Device memory holds two block buffers whatever p is, so
+    a cohort larger than the card still runs on one card.
+
+    Parameters
+    ----------
+    source : a :class:`PlinkDataset` (read through its memmap) or a
+        (p, nbytes) uint8 array, used as it is.
+    mean, sd, n_samples, device, dtype, use_kernels, snp_sumsq : as
+        :class:`_PackedBase`.
+    block_snps : SNPs per staged block.  Default: ``memory_mb`` read as
+        two packed block buffers on the device, ``(memory_mb << 20) //
+        (2 * nbytes)``; without it blocks of about 1 GiB.  The last
+        block is shorter and runs on the leading rows of its buffer.
+    memory_mb : the device budget of the two block buffers (the CLI's
+        ``--memory``); it also turns the automatic block cache off.
+    cache_mb : the first blocks that fit this many MB stay on the device
+        after their first staging, and later products stage only the
+        rest (a pinned prefix, not an LRU: products scan the blocks
+        cyclically, and an LRU smaller than the data never hits).
+        ``"auto"``: on CUDA half the card's memory less the two block
+        buffers, unless ``memory_mb`` bounds the device; 0 on the CPU.
+    prefetch : fill the next block's host buffer on a worker thread
+        while the current block is copied and computed (default: on
+        CUDA).  The copies and kernels are asynchronous, so the main
+        thread's own fill overlaps them already; the worker adds a
+        second fill at the start of each pass, which the host's
+        memcpy rate makes worth a few percent of a pass (PERF.md).
+
+    Staging on CUDA: two pinned host buffers and two device buffers
+    rotate; a side stream makes the host-to-device copies.  The compute
+    stream waits on "block j copied" before its kernels read buffer j;
+    the copy stream waits on "block j's kernels done" before it
+    overwrites buffer j; the host waits on "block j copied" before it
+    refills pinned buffer j.  The products run the same kernels
+    (B1 + B2, and B3 + B4 in two-float) as :class:`PackedOperator`, once
+    per block, on the block's rows of the decode constants; the
+    per-block results are summed in block order (two-float ones folded
+    with TwoSum), so they differ from the resident sums in the last
+    bits, while ``crossprod`` rows are the resident ones bit for bit.
+    """
+
+    def __init__(self, source, mean, sd, n_samples: int, *,
+                 block_snps: int | None = None, memory_mb: int | None = None,
+                 dtype=None, snp_sumsq=None, cache_mb="auto",
+                 prefetch: bool | None = None, device=None,
+                 use_kernels: bool | None = None):
+        from ..io.plink import PlinkDataset
+
+        packed = (source._map() if isinstance(source, PlinkDataset)
+                  else np.asarray(source))
+        if packed.ndim != 2 or packed.dtype != np.uint8:
+            raise ValueError(f"source must be (p, nbytes) uint8, got "
+                             f"{packed.dtype} {packed.shape}")
+        p, nbytes = packed.shape
+        if nbytes != bytes_per_snp(n_samples):
+            raise ValueError("packed width does not match n_samples")
+        super().__init__(mean, sd, n_samples, p, device=device, dtype=dtype,
+                         use_kernels=use_kernels, snp_sumsq=snp_sumsq)
+        self._host_packed = packed
+        self._memory_bounded = memory_mb is not None
+        if block_snps is None:
+            if memory_mb is not None:
+                # --memory semantics: two packed block buffers on device
+                block_snps = (int(memory_mb) << 20) // (2 * self.nbytes)
+            else:
+                block_snps = (1 << 30) // self.nbytes          # ~1 GiB
+        self.block_snps = int(max(1, min(block_snps, p)))
+        self.n_blocks = -(-p // self.block_snps)
+        # the functional core's decode blocks inside a staged block
+        self.block_size = budget_block_size(self.block_snps, self.n4,
+                                            cap=8192)
+        self.cache_mb = cache_mb
+        self._cache: dict = {}
+        self._n_cached: int | None = None
+        self.staged_host_blocks = 0
+        self._prefetch = (self.device.type == "cuda" if prefetch is None
+                          else bool(prefetch))
+        self._pool = None
+        self._stage_stats = dict.fromkeys(
+            ("fill_s", "put_s", "sync_s", "wait_s"), 0.0)
+        self._stage_stats["staged_bytes"] = 0
+        # the two-buffer rotation: host staging buffers (pinned on CUDA),
+        # device buffers, the copy stream and the slot events; allocated
+        # on the first staged block.  ``_seq`` counts staged blocks
+        # across products, so back-to-back products alternate slots.
+        self._host = [None, None]
+        self._dev = [None, None]
+        self._seq = 0
+        self._copy_stream = None
+        self._copied = self._consumed = None
+
+    # -- block staging -----------------------------------------------------
+    def _resolve_cache_blocks(self) -> int:
+        """Number of leading blocks kept on the device (see the class
+        docstring's ``cache_mb``)."""
+        if self._n_cached is None:
+            block_bytes = self.block_snps * self.nbytes
+            if not self.cache_mb:
+                n = 0
+            elif self.cache_mb == "auto":
+                n = 0
+                # an explicit memory_mb means the caller capped device
+                # memory at two block buffers; caching beyond it would
+                # break that bound (pass cache_mb to combine the two)
+                if self.device.type == "cuda" and not self._memory_bounded:
+                    total = torch.cuda.mem_get_info(self.device)[1]
+                    n = max(0, (total // 2 - 2 * block_bytes) // block_bytes)
+            else:
+                n = (int(self.cache_mb) << 20) // block_bytes
+            self._n_cached = int(min(n, self.n_blocks))
+        return self._n_cached
+
+    def _bounds(self, i: int):
+        lo = i * self.block_snps
+        return lo, min(lo + self.block_snps, self.n_snps)
+
+    def _alloc_staging(self):
+        """The rotation's buffers and events, on the first staged block."""
+        if self._host[0] is not None:
+            return
+        shape = (self.block_snps, self.nbytes)
+        if self.device.type == "cuda":
+            self._host = [torch.empty(shape, dtype=torch.uint8,
+                                      pin_memory=True) for _ in range(2)]
+            self._copy_stream = torch.cuda.Stream(self.device)
+            self._copied = [torch.cuda.Event() for _ in range(2)]
+            self._consumed = [torch.cuda.Event() for _ in range(2)]
+        else:
+            self._host = [torch.from_numpy(np.empty(shape, np.uint8))
+                          for _ in range(2)]
+
+    def _prep_host_block(self, i: int, j: int):
+        """Fill host buffer ``j`` with block ``i``'s packed bytes, once
+        the copy that last read it has drained; returns (seconds waiting
+        for that copy, seconds filling).  Host work only (numpy and the
+        source's reads), so it is safe on the prefetch thread."""
+        lo, hi = self._bounds(i)
+        t0 = time.perf_counter()
+        if self._copied is not None:
+            self._copied[j].synchronize()
+        t1 = time.perf_counter()
+        np.copyto(self._host[j].numpy()[: hi - lo], self._host_packed[lo:hi])
+        return t1 - t0, time.perf_counter() - t1
+
+    def _put(self, i: int, j: int, pin: bool):
+        """Block ``i`` from host buffer ``j`` on the device: a copy on the
+        side stream into device buffer ``j`` (or, for a cached block, a
+        buffer of its own) that the compute stream waits on; on the CPU
+        the host buffer itself (a cached block: a copy of it)."""
+        lo, hi = self._bounds(i)
+        src = self._host[j][: hi - lo]
+        if self.device.type != "cuda":
+            return src.clone() if pin else src
+        cs = self._copy_stream
+        compute = torch.cuda.current_stream(self.device)
+        fresh = pin or self._dev[j] is None
+        if pin:
+            dst = torch.empty_like(src, device=self.device)
+        else:
+            if self._dev[j] is None:
+                self._dev[j] = torch.empty(
+                    (self.block_snps, self.nbytes), dtype=torch.uint8,
+                    device=self.device)
+            dst = self._dev[j][: hi - lo]
+        if fresh:
+            # the caching allocator hands the compute stream memory that
+            # its queued kernels may still use: the copy follows them
+            cs.wait_stream(compute)
+        else:
+            # device buffer j is rewritten only once its last kernels ran
+            cs.wait_event(self._consumed[j])
+        with torch.cuda.stream(cs):
+            dst.copy_(src, non_blocking=True)
+        self._copied[j].record(cs)
+        compute.wait_event(self._copied[j])
+        return dst
+
+    def _next_streamed(self, i: int) -> int:
+        while i < self.n_blocks and i in self._cache:
+            i += 1
+        return i
+
+    def _blocks(self):
+        """Yield (packed block on the device, lo, hi) for every block in
+        order: cached blocks from the device, the others staged through
+        the two-buffer rotation (the class docstring's staging)."""
+        n_cached = self._resolve_cache_blocks()
+        st = self._stage_stats
+        pending: dict = {}
+        try:
+            for i in range(self.n_blocks):
+                lo, hi = self._bounds(i)
+                if i in self._cache:
+                    yield self._cache[i], lo, hi
+                    continue
+                self._alloc_staging()
+                j = self._seq % 2
+                fut = pending.pop(i, None)
+                if self._prefetch:
+                    # keep the worker one block ahead, in the other slot
+                    nxt = self._next_streamed(i + 1)
+                    if nxt < self.n_blocks:
+                        pending[nxt] = self._worker().submit(
+                            self._prep_host_block, nxt, 1 - j)
+                if fut is None:
+                    sync_s, fill_s = self._prep_host_block(i, j)
+                else:
+                    t0 = time.perf_counter()
+                    sync_s, fill_s = fut.result()
+                    st["wait_s"] += time.perf_counter() - t0
+                st["sync_s"] += sync_s
+                st["fill_s"] += fill_s
+                st["staged_bytes"] += (hi - lo) * self.nbytes
+                pin = i < n_cached
+                t0 = time.perf_counter()
+                blk = self._put(i, j, pin)
+                st["put_s"] += time.perf_counter() - t0
+                self._seq += 1
+                self.staged_host_blocks += 1
+                if pin:
+                    self._cache[i] = blk
+                try:
+                    yield blk, lo, hi
+                finally:
+                    if self._consumed is not None:
+                        self._consumed[j].record(
+                            torch.cuda.current_stream(self.device))
+        finally:
+            # a product that stopped early leaves no fill running into a
+            # buffer the next product will use
+            for fut in pending.values():
+                if not fut.cancel():
+                    fut.exception()
+
+    def _worker(self):
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="flashpca-stage")
+        return self._pool
+
+    def close(self) -> None:
+        """Release the prefetch worker, the staging buffers and the block
+        cache (idempotent; the operator stays usable and allocates them
+        again on its next product)."""
+        pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+        if self._copy_stream is not None:
+            self._copy_stream.synchronize()
+            torch.cuda.current_stream(self.device).synchronize()
+        self._host = [None, None]
+        self._dev = [None, None]
+        self._cache.clear()
+        self._copy_stream = None
+        self._copied = self._consumed = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 -- interpreter shutdown
+            pass
+
+    def stats(self) -> dict:
+        """Staging counters since the last :meth:`reset_stats`: seconds of
+        host fill (``fill_s``), of enqueueing the copies (``put_s``), of
+        the host waiting for a copy to drain before refilling its buffer
+        (``sync_s``) and of waiting for the prefetch worker (``wait_s``);
+        bytes and blocks staged from the host; products; and the
+        geometry: blocks, cached blocks, bytes a block, packed bytes, and
+        the packed bytes now held on the device (``device_bytes``: the
+        device buffers and the cached blocks)."""
+        s = dict(self._stage_stats)
+        s.update(
+            nops=self.nops,
+            staged_host_blocks=self.staged_host_blocks,
+            n_blocks=self.n_blocks,
+            n_cached=self._resolve_cache_blocks(),
+            block_bytes=self.block_snps * self.nbytes,
+            packed_bytes=self.n_snps * self.nbytes,
+            device_bytes=(sum(t.numel() for t in self._dev if t is not None)
+                          + sum(t.numel() for t in self._cache.values())
+                          if self.device.type == "cuda" else 0),
+            prefetch=self._prefetch,
+        )
+        return s
+
+    def reset_stats(self) -> None:
+        """Zero the cumulative counters (the cache is kept)."""
+        self.nops = 0
+        self.staged_host_blocks = 0
+        for k in self._stage_stats:
+            self._stage_stats[k] = 0
+
+    # -- raw products: one pass over the blocks ------------------------------
+    def _on_block(self, name, blk, lo, hi, arg):
+        """Product ``name`` on one staged block and its rows of the
+        decode constants: the kernel wrapper, or the functional core."""
+        m, iv = self.mean[lo:hi], self.invsd[lo:hi]
+        if self.use_kernels:
+            from ..kernels import packed_matvec as kpm
+
+            return getattr(kpm, name)(blk, m, iv, arg)
+        core = {"gram_matvec_p": gram_matvec_p, "crossprod_p": crossprod_p,
+                "matvec_p": matvec_p}[name]
+        return core(blk, m, iv, arg, block_size=self.block_size)
+
+    def _gram_raw(self, xp):
+        acc = torch.zeros_like(xp)
+        for blk, lo, hi in self._blocks():
+            acc = acc + self._on_block("gram_matvec_p", blk, lo, hi, xp)
+        return acc
+
+    def _cross_raw(self, xp):
+        return torch.cat([self._on_block("crossprod_p", blk, lo, hi, xp)
+                          for blk, lo, hi in self._blocks()])
+
+    def _mv_raw(self, v2):
+        acc = torch.zeros((self.n4, v2.shape[1]), dtype=v2.dtype,
+                          device=self.device)
+        for blk, lo, hi in self._blocks():
+            acc = acc + self._on_block("matvec_p", blk, lo, hi, v2[lo:hi])
+        return acc
+
+    def _ff_raw(self, xp):
+        """Per-block two-float grams folded across blocks: y_hi by TwoSum,
+        its error and the blocks' own lo halves into y_err (the JAX
+        package's fold, flashpca_tpu/ops/operator.py:1568-1571)."""
+        from .compensated import default_chunk, gram_ff_p, twosum
+
+        lut_hi, lut_lo = self._ff_luts()
+        bs = budget_block_size(self.block_snps, self.n4, itemsize=8,
+                               cap=default_chunk())
+        y_hi = torch.zeros_like(xp)
+        y_err = torch.zeros_like(xp)
+        for blk, lo, hi in self._blocks():
+            lh, ll = lut_hi[lo:hi], lut_lo[lo:hi]
+            if self.use_kernels:
+                from ..kernels import packed_matvec as kpm
+
+                t_hi, t_err = kpm.gram_ff_p(blk, lh, ll, xp)
+            else:
+                t_hi, t_err = gram_ff_p(blk, lh, ll, xp, block_size=bs)
+            y_hi, e = twosum(y_hi, t_hi)
+            y_err = y_err + e + t_err
+        return y_hi, y_err
+
+    def _snp_sumsq_dev(self):
+        bs = budget_block_size(self.block_snps, self.n4)
+        return torch.cat([snp_sumsq_p(blk, self.mean[lo:hi],
+                                      self.invsd[lo:hi], self._valid,
+                                      block_size=bs)
+                          for blk, lo, hi in self._blocks()])
+
+
 def packed_operator_from_numpy(packed, mean, sd, n_samples: int, *,
                                snp_sumsq=None, device=None, dtype=None,
                                **kw) -> PackedOperator:
@@ -498,25 +905,73 @@ def tall_operator_from_numpy(packed, mean, sd, n_samples: int, *,
                               device=device, dtype=dtype, **kw)
 
 
+def streaming_operator_from_numpy(packed, mean, sd, n_samples: int, *,
+                                  block_snps: int | None = None,
+                                  snp_sumsq=None, device=None, dtype=None,
+                                  **kw) -> StreamingPackedOperator:
+    """The streaming twin of :func:`packed_operator_from_numpy`: the
+    port's ``StreamingPackedOperator`` from the numpy state of the JAX
+    one (its host bytes ``_host_packed``, float64 ``center`` and
+    ``scale``, ``n_samples`` and ``block_snps``)."""
+    return StreamingPackedOperator(np.asarray(packed, dtype=np.uint8),
+                                   np.asarray(mean, dtype=np.float64),
+                                   np.asarray(sd, dtype=np.float64),
+                                   int(n_samples), block_snps=block_snps,
+                                   snp_sumsq=snp_sumsq, device=device,
+                                   dtype=dtype, **kw)
+
+
+# the fraction of the card's memory above which "auto" streams
+STREAM_FRACTION = 0.7
+TALL_STREAMING = ("A15 'Streaming, wide and tall', tall half "
+                  "(TallStreamingOperator)")
+
+
+def resolve_streaming(streaming, ds, device=None, *, tall: bool = False
+                      ) -> bool:
+    """Resolve the streaming tri-state ('auto'/True/False): ``"auto"``
+    streams when the packed bytes exceed 0.7 x the card's total memory,
+    and never on the CPU.  Streaming the tall gram is not ported yet: a
+    request that resolves to it raises, rather than building a resident
+    operator that cannot fit."""
+    if streaming == "auto":
+        dev = torch.device("cuda" if device is None else device)
+        stream = False
+        if dev.type == "cuda":
+            total = torch.cuda.get_device_properties(
+                resolve_device(dev)).total_memory
+            stream = ds.n_snps * ds.nbytes_per_snp > STREAM_FRACTION * total
+    else:
+        stream = bool(streaming)
+    if stream and tall:
+        raise NotImplementedError(
+            "streaming the tall gram X^T X is not ported to the PyTorch "
+            f"package yet (ROADMAP {TALL_STREAMING})")
+    return stream
+
+
 def build_packed_operator(ds, mean, sd, *, tall: bool = False,
                           streaming="auto", memory_mb: int | None = None,
                           block_size: int | None = None, dtype=None,
-                          device=None, mesh=None, snp_sumsq=None):
+                          device=None, mesh=None, snp_sumsq=None,
+                          cache_mb="auto"):
     """The operator an analysis mode runs on: the wide gram X X^T, or
-    with ``tall`` the tall gram X^T X.  Only the device-resident,
-    single-device operators are ported: ``streaming=True`` raises
-    (ROADMAP A15) and so does a ``mesh`` (ROADMAP A18).  ``memory_mb``
-    bounds the streaming operators only, so the resident ones ignore it
-    (as the JAX package's resident operators do)."""
-    cls = TallPackedOperator if tall else PackedOperator
-    if streaming is True:
-        raise NotImplementedError(
-            f"streaming=True: the streaming twin of {cls.__name__} is not "
-            "ported yet (ROADMAP A15 'Streaming')")
+    with ``tall`` the tall gram X^T X; resident, or on the wide path
+    streamed from the host when ``streaming`` resolves to it
+    (:func:`resolve_streaming`).  A ``mesh`` raises (ROADMAP A18).
+    ``memory_mb`` bounds the streaming operator only, so the resident
+    ones ignore it (as the JAX package's do); ``block_size`` is the
+    streaming operator's ``block_snps``."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: multi-GPU sharding is not ported yet (ROADMAP A18 "
             "'Multi-GPU')")
+    if resolve_streaming(streaming, ds, device, tall=tall):
+        return StreamingPackedOperator(
+            ds, mean, sd, ds.n_samples, memory_mb=memory_mb,
+            block_snps=block_size, dtype=dtype, snp_sumsq=snp_sumsq,
+            cache_mb=cache_mb, device=device)
+    cls = TallPackedOperator if tall else PackedOperator
     return cls(ds.read_packed(), mean, sd, ds.n_samples,
                block_size=block_size, dtype=dtype, device=device,
                snp_sumsq=snp_sumsq)
@@ -545,7 +1000,13 @@ def check_operator_conflicts(op, *, dtype=None, streaming="auto",
         raise ValueError(
             f"device={device} conflicts with the prebuilt operator's "
             f"device={op.device}; rebuild the operator on that device")
-    if streaming is True:
+    is_stream = isinstance(op, StreamingPackedOperator)
+    if streaming is True and not is_stream:
         raise ValueError(
             "streaming=True was passed with a device-resident prebuilt "
-            "operator")
+            "operator; build a StreamingPackedOperator (or pass the PLINK "
+            "data) for bounded device memory")
+    if streaming is False and is_stream:
+        raise ValueError(
+            "streaming=False was passed with a prebuilt streaming "
+            "operator; build a resident operator instead")

@@ -409,3 +409,95 @@ def test_sweep_kernels_match_plain(cuda, k, n):
     for cr in cv.TILE_CR:
         _close(cv.matvec_tiled_p(packed, mean, invsd, v, cr),
                tpk.matvec_p(*cpu, v.cpu()))
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n,block_snps", [(1024, 4096, 100),
+                                            (333, 1001, 40)],
+                         ids=["aligned", "nb%16!=0"])
+def test_streamed_products_bit_equal_to_same_order(cuda, p, n, block_snps):
+    """chip_smoke.py's streamed phase at two small shapes (the second
+    with nb = 251 bytes, not a multiple of 16): in each staging
+    configuration three back-to-back products of each kind, no
+    synchronisation between them, torch.equal to the same blocks'
+    products summed in the same order from the resident tensor's row
+    slices, and crossprod to B1 on the whole tensor."""
+    cs = _chip_smoke()
+    out = cs.check_streamed(cuda, ((f"{p} x {n}", p, n, 31,
+                                    {"block_snps": block_snps}),))
+    assert len(out) == len(cs.STREAM_CONFIGS)
+    assert all(r["n_blocks"] >= 9 for r in out.values())
+
+
+@pytest.mark.cuda
+def test_streaming_block_cache_on_the_card(cuda):
+    """cache_mb="auto" keeps every block of a small cohort on the card
+    after its first staging (half the card's memory, torch.cuda
+    .mem_get_info); memory_mb turns it off."""
+    from flashpca_tpu_torch import StreamingPackedOperator
+    from flashpca_tpu_torch.ops.genotypes import permute_samples
+
+    cs = _chip_smoke()
+    n, p = 1001, 333
+    packed, mean, sd, _ = cs.card_data(cuda, n, p, 32)
+    host = packed.cpu().numpy()
+    auto = StreamingPackedOperator(host, mean, sd, n, block_snps=40,
+                                   device=cuda)
+    bounded = StreamingPackedOperator(host, mean, sd, n, memory_mb=1,
+                                      block_snps=40, device=cuda)
+    assert auto.stats()["n_cached"] == auto.n_blocks == 9
+    assert bounded.stats()["n_cached"] == 0
+    x = torch.randn((n, 8), device=cuda)
+    ys = [auto.perform_op(x) for _ in range(3)]
+    assert auto.staged_host_blocks == auto.n_blocks
+    assert auto.stats()["device_bytes"] == packed.numel()
+    yb = bounded.perform_op(x)
+    for y in ys:
+        assert torch.equal(y, yb)
+    xp = permute_samples(x, auto.nbytes)
+    assert torch.equal(auto.gram_permuted(xp), bounded.gram_permuted(xp))
+    assert bounded.stats()["device_bytes"] == 2 * 40 * auto.nbytes
+
+
+@pytest.mark.cuda
+def test_streamed_pca_matches_resident(cuda, tmp_path):
+    """pca(streaming=True, memory_mb=1) and check() on an 8,001 x 4,096
+    fileset streamed from its .bed memmap, through B1-B4 per block: the
+    eigenvalues within 2e-6 relative of the resident run, check mse <
+    1e-8."""
+    from flashpca_tpu_torch import PlinkDataset, check, pca
+    from flashpca_tpu_torch.io.plink import write_bed
+
+    rng = np.random.default_rng(5)
+    n, p, pops = 8001, 4096, 12
+    w = 0.8 ** np.arange(pops)
+    pop = rng.choice(pops, size=n, p=w / w.sum())
+    freq = np.clip(rng.uniform(0.05, 0.5, p)[:, None]
+                   + rng.normal(0.0, 0.1, (p, pops)), 0.02, 0.98)
+    geno = rng.binomial(2, freq[:, pop].T).astype(np.float64)
+    geno[rng.uniform(size=geno.shape) < 0.01] = np.nan
+    root = str(tmp_path / "mid")
+    write_bed(root, geno)
+    del geno
+    ds = PlinkDataset.open(root)
+    res = pca(ds, 10, device=cuda)
+    tpk.reset_launch_counts()
+    res_s = pca(ds, 10, device=cuda, streaming=True, memory_mb=1)
+    chk_s = check(ds, res_s.vectors, res_s.values, device=cuda,
+                  streaming=True, memory_mb=1)
+    assert all(tpk.launch_counts[k] > 0 for k in
+               ("crossprod", "matvec", "crossprod_ff", "matvec_ff"))
+    assert np.all(np.abs(res_s.values - res.values) <= 2e-6 * res.values)
+    assert chk_s.mse < 1e-8

@@ -245,7 +245,7 @@ def test_cli_checkpoints_resume_across_packages(fileset, tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--stream", "on"], "A15"),
+    (["--opmode", "tall", "--stream", "on"], "A15"),
     (["--shards", "2"], "A18"),
     (["--outstate", "f.npz", "--checkpoint-every", "2"], "A17"),
     (["--profile", "trace"], "A10"),
@@ -281,7 +281,6 @@ def test_unported_options_raise(fileset, tmp_path, capsys):
         (dict(checkpoint_every=2), "A17"),
         (dict(batch=True), "A12"),
         (dict(mesh=object()), "A18"),
-        (dict(streaming=True), "A15"),
         (dict(operator_mode="tall", streaming=True), "A15"),
     ]
     for kw, item in cases:
