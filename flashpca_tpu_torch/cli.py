@@ -9,7 +9,8 @@ default) and ``--check``.  ``--scca``, ``--ucca``, ``--project`` and
 as do the JAX CLI's options not ported yet: ``--stream on`` with
 ``--opmode tall``, ``--shards`` above 1, ``--checkpoint-every`` above 0
 and ``--profile``.  ``--stream on`` streams the wide operator from the
-host, its two device block buffers bounded by ``--memory``.  ``--debug`` is
+host in blocks of the reference's ``--memory`` block size (or
+``--blocksize``; about 1 GiB a block without either).  ``--debug`` is
 the reference's no-op; ``--outstate``/``--instate`` write and resume the
 JAX package's .npz checkpoint.  ``--device`` (default ``cuda``) selects
 the card or the CPU path.
@@ -101,9 +102,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stream", default="auto",
                    choices=["auto", "on", "off"],
                    help="stream packed genotypes from host per block, "
-                        "two device block buffers of --memory MB in all "
-                        "('auto': when they exceed 0.7 x the card's "
-                        "memory; 'on' is not ported for --opmode tall)")
+                        "blocks of the --memory or --blocksize block "
+                        "size ('auto': when the packed genotypes exceed "
+                        "0.7 x the card's memory; 'on' is not ported for "
+                        "--opmode tall)")
     p.add_argument("--outstate", metavar="FILE", default=None,
                    help="write an .npz restart checkpoint (the Ritz panel "
                         "after the solve; the JAX package's format)")

@@ -953,8 +953,7 @@ def resolve_streaming(streaming, ds, device=None, *, tall: bool = False
 def build_packed_operator(ds, mean, sd, *, tall: bool = False,
                           streaming="auto", memory_mb: int | None = None,
                           block_size: int | None = None, dtype=None,
-                          device=None, mesh=None, snp_sumsq=None,
-                          cache_mb="auto"):
+                          device=None, mesh=None, snp_sumsq=None):
     """The operator an analysis mode runs on: the wide gram X X^T, or
     with ``tall`` the tall gram X^T X; resident, or on the wide path
     streamed from the host when ``streaming`` resolves to it
@@ -970,7 +969,7 @@ def build_packed_operator(ds, mean, sd, *, tall: bool = False,
         return StreamingPackedOperator(
             ds, mean, sd, ds.n_samples, memory_mb=memory_mb,
             block_snps=block_size, dtype=dtype, snp_sumsq=snp_sumsq,
-            cache_mb=cache_mb, device=device)
+            device=device)
     cls = TallPackedOperator if tall else PackedOperator
     return cls(ds.read_packed(), mean, sd, ds.n_samples,
                block_size=block_size, dtype=dtype, device=device,

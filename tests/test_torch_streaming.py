@@ -401,6 +401,37 @@ def test_cli_stream_on_matches_stream_off(data, tmp_path, capsys):
     assert "Exception" not in err and "Error" not in err
 
 
+def test_cli_memory_sets_the_reference_block_size(tmp_path, monkeypatch,
+                                                  capsys):
+    """``--stream on --memory M`` stages blocks of the reference's
+    ``--memory`` block size (flashpca.cpp:636-684, as the JAX CLI), not
+    of the library's ``(memory_mb << 20) // (2 * nbytes)``: the CLI turns
+    ``--memory`` into ``block_size``, which takes precedence."""
+    from flashpca_tpu_torch.cli import _block_size_from_memory
+    from flashpca_tpu_torch.ops import operator as top
+
+    rng = np.random.default_rng(5)
+    n, p = 1000, 300
+    root = str(tmp_path / "m")
+    write_bed(root, _geno(rng, n, p))
+    built = []
+
+    class Recording(top.StreamingPackedOperator):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    monkeypatch.setattr(top, "StreamingPackedOperator", Recording)
+    assert _cli(["--bfile", root, "--ndim", "3", "--device", "cpu",
+                 "--opmode", "wide", "--stream", "on", "--memory", "3",
+                 "--notime"],
+                tmp_path) == 0
+    want = _block_size_from_memory(3, n, p, 3, False, False)
+    assert want == 116 < p < (3 << 20) // (2 * (n + 3) // 4)
+    assert [(op.block_snps, op.n_blocks) for op in built] == [(want, 3)]
+    assert f"blocksize: {want}" in capsys.readouterr().out
+
+
 def test_streaming_state_out_resumes_resident(data, tmp_path):
     """A streaming run's checkpoint resumes on the resident operator (the
     JAX package's test_checkpoint.py streaming composition)."""
