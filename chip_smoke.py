@@ -43,6 +43,13 @@ Phases, all in this one process; any failure raises and exits nonzero:
    gram at kc 24), no synchronisation between them, each torch.equal to
    the same blocks' products summed in the same order from the bytes
    held whole, and ``crossprod`` to B1 on all of them;
+   the tall streaming operator (TallStreamingOperator) likewise, in the
+   same three configurations, on a slice of the tall headline's width
+   (2,048 SNPs x 1,003,520 samples in its twelve blocks of 21,396
+   bytes), a small odd case (n % 4 != 0, a last block of 11 bytes) and
+   a case read from a .bed memmap written here: two back-to-back plain
+   grams, two-float grams and ``prod`` at kc 16 and 32 each, torch.equal
+   to the same blocks' kernel calls summed in block order;
    a mid-size PLINK fileset (8,001 x 4,096, written by the port's
    write_bed) through ``pca(root, 10)`` and ``check()``, against a
    float64 dense eigendecomposition, and then streamed from its .bed
@@ -60,8 +67,8 @@ Phases, all in this one process; any failure raises and exits nonzero:
    designs in turns; then the same bytes, copied to the host and the
    resident operator freed, streamed under ``memory_mb=2048`` (the
    reference's "2GB": twelve blocks of up to 8,559 SNPs, no cache): a
-   staging trial (gram passes with the prefetch worker on and off, in
-   turns) and the link's rate on one block, then ``pca(op, 20)`` and
+   staging trial (a gram pass with the prefetch worker on, then one
+   with it off) and the link's rate on one block, then ``pca(op, 20)`` and
    ``check()`` (counts reset just before, read just after: B1-B4 must
    have run, no first design) held to the resident run -- check mse <
    1e-8, eigenvalues within 2e-6 relative, every vector's |cos| >= 1 -
@@ -102,7 +109,20 @@ Phases, all in this one process; any failure raises and exits nonzero:
    comparison entries, B1 at kc 16 and 32, B2 at kc 16, 24 and 32 and B3
    at kc 24 and 32 beside their first designs in turns; and B4, which
    the tall path does not run, at kc 24 on the tall bytes (the wide
-   operator's check of a tall result) beside its first design.
+   operator's check of a tall result) beside its first design;
+8. the tall headline's bytes, copied to the host and the resident
+   operator freed, streamed in blocks of samples under
+   ``memory_mb=2048`` (twelve blocks of 21,396 bytes, the last 15,524,
+   no cache): ``pca(op, 20)`` (counts reset just before, read just
+   after: B1, B2, B3 and B5 must have run, no first design), then
+   ``check()`` of its result through the wide streaming operator at the
+   same bound, held to the resident tall run -- the same ``n_ops``,
+   check mse < 1e-8 and within max(1e-8, 2 x the resident one),
+   eigenvalues within 2e-6 of the largest, every vector by the
+   TWIN_NEAR rule, the packed bytes on the card within 2048 MiB -- with
+   the staging seconds, the packed GB/s and the kernels' busy share and
+   medians; then B1 (kc 16, 32), B2 (16), B3 (32) and B5 (32) timed on
+   one resident block of that shape.
 
 The headlines must give wide ``n_ops`` 20 and tall ``n_ops`` 32, and no
 launch of a first design or comparison entry on either main path.  The
@@ -110,8 +130,10 @@ line before the last is the JSON ``{"kernels": [...]}`` (B1-B5 at the
 widths the headlines launch and B4 at the tall bytes' kc 24, the first
 designs of B1-B5 from the timing phases, V1-V4 and their first designs
 from the sweep, B1-B4 at the streamed block's shape with ``"path":
-"streaming"``), with a ``streaming`` entry (the streamed path's launches
-and per-launch medians); the last
+"streaming"``, B1, B2, B3 and B5 at the streamed tall block's with
+``"path": "tall_streaming"``), with a ``streaming`` entry (the streamed
+path's launches and per-launch medians, and under ``tall`` the streamed
+tall path's); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the package beside it, the script exits nonzero and prints no
 result.
@@ -1066,6 +1088,169 @@ def check_streamed(dev, cases=STREAM_CASES, **op_kw):
     return out
 
 
+# streamed tall same-order cases (label, SNPs, samples, seed, block
+# geometry, read from a .bed memmap): a slice of the tall headline's
+# width in its twelve blocks of 21,396 bytes (the last 15,524), a small
+# odd case (n % 4 == 1) in five blocks of 60 bytes (the last 11), and a
+# case read from a .bed written here (n % 4 == 3), eleven blocks of
+# 1,000 bytes, the last 1, so the strided column read runs on the card
+TALL_STREAM_CASES = (("tall width 2048 x 1003520", 2048, 1_003_520, 26,
+                      {"block_bytes": 21_396}, False),
+                     ("odd 333 x 1001", 333, 1001, 27, {"block_bytes": 60},
+                      False),
+                     (".bed memmap 1024 x 40003", 1024, 40_003, 28,
+                      {"block_bytes": 1000}, True))
+# the panel widths of the tall products: the solver's and the polish's
+TALL_STREAM_KCS = (16, 32)
+
+
+def write_packed_fileset(root, packed, n):
+    """A PLINK fileset holding the (p, nbytes) bytes ``packed`` as they
+    are (the .bed's SNP-major payload), with placeholder .bim and .fam
+    rows."""
+    from flashpca_tpu_torch.io.plink import BED_MAGIC
+
+    with open(root + ".bed", "wb") as fh:
+        fh.write(BED_MAGIC)
+        fh.write(np.ascontiguousarray(packed).tobytes())
+    with open(root + ".bim", "w") as fh:
+        fh.writelines(f"1\tsnp{j}\t0\t{j + 1}\tA\tC\n"
+                      for j in range(packed.shape[0]))
+    with open(root + ".fam", "w") as fh:
+        fh.writelines(f"id{i}\tid{i}\t0\t0\t0\t-9\n" for i in range(n))
+
+
+def same_order_tall_streamed(op, P, seed, kcs=TALL_STREAM_KCS):
+    """Two back-to-back products of each kind and panel width in ``kcs``
+    through the tall streaming operator ``op``, with no synchronisation
+    between them -- the plain gram, the two-float gram and ``prod`` --
+    each ``torch.equal`` to the same blocks' kernel calls summed in block
+    order, the blocks cut from ``P``, the same bytes held whole (the
+    plain gram as B1 of the masked B2 per block, the two-float one as
+    the TwoSum fold of the tall two-float gram per block, ``prod`` as
+    each block's masked B2 un-permuted into its run of samples).  The
+    masks are built here from the sample count.  Returns the number of
+    products checked."""
+    import torch
+
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+    from flashpca_tpu_torch.ops.compensated import twosum
+    from flashpca_tpu_torch.ops.genotypes import unpermute_samples
+
+    dev, n = P.device, op.n_samples
+    m, iv = op.mean, op.invsd
+    lh, ll = op._ff_luts()
+    blocks = []
+    for i in range(op.n_blocks):
+        lo, hi = op._bounds(i)
+        sample = (4 * torch.arange(lo, hi, device=dev)[None, :]
+                  + torch.arange(4, device=dev)[:, None])
+        blocks.append((P[:, lo:hi].contiguous(),
+                       (sample < n).to(torch.float32).reshape(-1), lo, hi))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ins = {(kind, kc): [torch.randn((op.n_snps, kc), generator=g,
+                                    device=dev) for _ in range(2)]
+           for kind in ("gram", "gram_ff", "prod") for kc in kcs}
+    run = {"gram": op.gram_permuted, "gram_ff": op.gram_ff_permuted,
+           "prod": op.prod}
+    # the products, back to back
+    outs = {key: [run[key[0]](x) for x in xs] for key, xs in ins.items()}
+
+    def gram(v):
+        acc = torch.zeros_like(v)
+        for blk, va, _, _ in blocks:
+            y = tpk.matvec_p(blk, m, iv, v) * va[:, None]
+            acc = acc + tpk.crossprod_p(blk, m, iv, y)
+        return acc
+
+    def gram_ff(v):
+        z_hi, z_err = torch.zeros_like(v), torch.zeros_like(v)
+        for blk, va, _, _ in blocks:
+            t_hi, t_err = tpk.gram_tall_ff_p(blk, lh, ll, m, iv, v, va)
+            z_hi, e = twosum(z_hi, t_hi)
+            z_err = z_err + e + t_err
+        return z_hi, z_err
+
+    def prod(v):
+        return torch.cat([unpermute_samples(
+            tpk.matvec_p(blk, m, iv, v) * va[:, None], 4 * (hi - lo))
+            for blk, va, lo, hi in blocks])[:n]
+
+    ref = {"gram": gram, "gram_ff": gram_ff, "prod": prod}
+    for (kind, kc), xs in ins.items():
+        for i, x in enumerate(xs):
+            got, want = outs[kind, kc][i], ref[kind](x)
+            if kind != "gram_ff":
+                got, want = (got,), (want,)
+            for half, a, b in zip(("", " hi", " lo"), got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"tall streamed {kind}{half} kc={kc} #{i}: not "
+                        "bit-equal to its same-order reference (max diff "
+                        f"{float((a - b).abs().max()):.3e})")
+    return sum(len(xs) for xs in ins.values())
+
+
+def check_tall_streamed(dev, workdir, cases=TALL_STREAM_CASES, **op_kw):
+    """Smoke phase: for each case, the bytes generated on the card, copied
+    to the host (or written to a .bed and read through its memmap) and
+    streamed back by a TallStreamingOperator in each staging
+    configuration of STREAM_CONFIGS, every product bit-equal to its
+    same-order reference (:func:`same_order_tall_streamed`); the blocks
+    staged and the device bytes held as the configuration says.
+    ``op_kw`` as :func:`check_streamed`.  Returns a summary."""
+    import torch
+
+    from flashpca_tpu_torch import PlinkDataset, TallStreamingOperator
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    out = {}
+    for label, p, n, seed, geometry, memmap in cases:
+        packed, mean, sd, _ = card_data(dev, n, p, seed)
+        source = packed.cpu().numpy()
+        if memmap:
+            root = os.path.join(workdir, f"tall{seed}")
+            write_packed_fileset(root, source, n)
+            source = PlinkDataset.open(root)
+        for prefetch, n_cached in STREAM_CONFIGS:
+            op = TallStreamingOperator(source, mean, sd, n, device=dev,
+                                       cache_mb=0, prefetch=prefetch,
+                                       **geometry, **op_kw)
+            op._n_cached = n_cached
+            tpk.reset_launch_counts()
+            products = same_order_tall_streamed(op, packed, seed + 100)
+            launches = dict(tpk.launch_counts)
+            st = op.stats()
+            want = op.n_blocks + (products - 1) * (op.n_blocks - n_cached)
+            bound = (2 + n_cached) * st["block_bytes"]
+            last = op.nbytes - op._bounds(op.n_blocks - 1)[0]
+            say(f"   {label}, prefetch {prefetch}, {n_cached} cached: "
+                f"{op.n_blocks} blocks of {op.block_bytes} bytes (the last "
+                f"{last}), {products} products bit-equal; staged "
+                f"{st['staged_host_blocks']} blocks, device bytes "
+                f"{st['device_bytes']}, fill {st['fill_s']:.3f} s "
+                f"({st['staged_bytes'] / max(st['fill_s'], 1e-9) / 1e9:.2f}"
+                f" GB/s), wait {st['wait_s']:.3f} s")
+            if st["staged_host_blocks"] != want or st["nops"] != products:
+                raise AssertionError(
+                    f"tall streamed {label}: staged "
+                    f"{st['staged_host_blocks']} blocks in {st['nops']} "
+                    f"products, not {want} in {products}")
+            if dev.type == "cuda" and not 0 < st["device_bytes"] <= bound:
+                raise AssertionError(
+                    f"tall streamed {label}: {st['device_bytes']} device "
+                    f"bytes, bound {bound}")
+            require_launched(launches, TALL_PATH, f"tall streamed {label}")
+            require_no_first_design(launches, f"tall streamed {label}")
+            op.close()
+            out[f"{label}/{int(prefetch)}/{n_cached}"] = {
+                "n_blocks": op.n_blocks, "block_bytes": op.block_bytes,
+                "last_block_bytes": last, "memmap": memmap,
+                "products": products, **st}
+        del packed, source
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: the headline
 # ---------------------------------------------------------------------------
@@ -1263,8 +1448,9 @@ def streamed_headline(dev, host, center, scale, sumsq, resident,
     bytes, copied to the host after the resident phase, streamed by a
     StreamingPackedOperator with two device block buffers of
     ``memory_mb`` MB in all and no block cache.  First a staging trial
-    (plain gram passes at kc 16 with the prefetch worker on, off, off,
-    on, after a warm-up pass) and the link's rate on one block; then the main path, counts set
+    (one plain gram pass at kc 16 with the prefetch worker on, then one
+    with it off, after a warm-up pass) and the link's rate on one block;
+    then the main path, counts set
     to 0 just before ``pca(op, k)`` and read just after ``check()``,
     held to the resident run ``resident`` (its PCAResult): check mse <
     1e-8, eigenvalues within 2e-6 relative, every vector's |cos| with
@@ -1301,9 +1487,9 @@ def streamed_headline(dev, host, center, scale, sumsq, resident,
     x = torch.randn((op.n4, 16), device=dev,
                     generator=torch.Generator(device=dev).manual_seed(93))
     trial = {}
-    with Phase("streamed gram passes, prefetch on / off in turns"):
+    with Phase("streamed gram passes, prefetch on / off"):
         op.gram_permuted(x)
-        for pf in (True, False, False, True):
+        for pf in (True, False):
             op._prefetch = pf
             op.reset_stats()
             sync()
@@ -1599,7 +1785,167 @@ def tall_headline(dev, n, p, k, seed=8):
         + " ".join(f"{c:.7f}" for c in cos_ref))
     out.update(ref_s=ph.seconds, tall_eig_err_vs_f64=errs["tall"],
                wide_eig_err_vs_f64=errs["wide"])
-    return top, out
+    return top, out, res
+
+
+def streamed_tall_headline(dev, host, center, scale, sumsq, resident,
+                           resident_check_mse, resident_launch_ms,
+                           memory_mb=STREAM_MEMORY_MB):
+    """The tall headline job under the same 2 GB bound: its bytes, copied
+    to the host after the resident tall phase, streamed in blocks of
+    samples by a TallStreamingOperator with two device block buffers of
+    ``memory_mb`` MB in all and no block cache.  Counts set to 0 just
+    before ``pca(op, k)`` and read just after: B1, B2, B3 and B5 must
+    have launched, no first design.  Then ``check()`` of the result
+    through a StreamingPackedOperator over the same host bytes at the
+    same bound, the tall operator's buffers released first, so the
+    whole job stays under it.  Held to the resident tall run
+    ``resident`` (its PCAResult): the same ``n_ops``, check mse < 1e-8
+    and within max(1e-8, 2 x ``resident_check_mse``), eigenvalues within
+    EIG_BAR of the largest, every vector by the TWIN_NEAR rule
+    (:func:`twin_cosines`), the packed bytes on the device within
+    ``memory_mb``.  Then B1, B2, B3 and B5 held to their plain versions
+    and timed on one resident block of the streamed shape.  Returns
+    (the kernels rows of the block shape, a summary)."""
+    import torch
+
+    from flashpca_tpu_torch import (StreamingPackedOperator,
+                                    TallPackedOperator,
+                                    TallStreamingOperator, check, pca)
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    n, k = resident.vectors.shape
+    op = TallStreamingOperator(host, center, scale, n, memory_mb=memory_mb,
+                               cache_mb=0, device=dev, snp_sumsq=sumsq)
+    st = op.stats()
+    last = op.nbytes - op._bounds(op.n_blocks - 1)[0]
+    say(f"   {op.n_blocks} blocks of {op.block_bytes} bytes "
+        f"({4 * op.block_bytes} samples, {st['block_bytes'] / 1e9:.3f} GB "
+        f"each; the last {last} bytes) of {st['packed_bytes'] / 1e9:.2f} GB "
+        f"on the host, prefetch default {op._prefetch}")
+    out = {"memory_mb": memory_mb, "n_blocks": op.n_blocks,
+           "block_bytes": op.block_bytes, "last_block_bytes": last,
+           "block_nbytes": st["block_bytes"], "prefetch": op._prefetch}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the streamed tall path: counts set to 0 just before pca(), read
+    # just after; B1, B2, B3 and B5 must have launched
+    tpk.reset_launch_counts()
+    with tpk.time_launches() as log:
+        with Phase(f"streamed tall pca(op, {k}) polish='contract' float32, "
+                   f"memory_mb={memory_mb}") as ph:
+            res = pca(op, k, polish="contract")
+    launches = dict(tpk.launch_counts)
+    out["pca_s"] = wall = ph.seconds
+    sync()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    st = op.stats()
+    passes = st["staged_host_blocks"] / op.n_blocks
+    busy = sum(a.elapsed_time(b) for _, _, a, b in log) / 1e3
+    launch_ms = launch_medians(log)
+    op.close()
+    del op
+    torch.cuda.empty_cache()
+    wop = StreamingPackedOperator(host, center, scale, n,
+                                  memory_mb=memory_mb, cache_mb=0,
+                                  device=dev, snp_sumsq=sumsq)
+    with Phase(f"check() through the wide streaming operator, memory_mb="
+               f"{memory_mb}") as ph:
+        chk = check(wop, res.vectors, res.values)
+    out["check_s"] = ph.seconds
+    check_bytes = wop.stats()["device_bytes"]
+    wop.close()
+    del wop
+    torch.cuda.empty_cache()
+
+    d, d_r = res.values, resident.values
+    eig_err = np.abs(d - d_r) / d_r[0]
+    cos, held, clusters = twin_cosines(res.vectors, resident.vectors, d_r,
+                                       TWIN_NEAR * d_r[0])
+    say(f"   n_ops {res.n_ops} (resident {resident.n_ops}), n_restarts "
+        f"{res.n_restarts}, converged {res.converged}, check mse "
+        f"{chk.mse!r} (resident {resident_check_mse!r})")
+    say(f"   pca wall {wall:.2f} s, check wall {out['check_s']:.2f} s, peak "
+        f"device memory of the pca {out['peak_gb']:.2f} GB, packed bytes on "
+        f"the device {st['device_bytes']} (the check's {check_bytes}; bound "
+        f"{memory_mb << 20})")
+    say(f"   stats {json.dumps(st)}")
+    say(f"   {passes:.0f} passes, {st['staged_bytes'] / 1e9:.2f} GB streamed,"
+        f" {st['staged_bytes'] / wall / 1e9:.2f} packed GB/s over the pca "
+        f"wall; per pass fill {st['fill_s'] / passes:.3f} s ("
+        f"{st['staged_bytes'] / st['fill_s'] / 1e9:.2f} GB/s), put "
+        f"{st['put_s'] / passes:.3f} s, sync {st['sync_s'] / passes:.3f} s,"
+        f" wait {st['wait_s'] / passes:.3f} s; B1, B2, B3, B5 busy "
+        f"{busy:.2f} s ({busy / wall:.1%} of the wall)")
+    say("   per-launch medians beside the resident tall headline's: "
+        + ", ".join(f"{key} {ms:.2f} ({resident_launch_ms.get(key, 0):.2f})"
+                    for key, ms in sorted(launch_ms.items())))
+    say("   eigenvalues vs resident, of the largest: "
+        + " ".join(f"{e:.1e}" for e in eig_err))
+    say("   |cos| with the resident vectors: "
+        + " ".join(f"{c:.8f}" for c in cos))
+    say(f"   pairs closer than {TWIN_NEAR} of the largest: {clusters}; "
+        "|cos|, or the pair's largest principal angle's cosine: "
+        + " ".join(f"{c:.8f}" for c in held))
+    out.update(n_ops=res.n_ops, n_restarts=res.n_restarts,
+               check_mse=chk.mse, stats=st, passes=passes,
+               streamed_gb=st["staged_bytes"] / 1e9,
+               packed_gb_s=st["staged_bytes"] / wall / 1e9,
+               fill_gb_s=st["staged_bytes"] / st["fill_s"] / 1e9,
+               busy_s=busy, busy_share=busy / wall,
+               check_device_bytes=check_bytes,
+               launches={nm: launches[nm] for nm in TALL_PATH},
+               launch_ms=launch_ms,
+               eig_err_of_largest=float(eig_err.max()),
+               min_abs_cos=float(cos.min()), min_span_cos=float(held.min()),
+               clusters=clusters)
+    require_launched(launches, TALL_PATH, "streamed tall headline")
+    require_no_first_design(launches, "streamed tall headline")
+    if not (res.vectors.shape == (n, k) and np.isfinite(res.vectors).all()
+            and np.isfinite(res.values).all()):
+        raise AssertionError("streamed tall headline: non-finite or "
+                             "misshapen result")
+    if res.n_ops != resident.n_ops:
+        raise AssertionError(f"streamed tall headline: n_ops {res.n_ops}, "
+                             f"resident {resident.n_ops}")
+    if not chk.mse < 1e-8 or not chk.mse <= max(1e-8,
+                                                 2.0 * resident_check_mse):
+        raise AssertionError(
+            f"streamed tall headline: check mse {chk.mse:.3e} (resident "
+            f"{resident_check_mse:.3e})")
+    if not eig_err.max() <= EIG_BAR:
+        raise AssertionError(
+            f"streamed tall headline: eigenvalues {eig_err.max():.2e} of "
+            f"the largest off the resident run (bar {EIG_BAR})")
+    bad = (cos < 1 - 1e-6) & (held < 1 - 1e-6)
+    if bad.any():
+        raise AssertionError(
+            f"streamed tall headline: vectors {np.flatnonzero(bad)} off the "
+            f"resident ones (|cos| {cos[bad]}, their clusters' spans "
+            f"{held[bad]})")
+    if dev.type == "cuda" and not (0 < st["device_bytes"] <= memory_mb << 20
+                                   and 0 < check_bytes <= memory_mb << 20):
+        raise AssertionError(
+            f"streamed tall headline: {st['device_bytes']} packed bytes on "
+            f"the device ({check_bytes} in the check), bound {memory_mb} MiB")
+
+    # B1, B2, B3 and B5 at the streamed block's shape, on one block held
+    # resident (its samples are the block's 4 x block_bytes)
+    bb = out["block_bytes"]
+    with Phase(f"kernel times on one {host.shape[0]} x {bb}-byte block"):
+        bop = TallPackedOperator(np.ascontiguousarray(host[:, :bb]), center,
+                                 scale, 4 * bb, device=dev)
+        rows = time_kernels(bop, [("crossprod", 16), ("crossprod", 32),
+                                  ("matvec", 16), ("crossprod_ff", 32),
+                                  ("matvec_ff_novl", 32)],
+                            launches, None, slices=8)
+        del bop
+    for row in rows:
+        row.update(path="tall_streaming",
+                   stream_launch_ms=launch_ms.get(f"{row['name']}/"
+                                                  f"{row['k']}"))
+    return rows, out
 
 
 # ---------------------------------------------------------------------------
@@ -2095,6 +2441,10 @@ def main(argv=None) -> int:
         streamed_checks = check_streamed(dev)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
+        with Phase("tall streamed products against their same-order "
+                   "references"):
+            tall_streamed_checks = check_tall_streamed(dev, tmp)
+        torch.cuda.empty_cache()
         with Phase("mid-size PLINK fileset against float64 eigh, resident "
                    "and streamed"):
             mid = mid_size(dev, tmp)
@@ -2136,7 +2486,7 @@ def main(argv=None) -> int:
         dev, args.p, args.n, worst, b1_library_ms, head["launches"],
         sass_mix[SPLIT3_SASS]["ops_per_genotype"])
     torch.cuda.empty_cache()
-    top, tall = tall_headline(dev, TALL_N, TALL_P, args.k)
+    top, tall, tall_res = tall_headline(dev, TALL_N, TALL_P, args.k)
     torch.cuda.empty_cache()
     with Phase("kernel times at the tall shapes"):
         # B5 at the polish widths (nev 28 -> kc 32, and kc 24); B1-B3 at
@@ -2163,12 +2513,25 @@ def main(argv=None) -> int:
                     "crossprod_ff": ("crossprod_ff_v1", b3_tall_turns),
                     "matvec_ff": ("matvec_ff_v1", b4_tall_turns)},
         tall["launches"], worst))
+    # the same tall bytes streamed from the host under the same bound
+    with Phase("tall headline bytes to the host"):
+        host = top.packed.cpu().numpy()
+        center, scale, sumsq = top.center, top.scale, top.snp_sumsq
+    del top
+    torch.cuda.empty_cache()
+    tall_stream_rows, tall_stream = streamed_tall_headline(
+        dev, host, center, scale, sumsq, tall_res, tall["check_mse"],
+        tall["launch_ms"])
+    del host, tall_res
     kernels.extend(sweep_rows)
     kernels.extend(stream_rows)
+    kernels.extend(tall_stream_rows)
     say(json.dumps({"summary": {
         "card": smi, "n": args.n, "p": args.p, "k": args.k,
         "build_s": build_s, "sass_mix": sass_mix, "mid": mid,
-        "streaming": {**stream, "same_order": streamed_checks},
+        "streaming": {**stream, "same_order": streamed_checks,
+                      "tall": {**tall_stream,
+                               "same_order": tall_streamed_checks}},
         **{key: val for key, val in head.items()},
         "gram_tall_ff_max_abs_err": worst["gram_tall_ff"],
         "tall_kernels_f64_rel": tall_f64,
@@ -2185,7 +2548,10 @@ def main(argv=None) -> int:
     say(json.dumps({"kernels": kernels, "streaming": {
         "launches": stream["launches"], "launch_ms": stream["launch_ms"],
         "block_snps": stream["block_snps"], "n_blocks": stream["n_blocks"],
-        "memory_mb": stream["memory_mb"]}}))
+        "memory_mb": stream["memory_mb"], "tall": {
+            key: tall_stream[key] for key in (
+                "launches", "launch_ms", "block_bytes", "n_blocks",
+                "memory_mb")}}}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

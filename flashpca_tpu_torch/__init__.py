@@ -5,7 +5,7 @@ per-SNP standardization on the host, the packed-genotype operator with
 hand-written CUDA kernels for its fused decode->product passes
 (kernels/csrc/), the thick-restart block Lanczos solver with its
 compensated (two-float) refinement, ``pca`` on the wide (X X^T) or the
-tall (X^T X) gram -- the wide one also streamed from the host under a
+tall (X^T X) gram -- each also streamed from the host under a
 device-memory bound -- ``check`` and the flag-compatible CLI.  Imports
 ``torch`` (never JAX); entry points run on ``cuda`` unless given
 ``device="cpu"``.
@@ -15,8 +15,9 @@ __version__ = "0.1.0"
 
 from .io import PlinkDataset
 from .ops import (PackedOperator, StreamingPackedOperator,
-                  TallPackedOperator, packed_operator_from_numpy,
-                  resolve_streaming, standardize,
-                  streaming_operator_from_numpy, tall_operator_from_numpy)
+                  TallPackedOperator, TallStreamingOperator,
+                  packed_operator_from_numpy, resolve_streaming, standardize,
+                  streaming_operator_from_numpy, tall_operator_from_numpy,
+                  tall_streaming_operator_from_numpy)
 from .models import pca, PCAResult, check, CheckResult
 from .solvers import eigsh, eigsh_block, EigshResult

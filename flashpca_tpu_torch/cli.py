@@ -6,11 +6,13 @@ maxiter=500, seed=1, precision=7, suffix=.txt) and output files and
 formats (:755-878) for the two modes this package ports: PCA (the
 default) and ``--check``.  ``--scca``, ``--ucca``, ``--project`` and
 ``--batch`` exit with an error naming the ROADMAP item that ports them,
-as do the JAX CLI's options not ported yet: ``--stream on`` with
-``--opmode tall``, ``--shards`` above 1, ``--checkpoint-every`` above 0
-and ``--profile``.  ``--stream on`` streams the wide operator from the
-host in blocks of the reference's ``--memory`` block size (or
-``--blocksize``; about 1 GiB a block without either).  ``--debug`` is
+as do the JAX CLI's options not ported yet: ``--shards`` above 1,
+``--checkpoint-every`` above 0 and ``--profile``.  ``--stream on``
+streams the operator from the host: the wide one in blocks of the
+reference's ``--memory`` block size (or ``--blocksize``; about 1 GiB a
+block without either), the tall one (``--opmode tall``) in blocks of
+samples of about 1 GiB; as the JAX CLI, the tall one refuses the SNP
+block size that ``--memory`` or ``--blocksize`` sets.  ``--debug`` is
 the reference's no-op; ``--outstate``/``--instate`` write and resume the
 JAX package's .npz checkpoint.  ``--device`` (default ``cuda``) selects
 the card or the CPU path.
@@ -37,7 +39,6 @@ NOT_PORTED = {
     "project": "A11 'project()'",
     "batch": "A12 'Dense and matrix inputs'",
     # options of the ported modes
-    "stream on --opmode tall": "A15 'Streaming, wide and tall', tall half",
     "shards": "A18 'Multi-GPU'",
     "checkpoint-every": "A17 'Checkpoints'",
     "profile": "A10 'Bench script and --profile'",
@@ -101,11 +102,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "ported yet)")
     p.add_argument("--stream", default="auto",
                    choices=["auto", "on", "off"],
-                   help="stream packed genotypes from host per block, "
-                        "blocks of the --memory or --blocksize block "
-                        "size ('auto': when the packed genotypes exceed "
-                        "0.7 x the card's memory; 'on' is not ported for "
-                        "--opmode tall)")
+                   help="stream packed genotypes from host per block: "
+                        "on the wide path blocks of the --memory or "
+                        "--blocksize block size, on the tall path blocks "
+                        "of samples ('auto': when the packed genotypes "
+                        "exceed 0.7 x the card's memory)")
     p.add_argument("--outstate", metavar="FILE", default=None,
                    help="write an .npz restart checkpoint (the Ritz panel "
                         "after the solve; the JAX package's format)")
@@ -190,9 +191,7 @@ def main(argv=None) -> int:
                         f"yet (ROADMAP {NOT_PORTED[flag]})")
     if unknown:
         return _die("unrecognized arguments: " + " ".join(unknown))
-    for flag, asked in (("stream on --opmode tall",
-                         args.stream == "on" and args.opmode == "tall"),
-                        ("shards", (args.shards or 1) > 1),
+    for flag, asked in (("shards", (args.shards or 1) > 1),
                         ("checkpoint-every", args.checkpoint_every > 0),
                         ("profile", args.profile is not None)):
         if asked:

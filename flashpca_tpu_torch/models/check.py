@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 from ..io.plink import PlinkDataset
-from ..ops.operator import (PackedOperator, StreamingPackedOperator,
-                            TallPackedOperator, build_packed_operator,
+from ..ops.operator import (TALL_OPERATORS, PackedOperator,
+                            StreamingPackedOperator, build_packed_operator,
                             check_operator_conflicts)
 
 # the prebuilt operators check() takes: the wide gram, resident or
@@ -67,7 +67,7 @@ def check(data, evec, eval_, *, stand: str | None = None,
 
     if isinstance(data, str):
         data = PlinkDataset.open(data)
-    if isinstance(data, TallPackedOperator):
+    if isinstance(data, TALL_OPERATORS):
         raise ValueError(
             "check() verifies the WIDE decomposition X X^T U = U d "
             "(randompca.cpp:663-703); a tall operator exposes X^T X -- "

@@ -15,11 +15,11 @@ plus the dimension cap ``ndim <= (min(N, p) - 1) / 2``
 This package ports the single-device paths: a PLINK fileset, a
 prebuilt :class:`PackedOperator` (the wide gram X X^T), a prebuilt
 :class:`StreamingPackedOperator` (the same gram with the bytes streamed
-from the host) or a prebuilt :class:`TallPackedOperator` (the tall gram
-X^T X, taken by ``operator_mode="auto"`` when n > 2p).  Streaming the
-tall gram, multi-GPU, dense matrix input, ``batch=True`` and mid-run
-checkpoints raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+from the host), a prebuilt :class:`TallPackedOperator` (the tall gram
+X^T X, taken by ``operator_mode="auto"`` when n > 2p) or a prebuilt
+:class:`TallStreamingOperator` (the tall gram streamed).  Multi-GPU,
+dense matrix input, ``batch=True`` and mid-run checkpoints raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ import numpy as np
 import torch
 
 from ..io.plink import PlinkDataset
-from ..ops.operator import (PackedOperator, StreamingPackedOperator,
-                            TallPackedOperator, build_packed_operator,
+from ..ops.operator import (TALL_OPERATORS, PackedOperator,
+                            StreamingPackedOperator, build_packed_operator,
                             check_operator_conflicts)
 from ..solvers.block_lanczos import eigsh_block, polish_subspace
 from ..utils.device import host64
@@ -89,13 +89,16 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
 
     ``data`` is a PLINK root path / :class:`PlinkDataset` or a prebuilt
     :class:`PackedOperator` / :class:`StreamingPackedOperator` /
-    :class:`TallPackedOperator` (e.g. genotypes generated on the card).
-    ``operator_mode`` picks the gram for PLINK input: ``"wide"``
-    (X X^T), ``"tall"`` (X^T X, for n >> p) or ``"auto"`` (tall when
-    n > 2p).  ``streaming`` (``"auto"``, True, False) streams the wide
-    gram's bytes from the host in blocks (``"auto"``: when they exceed
-    0.7 x the card's memory); ``memory_mb`` bounds the two device block
-    buffers it stages through (the CLI's ``--memory``).
+    :class:`TallPackedOperator` / :class:`TallStreamingOperator` (e.g.
+    genotypes generated on the card).  ``operator_mode`` picks the gram
+    for PLINK input: ``"wide"`` (X X^T), ``"tall"`` (X^T X, for n >> p)
+    or ``"auto"`` (tall when n > 2p).  ``streaming`` (``"auto"``, True,
+    False) streams the gram's bytes from the host in blocks, of SNPs on
+    the wide path and of samples on the tall one (``"auto"``: when they
+    exceed 0.7 x the card's memory); ``memory_mb`` bounds the two device
+    block buffers it stages through (the CLI's ``--memory``).
+    ``block_size`` sets the wide streaming path's SNPs a block and
+    raises on the tall one.
     ``device`` defaults to ``cuda`` and raises without a GPU; pass
     ``device="cpu"`` for the PyTorch CPU path (float64 by default).
 
@@ -142,13 +145,13 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
         data = PlinkDataset.open(data)
 
     if isinstance(data, (PackedOperator, StreamingPackedOperator,
-                         TallPackedOperator)):
+                         *TALL_OPERATORS)):
         check_operator_conflicts(data, dtype=dtype, streaming=streaming,
                                  memory_mb=memory_mb, block_size=block_size,
                                  device=device)
         # the decomposition shape is fixed by the operator class too
         if operator_mode != "auto" and (operator_mode == "tall") != (
-                isinstance(data, TallPackedOperator)):
+                isinstance(data, TALL_OPERATORS)):
             raise ValueError(
                 f"operator_mode={operator_mode!r} conflicts with the "
                 f"prebuilt {type(data).__name__}; build the matching "
@@ -175,7 +178,7 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
         raise not_ported("pca() on a numeric matrix",
                          "A12 'Dense and matrix inputs'")
 
-    run = _pca_tall if isinstance(op, TallPackedOperator) else _pca_operator
+    run = _pca_tall if isinstance(op, TALL_OPERATORS) else _pca_operator
     return run(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
                panel=panel, device_results=device_results, state_in=state_in,
                state_out=state_out, verbose=verbose, polish=polish)

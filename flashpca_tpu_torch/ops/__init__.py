@@ -17,10 +17,12 @@ from .operator import (
     PackedOperator,
     StreamingPackedOperator,
     TallPackedOperator,
+    TallStreamingOperator,
     build_packed_operator,
     check_operator_conflicts,
     packed_operator_from_numpy,
     resolve_streaming,
     streaming_operator_from_numpy,
     tall_operator_from_numpy,
+    tall_streaming_operator_from_numpy,
 )

@@ -7,8 +7,9 @@ the packed 2-bit bytes decode to standardized floats on the fly.
 ``TallPackedOperator`` holds the same bytes for the tall path, whose
 eigenproblem is the p x p gram X^T X (for N >> p).
 ``StreamingPackedOperator`` computes the wide products with the bytes
-left on the host, staged to the card block by block (bounded device
-memory, the reference's ``SVDWideOnline``).
+left on the host, staged to the card in blocks of SNP rows (bounded
+device memory, the reference's ``SVDWideOnline``), and
+``TallStreamingOperator`` the tall ones, staged in blocks of samples.
 
 Wide products (reference naming in parens):
 
@@ -432,18 +433,16 @@ class PackedOperator(_WideProducts, _ResidentPacked):
         return gram_ff_p(self.packed, lut_hi, lut_lo, xp, block_size=bs)
 
 
-class TallPackedOperator(_ResidentPacked):
-    """Tall-path operator: the eigenproblem is the p x p gram ``X^T X``
-    (right singular vectors), for the n >> p regime; parameters as
-    :class:`_ResidentPacked`.
+class _SnpSpace:
+    """The tall gram X^T X's products, shared by the resident and the
+    streaming tall operator: the solver works in SNP space, which needs
+    no permutation and no padding (``op_dim = p``).  One gram pass is
+    y = X v over the samples (B2), the byte-padding sample positions
+    zeroed, then X^T y (B1); the two-float gram is B5, the mask, then B3
+    plus B1 on the low half.  ``_mv``, ``_gram`` and ``_gram_ff`` run
+    them on (p, w) packed bytes and the (4 w,) valid-sample mask of
+    those w bytes."""
 
-    The solver works in SNP space, which needs no permutation and no
-    padding (``op_dim = p``).  One gram pass is y = X v over the samples
-    (B2), the byte-padding sample positions zeroed, then X^T y (B1); the
-    two-float gram is B5, the mask, then B3 plus B1 on the low half.
-    """
-
-    # -- solver interface (SNP space; no permutation needed) ---------------
     @property
     def op_dim(self) -> int:
         return self.n_snps
@@ -458,40 +457,6 @@ class TallPackedOperator(_ResidentPacked):
     def unpermute(self, u):
         return u[: self.n_snps]
 
-    def _mv_p(self, v2):
-        """y = W^T v in permuted sample space, byte padding zeroed."""
-        if self.use_kernels:
-            from ..kernels import packed_matvec as kpm
-
-            y = kpm.matvec_p(self.packed, self.mean, self.invsd, v2)
-        else:
-            y = matvec_p(self.packed, self.mean, self.invsd, v2,
-                         block_size=self.block_size)
-        return y.to(self.dtype) * self._valid[:, None]
-
-    def gram_permuted(self, v):
-        """u = X^T X v in SNP space; (p,) or (p, k) -> same."""
-        vec = v.ndim == 1
-        y = self._mv_p(v[:, None] if vec else v)
-        if self.use_kernels:
-            from ..kernels import packed_matvec as kpm
-
-            u = kpm.crossprod_p(self.packed, self.mean, self.invsd,
-                                y).to(self.dtype)
-        else:
-            u = crossprod_p(self.packed, self.mean, self.invsd, y,
-                            block_size=self.block_size)
-        self.nops += 1
-        return u[:, 0] if vec else u
-
-    def prod(self, v):
-        """y = X v: (p,) or (p, k) -> (N,) or (N, k), natural order."""
-        v2, vec = self._as_2d(v, self.n_snps, "prod")
-        y = unpermute_samples(self._mv_p(v2), self.n_samples)
-        self.nops += 1
-        return y[:, 0] if vec else y
-
-    # -- compensated (two-float) product -------------------------------------
     @property
     def supports_ff(self) -> bool:
         """The tall two-float gram runs through the kernel wrappers only
@@ -499,9 +464,30 @@ class TallPackedOperator(_ResidentPacked):
         or on the CPU with ``use_kernels=True`` (their plain versions)."""
         return self.use_kernels
 
-    def gram_ff_permuted(self, v):
-        """(z_hi, z_lo) two-float pair of X^T X v in SNP space; see
-        PackedOperator.gram_ff_permuted."""
+    def _mv(self, packed, v2, valid):
+        """y = W^T v in permuted sample space, byte padding zeroed."""
+        if self.use_kernels:
+            from ..kernels import packed_matvec as kpm
+
+            y = kpm.matvec_p(packed, self.mean, self.invsd, v2)
+        else:
+            y = matvec_p(packed, self.mean, self.invsd, v2,
+                         block_size=self.block_size)
+        return y.to(self.dtype) * valid[:, None]
+
+    def _gram(self, packed, v2, valid):
+        """u = W M W^T v, M = diag(valid)."""
+        y = self._mv(packed, v2, valid)
+        if self.use_kernels:
+            from ..kernels import packed_matvec as kpm
+
+            return kpm.crossprod_p(packed, self.mean, self.invsd,
+                                   y).to(self.dtype)
+        return crossprod_p(packed, self.mean, self.invsd, y,
+                           block_size=self.block_size)
+
+    def _gram_ff(self, packed, v2, valid):
+        """(z_hi, z_lo) two-float pair of W M W^T v."""
         if not self.use_kernels:
             raise NotImplementedError(
                 "the tall two-float gram needs the kernel wrappers "
@@ -509,91 +495,95 @@ class TallPackedOperator(_ResidentPacked):
         from ..kernels import packed_matvec as kpm
 
         lut_hi, lut_lo = self._ff_luts()
+        return kpm.gram_tall_ff_p(packed, lut_hi, lut_lo, self.mean,
+                                  self.invsd, v2, valid)
+
+
+class TallPackedOperator(_SnpSpace, _ResidentPacked):
+    """Tall-path operator: the eigenproblem is the p x p gram ``X^T X``
+    (right singular vectors), for the n >> p regime, with the packed
+    bytes on the device; parameters as :class:`_ResidentPacked`,
+    products as :class:`_SnpSpace`."""
+
+    def gram_permuted(self, v):
+        """u = X^T X v in SNP space; (p,) or (p, k) -> same."""
+        vec = v.ndim == 1
+        u = self._gram(self.packed, v[:, None] if vec else v, self._valid)
+        self.nops += 1
+        return u[:, 0] if vec else u
+
+    def prod(self, v):
+        """y = X v: (p,) or (p, k) -> (N,) or (N, k), natural order."""
+        v2, vec = self._as_2d(v, self.n_snps, "prod")
+        y = unpermute_samples(self._mv(self.packed, v2, self._valid),
+                              self.n_samples)
+        self.nops += 1
+        return y[:, 0] if vec else y
+
+    def gram_ff_permuted(self, v):
+        """(z_hi, z_lo) two-float pair of X^T X v in SNP space; see
+        PackedOperator.gram_ff_permuted."""
         vec = v.ndim == 1
         v2 = (v[:, None] if vec else v).to(self.dtype)
-        hi, lo = kpm.gram_tall_ff_p(self.packed, lut_hi, lut_lo, self.mean,
-                                    self.invsd, v2, self._valid)
+        hi, lo = self._gram_ff(self.packed, v2, self._valid)
         self.nops += 1
         return (hi[:, 0], lo[:, 0]) if vec else (hi, lo)
 
 
-class StreamingPackedOperator(_WideProducts, _PackedBase):
-    """Bounded-device-memory operator for the wide gram X X^T: the packed
-    genotypes stay on the HOST (a numpy array or a .bed memmap) and
-    stream to the device block by block during each product -- the
-    analog of the reference's disk-streaming ``SVDWideOnline``
-    (svdwide.cpp:21-68), with the host->device boundary in place of
-    disk->RAM.  Device memory holds two block buffers whatever p is, so
-    a cohort larger than the card still runs on one card.
+def _host_source(source, n_samples: int) -> np.ndarray:
+    """The (p, nbytes) uint8 bytes a streaming operator stages from: a
+    :class:`PlinkDataset`'s memmap (read block by block) or an array,
+    used as it is."""
+    from ..io.plink import PlinkDataset
 
-    Parameters
-    ----------
-    source : a :class:`PlinkDataset` (read through its memmap) or a
-        (p, nbytes) uint8 array, used as it is.
-    mean, sd, n_samples, device, dtype, use_kernels, snp_sumsq : as
-        :class:`_PackedBase`.
-    block_snps : SNPs per staged block.  Default: ``memory_mb`` read as
-        two packed block buffers on the device, ``(memory_mb << 20) //
-        (2 * nbytes)``; without it blocks of about 1 GiB.  The last
-        block is shorter and runs on the leading rows of its buffer.
-    memory_mb : the device budget of the two block buffers (the CLI's
-        ``--memory``); it also turns the automatic block cache off.
-    cache_mb : the first blocks that fit this many MB stay on the device
-        after their first staging, and later products stage only the
-        rest (a pinned prefix, not an LRU: products scan the blocks
-        cyclically, and an LRU smaller than the data never hits).
-        ``"auto"``: on CUDA half the card's memory less the two block
-        buffers, unless ``memory_mb`` bounds the device; 0 on the CPU.
-    prefetch : fill the next block's host buffer on a worker thread
-        while the current block is copied and computed (default: on
-        CUDA).  The copies and kernels are asynchronous, so the main
-        thread's own fill overlaps them already; the worker adds a
-        second fill at the start of each pass, which the host's
-        memcpy rate makes worth a few percent of a pass (PERF.md).
+    packed = (source._map() if isinstance(source, PlinkDataset)
+              else np.asarray(source))
+    if packed.ndim != 2 or packed.dtype != np.uint8:
+        raise ValueError(f"source must be (p, nbytes) uint8, got "
+                         f"{packed.dtype} {packed.shape}")
+    if packed.shape[1] != bytes_per_snp(n_samples):
+        raise ValueError("packed width does not match n_samples")
+    return packed
+
+
+class _StagedBlocks:
+    """The staging rotation both streaming operators share: the packed
+    bytes stay on the HOST (a numpy array or a .bed memmap) and reach the
+    device one block at a time, so device memory holds two block buffers
+    whatever the cohort's size.
+
+    A subclass says what a block is: ``_bounds(i)``, block ``i``'s range
+    [lo, hi) on the blocked axis; ``_block_shape(lo, hi)``, its (SNPs,
+    bytes) on the device; and ``_host_block(lo, hi)``, the host slice it
+    copies.  The buffers hold ``block_nbytes`` bytes, a full block; a
+    shorter block runs on a contiguous prefix of them (the kernels take
+    contiguous bytes only).
 
     Staging on CUDA: two pinned host buffers and two device buffers
     rotate; a side stream makes the host-to-device copies.  The compute
     stream waits on "block j copied" before its kernels read buffer j;
     the copy stream waits on "block j's kernels done" before it
     overwrites buffer j; the host waits on "block j copied" before it
-    refills pinned buffer j.  The products run the same kernels
-    (B1 + B2, and B3 + B4 in two-float) as :class:`PackedOperator`, once
-    per block, on the block's rows of the decode constants; the
-    per-block results are summed in block order (two-float ones folded
-    with TwoSum), so they differ from the resident sums in the last
-    bits, while ``crossprod`` rows are the resident ones bit for bit.
+    refills pinned buffer j.  ``cache_mb``: the first blocks that fit
+    this many MB stay on the device after their first staging, and
+    later products stage only the rest (a pinned prefix, not an LRU:
+    products scan the blocks cyclically, and an LRU smaller than the
+    data never hits); ``"auto"``: on CUDA half the card's memory less
+    the two block buffers, unless ``memory_mb`` bounds the device; 0 on
+    the CPU.  ``prefetch``: fill the next block's host buffer on a
+    worker thread while the current block is copied and computed
+    (default: on CUDA).  The copies and kernels are asynchronous, so the
+    main thread's own fill overlaps them already; the worker adds a
+    second fill at the start of each pass, which the host's memcpy rate
+    makes worth a few percent of a pass (PERF.md).
     """
 
-    def __init__(self, source, mean, sd, n_samples: int, *,
-                 block_snps: int | None = None, memory_mb: int | None = None,
-                 dtype=None, snp_sumsq=None, cache_mb="auto",
-                 prefetch: bool | None = None, device=None,
-                 use_kernels: bool | None = None):
-        from ..io.plink import PlinkDataset
-
-        packed = (source._map() if isinstance(source, PlinkDataset)
-                  else np.asarray(source))
-        if packed.ndim != 2 or packed.dtype != np.uint8:
-            raise ValueError(f"source must be (p, nbytes) uint8, got "
-                             f"{packed.dtype} {packed.shape}")
-        p, nbytes = packed.shape
-        if nbytes != bytes_per_snp(n_samples):
-            raise ValueError("packed width does not match n_samples")
-        super().__init__(mean, sd, n_samples, p, device=device, dtype=dtype,
-                         use_kernels=use_kernels, snp_sumsq=snp_sumsq)
+    def _init_staging(self, packed, *, n_blocks: int, block_nbytes: int,
+                      memory_mb, cache_mb, prefetch):
         self._host_packed = packed
+        self.n_blocks = int(n_blocks)
+        self.block_nbytes = int(block_nbytes)
         self._memory_bounded = memory_mb is not None
-        if block_snps is None:
-            if memory_mb is not None:
-                # --memory semantics: two packed block buffers on device
-                block_snps = (int(memory_mb) << 20) // (2 * self.nbytes)
-            else:
-                block_snps = (1 << 30) // self.nbytes          # ~1 GiB
-        self.block_snps = int(max(1, min(block_snps, p)))
-        self.n_blocks = -(-p // self.block_snps)
-        # the functional core's decode blocks inside a staged block
-        self.block_size = budget_block_size(self.block_snps, self.n4,
-                                            cap=8192)
         self.cache_mb = cache_mb
         self._cache: dict = {}
         self._n_cached: int | None = None
@@ -614,12 +604,10 @@ class StreamingPackedOperator(_WideProducts, _PackedBase):
         self._copy_stream = None
         self._copied = self._consumed = None
 
-    # -- block staging -----------------------------------------------------
     def _resolve_cache_blocks(self) -> int:
-        """Number of leading blocks kept on the device (see the class
-        docstring's ``cache_mb``)."""
+        """Number of leading blocks kept on the device (``cache_mb``)."""
         if self._n_cached is None:
-            block_bytes = self.block_snps * self.nbytes
+            block_bytes = self.block_nbytes
             if not self.cache_mb:
                 n = 0
             elif self.cache_mb == "auto":
@@ -635,23 +623,24 @@ class StreamingPackedOperator(_WideProducts, _PackedBase):
             self._n_cached = int(min(n, self.n_blocks))
         return self._n_cached
 
-    def _bounds(self, i: int):
-        lo = i * self.block_snps
-        return lo, min(lo + self.block_snps, self.n_snps)
+    def _view(self, buf, lo: int, hi: int):
+        """Block [lo, hi)'s contiguous (SNPs, bytes) view of a buffer."""
+        rows, cols = self._block_shape(lo, hi)
+        return buf[: rows * cols].view(rows, cols)
 
     def _alloc_staging(self):
         """The rotation's buffers and events, on the first staged block."""
         if self._host[0] is not None:
             return
-        shape = (self.block_snps, self.nbytes)
         if self.device.type == "cuda":
-            self._host = [torch.empty(shape, dtype=torch.uint8,
+            self._host = [torch.empty(self.block_nbytes, dtype=torch.uint8,
                                       pin_memory=True) for _ in range(2)]
             self._copy_stream = torch.cuda.Stream(self.device)
             self._copied = [torch.cuda.Event() for _ in range(2)]
             self._consumed = [torch.cuda.Event() for _ in range(2)]
         else:
-            self._host = [torch.from_numpy(np.empty(shape, np.uint8))
+            self._host = [torch.from_numpy(np.empty(self.block_nbytes,
+                                                    np.uint8))
                           for _ in range(2)]
 
     def _prep_host_block(self, i: int, j: int):
@@ -664,7 +653,8 @@ class StreamingPackedOperator(_WideProducts, _PackedBase):
         if self._copied is not None:
             self._copied[j].synchronize()
         t1 = time.perf_counter()
-        np.copyto(self._host[j].numpy()[: hi - lo], self._host_packed[lo:hi])
+        np.copyto(self._view(self._host[j], lo, hi).numpy(),
+                  self._host_block(lo, hi))
         return t1 - t0, time.perf_counter() - t1
 
     def _put(self, i: int, j: int, pin: bool):
@@ -673,7 +663,7 @@ class StreamingPackedOperator(_WideProducts, _PackedBase):
         buffer of its own) that the compute stream waits on; on the CPU
         the host buffer itself (a cached block: a copy of it)."""
         lo, hi = self._bounds(i)
-        src = self._host[j][: hi - lo]
+        src = self._view(self._host[j], lo, hi)
         if self.device.type != "cuda":
             return src.clone() if pin else src
         cs = self._copy_stream
@@ -683,10 +673,10 @@ class StreamingPackedOperator(_WideProducts, _PackedBase):
             dst = torch.empty_like(src, device=self.device)
         else:
             if self._dev[j] is None:
-                self._dev[j] = torch.empty(
-                    (self.block_snps, self.nbytes), dtype=torch.uint8,
-                    device=self.device)
-            dst = self._dev[j][: hi - lo]
+                self._dev[j] = torch.empty(self.block_nbytes,
+                                           dtype=torch.uint8,
+                                           device=self.device)
+            dst = self._view(self._dev[j], lo, hi)
         if fresh:
             # the caching allocator hands the compute stream memory that
             # its queued kernels may still use: the copy follows them
@@ -708,7 +698,7 @@ class StreamingPackedOperator(_WideProducts, _PackedBase):
     def _blocks(self):
         """Yield (packed block on the device, lo, hi) for every block in
         order: cached blocks from the device, the others staged through
-        the two-buffer rotation (the class docstring's staging)."""
+        the two-buffer rotation."""
         n_cached = self._resolve_cache_blocks()
         st = self._stage_stats
         pending: dict = {}
@@ -735,7 +725,8 @@ class StreamingPackedOperator(_WideProducts, _PackedBase):
                     st["wait_s"] += time.perf_counter() - t0
                 st["sync_s"] += sync_s
                 st["fill_s"] += fill_s
-                st["staged_bytes"] += (hi - lo) * self.nbytes
+                rows, cols = self._block_shape(lo, hi)
+                st["staged_bytes"] += rows * cols
                 pin = i < n_cached
                 t0 = time.perf_counter()
                 blk = self._put(i, j, pin)
@@ -802,7 +793,7 @@ class StreamingPackedOperator(_WideProducts, _PackedBase):
             staged_host_blocks=self.staged_host_blocks,
             n_blocks=self.n_blocks,
             n_cached=self._resolve_cache_blocks(),
-            block_bytes=self.block_snps * self.nbytes,
+            block_bytes=self.block_nbytes,
             packed_bytes=self.n_snps * self.nbytes,
             device_bytes=(sum(t.numel() for t in self._dev if t is not None)
                           + sum(t.numel() for t in self._cache.values())
@@ -817,6 +808,74 @@ class StreamingPackedOperator(_WideProducts, _PackedBase):
         self.staged_host_blocks = 0
         for k in self._stage_stats:
             self._stage_stats[k] = 0
+
+
+class StreamingPackedOperator(_WideProducts, _StagedBlocks, _PackedBase):
+    """Bounded-device-memory operator for the wide gram X X^T: the packed
+    genotypes stay on the host and stream to the device in blocks of SNP
+    rows during each product (:class:`_StagedBlocks`) -- the analog of
+    the reference's disk-streaming ``SVDWideOnline``
+    (svdwide.cpp:21-68), with the host->device boundary in place of
+    disk->RAM.  Device memory holds two block buffers whatever p is, so
+    a cohort larger than the card still runs on one card.
+
+    Parameters
+    ----------
+    source : a :class:`PlinkDataset` (read through its memmap) or a
+        (p, nbytes) uint8 array, used as it is.
+    mean, sd, n_samples, device, dtype, use_kernels, snp_sumsq : as
+        :class:`_PackedBase`.
+    block_snps : SNPs per staged block.  Default: ``memory_mb`` read as
+        two packed block buffers on the device, ``(memory_mb << 20) //
+        (2 * nbytes)``; without it blocks of about 1 GiB.  The last
+        block is shorter and runs on the leading rows of its buffer.
+    memory_mb : the device budget of the two block buffers (the CLI's
+        ``--memory``); it also turns the automatic block cache off.
+    cache_mb, prefetch : as :class:`_StagedBlocks`.
+
+    The products run the same kernels (B1 + B2, and B3 + B4 in
+    two-float) as :class:`PackedOperator`, once per block, on the
+    block's rows of the decode constants; the per-block results are
+    summed in block order (two-float ones folded with TwoSum), so they
+    differ from the resident sums in the last bits, while ``crossprod``
+    rows are the resident ones bit for bit.
+    """
+
+    def __init__(self, source, mean, sd, n_samples: int, *,
+                 block_snps: int | None = None, memory_mb: int | None = None,
+                 dtype=None, snp_sumsq=None, cache_mb="auto",
+                 prefetch: bool | None = None, device=None,
+                 use_kernels: bool | None = None):
+        packed = _host_source(source, n_samples)
+        p = packed.shape[0]
+        super().__init__(mean, sd, n_samples, p, device=device, dtype=dtype,
+                         use_kernels=use_kernels, snp_sumsq=snp_sumsq)
+        if block_snps is None:
+            if memory_mb is not None:
+                # --memory semantics: two packed block buffers on device
+                block_snps = (int(memory_mb) << 20) // (2 * self.nbytes)
+            else:
+                block_snps = (1 << 30) // self.nbytes          # ~1 GiB
+        self.block_snps = int(max(1, min(block_snps, p)))
+        self._init_staging(packed, n_blocks=-(-p // self.block_snps),
+                           block_nbytes=self.block_snps * self.nbytes,
+                           memory_mb=memory_mb, cache_mb=cache_mb,
+                           prefetch=prefetch)
+        # the functional core's decode blocks inside a staged block
+        self.block_size = budget_block_size(self.block_snps, self.n4,
+                                            cap=8192)
+
+    # -- what a block is: a range of SNP rows --------------------------------
+    def _bounds(self, i: int):
+        lo = i * self.block_snps
+        return lo, min(lo + self.block_snps, self.n_snps)
+
+    def _block_shape(self, lo: int, hi: int):
+        return hi - lo, self.nbytes
+
+    def _host_block(self, lo: int, hi: int):
+        return self._host_packed[lo:hi]
+
 
     # -- raw products: one pass over the blocks ------------------------------
     def _on_block(self, name, blk, lo, hi, arg):
@@ -879,6 +938,149 @@ class StreamingPackedOperator(_WideProducts, _PackedBase):
                           for blk, lo, hi in self._blocks()])
 
 
+
+
+class TallStreamingOperator(_SnpSpace, _StagedBlocks, _PackedBase):
+    """Bounded-device-memory operator for the tall gram X^T X: the packed
+    genotypes stay on the host and stream to the device in blocks of
+    byte columns, that is of samples (:class:`_StagedBlocks`), so an
+    n >> p cohort larger than the card keeps the p x p problem shape
+    (the wide streaming operator's n x n iterate is the wrong problem at
+    that scale).  The JAX package's ``TallStreamingOperator``.
+
+    Parameters
+    ----------
+    source : a :class:`PlinkDataset` (read through its memmap) or a
+        (p, nbytes) uint8 array, used as it is.  A block is a strided
+        window of every SNP row, so a fill from a memmap makes p short
+        reads.
+    mean, sd, n_samples, device, dtype, use_kernels, snp_sumsq : as
+        :class:`_PackedBase`.
+    block_bytes : byte columns (4 samples each) per staged block, rounded
+        down to a multiple of 4 (at least 4) and capped at the row width.
+        Default: ``memory_mb`` read as two packed block buffers on the
+        device, ``(memory_mb << 20) // (2 * p)``; without it blocks of
+        about 1 GiB.  The last block is narrower and runs on a
+        contiguous prefix of its buffer.
+    memory_mb : the device budget of the two block buffers; it also
+        turns the automatic block cache off.
+    cache_mb, prefetch : as :class:`_StagedBlocks`.
+
+    Per block, on all p rows of the decode constants: the gram adds X_b^T
+    (M_b X_b v) (B2, the block's valid-sample mask M_b, B1), the
+    two-float gram folds the block's B5, mask, B3 + B1 pair in by TwoSum,
+    and ``prod`` un-permutes the block's masked B2 into its run of
+    samples.  The partials are summed in block order, so they differ
+    from the resident sums in the last bits.
+    """
+
+    def __init__(self, source, mean, sd, n_samples: int, *,
+                 block_bytes: int | None = None,
+                 memory_mb: int | None = None, dtype=None, snp_sumsq=None,
+                 cache_mb="auto", prefetch: bool | None = None, device=None,
+                 use_kernels: bool | None = None):
+        packed = _host_source(source, n_samples)
+        p = packed.shape[0]
+        super().__init__(mean, sd, n_samples, p, device=device, dtype=dtype,
+                         use_kernels=use_kernels, snp_sumsq=snp_sumsq)
+        if block_bytes is None:
+            if memory_mb is not None:
+                # --memory semantics: two packed block buffers on device
+                block_bytes = (int(memory_mb) << 20) // (2 * p)
+            else:
+                block_bytes = (1 << 30) // p                   # ~1 GiB
+        # whole bytes of 4 samples, in whole words (the JAX package's
+        # rule on its jnp path)
+        self.block_bytes = int(max(PACK_DENSITY,
+                                   min(block_bytes, self.nbytes)
+                                   // PACK_DENSITY * PACK_DENSITY))
+        self._init_staging(packed, n_blocks=-(-self.nbytes
+                                              // self.block_bytes),
+                           block_nbytes=p * self.block_bytes,
+                           memory_mb=memory_mb, cache_mb=cache_mb,
+                           prefetch=prefetch)
+        # the functional core's decode blocks inside a staged block
+        self.block_size = budget_block_size(p, PACK_DENSITY
+                                            * self.block_bytes, cap=8192)
+        # each block's valid-sample mask in its permuted layout: position
+        # s * w + b holds sample 4 (lo + b) + s, byte padding zeroed
+        planes = self._valid.view(PACK_DENSITY, self.nbytes)
+        self._block_valid = [planes[:, lo:hi].reshape(-1)
+                             for lo, hi in map(self._bounds,
+                                               range(self.n_blocks))]
+
+    # -- what a block is: a range of byte columns ----------------------------
+    def _bounds(self, i: int):
+        lo = i * self.block_bytes
+        return lo, min(lo + self.block_bytes, self.nbytes)
+
+    def _block_shape(self, lo: int, hi: int):
+        return self.n_snps, hi - lo
+
+    def _host_block(self, lo: int, hi: int):
+        return self._host_packed[:, lo:hi]
+
+    def _masked_blocks(self):
+        """(block on the device, its valid-sample mask, lo, hi)."""
+        for i, (blk, lo, hi) in enumerate(self._blocks()):
+            yield blk, self._block_valid[i], lo, hi
+
+    # -- products: one pass over the blocks ----------------------------------
+    def gram_permuted(self, v):
+        """u = X^T X v in SNP space; (p,) or (p, k) -> same."""
+        vec = v.ndim == 1
+        v2 = v[:, None] if vec else v
+        acc = torch.zeros_like(v2)
+        for blk, valid, _, _ in self._masked_blocks():
+            acc = acc + self._gram(blk, v2, valid)
+        self.nops += 1
+        return acc[:, 0] if vec else acc
+
+    def prod(self, v):
+        """y = X v: (p,) or (p, k) -> (N,) or (N, k), natural order."""
+        v2, vec = self._as_2d(v, self.n_snps, "prod")
+        segs = [unpermute_samples(self._mv(blk, v2, valid),
+                                  PACK_DENSITY * (hi - lo))
+                for blk, valid, lo, hi in self._masked_blocks()]
+        y = torch.cat(segs)[: self.n_samples]
+        self.nops += 1
+        return y[:, 0] if vec else y
+
+    def gram_ff_permuted(self, v):
+        """(z_hi, z_lo) two-float pair of X^T X v in SNP space: each
+        block's pair folded in by TwoSum, its error and the block's own
+        lo half into z_lo (the JAX package's fold,
+        flashpca_tpu/ops/operator.py:2030-2033)."""
+        from .compensated import twosum
+
+        vec = v.ndim == 1
+        v2 = (v[:, None] if vec else v).to(self.dtype)
+        z_hi = torch.zeros_like(v2)
+        z_err = torch.zeros_like(v2)
+        for blk, valid, _, _ in self._masked_blocks():
+            t_hi, t_err = self._gram_ff(blk, v2, valid)
+            z_hi, e = twosum(z_hi, t_hi)
+            z_err = z_err + e + t_err
+        self.nops += 1
+        return (z_hi[:, 0], z_err[:, 0]) if vec else (z_hi, z_err)
+
+    @property
+    def snp_sumsq(self) -> np.ndarray:
+        """Per-SNP sums of squares, the blocks' partials summed in host
+        float64 (float32 sums across many blocks would leak ~1e-6
+        relative into trace and pve)."""
+        if self._sumsq is None:
+            bs = budget_block_size(self.n_snps,
+                                   PACK_DENSITY * self.block_bytes)
+            tot = np.zeros(self.n_snps)
+            for blk, valid, _, _ in self._masked_blocks():
+                tot += snp_sumsq_p(blk, self.mean, self.invsd, valid,
+                                   block_size=bs).to(
+                                       "cpu", torch.float64).numpy()
+            self._sumsq = tot
+        return self._sumsq
+
+
 def packed_operator_from_numpy(packed, mean, sd, n_samples: int, *,
                                snp_sumsq=None, device=None, dtype=None,
                                **kw) -> PackedOperator:
@@ -921,33 +1123,42 @@ def streaming_operator_from_numpy(packed, mean, sd, n_samples: int, *,
                                    dtype=dtype, **kw)
 
 
+def tall_streaming_operator_from_numpy(packed, mean, sd, n_samples: int, *,
+                                       block_bytes: int | None = None,
+                                       snp_sumsq=None, device=None,
+                                       dtype=None, **kw
+                                       ) -> TallStreamingOperator:
+    """The tall streaming twin of :func:`packed_operator_from_numpy`: the
+    port's ``TallStreamingOperator`` from the numpy state of the JAX one
+    (its host bytes ``_host_packed``, float64 ``center`` and ``scale``,
+    ``n_samples`` and ``block_bytes``)."""
+    return TallStreamingOperator(np.asarray(packed, dtype=np.uint8),
+                                 np.asarray(mean, dtype=np.float64),
+                                 np.asarray(sd, dtype=np.float64),
+                                 int(n_samples), block_bytes=block_bytes,
+                                 snp_sumsq=snp_sumsq, device=device,
+                                 dtype=dtype, **kw)
+
+
 # the fraction of the card's memory above which "auto" streams
 STREAM_FRACTION = 0.7
-TALL_STREAMING = ("A15 'Streaming, wide and tall', tall half "
-                  "(TallStreamingOperator)")
+STREAMING_OPERATORS = (StreamingPackedOperator, TallStreamingOperator)
+# the operators of the tall gram X^T X
+TALL_OPERATORS = (TallPackedOperator, TallStreamingOperator)
 
 
-def resolve_streaming(streaming, ds, device=None, *, tall: bool = False
-                      ) -> bool:
-    """Resolve the streaming tri-state ('auto'/True/False): ``"auto"``
-    streams when the packed bytes exceed 0.7 x the card's total memory,
-    and never on the CPU.  Streaming the tall gram is not ported yet: a
-    request that resolves to it raises, rather than building a resident
-    operator that cannot fit."""
-    if streaming == "auto":
-        dev = torch.device("cuda" if device is None else device)
-        stream = False
-        if dev.type == "cuda":
-            total = torch.cuda.get_device_properties(
-                resolve_device(dev)).total_memory
-            stream = ds.n_snps * ds.nbytes_per_snp > STREAM_FRACTION * total
-    else:
-        stream = bool(streaming)
-    if stream and tall:
-        raise NotImplementedError(
-            "streaming the tall gram X^T X is not ported to the PyTorch "
-            f"package yet (ROADMAP {TALL_STREAMING})")
-    return stream
+def resolve_streaming(streaming, ds, device=None) -> bool:
+    """Resolve the streaming tri-state ('auto'/True/False), for the wide
+    and the tall gram alike: ``"auto"`` streams when the packed bytes
+    exceed 0.7 x the card's total memory, and never on the CPU."""
+    if streaming != "auto":
+        return bool(streaming)
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return False
+    total = torch.cuda.get_device_properties(
+        resolve_device(dev)).total_memory
+    return ds.n_snps * ds.nbytes_per_snp > STREAM_FRACTION * total
 
 
 def build_packed_operator(ds, mean, sd, *, tall: bool = False,
@@ -955,21 +1166,31 @@ def build_packed_operator(ds, mean, sd, *, tall: bool = False,
                           block_size: int | None = None, dtype=None,
                           device=None, mesh=None, snp_sumsq=None):
     """The operator an analysis mode runs on: the wide gram X X^T, or
-    with ``tall`` the tall gram X^T X; resident, or on the wide path
-    streamed from the host when ``streaming`` resolves to it
-    (:func:`resolve_streaming`).  A ``mesh`` raises (ROADMAP A18).
-    ``memory_mb`` bounds the streaming operator only, so the resident
-    ones ignore it (as the JAX package's do); ``block_size`` is the
-    streaming operator's ``block_snps``."""
+    with ``tall`` the tall gram X^T X; resident, or streamed from the
+    host when ``streaming`` resolves to it (:func:`resolve_streaming`).
+    A ``mesh`` raises (ROADMAP A18).  ``memory_mb`` bounds the streaming
+    operators only, so the resident ones ignore it (as the JAX
+    package's do); ``block_size`` is the wide streaming operator's
+    ``block_snps``, and the tall one, which blocks the samples, refuses
+    it (as the JAX package's ``pca()`` does)."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: multi-GPU sharding is not ported yet (ROADMAP A18 "
             "'Multi-GPU')")
-    if resolve_streaming(streaming, ds, device, tall=tall):
-        return StreamingPackedOperator(
-            ds, mean, sd, ds.n_samples, memory_mb=memory_mb,
-            block_snps=block_size, dtype=dtype, snp_sumsq=snp_sumsq,
-            device=device)
+    if resolve_streaming(streaming, ds, device):
+        if not tall:
+            return StreamingPackedOperator(
+                ds, mean, sd, ds.n_samples, memory_mb=memory_mb,
+                block_snps=block_size, dtype=dtype, snp_sumsq=snp_sumsq,
+                device=device)
+        if block_size is not None:
+            raise ValueError(
+                "block_size= (SNPs per block) does not apply to the tall "
+                "streaming path, which blocks the sample(byte) axis; "
+                "bound its staged buffers with memory_mb= instead")
+        return TallStreamingOperator(
+            ds, mean, sd, ds.n_samples, memory_mb=memory_mb, dtype=dtype,
+            snp_sumsq=snp_sumsq, device=device)
     cls = TallPackedOperator if tall else PackedOperator
     return cls(ds.read_packed(), mean, sd, ds.n_samples,
                block_size=block_size, dtype=dtype, device=device,
@@ -999,12 +1220,13 @@ def check_operator_conflicts(op, *, dtype=None, streaming="auto",
         raise ValueError(
             f"device={device} conflicts with the prebuilt operator's "
             f"device={op.device}; rebuild the operator on that device")
-    is_stream = isinstance(op, StreamingPackedOperator)
+    is_stream = isinstance(op, STREAMING_OPERATORS)
     if streaming is True and not is_stream:
         raise ValueError(
             "streaming=True was passed with a device-resident prebuilt "
-            "operator; build a StreamingPackedOperator (or pass the PLINK "
-            "data) for bounded device memory")
+            "operator; build a StreamingPackedOperator / "
+            "TallStreamingOperator (or pass the PLINK data) for bounded "
+            "device memory")
     if streaming is False and is_stream:
         raise ValueError(
             "streaming=False was passed with a prebuilt streaming "

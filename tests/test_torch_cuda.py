@@ -501,3 +501,68 @@ def test_streamed_pca_matches_resident(cuda, tmp_path):
                ("crossprod", "matvec", "crossprod_ff", "matvec_ff"))
     assert np.all(np.abs(res_s.values - res.values) <= 2e-6 * res.values)
     assert chk_s.mse < 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n,block_bytes", [(1024, 4096, 128),
+                                             (333, 1001, 60)],
+                         ids=["aligned", "ragged"])
+def test_tall_streamed_products_bit_equal_to_same_order(cuda, tmp_path, p,
+                                                        n, block_bytes):
+    """chip_smoke.py's tall same-order phase at two block sizes (the
+    second with n % 4 == 1 and a last block of 11 bytes): in each staging
+    configuration the plain gram, the two-float gram and prod at kc 16
+    and 32, back to back, torch.equal to the same blocks' kernel calls
+    summed in block order."""
+    cs = _chip_smoke()
+    out = cs.check_tall_streamed(cuda, str(tmp_path), (
+        (f"{p} x {n}", p, n, 33, {"block_bytes": block_bytes}, False),))
+    assert len(out) == len(cs.STREAM_CONFIGS)
+    assert all(r["n_blocks"] >= 5 for r in out.values())
+
+
+@pytest.mark.cuda
+def test_tall_streamed_pca_matches_resident(cuda):
+    """pca() on a 40,003 x 1,024 cohort generated on the card, streamed in
+    eleven blocks of 1,000 bytes through B2, B1, B5 and B3 per block,
+    against the resident tall operator on the same bytes: the same
+    n_ops, eigenvalues within 2e-6 of the largest."""
+    from flashpca_tpu_torch import (TallPackedOperator,
+                                    TallStreamingOperator, pca)
+
+    cs = _chip_smoke()
+    n, p = 40_003, 1024
+    packed, mean, sd, sumsq = cs.card_data(cuda, n, p, 34)
+    res = pca(TallPackedOperator(packed, mean, sd, n, device=cuda,
+                                 snp_sumsq=sumsq), 10)
+    op = TallStreamingOperator(packed.cpu().numpy(), mean, sd, n,
+                               block_bytes=1000, cache_mb=0, device=cuda,
+                               snp_sumsq=sumsq)
+    assert op.n_blocks == 11
+    tpk.reset_launch_counts()
+    res_s = pca(op, 10)
+    assert all(tpk.launch_counts[k] > 0 for k in
+               ("crossprod", "matvec", "crossprod_ff", "matvec_ff_novl"))
+    assert res_s.n_ops == res.n_ops
+    assert np.all(np.abs(res_s.values - res.values)
+                  <= 2e-6 * res.values[0])
+
+
+@pytest.mark.cuda
+def test_tall_stream_device_bytes_within_memory_mb(cuda):
+    """memory_mb bounds the packed bytes the tall streaming operator
+    holds on the card: its two block buffers, and no cache."""
+    from flashpca_tpu_torch import TallStreamingOperator
+
+    cs = _chip_smoke()
+    n, p = 40_003, 1024
+    packed, mean, sd, _ = cs.card_data(cuda, n, p, 35)
+    op = TallStreamingOperator(packed.cpu().numpy(), mean, sd, n,
+                               memory_mb=1, device=cuda)
+    assert op.block_bytes == 512 and op.n_blocks == 20
+    v = torch.randn((p, 16), device=cuda)
+    op.gram_permuted(v)
+    op.gram_ff_permuted(v)
+    st = op.stats()
+    assert st["n_cached"] == 0
+    assert st["device_bytes"] == 2 * p * 512 <= 1 << 20

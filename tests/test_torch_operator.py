@@ -28,6 +28,7 @@ from flashpca_tpu_torch.ops.genotypes import dense_standardized_np
 from flashpca_tpu_torch.ops.operator import (PackedOperator,
                                              StreamingPackedOperator,
                                              TallPackedOperator,
+                                             TallStreamingOperator,
                                              build_packed_operator,
                                              packed_operator_from_numpy)
 
@@ -179,15 +180,16 @@ def test_build_packed_operator_resident_only(data):
     top = build_packed_operator(ds, data["mean"], data["sd"], tall=True,
                                 device="cpu")
     assert isinstance(top, TallPackedOperator) and top.op_dim == data["p"]
-    # streaming: the wide operator streams from the host; the tall one
-    # is not ported yet and raises, never falling back to a resident one
+    # streaming: the wide operator streams SNP blocks from the host, the
+    # tall one sample blocks
     sop = build_packed_operator(ds, data["mean"], data["sd"],
                                 streaming=True, device="cpu")
     assert isinstance(sop, StreamingPackedOperator)
     assert sop.n_snps == data["p"] and sop.dtype == torch.float64
-    with pytest.raises(NotImplementedError, match="A15.*tall half"):
-        build_packed_operator(ds, data["mean"], data["sd"], tall=True,
-                              streaming=True, device="cpu")
+    tsop = build_packed_operator(ds, data["mean"], data["sd"], tall=True,
+                                 streaming=True, device="cpu")
+    assert isinstance(tsop, TallStreamingOperator)
+    assert tsop.op_dim == data["p"] and tsop.dtype == torch.float64
     with pytest.raises(NotImplementedError, match="A18"):
         build_packed_operator(ds, data["mean"], data["sd"], mesh=object(),
                               device="cpu")

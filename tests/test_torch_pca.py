@@ -245,11 +245,11 @@ def test_cli_checkpoints_resume_across_packages(fileset, tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--opmode", "tall", "--stream", "on"], "A15"),
+    (["--ucca"], "A13"),
     (["--shards", "2"], "A18"),
     (["--outstate", "f.npz", "--checkpoint-every", "2"], "A17"),
     (["--profile", "trace"], "A10"),
-], ids=["stream-on", "shards2", "checkpoint-every", "profile"])
+], ids=["ucca", "shards2", "checkpoint-every", "profile"])
 def test_cli_unported_options_name_their_item(fileset, tmp_path, capsys,
                                               flags, item):
     assert _cli(["--bfile", fileset[0], "--device", "cpu"] + flags,
@@ -281,11 +281,17 @@ def test_unported_options_raise(fileset, tmp_path, capsys):
         (dict(checkpoint_every=2), "A17"),
         (dict(batch=True), "A12"),
         (dict(mesh=object()), "A18"),
-        (dict(operator_mode="tall", streaming=True), "A15"),
     ]
     for kw, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             ft.pca(root, K, device="cpu", **kw)
+    # streaming the tall gram is ported: it runs and gives the resident
+    # tall path's values
+    np.testing.assert_allclose(
+        ft.pca(root, K, device="cpu", operator_mode="tall",
+               streaming=True).values,
+        ft.pca(root, K, device="cpu", operator_mode="tall").values,
+        rtol=1e-10)
     with pytest.raises(NotImplementedError, match="A12"):
         ft.pca(np.zeros((20, 30)), 2, device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):

@@ -346,29 +346,32 @@ def test_resolve_streaming_on_a_stubbed_card(data, monkeypatch):
     packed = ds.n_snps * ds.nbytes_per_snp
     # on the CPU "auto" never streams, whatever the size
     assert resolve_streaming("auto", ds, "cpu") is False
-    assert resolve_streaming("auto", ds, "cpu", tall=True) is False
     assert resolve_streaming(True, ds, "cpu") is True
     assert resolve_streaming(False, ds, "cuda") is False
     # a card on which the bytes exceed 0.7 x its memory: stream
     _stub_card(monkeypatch, int(packed / 0.7) - 1)
     assert resolve_streaming("auto", ds) is True
     assert resolve_streaming("auto", ds, "cuda") is True
-    with pytest.raises(NotImplementedError, match="A15.*tall half"):
-        resolve_streaming("auto", ds, tall=True)
     # one that holds them below 0.7 x: resident
     _stub_card(monkeypatch, int(packed / 0.7) + 2)
     assert resolve_streaming("auto", ds) is False
-    assert resolve_streaming("auto", ds, tall=True) is False
-    with pytest.raises(NotImplementedError, match="A15.*tall half"):
-        resolve_streaming(True, ds, "cpu", tall=True)
-    with pytest.raises(NotImplementedError, match="A15.*tall half"):
-        ft.pca(data["root"], 3, device="cpu", operator_mode="tall",
-               streaming=True)
-    # an over-size "auto" tall path raises, never building a resident
-    # operator that cannot fit
+    # the tall path streams too: an explicit request, and an over-size
+    # "auto" builds the tall streaming operator, never a resident one
+    # that cannot fit
+    res = ft.pca(data["root"], 3, device="cpu", operator_mode="tall",
+                 streaming=True, tol=1e-9)
+    want = ft.pca(data["root"], 3, device="cpu", operator_mode="tall",
+                  streaming=False, tol=1e-9)
+    np.testing.assert_allclose(res.values, want.values, rtol=1e-10)
+    from flashpca_tpu_torch.ops import operator as top
+
+    built = []
+    monkeypatch.setattr(top, "TallStreamingOperator",
+                        lambda *a, **kw: built.append(kw) or "tall stream")
     _stub_card(monkeypatch, 1000)
-    with pytest.raises(NotImplementedError, match="A15.*tall half"):
-        build_packed_operator(ds, data["mean"], data["sd"], tall=True)
+    assert build_packed_operator(ds, data["mean"], data["sd"], tall=True,
+                                 memory_mb=7) == "tall stream"
+    assert built[0]["memory_mb"] == 7
 
 
 def _cli(args, cwd):
