@@ -54,13 +54,33 @@ Phases, all in this one process; any failure raises and exits nonzero:
    write_bed) through ``pca(root, 10)`` and ``check()``, against a
    float64 dense eigendecomposition, and then streamed from its .bed
    memmap (``streaming=True, memory_mb=1``): eigenvalues within 2e-6
-   relative of the resident run, check mse < 1e-8;
+   relative of the resident run, check mse < 1e-8; then float64 on the
+   card (the functional core; no kernel may launch): wide and tall
+   ``pca(root, 10, dtype=float64)`` held to the dense float64 eigh
+   (eigenvalues within 1e-9 of the largest, vectors RMSE < 1e-6),
+   ``check()`` at float64 (mse < 1e-8) and the wide run streamed from
+   the memmap within 1e-12 relative of the resident one; then the CLI
+   on the card: ``pca`` writes loadings and meansd, ``--project
+   --inload --inmeansd`` reads them back (B2), ``--ucca --pheno`` a
+   phenotype file written here (B1), each held to a numpy float64
+   oracle (the projection's columns within 1e-6 of their norms; ucca's
+   R within 1e-5 relative, F 2e-5, -log10 P 1e-4 absolute);
 5. the wide headline: structured genotypes 501,760 x 100,352 generated
    on the card (12.6 GB packed, never decoded whole), ``pca(op, 20)``
    with ``polish="contract"`` at float32, then ``check(op, U, d)``; the
    kernels' launch counts are reset just before ``pca`` and read just
    after ``check``, and every kernel of the wide path (B1-B4) must have
-   run; then B1-B4 timed at the headline shapes (B1/B2 at kc 16 and 24,
+   run; then ``project`` and ``ucca`` on the same operator, counts
+   reset just before and read just after each: the headline's loadings
+   (one crossprod of its vectors, B1) projected back by
+   ``_project_operator(op, V, p)`` (B2 at kc 24), held to the float64
+   W^T V / sqrt(p) over all SNPs (the population PCs' columns within
+   1e-6 of their norms, every column within 1e-6 of the largest one's),
+   its 7 population PCs to ``res.projection`` at |cos| >= 1 - 1e-6;
+   ``ucca(op, Y)`` on 7 seeded phenotypes, each carrying one SNP's
+   effect (B1 at kc 8), held on the causal SNPs' 512-SNP window to a
+   float64 crossprod's R, F and P at the CLI's bars, the causal SNPs at
+   P < 1e-8; then B1-B4 timed at the headline shapes (B1/B2 at kc 16 and 24,
    B3/B4 at 24) beside their bounds, their plain versions and the
    torch.matmul calls on the same block decoded to float32, and B1 (kc
    16), B2 (kc 16 and 24), B3 (kc 24) and B4 (kc 24) beside their first
@@ -78,8 +98,11 @@ Phases, all in this one process; any failure raises and exits nonzero:
    printed beside it as the witness), the packed bytes on the card
    within 2048 MiB -- with the
    staging seconds, the packed GB/s, the kernels' busy share and their
-   per-launch medians on the blocks; then B1-B4 timed on one block held
-   resident;
+   per-launch medians on the blocks; then ``ucca`` and
+   ``_project_operator`` on the streamed operator (counts around each:
+   B1 for ucca, B2 for project), ucca equal to the resident result bit
+   for bit, project within 1e-6 relative of it; then B1-B4, B2 at kc 24
+   and B1 at kc 8 timed on one block held resident;
 6. the kernel sweep (flashpca_tpu_torch.tools.kernel_sweep) at the wide
    headline's shape, 100,352 x 501,760, k=16, after the headline's
    operator is freed: V1-V4 and their first designs against B1 on a
@@ -103,7 +126,13 @@ Phases, all in this one process; any failure raises and exits nonzero:
    2e-6 of the largest of each other and of a float64 eigendecomposition
    of X^T X / p formed on the card (p x p float64, 20 GB, ~100 s), save
    that in the Marchenko-Pastur bulk the bar below is 3.6e-5 (and
-   between the paths 3.6e-5 both ways); then B5 at kc 32 and 24 (and
+   between the paths 3.6e-5 both ways); one float64 gram pass timed
+   and, where 250 passes of it would exceed 180 s, the SNP depth cut
+   (never the samples) to fit, then ``pca(TallPackedOperator(...,
+   dtype=float64), 20)`` on that depth through the functional core (no
+   kernel may launch), its eigenvalues within 2e-6 of the largest of
+   the float64 eigendecomposition of that depth's gram (the leading
+   block of the same X^T X / p) for every pair; then B5 at kc 32 and 24 (and
    B1-B3 at their tall widths: B1 and B2 at 16, 24, 32, B3 at 24, 32)
    timed at the tall shapes, and beside B5, on the same inputs, its
    comparison entries, B1 at kc 16 and 32, B2 at kc 16, 24 and 32 and B3
@@ -131,7 +160,10 @@ widths the headlines launch and B4 at the tall bytes' kc 24, the first
 designs of B1-B5 from the timing phases, V1-V4 and their first designs
 from the sweep, B1-B4 at the streamed block's shape with ``"path":
 "streaming"``, B1, B2, B3 and B5 at the streamed tall block's with
-``"path": "tall_streaming"``), with a ``streaming`` entry (the streamed
+``"path": "tall_streaming"``, B2 at kc 24 and B1 at kc 8 with ``"path":
+"project"`` and ``"ucca"`` at the headline's shape and
+``"project_streaming"`` and ``"ucca_streaming"`` at the streamed
+block's), with a ``streaming`` entry (the streamed
 path's launches and per-launch medians, and under ``tall`` the streamed
 tall path's); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -263,12 +295,48 @@ SWEEP_K = 16
 # the kernels each main path must launch
 WIDE_PATH = ("crossprod", "matvec", "crossprod_ff", "matvec_ff")
 TALL_PATH = ("crossprod", "matvec", "crossprod_ff", "matvec_ff_novl")
+PROJECT_PATH = ("matvec",)               # project(): one prod pass, B2
+UCCA_PATH = ("crossprod",)               # ucca(): one crossprod pass, B1
+# float64 on the card runs the functional core; the mid-size runs are
+# held to dense float64 eigh: a float64 solve stops at residuals of 1e-6
+# of each eigenvalue, so a pair's eigenvalue is off by about that
+# squared over its relative gap (~0.2 between the populations here:
+# 5e-12) and its vector by 1e-6 over the gap (RMSE ~6e-8 at n = 8,001)
+F64_EIG_BAR, F64_VEC_RMSE = 1e-9, 1e-6
+# project() against float64 products: each population PC's column
+# within 1e-6 of its own norm, every column within 1e-6 of the largest
+# column's norm.  B1 and B2 decode with float32 constants whose per-SNP
+# offsets are ~1e-6 absolute (20 float32 ulps; the same decode measured
+# on the CPU), which move a projected column by ~1e-6 ||V_j|| a sample:
+# 1e-6 of the column's norm only where d_j p / n ~ 1, as for the
+# Marchenko-Pastur bulk PCs (d ~ 10 at the headline), 20x below it for
+# the population PCs (d ~ 2e3), so the bulk columns are held, like the
+# eigenvalues, against the largest
+PROJECT_BAR = 1e-6
+# ucca() against a float64 oracle: R relative, F relative (r^2 / (1 -
+# r^2), twice R's), -log10 P absolute
+UCCA_R_BAR, UCCA_F_BAR, UCCA_LOGP_BAR = 1e-5, 2e-5, 1e-4
+# ucca() at the headline: 7 phenotypes, so its panel is 8 columns (B1 at
+# kc 8), each carrying one causal SNP's effect at 0.02 standard
+# deviations per standard deviation (r^2 ~ 4e-4: F ~ 29, P ~ 1e-40 at
+# n = 501,760, well inside float64), the causal SNPs in a 512-SNP
+# window that the float64 oracle covers
+UCCA_K, UCCA_BETA, UCCA_SLICE = 7, 0.02, 512
+# the tall headline at float64 (the functional core on the card, ~5.7 s
+# a gram pass at full depth, decode-bound): its solve's time budget; the
+# passes it takes, which grow with the SNP depth (118, 168 and 226 at
+# 2,048, 4,096 and 6,144 SNPs of the 1,003,520 samples on the H100:
+# tools/tall_f64_depths.py and this script, PERF.md), taken as 250; and
+# the restarts it may take before it fails
+F64_SOLVE_S, F64_PASSES, F64_MAXITER = 180.0, 250, 400
 # kernel-check shapes (label, SNPs, samples, seed): a full-width slice of
 # the headline and a small odd case (n % 4 != 0); the tall kernels also
 # run at the tall headline's width
 KERNEL_CASES = (("full width 4096 x 501760", 4096, 501_760, 21),
                 ("odd 333 x 1001", 333, 1001, 22))
 TALL_CASE = ("tall width 2048 x 1003520", 2048, 1_003_520, 23)
+# the headlines' populations (POPS - 1 population PCs lead the spectrum)
+POPS = 8
 # the tall headline: the JAX package's tall bench shape (bench.py)
 TALL_N, TALL_P = 1_003_520, 50_176
 
@@ -883,9 +951,7 @@ def mid_size(dev, workdir, n=8001, p=4096, k=10, seed=5):
     # products whose rounding is ~1e-7 of ||A|| (as in the JAX package),
     # so the bar is on the error relative to the largest eigenvalue
     rel_norm = np.abs(res.values - d_ref) / d_ref[0]
-    rmse = np.array([min(np.linalg.norm(res.vectors[:, j] - U_ref[:, j]),
-                         np.linalg.norm(res.vectors[:, j] + U_ref[:, j]))
-                     for j in range(k)]) / np.sqrt(n)
+    rmse = vector_rmse(res.vectors, U_ref)
     say(f"   vs float64 eigh: eigenvalue rel err max {rel.max():.2e} "
         f"(per value: {' '.join(f'{e:.1e}' for e in rel)}), relative to "
         f"the largest {rel_norm.max():.2e}; vector RMSE max "
@@ -922,6 +988,8 @@ def mid_size(dev, workdir, n=8001, p=4096, k=10, seed=5):
                              " relative off the resident run")
     if not chk_s.mse < 1e-8:
         raise AssertionError(f"mid-size streamed: check mse {chk_s.mse:.3e}")
+    f64 = mid_float64(dev, root, ds, k, d_ref, U_ref)
+    cli = mid_cli(dev, workdir, root, ds, k, seed)
     return {"n_ops": res.n_ops, "check_mse": chk.mse, "pca_s": t_pca,
             "eig_rel_err": float(rel.max()),
             "eig_err_of_largest": float(rel_norm.max()),
@@ -929,7 +997,228 @@ def mid_size(dev, workdir, n=8001, p=4096, k=10, seed=5):
             "streamed": {"pca_s": t_stream, "n_ops": res_s.n_ops,
                          "gate_mse": res_s.gate_mse, "check_mse": chk_s.mse,
                          "eig_rel_err_vs_resident": float(rel_s.max()),
-                         "launches": {nm: launches[nm] for nm in WIDE_PATH}}}
+                         "launches": {nm: launches[nm] for nm in WIDE_PATH}},
+            "float64": f64, "cli": cli}
+
+
+def vector_rmse(U, U_ref):
+    """Per column sign-invariant RMSE of ``U`` against ``U_ref``."""
+    return np.array([min(np.linalg.norm(U[:, j] - U_ref[:, j]),
+                         np.linalg.norm(U[:, j] + U_ref[:, j]))
+                     for j in range(U_ref.shape[1])]) / np.sqrt(len(U))
+
+
+def mid_float64(dev, root, ds, k, d_ref, U_ref):
+    """float64 on the card: the mid-size fileset's wide and tall
+    ``pca()`` through the functional core, held to the dense float64
+    eigendecomposition (eigenvalues within F64_EIG_BAR of the largest,
+    vectors RMSE < F64_VEC_RMSE), ``check()`` at float64 (mse < 1e-8),
+    and the wide run streamed from the .bed memmap (``memory_mb=1``)
+    within 1e-12 relative of the resident one; no kernel may launch."""
+    import torch
+
+    from flashpca_tpu_torch import check, pca
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    f64 = torch.float64
+    out = {}
+    tpk.reset_launch_counts()
+    runs = {}
+    for mode, kw in (("wide", {}), ("tall", {"operator_mode": "tall"}),
+                     ("streamed", {"streaming": True, "memory_mb": 1})):
+        with Phase(f"mid-size pca float64 on the card, {mode}") as ph:
+            runs[mode] = pca(root, k, device=dev, dtype=f64, **kw)
+        out[mode] = {"pca_s": ph.seconds, "n_ops": runs[mode].n_ops,
+                     "n_restarts": runs[mode].n_restarts}
+    with Phase("mid-size check() float64 on the card") as ph:
+        chk = check(ds, runs["wide"].vectors, runs["wide"].values,
+                    device=dev, dtype=f64)
+    launches = dict(tpk.launch_counts)
+    out.update(check_mse=chk.mse, check_s=ph.seconds,
+               launches=sum(launches.values()))
+    for mode in ("wide", "tall"):
+        r = runs[mode]
+        err = np.abs(r.values - d_ref) / d_ref[0]
+        rmse = vector_rmse(r.vectors, U_ref)
+        out[mode].update(eig_err_of_largest=float(err.max()),
+                         vec_rmse=float(rmse.max()))
+        say(f"   float64 {mode}: n_ops {r.n_ops}, n_restarts "
+            f"{r.n_restarts}, vs float64 eigh: eigenvalues "
+            f"{err.max():.2e} of the largest, vector RMSE {rmse.max():.2e}")
+        if not (err.max() < F64_EIG_BAR and rmse.max() < F64_VEC_RMSE):
+            raise AssertionError(
+                f"mid-size float64 {mode}: eigenvalues {err.max():.2e} of "
+                f"the largest (bar {F64_EIG_BAR}), vector RMSE "
+                f"{rmse.max():.2e} (bar {F64_VEC_RMSE}) off float64 eigh")
+    rel_s = np.abs(runs["streamed"].values - runs["wide"].values) / np.abs(
+        runs["wide"].values)
+    out["streamed"]["eig_rel_err_vs_resident"] = float(rel_s.max())
+    say(f"   float64 streamed: n_ops {runs['streamed'].n_ops}, eigenvalues "
+        f"vs resident rel {rel_s.max():.2e}; check mse {chk.mse!r}; kernel "
+        f"launches {sum(launches.values())}")
+    if not rel_s.max() <= 1e-12:
+        raise AssertionError(f"mid-size float64 streamed: eigenvalues "
+                             f"{rel_s.max():.2e} relative off the resident "
+                             "float64 run")
+    if not chk.mse < 1e-8:
+        raise AssertionError(f"mid-size float64: check mse {chk.mse:.3e}")
+    ran = [nm for nm, c in launches.items() if c]
+    if ran:
+        raise AssertionError(f"float64 on the card launched kernels {ran}: "
+                             "it runs the functional core")
+    return out
+
+
+def column_rel_err(got, ref):
+    """Per column ||got - ref|| / ||ref||."""
+    return np.linalg.norm(got - ref, axis=0) / np.linalg.norm(ref, axis=0)
+
+
+def hold_projection(tag, got, ref, npop):
+    """Hold a projection to its reference: the first ``npop`` columns
+    (the population PCs) each within PROJECT_BAR of its own norm, every
+    column within PROJECT_BAR of the largest column's norm.  Returns the
+    per column errors, relative to each column's own norm."""
+    err = column_rel_err(got, ref)
+    norms = np.linalg.norm(ref, axis=0)
+    of_largest = err * norms / norms.max()
+    say(f"   {tag}: column rel err " + " ".join(f"{e:.1e}" for e in err)
+        + f"; of the largest column {of_largest.max():.2e}")
+    if not (got.shape == ref.shape and np.isfinite(got).all()):
+        raise AssertionError(f"{tag}: non-finite or misshapen")
+    if not (err[:npop].max() < PROJECT_BAR
+            and of_largest.max() < PROJECT_BAR):
+        raise AssertionError(
+            f"{tag}: population columns {err[:npop].max():.2e} relative "
+            f"off the reference, columns {of_largest.max():.2e} of the "
+            f"largest (bar {PROJECT_BAR} each)")
+    return err
+
+
+def hold_ucca(tag, got, ref):
+    """Hold a (p, 3) ucca result [R, F, P] to its float64 oracle: R
+    within UCCA_R_BAR relative, F within UCCA_F_BAR, -log10 P within
+    UCCA_LOGP_BAR absolute.  A SNP whose standardized genotypes are all
+    0 (monomorphic, or all heterozygous under binom2) is the oracle's
+    0/0, nan; float32 decode constants leave it ~1e-8 off 0, so there
+    the result must be nan or show no association (P > 0.5).  Returns
+    the three errors."""
+    flat = np.isnan(ref[:, 0])
+    if np.isnan(got[~flat]).any() or not np.all(np.isnan(got[flat, 2])
+                                                | (got[flat, 2] > 0.5)):
+        raise AssertionError(f"{tag}: nan off the oracle's constant SNPs, "
+                             "or an association at one of them")
+    ok = ~flat
+    g, r = got[ok], ref[ok]
+    errs = (float(np.max(np.abs(g[:, 0] - r[:, 0]) / r[:, 0])),
+            float(np.max(np.abs(g[:, 1] - r[:, 1]) / r[:, 1])),
+            float(np.max(np.abs(np.log10(g[:, 2]) - np.log10(r[:, 2])))))
+    say(f"   {tag}: R rel {errs[0]:.2e}, F rel {errs[1]:.2e}, -log10 P "
+        f"abs {errs[2]:.2e} over {int(ok.sum())} SNPs")
+    if not (errs[0] <= UCCA_R_BAR and errs[1] <= UCCA_F_BAR
+            and errs[2] <= UCCA_LOGP_BAR):
+        raise AssertionError(
+            f"{tag}: off the float64 oracle (R {errs[0]:.2e} bar "
+            f"{UCCA_R_BAR}, F {errs[1]:.2e} bar {UCCA_F_BAR}, -log10 P "
+            f"{errs[2]:.2e} bar {UCCA_LOGP_BAR})")
+    return errs
+
+
+def ucca_from_products(out, sumsq, Y, stand_y="sd"):
+    """[R, F, P] per SNP from the crossprod of [Y_c, 1] (``out``, float64
+    (p, k + 1)) and the per-SNP sums of squares: the host half of
+    ``ucca()``, which the oracles share with it."""
+    from flashpca_tpu_torch.models.ucca import _r2_from_moments, wilks
+    from flashpca_tpu_torch.ops.standardize import standardize
+
+    Y_std = standardize(Y, stand_y)[0]
+    n, k = Y_std.shape
+    _, sv, Vt = np.linalg.svd(Y_std, full_matrices=False)
+    varx = (sumsq - out[:, k] ** 2 / n) / (n - 1.0)
+    return wilks(_r2_from_moments(out[:, :k] / (n - 1.0), varx, sv, Vt.T,
+                                  n), n, k)
+
+
+def centred_panel(Y, stand_y="sd"):
+    """[Y_c, 1]: the standardized phenotypes, centred, and a column of
+    ones, the panel ``ucca()`` sends through one crossprod."""
+    from flashpca_tpu_torch.ops.standardize import standardize
+
+    Y_std = standardize(Y, stand_y)[0]
+    Yc = Y_std - Y_std.mean(axis=0, keepdims=True)
+    return np.concatenate([Yc, np.ones((len(Y), 1))], axis=1)
+
+
+def mid_cli(dev, workdir, root, ds, k, seed, n_pheno=3):
+    """The CLI on ``dev`` (float32 on the card): ``pca`` writes its
+    loadings and meansd, ``--project --inload --inmeansd`` reads them
+    back, and ``--ucca --pheno`` a phenotype file written here (noise
+    plus the effects of ``n_pheno`` SNPs); each held to a numpy float64
+    oracle on the dense standardized matrix, the projection by
+    :func:`hold_projection`, ucca by :func:`hold_ucca`.  B2 must launch
+    for --project and B1 for --ucca."""
+    from flashpca_tpu_torch.cli import main as cli_main
+    from flashpca_tpu_torch.io.text import read_text
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+    from flashpca_tpu_torch.ops.genotypes import dense_standardized_np
+
+    cdir = os.path.join(workdir, "cli")
+    os.makedirs(cdir)
+
+    def run(*args):
+        tpk.reset_launch_counts()
+        cwd = os.getcwd()
+        os.chdir(cdir)
+        try:
+            with Phase("CLI " + " ".join(args)):
+                rc = cli_main(["--bfile", root, "--notime", "--device",
+                               dev.type, *args])
+        finally:
+            os.chdir(cwd)
+        if rc != 0:
+            raise AssertionError(f"CLI {args} exited {rc}")
+        return dict(tpk.launch_counts)
+
+    def path(fn):
+        return os.path.join(cdir, fn)
+
+    n, p = ds.n_samples, ds.n_snps
+    run("--ndim", str(k), "--outload", "loadings.txt", "--outmeansd",
+        "meansd.txt")
+    proj_launches = run("--project", "--inload", "loadings.txt",
+                        "--inmeansd", "meansd.txt")
+    V = read_text(path("loadings.txt"), firstcol=3, skip=1)
+    ms = read_text(path("meansd.txt"), firstcol=3, skip=1)
+    Px = read_text(path("projection.txt"), firstcol=3, skip=1)
+    codes = ds.read_codes()
+    X = dense_standardized_np(codes, ms[:, 0], ms[:, 1]).T    # (n, p)
+    say(f"   --project: B2 launches {proj_launches['matvec']}")
+    require_launched(proj_launches, PROJECT_PATH, "CLI --project")
+    # the fileset's 12 populations: all k <= 11 PCs are population PCs
+    proj_err = hold_projection("--project vs numpy float64", Px,
+                               X @ V / np.sqrt(p), npop=k)
+
+    rng = np.random.default_rng(seed + 1)
+    mean, sd, sumsq = ds.snp_stats("binom2", with_sumsq=True)
+    X = dense_standardized_np(codes, mean, sd).T
+    causal = rng.choice(p, size=n_pheno, replace=False)
+    Y = rng.standard_normal((n, n_pheno)) + 0.15 * X[:, causal]
+    fam = [f + "\t" + i for f, i in zip(ds.fam_ids, ds.indiv_ids)]
+    with open(path("pheno.txt"), "w") as fh:
+        for ids, row in zip(fam, Y):
+            fh.write(ids + "\t" + "\t".join(f"{v:.17g}" for v in row)
+                     + "\n")
+    ucca_launches = run("--ucca", "--pheno", "pheno.txt")
+    got = read_text(path("ucca.txt"), firstcol=2, skip=1)
+    ref = ucca_from_products(X.T @ centred_panel(Y), sumsq, Y)
+    say(f"   --ucca: B1 launches {ucca_launches['crossprod']}; causal SNPs "
+        f"{sorted(causal.tolist())} at P {got[np.sort(causal), 2]}")
+    require_launched(ucca_launches, UCCA_PATH, "CLI --ucca")
+    errs = hold_ucca("--ucca vs numpy float64", got, ref)
+    return {"project_col_rel_err": float(proj_err.max()),
+            "ucca_errs": errs,
+            "launches": {"project": proj_launches["matvec"],
+                         "ucca": ucca_launches["crossprod"]}}
 
 
 # ---------------------------------------------------------------------------
@@ -1255,7 +1544,7 @@ def check_tall_streamed(dev, workdir, cases=TALL_STREAM_CASES, **op_kw):
 # Phase 5: the headline
 # ---------------------------------------------------------------------------
 
-def generate_headline(n, p, seed, dev, pops=8, rows=1024):
+def generate_headline(n, p, seed, dev, pops=POPS, rows=1024):
     """Structured genotypes ~ Binom(2, f) with ``pops`` populations
     (sample i in population i % pops), packed on the card block by block
     into a (p, ceil(n/4)) uint8 tensor; allele frequencies per SNP and
@@ -1417,6 +1706,134 @@ def headline(dev, n, p, k, seed=7):
     return op, out, res
 
 
+def causal_phenotypes(op, k, seed):
+    """Phenotypes for ``ucca()`` at the headline: (n, k) seeded normal
+    noise plus UCCA_BETA times one SNP's standardized genotypes in each
+    column, the k causal SNPs drawn in a window of UCCA_SLICE SNPs and
+    decoded on the card from the resident operator's bytes.  Returns (Y,
+    the window as a slice, the causal SNPs)."""
+    import torch
+
+    from flashpca_tpu_torch.ops.genotypes import (decode_standardized,
+                                                  unpermute_samples)
+    from flashpca_tpu_torch.utils.device import host64
+
+    span = UCCA_SLICE
+    rng = np.random.default_rng(seed)
+    s0 = int(rng.integers(0, op.n_snps - span + 1))
+    causal = np.sort(s0 + rng.choice(span, size=k, replace=False))
+    idx = torch.as_tensor(causal, device=op.device)
+    g = decode_standardized(op.packed[idx], op.mean[idx], op.invsd[idx],
+                            torch.float64)                      # (k, n4)
+    g = host64(unpermute_samples(g.T, op.n_samples))            # (n, k)
+    Y = rng.standard_normal((op.n_samples, k)) + UCCA_BETA * g
+    return Y, slice(s0, s0 + span), causal
+
+
+def headline_loadings(op, res):
+    """The headline's SNP loadings, as ``pca(do_loadings=True)`` forms
+    them: one crossprod of its vectors (B1), scaled by 1 / sqrt(d) /
+    sqrt(p)."""
+    from flashpca_tpu_torch.utils.device import host64
+
+    Vt = host64(op.crossprod(res.vectors))
+    return Vt * (1.0 / np.sqrt(res.values) / np.sqrt(op.n_snps))[None, :]
+
+
+def project_ucca(op, res, seed=13):
+    """``project`` and ``ucca`` at the wide headline, each one pass of
+    the resident operator, counts set to 0 just before and read just
+    after each.  ``_project_operator(op, V, p)`` with the headline's own
+    loadings (:func:`headline_loadings`, one extra B1 launch, counted
+    apart), B2 at kc 24, held to the float64 W^T V over all SNPs
+    divided by sqrt(p) (:func:`hold_projection`); the
+    population PCs of this self-projection against ``res.projection``
+    at |cos| >= 1 - 1e-6 (the bulk columns printed, not held).  Then
+    ``ucca(op, Y)`` with UCCA_K phenotypes (:func:`causal_phenotypes`):
+    one crossprod of UCCA_K + 1 columns, B1 at kc 8, held on the causal
+    SNPs' 512-SNP window to the float64 crossprod's R, F and P
+    (:func:`hold_ucca`); the causal SNPs must reach P < 1e-8.  Returns
+    (the inputs and results the streamed twins are held to, a
+    summary)."""
+    import torch
+
+    from flashpca_tpu_torch import ucca
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+    from flashpca_tpu_torch.models.project import _project_operator
+    from flashpca_tpu_torch.ops.genotypes import (permute_samples,
+                                                  unpermute_samples)
+    from flashpca_tpu_torch.utils.device import host64
+
+    dev, n, p = op.device, op.n_samples, op.n_snps
+    k = res.vectors.shape[1]
+    lut6 = tpk.lut_rows(*op._ff_luts())
+    out = {}
+    tpk.reset_launch_counts()
+    with Phase("headline loadings: one crossprod of the vectors") as ph:
+        V = headline_loadings(op, res)
+    out["loadings"] = {"s": ph.seconds,
+                       "launches": tpk.launch_counts["crossprod"]}
+    tpk.reset_launch_counts()
+    with tpk.time_launches() as log:
+        with Phase(f"_project_operator(op, V, p), k={k}") as ph:
+            Px = _project_operator(op, V, p)
+    proj_launches = dict(tpk.launch_counts)
+    out["project"] = {"s": ph.seconds, "launches": proj_launches["matvec"],
+                      "launch_ms": launch_medians(log)}
+    with Phase("project reference: float64 W^T V over all SNPs"):
+        ref = host64(unpermute_samples(
+            f64_product(op.packed, lut6, torch.as_tensor(V, device=dev),
+                        transpose=True), n)) / np.sqrt(p)
+    npop = POPS - 1                   # the population PCs lead
+    say(f"   project: B2 launches {proj_launches['matvec']}, loadings' B1 "
+        f"launches {out['loadings']['launches']}")
+    require_launched(proj_launches, PROJECT_PATH, "headline project")
+    require_no_first_design(proj_launches, "headline project")
+    err = hold_projection("project vs float64", Px, ref, npop)
+    cos = np.abs(np.sum(Px * res.projection, axis=0)
+                 / (np.linalg.norm(Px, axis=0)
+                    * np.linalg.norm(res.projection, axis=0)))
+    say(f"   self-projection |cos| with res.projection, {npop} population "
+        "PCs held: " + " ".join(f"{c:.8f}" for c in cos[:npop])
+        + "; bulk, not held: " + " ".join(f"{c:.4f}" for c in cos[npop:]))
+    out["project"].update(col_rel_err=float(err.max()),
+                          pop_min_abs_cos=float(cos[:npop].min()),
+                          bulk_abs_cos=cos[npop:].tolist())
+    if not cos[:npop].min() >= 1 - 1e-6:
+        raise AssertionError(f"headline project: population PCs at |cos| "
+                             f"{cos[:npop]} with res.projection")
+
+    Y, window, causal = causal_phenotypes(op, UCCA_K, seed)
+    tpk.reset_launch_counts()
+    with tpk.time_launches() as log:
+        with Phase(f"ucca(op, Y), {UCCA_K} phenotypes") as ph:
+            u = ucca(op, Y)
+    ucca_launches = dict(tpk.launch_counts)
+    out["ucca"] = {"s": ph.seconds, "launches": ucca_launches["crossprod"],
+                   "launch_ms": launch_medians(log),
+                   "window": [window.start, window.stop],
+                   "causal": causal.tolist()}
+    with Phase(f"ucca reference: float64 crossprod on a {UCCA_SLICE}-SNP "
+               "window"):
+        x = permute_samples(torch.as_tensor(centred_panel(Y), device=dev),
+                            op.nbytes)
+        prods = host64(f64_product(op.packed[window], lut6[:, window], x,
+                                   transpose=False))
+    ref_u = ucca_from_products(prods, op.snp_sumsq[window], Y)
+    say(f"   ucca: B1 launches {ucca_launches['crossprod']}; causal SNPs "
+        f"{causal.tolist()} at P " + " ".join(
+            f"{x:.2e}" for x in u.pval[causal]))
+    require_launched(ucca_launches, UCCA_PATH, "headline ucca")
+    require_no_first_design(ucca_launches, "headline ucca")
+    out["ucca"]["errs"] = hold_ucca("headline ucca vs float64",
+                                    u.result[window], ref_u)
+    out["ucca"]["causal_p"] = u.pval[causal].tolist()
+    if not (u.result.shape == (p, 3) and np.all(u.pval[causal] < 1e-8)):
+        raise AssertionError(f"headline ucca: causal SNPs at P "
+                             f"{u.pval[causal]} (must be < 1e-8)")
+    return {"V": V, "Px": Px, "Y": Y, "ucca": u.result}, out
+
+
 def twin_cosines(U, U_r, d_r, near):
     """Each vector of ``U`` against its twin in ``U_r`` (columns in the
     order of the eigenvalues ``d_r``, descending): |cos| of the pair,
@@ -1442,7 +1859,7 @@ def twin_cosines(U, U_r, d_r, near):
 
 
 def streamed_headline(dev, host, center, scale, sumsq, resident,
-                      resident_launch_ms, witness=None,
+                      resident_launch_ms, witness=None, twins=None,
                       memory_mb=STREAM_MEMORY_MB):
     """The reference's headline job under its 2 GB bound: the headline's
     bytes, copied to the host after the resident phase, streamed by a
@@ -1459,15 +1876,22 @@ def streamed_headline(dev, host, center, scale, sumsq, resident,
     resolve one by one, the pair's span (:func:`twin_cosines`; the
     resident headline's ``witness``, its |cos| from another start seed,
     printed beside) -- the packed bytes on the device within
-    ``memory_mb``, B1-B4 launched and no first design.  Then B1-B4 held
-    to their plain versions and timed on one resident block of the
-    streamed shape.  Returns (the kernels rows of the block shape, a
-    summary)."""
+    ``memory_mb``, B1-B4 launched and no first design.  Then, given the
+    resident headline's ``twins`` (:func:`project_ucca`), ``ucca`` and
+    ``_project_operator`` on the same streamed operator, counts set to 0
+    just before and read just after each: B1 must run for ucca, whose
+    result must equal the resident one bit for bit (B1's rows do not
+    depend on the blocking), and B2 for project, within PROJECT_BAR
+    relative (column norms) of the resident projection.  Then B1-B4,
+    and B2 at kc 24 and B1 at kc 8 (project's and ucca's), held to their
+    plain versions and timed on one resident block of the streamed
+    shape.  Returns (the kernels rows of the block shape, a summary)."""
     import torch
 
     from flashpca_tpu_torch import PackedOperator, StreamingPackedOperator
-    from flashpca_tpu_torch import check, pca
+    from flashpca_tpu_torch import check, pca, ucca
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
+    from flashpca_tpu_torch.models.project import _project_operator
 
     n, k = resident.vectors.shape
     op = StreamingPackedOperator(host, center, scale, n, memory_mb=memory_mb,
@@ -1606,6 +2030,39 @@ def streamed_headline(dev, host, center, scale, sumsq, resident,
         raise AssertionError(f"streamed headline: {st['device_bytes']} "
                              f"packed bytes on the device, bound {memory_mb} "
                              "MiB")
+    twin_launches = {}
+    if twins is not None:
+        tpk.reset_launch_counts()
+        with Phase(f"streamed ucca(op, Y), memory_mb={memory_mb}") as ph:
+            u = ucca(op, twins["Y"])
+        twin_launches["ucca"] = dict(tpk.launch_counts)
+        out["ucca"] = {"s": ph.seconds,
+                       "launches": twin_launches["ucca"]["crossprod"]}
+        tpk.reset_launch_counts()
+        with Phase("streamed _project_operator(op, V, p)") as ph:
+            Px = _project_operator(op, twins["V"], op.n_snps)
+        twin_launches["project"] = dict(tpk.launch_counts)
+        out["project"] = {"s": ph.seconds,
+                          "launches": twin_launches["project"]["matvec"]}
+        same = np.array_equal(u.result, twins["ucca"], equal_nan=True)
+        err = column_rel_err(Px, twins["Px"])
+        out["ucca"]["equal_to_resident"] = bool(same)
+        out["project"]["col_rel_err_vs_resident"] = float(err.max())
+        say(f"   streamed ucca bit-equal to the resident one: {same} (B1 "
+            f"launches {out['ucca']['launches']}); streamed project vs "
+            f"resident column rel err max {err.max():.2e} (B2 launches "
+            f"{out['project']['launches']})")
+        require_launched(twin_launches["ucca"], UCCA_PATH, "streamed ucca")
+        require_launched(twin_launches["project"], PROJECT_PATH,
+                         "streamed project")
+        for what in ("ucca", "project"):
+            require_no_first_design(twin_launches[what], f"streamed {what}")
+        if not same:
+            raise AssertionError("streamed ucca: not equal to the resident "
+                                 "result")
+        if not err.max() < PROJECT_BAR:
+            raise AssertionError(f"streamed project: {err.max():.2e} "
+                                 "relative off the resident projection")
     bs = op.block_snps
     op.close()
     del op
@@ -1618,18 +2075,29 @@ def streamed_headline(dev, host, center, scale, sumsq, resident,
         rows = time_kernels(bop, [("crossprod", 16), ("matvec", 16),
                                   ("crossprod_ff", 24), ("matvec_ff", 24)],
                             launches, None, slices=4)
+        for row in rows:
+            row.update(path="streaming",
+                       stream_launch_ms=launch_ms.get(f"{row['name']}/"
+                                                      f"{row['k']}"))
+        for what, name, kc in (("project", "matvec", 24),
+                               ("ucca", "crossprod", 8)):
+            if what in twin_launches:
+                for row in time_kernels(bop, [(name, kc)],
+                                        twin_launches[what], None,
+                                        slices=4):
+                    rows.append(dict(row, path=f"{what}_streaming"))
         del bop
-    for row in rows:
-        row.update(path="streaming",
-                   stream_launch_ms=launch_ms.get(f"{row['name']}/"
-                                                  f"{row['k']}"))
     return rows, out
 
 
-def f64_reference(top, nev, rows=2048):
+def f64_reference(top, nev, rows=2048, depth=None):
     """Top ``nev`` eigenpairs of the float64 gram X^T X / p, formed on the
     card from the packed bytes (p x p, 20 GB at the tall headline) and
-    solved by the port's block Lanczos in float64 to tol 1e-12."""
+    solved by the port's block Lanczos in float64 to tol 1e-12.  With a
+    ``depth`` below p, also those of the first ``depth`` SNPs' gram
+    X_d^T X_d / depth, which is p / depth times the leading block of
+    the same matrix, solved the same way.  Returns (the full gram's,
+    the leading block's or None)."""
     import torch
 
     from flashpca_tpu_torch.ops.genotypes import decode_standardized
@@ -1652,11 +2120,102 @@ def f64_reference(top, nev, rows=2048):
         G.addmm_(Xc * m[None, :], Xc.T)
         del Xc
     G /= p
-    res = eigsh_block(lambda x: G @ x, p, nev, block=16, ncv=160,
-                      maxiter=200, tol=1e-12, dtype=torch.float64,
-                      device=dev, seed=3)
-    del G
-    return res
+
+    def solve(A):
+        return eigsh_block(lambda x: A @ x, A.shape[0], nev, block=16,
+                           ncv=160, maxiter=200, tol=1e-12,
+                           dtype=torch.float64, device=dev, seed=3)
+
+    res = solve(G)
+    cut = None
+    if depth is not None and depth < p:
+        Gd = G[:depth, :depth] * (p / depth)
+        del G
+        cut = solve(Gd)
+    return res, cut
+
+
+def float64_depth(top, budget_s=None, passes=None):
+    """The SNP depth of the tall headline's float64 ``pca()``: the whole
+    of it unless one float64 gram pass (the functional core on the card,
+    timed here at full depth) times ``passes`` would exceed
+    ``budget_s``; else the largest multiple of 1,024 SNPs that fits,
+    the pass taken to scale with the depth.  Returns (depth, the full
+    pass's seconds)."""
+    import torch
+
+    from flashpca_tpu_torch import TallPackedOperator
+
+    budget_s = F64_SOLVE_S if budget_s is None else budget_s
+    passes = F64_PASSES if passes is None else passes
+    p = top.n_snps
+    op = TallPackedOperator(top.packed, top.center, top.scale, top.n_samples,
+                            device=top.device, dtype=torch.float64,
+                            snp_sumsq=top.snp_sumsq)
+    gen = torch.Generator(device=top.device).manual_seed(4)
+    v = torch.randn((p, 16), dtype=torch.float64, device=top.device,
+                    generator=gen)
+    sync()
+    t0 = time.perf_counter()
+    op.gram_permuted(v)
+    sync()
+    pass_s = time.perf_counter() - t0
+    del op, v
+    depth = p
+    if passes * pass_s > budget_s:
+        depth = min(p, max(1024, int(budget_s / (passes * pass_s) * p)
+                           // 1024 * 1024))
+    say(f"   one float64 gram pass at {p} SNPs: {pass_s:.2f} s; x "
+        f"{passes} passes = {passes * pass_s:.0f} s against {budget_s:.0f} "
+        f"s: depth {depth} SNPs (all {top.n_samples} samples)")
+    return depth, pass_s
+
+
+def tall_float64(top, k, depth, ref):
+    """The tall headline at float64: ``pca(TallPackedOperator(...,
+    dtype=float64), k)`` on the first ``depth`` SNPs of the resident
+    tall bytes and all their samples, through the functional core on the
+    card (counts set to 0 just before and read just after: no kernel may
+    launch), its eigenvalues held to the float64 eigendecomposition
+    ``ref`` of that gram within EIG_BAR of the largest for every pair,
+    the bulk included.  Returns a summary."""
+    import torch
+
+    from flashpca_tpu_torch import TallPackedOperator, pca
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    op = TallPackedOperator(top.packed[:depth], top.center[:depth],
+                            top.scale[:depth], top.n_samples,
+                            device=top.device, dtype=torch.float64,
+                            snp_sumsq=top.snp_sumsq[:depth])
+    tpk.reset_launch_counts()
+    with Phase(f"tall pca(op, {k}) float64, {depth} SNPs x "
+               f"{top.n_samples} samples") as ph:
+        res = pca(op, k, maxiter=F64_MAXITER)
+    launches = dict(tpk.launch_counts)
+    del op
+    d_ref = ref.eigenvalues[:k]
+    err = np.abs(res.values - d_ref) / d_ref[0]
+    say(f"   float64 tall: n_ops {res.n_ops}, n_restarts {res.n_restarts}, "
+        f"converged {res.converged}, wall {ph.seconds:.2f} s, largest gap "
+        f"to the float64 reference {err.max():.2e} of the largest (bar "
+        f"{EIG_BAR}); reference: {ref.n_ops} passes, converged "
+        f"{ref.converged}; kernel launches {sum(launches.values())}")
+    say("   d_f64 " + " ".join(f"{x:.6f}" for x in res.values))
+    say("   d_ref " + " ".join(f"{x:.6f}" for x in d_ref))
+    ran = [nm for nm, c in launches.items() if c]
+    if ran:
+        raise AssertionError(f"float64 tall headline launched kernels {ran}")
+    if not (ref.converged and res.converged and err.max() <= EIG_BAR):
+        raise AssertionError(
+            f"float64 tall headline: eigenvalues "
+            f"{np.flatnonzero(err > EIG_BAR)} off the float64 reference "
+            f"beyond {EIG_BAR} of the "
+            f"largest (max {err.max():.2e}; converged {res.converged}, "
+            f"reference {ref.converged})")
+    return {"depth": depth, "n_ops": res.n_ops, "n_restarts": res.n_restarts,
+            "pca_s": ph.seconds, "eig_err_of_largest": float(err.max()),
+            "ref_n_ops": ref.n_ops}
 
 
 def tall_headline(dev, n, p, k, seed=8):
@@ -1757,8 +2316,10 @@ def tall_headline(dev, n, p, k, seed=8):
                wide_gate_mse=res_w.gate_mse, wide_check_mse=chk_w.mse,
                eig_err_of_largest=eig_err, min_abs_cos=float(cos.min()),
                launches=launches, launch_ms=launch_ms)
+    with Phase("one float64 gram pass: the float64 run's SNP depth"):
+        depth, f64_pass_s = float64_depth(top)
     with Phase("float64 reference: X^T X / p on the card, eigsh") as ph:
-        ref = f64_reference(top, k + 8)
+        ref, ref_cut = f64_reference(top, k + 8, depth=depth)
     d_ref = ref.eigenvalues[:k]
     V_ref = ref.eigenvectors[:, :k].cpu().numpy()
     cos_ref = np.abs(np.sum(res.loadings * V_ref, axis=0)
@@ -1785,6 +2346,8 @@ def tall_headline(dev, n, p, k, seed=8):
         + " ".join(f"{c:.7f}" for c in cos_ref))
     out.update(ref_s=ph.seconds, tall_eig_err_vs_f64=errs["tall"],
                wide_eig_err_vs_f64=errs["wide"])
+    out["float64"] = dict(tall_float64(top, k, depth, ref_cut or ref),
+                          gram_pass_s=f64_pass_s)
     return top, out, res
 
 
@@ -2451,6 +3014,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     op, head, head_res = headline(dev, args.n, args.p, args.k)
     torch.cuda.empty_cache()
+    # project() and ucca() on the headline's operator, one pass each
+    twins, one_pass = project_ucca(op, head_res)
+    torch.cuda.empty_cache()
     with Phase("kernel times at the headline shapes"):
         # B1/B2 at the solver panel and the polish sweeps' width, B3/B4
         # at the polish / check width
@@ -2470,6 +3036,14 @@ def main(argv=None) -> int:
         head["launches"], worst)
     b1_library_ms = next(r["library_ms"] for r in kernels
                          if r["name"] == "crossprod" and r["k"] == 16)
+    # B2 at project's kc 24 and B1 at ucca's kc 8
+    with Phase("kernel times: project's B2 and ucca's B1"):
+        for what, name, kc in (("project", "matvec", 24),
+                               ("ucca", "crossprod", 8)):
+            for row in time_kernels(op, [(name, kc)],
+                                    {name: one_pass[what]["launches"]},
+                                    None, slices=32):
+                kernels.append(dict(row, path=what))
     # the same bytes streamed from the host: the card cannot hold them
     # twice, so the resident operator goes first
     with Phase("headline bytes to the host"):
@@ -2479,8 +3053,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     stream_rows, stream = streamed_headline(
         dev, host, center, scale, sumsq, head_res, head["launch_ms"],
-        head["seed_witness"])
-    del host, head_res
+        head["seed_witness"], twins)
+    del host, head_res, twins
     torch.cuda.empty_cache()
     sweep_rows, sweep = kernel_sweep(
         dev, args.p, args.n, worst, b1_library_ms, head["launches"],
@@ -2533,6 +3107,7 @@ def main(argv=None) -> int:
                       "tall": {**tall_stream,
                                "same_order": tall_streamed_checks}},
         **{key: val for key, val in head.items()},
+        "one_pass": one_pass,
         "gram_tall_ff_max_abs_err": worst["gram_tall_ff"],
         "tall_kernels_f64_rel": tall_f64,
         "b1_turns_ms": b1_turns, "b2_turns_ms": b2_turns,

@@ -3,10 +3,12 @@
 Mirrors flashpca.cpp's option table (flashpca.cpp:40-92), checks
 (:136-228), defaults (ndim=10, standx=binom2, div=p, tol=1e-6,
 maxiter=500, seed=1, precision=7, suffix=.txt) and output files and
-formats (:755-878) for the two modes this package ports: PCA (the
-default) and ``--check``.  ``--scca``, ``--ucca``, ``--project`` and
-``--batch`` exit with an error naming the ROADMAP item that ports them,
-as do the JAX CLI's options not ported yet: ``--shards`` above 1,
+formats (:755-878) for the modes this package ports: PCA (the
+default), ``--check``, ``--project`` (``--inload`` with ``--inmeansd``
+or ``--inmaf``, written to ``--outproj``) and ``--ucca`` (``--pheno``,
+``--standy``, written to ucca.txt).  ``--scca`` and ``--batch`` exit
+with an error naming the ROADMAP item that ports them, as do the JAX
+CLI's options not ported yet: ``--shards`` above 1,
 ``--checkpoint-every`` above 0 and ``--profile``.  ``--stream on``
 streams the operator from the host: the wide one in blocks of the
 reference's ``--memory`` block size (or ``--blocksize``; about 1 GiB a
@@ -15,7 +17,8 @@ samples of about 1 GiB; as the JAX CLI, the tall one refuses the SNP
 block size that ``--memory`` or ``--blocksize`` sets.  ``--debug`` is
 the reference's no-op; ``--outstate``/``--instate`` write and resume the
 JAX package's .npz checkpoint.  ``--device`` (default ``cuda``) selects
-the card or the CPU path.
+the card or the CPU path, ``--dtype`` float32 (the kernels) or float64
+(the PyTorch functional core) on either.
 """
 
 from __future__ import annotations
@@ -27,16 +30,16 @@ import numpy as np
 
 from . import __version__
 from .io.plink import PlinkDataset
-from .io.text import read_text, save_text, TXT_SEP
+from .io.text import maf2meansd, read_maf, read_text, save_text, TXT_SEP
 from .models.check import check as run_check
 from .models.pca import pca as run_pca
+from .models.project import project as run_project
+from .models.ucca import ucca as run_ucca
 from .utils.logging import log, set_show_timestamp, timestamp
 
 # modes of the reference CLI that are not ported yet -> ROADMAP item
 NOT_PORTED = {
     "scca": "A14 'SCCA family'",
-    "ucca": "A13 'ucca()'",
-    "project": "A11 'project()'",
     "batch": "A12 'Dense and matrix inputs'",
     # options of the ported modes
     "shards": "A18 'Multi-GPU'",
@@ -57,9 +60,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scca", action="store_true",
                    help="sparse CCA [not ported yet]")
     p.add_argument("--ucca", action="store_true",
-                   help="per-SNP CCA [not ported yet]")
+                   help="perform per-SNP canonical correlation analysis")
     p.add_argument("--project", "-p", action="store_true",
-                   help="project new samples [not ported yet]")
+                   help="project new samples onto existing principal "
+                        "components")
     p.add_argument("--check", "-c", action="store_true",
                    help="check eigenvalues/eigenvectors")
     p.add_argument("--batch", action="store_true",
@@ -72,14 +76,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="OpenMP threads for the native host IO kernels")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--bed"), p.add_argument("--bim"), p.add_argument("--fam")
+    p.add_argument("--pheno")
     p.add_argument("--bfile")
     p.add_argument("--ndim", "-d", type=int, default=10)
     p.add_argument("--standx", "-s", default="binom2",
                    choices=["binom", "binom2"])
+    p.add_argument("--standy", default="sd",
+                   choices=["sd", "binom", "binom2", "none", "center"])
     p.add_argument("--div", default="p", choices=["p", "n1", "none"])
     p.add_argument("--outpc"), p.add_argument("--outvec")
     p.add_argument("--outload"), p.add_argument("--outval")
     p.add_argument("--outpve"), p.add_argument("--outmeansd")
+    p.add_argument("--outproj")
+    p.add_argument("--inload"), p.add_argument("--inmeansd")
+    p.add_argument("--inmaf")
     p.add_argument("--verbose", "-v", action="store_true")
     p.add_argument("--tol", type=float, default=1e-6)
     p.add_argument("--maxiter", type=int, default=500)
@@ -191,6 +201,14 @@ def main(argv=None) -> int:
                         f"yet (ROADMAP {NOT_PORTED[flag]})")
     if unknown:
         return _die("unrecognized arguments: " + " ".join(unknown))
+    if mode == "project":
+        if not args.inload:
+            return _die("SNP-loadings must be specified using --inload")
+        if not args.inmaf and not args.inmeansd:
+            return _die("one of MAF or mean/stdev must be specified using "
+                        "--inmaf or --inmeansd, respectively")
+    if args.inmeansd and args.inmaf:
+        return _die("conflicting options requested --inmeansd, --inmaf")
     for flag, asked in (("shards", (args.shards or 1) > 1),
                         ("checkpoint-every", args.checkpoint_every > 0),
                         ("profile", args.profile is not None)):
@@ -238,6 +256,9 @@ def main(argv=None) -> int:
     else:
         return _die("you must specify either --bfile or --bed / --fam / "
                     "--bim")
+    if mode == "ucca" and not args.pheno:
+        return _die("you must specify a phenotype file in CCA/UCCA/SCCA "
+                    "mode using --pheno")
 
     suffix = args.suffix
     out = {
@@ -246,6 +267,8 @@ def main(argv=None) -> int:
         "val": args.outval or f"eigenvalues{suffix}",
         "pve": args.outpve or f"pve{suffix}",
         "meansd": args.outmeansd or f"meansd{suffix}",
+        "proj": args.outproj or f"projection{suffix}",
+        "ucca": f"ucca{suffix}",
         "load": args.outload,
     }
     prec = args.precision
@@ -254,6 +277,15 @@ def main(argv=None) -> int:
         ds = PlinkDataset.open(bed, bim, fam)
         log(f"Detected BED file: {bed} with N={ds.n_samples} samples, "
             f"{ds.n_snps} SNPs", verbose=args.verbose)
+
+        Y = None
+        if mode == "ucca":
+            # the reference reads --pheno only for (S)CCA/UCCA and the
+            # .fam phenotype otherwise (flashpca.cpp:585-588): a stale
+            # --pheno on another mode's command line is ignored
+            Y = read_text(args.pheno, firstcol=3)
+            if Y.shape[0] != ds.n_samples:
+                return _die("phenotype file rows must match .fam rows")
 
         # the reference validates ndim before the mode switch
         max_dim = int((min(ds.n_samples, ds.n_snps) - 1) / 2.0)
@@ -282,6 +314,7 @@ def main(argv=None) -> int:
                                                     ds.ref_alleles)]
 
         meansd_out = None
+        maf = meansd = None
         if mode == "pca":
             print(timestamp() + "PCA begin")
             res = run_pca(
@@ -310,6 +343,31 @@ def main(argv=None) -> int:
                 save_text(res.loadings, out["load"], colnames=vcol,
                           rownames=snp_rownames(), precision=prec)
             meansd_out = np.column_stack([res.center, res.scale])
+        elif mode == "ucca":
+            print(timestamp() + "UCCA begin")
+            res = run_ucca(ds, Y, stand_x=args.standx, stand_y=args.standy,
+                           block_size=block_size, dtype=args.dtype,
+                           device=args.device, streaming=stream,
+                           memory_mb=args.memory)
+            print(timestamp() + "UCCA done")
+            save_text(res.result, out["ucca"],
+                      colnames=["SNP", "R", "Fstat", "P"],
+                      rownames=list(ds.snp_ids), precision=prec)
+        elif mode == "project":
+            V = read_text(args.inload, firstcol=3, skip=1)
+            if args.inmaf:
+                maf = read_maf(args.inmaf, ds.snp_ids)
+            else:
+                meansd = read_text(args.inmeansd, firstcol=3, skip=1)
+            res = run_project(ds, V, meansd=meansd, maf=maf,
+                              divisor=args.div, stand=args.standx,
+                              block_size=block_size, dtype=args.dtype,
+                              device=args.device, streaming=stream,
+                              memory_mb=args.memory)
+            pccol = ["FID" + TXT_SEP + "IID"] + [
+                f"PC{i+1}" for i in range(res.projection.shape[1])]
+            save_text(res.projection, out["proj"], colnames=pccol,
+                      rownames=fam_rownames(), precision=prec)
         else:  # check
             eval_ = read_text(out["val"], firstcol=1, skip=0)[:, 0]
             evec = read_text(out["vec"], firstcol=3, skip=1)
@@ -325,8 +383,14 @@ def main(argv=None) -> int:
                   f"(n={ds.n_samples})")
 
         if args.outmeansd:
-            if meansd_out is None:
+            if meansd_out is None and mode == "project":
+                # the stats the projection standardized with: the loaded
+                # ones, or those derived from the MAFs
+                ms = maf2meansd(maf) if maf is not None else meansd
+                meansd_out = np.asarray(ms, dtype=np.float64)
+            elif meansd_out is None:
                 # the reference writes X_meansd after EVERY mode
+                # (flashpca.cpp:867-878, outside the mode switch)
                 m_, s_ = ds.snp_stats(args.standx)
                 meansd_out = np.column_stack([m_, s_])
             save_text(

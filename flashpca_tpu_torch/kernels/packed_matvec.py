@@ -41,7 +41,8 @@ chunks, one launch per chunk.
 Dispatch: each wrapper takes its plain version for tensors on the CPU
 (the tests' path) and launches its kernel for CUDA float32 tensors.
 There is no fallback from one to the other: a CUDA tensor launches the
-kernel or raises.  float64 on CUDA raises NotImplementedError.
+kernel or raises.  A float64 CUDA tensor raises NotImplementedError
+(float64 operators run the functional core, never these wrappers).
 
 ``launch_counts`` counts the kernel launches of each wrapper (it is
 incremented right where a kernel is launched, and nowhere else), so a
@@ -273,8 +274,8 @@ def _check_cuda(packed, *tensors):
             raise ValueError(f"operand on {t.device}, packed on {dev}")
         if t.dtype == torch.float64:
             raise NotImplementedError(
-                "the CUDA kernels are float32; float64 on CUDA is not "
-                "ported yet (run float64 on the CPU)")
+                "the CUDA kernels are float32; a float64 operator runs "
+                "the functional core (ops/operator.py), not the kernels")
         if t is not packed and t.dtype != torch.float32:
             raise ValueError(f"expected float32 operands, got {t.dtype}")
         if t.ndim == 1 and not t.is_contiguous():

@@ -19,13 +19,8 @@ import numpy as np
 import torch
 
 from ..io.plink import PlinkDataset
-from ..ops.operator import (TALL_OPERATORS, PackedOperator,
-                            StreamingPackedOperator, build_packed_operator,
-                            check_operator_conflicts)
-
-# the prebuilt operators check() takes: the wide gram, resident or
-# streamed
-WIDE_OPERATORS = (PackedOperator, StreamingPackedOperator)
+from ..ops.operator import (TALL_OPERATORS, WIDE_OPERATORS,
+                            build_packed_operator, check_operator_conflicts)
 from ._common import not_ported
 from ._common import resolve_divisor as _div
 

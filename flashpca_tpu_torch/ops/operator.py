@@ -21,11 +21,12 @@ Wide products (reference naming in parens):
 
 Two paths compute the same products:
 
-* on CUDA (float32) the hand-written kernels B1-B5
+* on CUDA at float32 the hand-written kernels B1-B5
   (kernels/packed_matvec.py);
-* on the CPU the blocked PyTorch functional core below (decode a block
-  of SNP rows, then matmul) in float32 or float64 -- or, with
-  ``use_kernels=True``, the kernels' plain versions.
+* the blocked PyTorch functional core below (decode a block of SNP
+  rows, then matmul): on the CPU in float32 or float64 (or, with
+  ``use_kernels=True``, the kernels' plain versions instead), and on
+  CUDA at float64 (:func:`runs_kernels` states the rule).
 
 No padding of either axis is needed: the kernels mask their own ragged
 edges and the core slices its last block.  Byte-padding SAMPLE
@@ -131,6 +132,29 @@ def _host_sumsq(snp_sumsq, n_snps: int) -> np.ndarray | None:
 # The operators
 # ---------------------------------------------------------------------------
 
+def runs_kernels(device_type: str, dtype, use_kernels=None) -> bool:
+    """Whether an operator runs its products through the kernel wrappers
+    (kernels/packed_matvec.py) or the functional core above.
+
+    On CUDA the dtype alone decides: float32 runs the kernels (a float32
+    operator that cannot run them fails; ``use_kernels=False`` raises)
+    and float64 runs the functional core on the card, as the JAX
+    package's float64 runs its jnp path.  On the CPU ``use_kernels=True``
+    selects the kernels' plain versions (float32) and anything else the
+    functional core.  The kernels are float32, so ``use_kernels=True``
+    with float64 raises on either device."""
+    if use_kernels and dtype != torch.float32:
+        raise ValueError("use_kernels=True runs the float32 kernels (their "
+                         "plain versions on the CPU); pass dtype=float32, "
+                         "or leave use_kernels unset for float64")
+    if device_type == "cuda" and dtype == torch.float32:
+        if use_kernels is False:
+            raise ValueError("a float32 CUDA operator always runs the "
+                             "kernels")
+        return True
+    return bool(use_kernels)
+
+
 class _PackedBase:
     """What every packed-genotype operator shares: the device and dtype,
     the decode constants, the valid-sample mask, the per-SNP sums of
@@ -144,10 +168,9 @@ class _PackedBase:
     device : ``None`` -> ``cuda`` (raises without a GPU); ``"cpu"`` runs
         the PyTorch path.
     dtype : float32 (CUDA default, the kernels' type) or float64 (CPU
-        default).  float64 on CUDA is not ported yet.
-    use_kernels : run the products through kernels/packed_matvec.py:
-        always on CUDA; on the CPU ``True`` selects the kernels' plain
-        versions (float32) instead of the functional core.
+        default; on CUDA it runs the functional core on the card).
+    use_kernels : run the products through kernels/packed_matvec.py; see
+        :func:`runs_kernels`.
     snp_sumsq : optional precomputed per-SNP sums of squares (makes
         ``trace`` free).
     """
@@ -157,18 +180,7 @@ class _PackedBase:
                  snp_sumsq=None):
         self.device = resolve_device(device)
         dtype = as_torch_dtype(dtype) or default_dtype(self.device)
-        if self.device.type == "cuda":
-            if dtype != torch.float32:
-                raise NotImplementedError(
-                    "float64 on CUDA is not ported yet (ROADMAP B: the "
-                    "kernels are float32); use device='cpu' for float64")
-            if use_kernels is False:
-                raise ValueError("the CUDA operator always runs the kernels")
-            use_kernels = True
-        elif use_kernels and dtype != torch.float32:
-            raise ValueError("use_kernels=True runs the float32 kernels' "
-                             "plain versions; pass dtype=float32")
-        self.use_kernels = bool(use_kernels)
+        self.use_kernels = runs_kernels(self.device.type, dtype, use_kernels)
         self.n_samples = int(n_samples)
         self.n_snps = int(n_snps)
         self.nbytes = bytes_per_snp(n_samples)
@@ -460,8 +472,9 @@ class _SnpSpace:
     @property
     def supports_ff(self) -> bool:
         """The tall two-float gram runs through the kernel wrappers only
-        (the float64 functional core has no tall composition): on CUDA,
-        or on the CPU with ``use_kernels=True`` (their plain versions)."""
+        (the functional core has no tall composition): at float32 on
+        CUDA, or on the CPU with ``use_kernels=True`` (their plain
+        versions); a float64 operator, on either device, has none."""
         return self.use_kernels
 
     def _mv(self, packed, v2, valid):
@@ -491,7 +504,8 @@ class _SnpSpace:
         if not self.use_kernels:
             raise NotImplementedError(
                 "the tall two-float gram needs the kernel wrappers "
-                "(a CUDA operator, or use_kernels=True on the CPU)")
+                "(a float32 CUDA operator, or use_kernels=True on the "
+                "CPU)")
         from ..kernels import packed_matvec as kpm
 
         lut_hi, lut_lo = self._ff_luts()
@@ -1143,7 +1157,8 @@ def tall_streaming_operator_from_numpy(packed, mean, sd, n_samples: int, *,
 # the fraction of the card's memory above which "auto" streams
 STREAM_FRACTION = 0.7
 STREAMING_OPERATORS = (StreamingPackedOperator, TallStreamingOperator)
-# the operators of the tall gram X^T X
+# the operators of the wide gram X X^T, and of the tall gram X^T X
+WIDE_OPERATORS = (PackedOperator, StreamingPackedOperator)
 TALL_OPERATORS = (TallPackedOperator, TallStreamingOperator)
 
 

@@ -380,6 +380,96 @@ def test_tall_pca_on_card_matches_cpu_float64(cuda, tmp_path):
     assert np.all(dots > 1 - 1e-6)
 
 
+def _card_fileset(tmp_path, n, p, seed):
+    """A PLINK fileset of four populations, 1% missing calls."""
+    from flashpca_tpu_torch import PlinkDataset
+    from flashpca_tpu_torch.io.plink import write_bed
+
+    rng = np.random.default_rng(seed)
+    freq = np.clip(rng.uniform(0.05, 0.5, p)[:, None]
+                   + rng.normal(0, 0.15, (p, 4)), 0.02, 0.98)
+    geno = rng.binomial(2, freq[:, np.arange(n) % 4].T).astype(float)
+    geno[rng.uniform(size=geno.shape) < 0.01] = np.nan
+    root = str(tmp_path / f"f{seed}")
+    write_bed(root, geno)
+    return PlinkDataset.open(root)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, n, p, stream", [
+    ("wide", 803, 450, {}),
+    ("tall", 2003, 300, {}),
+    ("wide", 803, 450, {"streaming": True, "block_size": 64}),
+], ids=["wide", "tall", "wide-streamed"])
+def test_float64_on_card_matches_cpu(cuda, tmp_path, mode, n, p, stream):
+    """float64 on the card runs the functional core (no kernel launch):
+    the same n_ops and n_restarts as the CPU float64 path on the same
+    fileset, eigenvalues within 1e-10 relative, and check() mse equal
+    to 2 significant digits (within 5e-3 relative)."""
+    from flashpca_tpu_torch import check, pca
+
+    ds = _card_fileset(tmp_path, n, p, 7)
+    f64 = torch.float64
+    tpk.reset_launch_counts()
+    g = pca(ds, 5, device=cuda, dtype=f64, operator_mode=mode, **stream)
+    cg = check(ds, g.vectors, g.values, device=cuda, dtype=f64, **stream)
+    assert set(tpk.launch_counts.values()) == {0}
+    c = pca(ds, 5, device="cpu", operator_mode=mode)
+    cc = check(ds, c.vectors, c.values, device="cpu")
+    assert (g.n_ops, g.n_restarts) == (c.n_ops, c.n_restarts)
+    np.testing.assert_allclose(g.values, c.values, rtol=1e-10)
+    assert abs(cg.mse - cc.mse) <= 5e-3 * cc.mse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [{}, {"streaming": True,
+                                         "block_size": 64}],
+                         ids=["resident", "streamed"])
+def test_project_and_ucca_on_card_match_cpu(cuda, tmp_path, stream):
+    """project() and ucca() on the card against the CPU float64 path on
+    the same fileset: at float32 through B2 (project) and B1 (ucca),
+    project within 1e-5 relative in each column's norm, ucca's R and F
+    within rtol 1e-5 and -log10 P within 1e-4; at float64 through the
+    functional core (no launch) within rtol 1e-10 (the projection's
+    near-zero entries within 1e-10 of its largest).  Streamed in blocks
+    of 64 SNPs, ucca at float32 equals the resident result bit for bit
+    (B1's rows do not depend on the blocking)."""
+    from flashpca_tpu_torch import project, ucca
+    from flashpca_tpu_torch.ops.genotypes import dense_standardized_np
+
+    ds = _card_fileset(tmp_path, 803, 450, 8)
+    rng = np.random.default_rng(9)
+    V = rng.standard_normal((450, 4))
+    mean, sd = ds.snp_stats("binom2")
+    X = dense_standardized_np(ds.read_codes(), mean, sd).T
+    Y = rng.standard_normal((803, 3)) + 0.3 * X[:, [5, 50, 400]]
+    want_p = project(ds, V, device="cpu").projection
+    want_u = ucca(ds, Y, device="cpu").result
+
+    tpk.reset_launch_counts()
+    got_p = project(ds, V, device=cuda, **stream).projection
+    assert tpk.launch_counts["matvec"] > 0
+    err = (np.linalg.norm(got_p - want_p, axis=0)
+           / np.linalg.norm(want_p, axis=0))
+    assert err.max() < 1e-5
+    tpk.reset_launch_counts()
+    got_u = ucca(ds, Y, device=cuda, **stream).result
+    assert tpk.launch_counts["crossprod"] > 0
+    np.testing.assert_allclose(got_u[:, :2], want_u[:, :2], rtol=1e-5)
+    np.testing.assert_allclose(-np.log10(got_u[:, 2]),
+                               -np.log10(want_u[:, 2]), atol=1e-4)
+    if stream:
+        assert np.array_equal(got_u, ucca(ds, Y, device=cuda).result)
+
+    tpk.reset_launch_counts()
+    p64 = project(ds, V, device=cuda, dtype=torch.float64, **stream)
+    u64 = ucca(ds, Y, device=cuda, dtype=torch.float64, **stream)
+    assert set(tpk.launch_counts.values()) == {0}
+    np.testing.assert_allclose(p64.projection, want_p, rtol=1e-10,
+                               atol=1e-10 * np.abs(want_p).max())
+    np.testing.assert_allclose(u64.result, want_u, rtol=1e-10)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [3, 16, 24, 40])
 @pytest.mark.parametrize("n", [1001, 1024])

@@ -204,3 +204,52 @@ def test_build_packed_operator_resident_only(data):
     assert set(stats["kernel_launches"]) == {"crossprod", "matvec",
                                              "crossprod_ff", "matvec_ff",
                                              "matvec_ff_novl"}
+
+
+@pytest.mark.parametrize("device_type, dtype, use_kernels, want", [
+    ("cuda", torch.float32, None, True),
+    ("cuda", torch.float32, True, True),
+    ("cuda", torch.float32, False, ValueError),
+    ("cuda", torch.float64, None, False),
+    ("cuda", torch.float64, False, False),
+    ("cuda", torch.float64, True, ValueError),
+    ("cpu", torch.float32, None, False),
+    ("cpu", torch.float32, True, True),
+    ("cpu", torch.float64, None, False),
+    ("cpu", torch.float64, True, ValueError),
+])
+def test_runs_kernels_rule(device_type, dtype, use_kernels, want):
+    """float64 on CUDA: the dtype alone picks the path -- float32 runs
+    the kernels (and cannot be told not to), float64 the functional core
+    (and cannot be told to run the float32 kernels); on the CPU
+    ``use_kernels`` picks the kernels' plain versions at float32."""
+    from flashpca_tpu_torch.ops.operator import runs_kernels
+
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            runs_kernels(device_type, dtype, use_kernels)
+    else:
+        assert runs_kernels(device_type, dtype, use_kernels) is want
+
+
+def test_every_operator_takes_the_rule(data, monkeypatch):
+    """Both resident and both streaming operators decide their path by
+    ``runs_kernels`` (on the operator's device type and dtype)."""
+    from flashpca_tpu_torch.ops import operator as top
+
+    seen = []
+    rule = top.runs_kernels
+
+    def spy(device_type, dtype, use_kernels=None):
+        seen.append((device_type, dtype, use_kernels))
+        return rule(device_type, dtype, use_kernels)
+
+    monkeypatch.setattr(top, "runs_kernels", spy)
+    args = (data["packed"], data["mean"], data["sd"], data["n"])
+    for cls in (PackedOperator, TallPackedOperator, StreamingPackedOperator,
+                TallStreamingOperator):
+        for dt, uk in ((torch.float64, None), (torch.float32, True)):
+            op = cls(*args, device="cpu", dtype=dt, use_kernels=uk)
+            assert op.use_kernels is bool(uk) and op.dtype == dt
+    assert seen == [("cpu", torch.float64, None),
+                    ("cpu", torch.float32, True)] * 4

@@ -245,11 +245,11 @@ def test_cli_checkpoints_resume_across_packages(fileset, tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--ucca"], "A13"),
+    (["--scca"], "A14"),
     (["--shards", "2"], "A18"),
     (["--outstate", "f.npz", "--checkpoint-every", "2"], "A17"),
     (["--profile", "trace"], "A10"),
-], ids=["ucca", "shards2", "checkpoint-every", "profile"])
+], ids=["scca", "shards2", "checkpoint-every", "profile"])
 def test_cli_unported_options_name_their_item(fileset, tmp_path, capsys,
                                               flags, item):
     assert _cli(["--bfile", fileset[0], "--device", "cpu"] + flags,
@@ -297,8 +297,7 @@ def test_unported_options_raise(fileset, tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="A12"):
         ft.check(np.zeros((20, 30)), np.zeros((20, 2)), np.ones(2),
                  device="cpu")
-    for flag, item in (("--scca", "A14"), ("--ucca", "A13"),
-                       ("--project", "A11"), ("--batch", "A12")):
+    for flag, item in (("--scca", "A14"), ("--batch", "A12")):
         assert _cli(["--bfile", root, flag, "--device", "cpu"],
                     tmp_path) == 1
         assert item in capsys.readouterr().err

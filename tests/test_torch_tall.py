@@ -415,3 +415,46 @@ def test_cli_opmode_tall_matches_jax(tall, tmp_path, capsys):
     assert _cli(tmain, ["--bfile", root, "--check", "--opmode", "tall",
                         "--device", "cpu"], tdir) == 1
     assert "--opmode applies to PCA mode only" in capsys.readouterr().err
+
+
+def _chip_smoke():
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def test_smoke_tall_float64_phase_on_the_cpu(monkeypatch):
+    """chip_smoke.py's float64 tall phase at a tiny size on the CPU: one
+    float64 gram pass timed; a budget it misses cuts the SNP depth to
+    whole 1,024s (never the samples), a budget it meets keeps all SNPs;
+    the float64 pca on that depth holds to the leading block of the
+    float64 reference gram within EIG_BAR of the largest, and launches
+    no kernel."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "sync", lambda: None)
+    n, p, k = 2003, 2100, 6
+    packed, mean, sd, sumsq = cs.card_data(torch.device("cpu"), n, p, 8)
+    top = ft.TallPackedOperator(packed, mean, sd, n, device="cpu",
+                                dtype=torch.float32, use_kernels=True,
+                                snp_sumsq=sumsq)
+    depth, pass_s = cs.float64_depth(top, budget_s=1e-9, passes=1)
+    assert depth == 1024 and pass_s > 0
+    assert cs.float64_depth(top, budget_s=1e9, passes=1)[0] == p
+    ref, cut = cs.f64_reference(top, k + 8, depth=depth)
+    assert cut.eigenvectors.shape[0] == depth
+    out = cs.tall_float64(top, k, depth, cut)
+    assert out["depth"] == depth
+    assert out["eig_err_of_largest"] <= cs.EIG_BAR
+
+
+def test_tall_f64_depths_tool_needs_a_gpu(monkeypatch, capsys):
+    from flashpca_tpu_torch.tools import tall_f64_depths
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tall_f64_depths.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
