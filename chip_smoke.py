@@ -64,7 +64,15 @@ Phases, all in this one process; any failure raises and exits nonzero:
    --inload --inmeansd`` reads them back (B2), ``--ucca --pheno`` a
    phenotype file written here (B1), each held to a numpy float64
    oracle (the projection's columns within 1e-6 of their norms; ucca's
-   R within 1e-5 relative, F 2e-5, -log10 P 1e-4 absolute);
+   R within 1e-5 relative, F 2e-5, -log10 P 1e-4 absolute), and
+   ``--ucca --batch`` (the numeric-matrix path: a float64
+   DenseOperator on the card) held to ``--ucca`` at those bars; then the fileset as a numeric
+   matrix: ``pca(ds.read_matrix(impute_mean=False), 10)`` at float32 and
+   at float64 on the card and ``flashpca()`` on it (a DenseOperator,
+   no kernel launched), held to the dense float64 eigh, the CLI's
+   ``--batch`` pca then ``--check`` (mse < 1e-8), and a float64
+   ``pca(root, 20, checkpoint_every=1)`` whose first mid-run .npz
+   resumes with ``state_in`` to eigenvalues within 1e-6 of the largest;
 5. the wide headline: structured genotypes 501,760 x 100,352 generated
    on the card (12.6 GB packed, never decoded whole), ``pca(op, 20)``
    with ``polish="contract"`` at float32, then ``check(op, U, d)``; the
@@ -102,7 +110,18 @@ Phases, all in this one process; any failure raises and exits nonzero:
    ``_project_operator`` on the streamed operator (counts around each:
    B1 for ucca, B2 for project), ucca equal to the resident result bit
    for bit, project within 1e-6 relative of it; then B1-B4, B2 at kc 24
-   and B1 at kc 8 timed on one block held resident;
+   and B1 at kc 8 timed on one block held resident; then the dense
+   headline (``dense_headline``): 50,176 x 100,352 genotypes generated
+   packed on the card, decoded there into one float32 X (20.1 GB) and
+   held by ``DenseOperator(X, center=mean, scale=sd)`` (torch.matmul
+   products, no kernel: no launch may be counted): ``pca(dense, 20)``
+   and ``check()``, their extra peak device memory at most 0.25 x X's
+   bytes; the resident PackedOperator's ``pca`` and ``check`` on the
+   same bytes (B1-B4 must launch); the dense result's check mse < 1e-8
+   through both operators, its eigenvalues within 1e-6 of the largest
+   of the packed run's, its vectors by the twin rule; ``ucca`` of 7
+   seeded phenotypes on both, held to a float64 crossprod on the causal
+   window; the dense plain and two-float gram timed a pass;
 6. the kernel sweep (flashpca_tpu_torch.tools.kernel_sweep) at the wide
    headline's shape, 100,352 x 501,760, k=16, after the headline's
    operator is freed: V1-V4 and their first designs against B1 on a
@@ -339,6 +358,17 @@ TALL_CASE = ("tall width 2048 x 1003520", 2048, 1_003_520, 23)
 POPS = 8
 # the tall headline: the JAX package's tall bench shape (bench.py)
 TALL_N, TALL_P = 1_003_520, 50_176
+# the dense headline: the headline's SNP width with a tenth of its
+# samples as one float32 matrix on the card (20.1 GB; 50,176 is not a
+# multiple of the 2,048-row two-float chunk), the generator's seed, and
+# the bound on the extra peak device memory of its pca() and check(),
+# as a share of X's bytes (a copy of X would be 1.0)
+DENSE_N, DENSE_P, DENSE_SEED, DENSE_PEAK_SHARE = 50_176, 100_352, 17, 0.25
+# how far, in units of the largest, the dense headline's bulk pairs may
+# fall below the float64 reference's: the capped float32 schedule on
+# this wide gram leaves them up to 7.43e-5 (dense) and 6.63e-5 (packed)
+# below it on an H100, about twice the tall headline's BULK_BAR
+DENSE_BULK_F64_BAR = 1.5e-4
 
 
 def sass_hot_loops(sass):
@@ -990,6 +1020,7 @@ def mid_size(dev, workdir, n=8001, p=4096, k=10, seed=5):
         raise AssertionError(f"mid-size streamed: check mse {chk_s.mse:.3e}")
     f64 = mid_float64(dev, root, ds, k, d_ref, U_ref)
     cli = mid_cli(dev, workdir, root, ds, k, seed)
+    dense = mid_dense(dev, workdir, root, ds, k, d_ref, U_ref)
     return {"n_ops": res.n_ops, "check_mse": chk.mse, "pca_s": t_pca,
             "eig_rel_err": float(rel.max()),
             "eig_err_of_largest": float(rel_norm.max()),
@@ -998,7 +1029,7 @@ def mid_size(dev, workdir, n=8001, p=4096, k=10, seed=5):
                          "gate_mse": res_s.gate_mse, "check_mse": chk_s.mse,
                          "eig_rel_err_vs_resident": float(rel_s.max()),
                          "launches": {nm: launches[nm] for nm in WIDE_PATH}},
-            "float64": f64, "cli": cli}
+            "float64": f64, "cli": cli, "dense": dense}
 
 
 def vector_rmse(U, U_ref):
@@ -1066,6 +1097,131 @@ def mid_float64(dev, root, ds, k, d_ref, U_ref):
     if ran:
         raise AssertionError(f"float64 on the card launched kernels {ran}: "
                              "it runs the functional core")
+    return out
+
+
+def mid_dense(dev, workdir, root, ds, k, d_ref, U_ref):
+    """The mid-size fileset as a numeric matrix and through mid-run
+    checkpoints: ``pca(ds.read_matrix(impute_mean=False))`` (missing
+    calls NaN, mean-imputed by the standardization) at float32 and at
+    float64 on the card, and ``flashpca()`` on the same matrix, each held
+    to the dense float64 eigh (float32: eigenvalues within 1e-6 of the
+    largest, vectors RMSE < 1e-5, check mse < 1e-8 on the matrix,
+    through a float64 DenseOperator on the card;
+    float64: F64_EIG_BAR and F64_VEC_RMSE); no kernel may launch on the
+    dense operator.  The CLI's ``--batch`` pca, then ``--check`` (mse <
+    1e-8).  Then ``pca(root, 2 k, checkpoint_every=1)`` at float64 with
+    tol 1e-10 (pairs in the Marchenko-Pastur bulk: a solve of many
+    restarts on any card, where the float32 contract path may stop after
+    one): its first mid-run .npz (marked not converged) resumes with
+    ``state_in`` to eigenvalues within 1e-6 of the largest of the
+    checkpointed run's."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    import flashpca_tpu_torch.solvers.lanczos as lz
+    from flashpca_tpu_torch import flashpca, pca
+    from flashpca_tpu_torch.cli import main as cli_main
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+    from flashpca_tpu_torch.models.check import check
+
+    out = {}
+    X = ds.read_matrix(impute_mean=False)
+    tpk.reset_launch_counts()
+    runs = {}
+    for tag, run in (("float32", lambda: pca(X, k, device=dev)),
+                     ("float64", lambda: pca(X, k, device=dev,
+                                             dtype=torch.float64)),
+                     ("flashpca", lambda: flashpca(X, k, device=dev))):
+        with Phase(f"mid-size pca on the numeric matrix, {tag}") as ph:
+            runs[tag] = run()
+        r = runs[tag]
+        err = np.abs(r.values - d_ref) / d_ref[0]
+        rmse = vector_rmse(r.vectors, U_ref)
+        chk = check(X, r.vectors, r.values, device=dev)
+        out[tag] = {"pca_s": ph.seconds, "n_ops": r.n_ops,
+                    "eig_err_of_largest": float(err.max()),
+                    "vec_rmse": float(rmse.max()), "check_mse": chk.mse}
+        say(f"   {tag}: n_ops {r.n_ops}, vs float64 eigh: eigenvalues "
+            f"{err.max():.2e} of the largest, vector RMSE {rmse.max():.2e},"
+            f" check mse {chk.mse:.3e}")
+        bars = ((F64_EIG_BAR, F64_VEC_RMSE) if tag == "float64"
+                else (1e-6, 1e-5))
+        if not (err.max() < bars[0] and rmse.max() < bars[1]
+                and chk.mse < 1e-8):
+            raise AssertionError(
+                f"mid-size dense {tag}: eigenvalues {err.max():.2e} of the "
+                f"largest, vector RMSE {rmse.max():.2e} (bars {bars}), "
+                f"check mse {chk.mse:.3e}")
+    ran = [nm for nm, c in tpk.launch_counts.items() if c]
+    if ran:
+        raise AssertionError(f"the dense operator launched kernels {ran}")
+
+    cdir = os.path.join(workdir, "cli_batch")
+    os.makedirs(cdir)
+    cwd = os.getcwd()
+    os.chdir(cdir)
+    try:
+        args = ["--bfile", root, "--notime", "--device", dev.type,
+                "--ndim", str(k)]
+        with Phase("CLI --batch, then --check"):
+            rc = cli_main(args + ["--batch"])
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc_check = cli_main(args + ["--check"])
+    finally:
+        os.chdir(cwd)
+    line = [ln for ln in buf.getvalue().splitlines()
+            if "Mean squared error" in ln]
+    if rc or rc_check or not line:
+        raise AssertionError(f"CLI --batch exited {rc}, --check {rc_check}")
+    mse = float(line[0].split("Mean squared error: ")[1].split(",")[0])
+    say(f"   --batch then --check: mse {mse!r}")
+    if not mse < 1e-8:
+        raise AssertionError(f"CLI --batch: check mse {mse:.3e}")
+    out["cli_batch_check_mse"] = mse
+
+    state = os.path.join(workdir, "ck.npz")
+    mid = os.path.join(workdir, "mid.npz")
+    writes = []
+    save_state = lz.save_state
+
+    def spy(path, vectors, values, residuals, converged):
+        save_state(path, vectors, values, residuals, converged)
+        writes.append(bool(converged))
+        if not converged and not os.path.exists(mid):
+            shutil.copy(path, mid)
+
+    ck_kw = dict(device=dev, dtype=torch.float64, tol=1e-10)
+    lz.save_state = spy
+    try:
+        with Phase(f"mid-size pca(k={2 * k}) float64, checkpoint_every=1"
+                   ) as ph:
+            ck = pca(root, 2 * k, state_out=state, checkpoint_every=1,
+                     **ck_kw)
+    finally:
+        lz.save_state = save_state
+    with Phase("mid-size pca resumed from its first mid-run checkpoint"):
+        warm = pca(root, 2 * k, state_in=mid, **ck_kw)
+    err = np.abs(warm.values - ck.values) / ck.values[0]
+    say(f"   {writes.count(False)} mid-run checkpoints, then "
+        f"{writes.count(True)} final write(s); resumed: n_ops {warm.n_ops}, "
+        f"n_restarts {warm.n_restarts} (checkpointed run {ck.n_ops}, "
+        f"{ck.n_restarts}), eigenvalues {err.max():.2e} of "
+        "the largest off the checkpointed run's")
+    if not (writes and not writes[0] and writes[-1] and os.path.exists(mid)):
+        raise AssertionError(f"checkpoint_every=1: writes {writes}")
+    if not err.max() < 1e-6:
+        raise AssertionError(f"resumed from a mid-run checkpoint: "
+                             f"eigenvalues {err.max():.2e} of the largest")
+    out["checkpoint"] = {"pca_s": ph.seconds, "mid_run_writes":
+                         writes.count(False), "n_restarts": ck.n_restarts,
+                         "resumed_n_restarts": warm.n_restarts,
+                         "resumed_n_ops": warm.n_ops,
+                         "eig_err_of_largest": float(err.max())}
     return out
 
 
@@ -1215,8 +1371,13 @@ def mid_cli(dev, workdir, root, ds, k, seed, n_pheno=3):
         f"{sorted(causal.tolist())} at P {got[np.sort(causal), 2]}")
     require_launched(ucca_launches, UCCA_PATH, "CLI --ucca")
     errs = hold_ucca("--ucca vs numpy float64", got, ref)
+    # --ucca --batch: the numeric-matrix path, standardized on the host
+    # and held by a float64 DenseOperator on the card
+    run("--ucca", "--batch", "--pheno", "pheno.txt")
+    batch = read_text(path("ucca.txt"), firstcol=2, skip=1)
+    batch_errs = hold_ucca("--ucca vs --ucca --batch", got, batch)
     return {"project_col_rel_err": float(proj_err.max()),
-            "ucca_errs": errs,
+            "ucca_errs": errs, "ucca_vs_batch_errs": batch_errs,
             "launches": {"project": proj_launches["matvec"],
                          "ucca": ucca_launches["crossprod"]}}
 
@@ -1834,6 +1995,251 @@ def project_ucca(op, res, seed=13):
     return {"V": V, "Px": Px, "Y": Y, "ucca": u.result}, out
 
 
+def dense_matrix(op, rows=1024):
+    """The packed operator's standardized genotypes as one float32 (N,
+    p) tensor X on the card, and their float64 gram X X^T / p beside it
+    (N x N: 20.1 GB at the dense headline), from one decode pass in
+    blocks of ``rows`` SNPs in float64 with the operator's float64
+    stats: each block is added to the gram in float64 and rounded once
+    to float32 into X."""
+    import torch
+
+    from flashpca_tpu_torch.ops.genotypes import (decode_standardized,
+                                                  unpermute_samples)
+    from flashpca_tpu_torch.ops.standardize import lookup_tables
+
+    n, p = op.n_samples, op.n_snps
+    mean, invsd = (torch.as_tensor(t, device=op.device) for t in
+                   lookup_tables(op.center, op.scale, dtype=np.float64))
+    X = torch.empty((n, p), dtype=torch.float32, device=op.device)
+    G = torch.zeros((n, n), dtype=torch.float64, device=op.device)
+    for r0 in range(0, p, rows):
+        r1 = min(r0 + rows, p)
+        g = decode_standardized(op.packed[r0:r1], mean[r0:r1],
+                                invsd[r0:r1], torch.float64)
+        Xb = unpermute_samples(g.T, n)
+        G.addmm_(Xb, Xb.T)
+        X[:, r0:r1] = Xb
+        del g, Xb
+    G /= p
+    return X, G
+
+
+def f64_eigsh(A, nev):
+    """Top ``nev`` eigenpairs of a float64 symmetric matrix on its
+    device, by the port's block Lanczos in float64 to tol 1e-12."""
+    import torch
+
+    from flashpca_tpu_torch.solvers.block_lanczos import eigsh_block
+
+    return eigsh_block(lambda x: A @ x, A.shape[0], nev, block=16, ncv=160,
+                       maxiter=200, tol=1e-12, dtype=torch.float64,
+                       device=A.device, seed=3)
+
+
+def dense_headline(dev, smi, n=DENSE_N, p=DENSE_P, k=20, seed=DENSE_SEED):
+    """The dense path at the headline's SNP width: genotypes generated
+    packed on the card (``card_data``), decoded into one float32 (n, p)
+    X there (:func:`dense_matrix`) and held by ``DenseOperator(X,
+    center=mean, scale=sd)`` -- torch.matmul products, no kernel, so no
+    launch may be counted on it.  ``pca(dense, k)`` (float32,
+    ``polish="contract"``) and ``check(dense, ...)``, their extra peak
+    device memory at most DENSE_PEAK_SHARE of X's bytes (any copy of X
+    fails it); then the resident PackedOperator's ``pca`` and ``check``
+    on the same bytes (B1-B4 must launch), and from start seed
+    WITNESS_SEED.  Held: the dense result's check mse < 1e-8 through the
+    dense operator and through the packed one; on the population pairs
+    (above 1.5 x the Marchenko-Pastur edge (sqrt(n) + sqrt(p))^2 / p)
+    its eigenvalues within 1e-6 of the largest of the packed run's and
+    its vectors by the twin rule (:func:`twin_cosines`, |cos| or the
+    cluster's span >= 1 - 1e-6); on the bulk pairs, which no two
+    float32 solves of another arithmetic resolve alike (the tall
+    headline's BULK_BAR), eigenvalues within BULK_BAR of the largest,
+    their vectors printed beside the packed run's start-seed witness;
+    both runs' eigenvalues against the float64 X X^T / p formed on the
+    card in the same decode pass as X (:func:`dense_matrix`,
+    :func:`f64_eigsh`): none above it by more than EIG_BAR of the
+    largest (Ritz values are lower bounds), the population pairs not
+    below it by more than EIG_BAR either, the bulk pairs not below it by
+    more than DENSE_BULK_F64_BAR -- here the bulk is 20 pairs within
+    7e-5 of the largest, which the capped float32 schedule leaves up to
+    about that far below (the check contract holds all pairs, above);
+    ``ucca`` on
+    both operators with UCCA_K seeded phenotypes
+    (:func:`causal_phenotypes`), each held on the causal window to a
+    float64 crossprod (:func:`hold_ucca`).  Printed: both runs'
+    ``n_ops``, the dense plain and two-float gram's ms a pass (CUDA
+    events, kc 16 and 24), the walls and the card."""
+    import torch
+
+    from flashpca_tpu_torch import (DenseOperator, PackedOperator, check,
+                                    pca, ucca)
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+    from flashpca_tpu_torch.ops.genotypes import permute_samples
+    from flashpca_tpu_torch.utils.device import host64
+
+    out = {"n": n, "p": p, "k": k, "card": smi}
+    with Phase(f"dense headline data: {n} x {p} generated packed on the "
+               "card, decoded into a float32 X and a float64 X X^T / p"
+               ) as ph:
+        packed, mean, sd, sumsq = card_data(dev, n, p, seed)
+        op = PackedOperator(packed, mean, sd, n, device=dev,
+                            snp_sumsq=sumsq)
+        del packed
+        X, G = dense_matrix(op)
+        dense = DenseOperator(X, center=mean, scale=sd, device=dev)
+    out["gen_s"] = ph.seconds
+    x_bytes = X.numel() * X.element_size()
+    if dense.X.data_ptr() != X.data_ptr():
+        raise AssertionError("DenseOperator copied the card's X")
+    del X
+    say(f"   X {x_bytes / 1e9:.2f} GB float32 on the card, packed "
+        f"{op.packed.numel() / 1e9:.2f} GB; {smi}")
+    with Phase("float64 reference: eigsh of X X^T / p on the card") as ph:
+        f64 = f64_eigsh(G, k + 8)
+    out["ref_s"] = ph.seconds
+    del G
+    torch.cuda.empty_cache()
+
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tpk.reset_launch_counts()
+    with Phase(f"pca(dense, {k}) polish='contract' float32") as ph:
+        res = pca(dense, k)
+    out["pca_s"] = ph.seconds
+    with Phase("check(dense, U, d)") as ph:
+        chk = check(dense, res.vectors, res.values)
+    out["check_s"] = ph.seconds
+    sync()
+    extra = torch.cuda.max_memory_allocated() - base
+    dense_launches = sum(tpk.launch_counts.values())
+    out.update(n_ops=res.n_ops, n_restarts=res.n_restarts,
+               gate_mse=res.gate_mse, check_mse=chk.mse,
+               extra_peak_gb=extra / 1e9, x_gb=x_bytes / 1e9,
+               extra_peak_share=extra / x_bytes, launches=dense_launches)
+    say(f"   dense: n_ops {res.n_ops}, n_restarts {res.n_restarts}, gate "
+        f"mse {res.gate_mse!r}, check mse {chk.mse!r}; pca wall "
+        f"{out['pca_s']:.2f} s, check wall {out['check_s']:.2f} s; extra "
+        f"peak device memory {extra / 1e9:.3f} GB = {extra / x_bytes:.4f} "
+        f"of X (bar {DENSE_PEAK_SHARE}); kernel launches {dense_launches}")
+    if dense_launches:
+        raise AssertionError(f"the dense operator launched kernels: "
+                             f"{dict(tpk.launch_counts)}")
+    if not extra <= DENSE_PEAK_SHARE * x_bytes:
+        raise AssertionError(f"dense headline: extra peak {extra / 1e9:.2f}"
+                             f" GB > {DENSE_PEAK_SHARE} x X's bytes")
+    if not (res.vectors.shape == (n, k) and np.isfinite(res.vectors).all()
+            and chk.mse < 1e-8):
+        raise AssertionError(f"dense headline: check mse {chk.mse!r} or "
+                             "non-finite / misshapen vectors")
+
+    reps = 10
+    panel = {kc: torch.randn((n, kc), device=dev) for kc in (16, 24)}
+    out["gram_ms"] = event_ms(lambda: dense.gram_permuted(panel[16]), reps)
+    out["gram_ff_ms"] = event_ms(
+        lambda: dense.gram_ff_permuted(panel[24]), reps)
+    say(f"   dense gram pass: plain {out['gram_ms']:.2f} ms (kc 16), "
+        f"two-float {out['gram_ff_ms']:.2f} ms (kc 24), median of {reps}")
+    del panel
+
+    tpk.reset_launch_counts()
+    with Phase(f"pca(packed, {k}) on the same bytes") as ph:
+        res_p = pca(op, k)
+    out["packed_pca_s"] = ph.seconds
+    with Phase("check(packed, U, d) of both results") as ph:
+        chk_p = check(op, res_p.vectors, res_p.values)
+        chk_dp = check(op, res.vectors, res.values)
+    launches = dict(tpk.launch_counts)
+    require_launched(launches, WIDE_PATH, "dense headline's packed run")
+    require_no_first_design(launches, "dense headline's packed run")
+    with Phase(f"pca(packed, {k}) from start seed {WITNESS_SEED}"):
+        alt = pca(op, k, seed=WITNESS_SEED)
+    d, d_p = res.values, res_p.values
+    err = np.abs(d - d_p) / d_p[0]
+    bulk = d_p < 1.5 * (np.sqrt(n) + np.sqrt(p)) ** 2 / p
+    pops = ~bulk
+    cos, held, clusters = twin_cosines(res.vectors[:, pops],
+                                       res_p.vectors[:, pops], d_p[pops],
+                                       TWIN_NEAR * d_p[0])
+    bulk_cos = twin_cosines(res.vectors, res_p.vectors, d_p, 0.0)[0][bulk]
+    witness_cos = twin_cosines(alt.vectors, res_p.vectors, d_p,
+                               0.0)[0][bulk]
+    out.update(packed_n_ops=res_p.n_ops, packed_check_mse=chk_p.mse,
+               check_mse_through_packed=chk_dp.mse,
+               population_pairs=int(pops.sum()),
+               eig_err_of_largest=float(err[pops].max()),
+               bulk_eig_err_of_largest=float(err[bulk].max(initial=0.0)),
+               min_held=float(held.min()), clusters=clusters,
+               bulk_abs_cos=bulk_cos.tolist(),
+               witness_bulk_abs_cos=witness_cos.tolist(),
+               packed_launches={nm: launches[nm] for nm in WIDE_PATH})
+    say(f"   n_ops: dense {res.n_ops}, packed {res_p.n_ops}; check mse "
+        f"through the packed operator: dense result {chk_dp.mse!r}, packed "
+        f"result {chk_p.mse!r}")
+    say("   d_dense " + " ".join(f"{x:.6f}" for x in d))
+    say("   d_packed " + " ".join(f"{x:.6f}" for x in d_p))
+    say(f"   {int(pops.sum())} population pairs: eigenvalues dense vs "
+        f"packed {err[pops].max():.2e} of the largest (bar 1e-6); twins "
+        f"(pairs closer than {TWIN_NEAR} of the largest: {clusters}) "
+        + " ".join(f"{c:.8f}" for c in held))
+    say(f"   {int(bulk.sum())} bulk pairs: eigenvalues dense vs packed "
+        f"{err[bulk].max(initial=0.0):.2e} of the largest (bar {BULK_BAR});"
+        " |cos| dense vs packed, not held: "
+        + " ".join(f"{c:.4f}" for c in bulk_cos)
+        + f"; packed start seed {WITNESS_SEED} vs 1: "
+        + " ".join(f"{c:.4f}" for c in witness_cos))
+    if not (chk_dp.mse < 1e-8 and err[pops].max() <= 1e-6
+            and held.min() >= 1 - 1e-6
+            and err[bulk].max(initial=0.0) <= BULK_BAR):
+        raise AssertionError(
+            f"dense headline vs packed: check mse {chk_dp.mse!r} through "
+            f"the packed operator, population eigenvalues "
+            f"{err[pops].max():.2e} of the largest, twins "
+            f"{held.min():.8f}, bulk eigenvalues "
+            f"{err[bulk].max(initial=0.0):.2e}")
+
+    Y, window, causal = causal_phenotypes(op, UCCA_K, seed)
+    with Phase(f"ucca(dense, Y) and ucca(packed, Y), {UCCA_K} "
+               "phenotypes") as ph:
+        u_d = ucca(dense, Y)
+        u_p = ucca(op, Y)
+    out["ucca_s"] = ph.seconds
+    lut6 = tpk.lut_rows(*op._ff_luts())
+    x = permute_samples(torch.as_tensor(centred_panel(Y), device=dev),
+                        op.nbytes)
+    ref = ucca_from_products(
+        host64(f64_product(op.packed[window], lut6[:, window], x,
+                           transpose=False)), op.snp_sumsq[window], Y)
+    out["ucca_errs"] = {
+        "dense": hold_ucca("dense ucca vs float64", u_d.result[window], ref),
+        "packed": hold_ucca("packed ucca vs float64", u_p.result[window],
+                            ref)}
+    out["ucca_causal_p"] = u_d.pval[causal].tolist()
+    say(f"   causal SNPs {causal.tolist()} at P (dense) "
+        + " ".join(f"{v:.2e}" for v in u_d.pval[causal]))
+    del dense
+    d_ref = f64.eigenvalues[:k]
+    say(f"   reference: {f64.n_ops} passes, converged {f64.converged}")
+    say("   d_ref " + " ".join(f"{x:.6f}" for x in d_ref))
+    for who, dd in (("dense", d), ("packed", d_p)):
+        off = (dd - d_ref) / d_ref[0]
+        say(f"   (d_{who} - d_ref) / d_ref max: "
+            + " ".join(f"{x:.2e}" for x in off))
+        bad = ((off > EIG_BAR) | (pops & (-off > EIG_BAR))
+               | (bulk & (-off > DENSE_BULK_F64_BAR)))
+        out[f"{who}_eig_err_vs_f64"] = float(np.abs(off[pops]).max())
+        out[f"{who}_bulk_below_f64"] = float(-off[bulk].min(initial=0.0))
+        if not f64.converged or bad.any():
+            raise AssertionError(
+                f"dense headline: {who} eigenvalues {np.flatnonzero(bad)} "
+                f"off the float64 reference beyond {EIG_BAR} of the "
+                f"largest (above it, or a population pair below it), or "
+                f"a bulk pair below it by more than {DENSE_BULK_F64_BAR}")
+    del op
+    return out
+
+
 def twin_cosines(U, U_r, d_r, near):
     """Each vector of ``U`` against its twin in ``U_r`` (columns in the
     order of the eigenvalues ``d_r``, descending): |cos| of the pair,
@@ -2102,7 +2508,6 @@ def f64_reference(top, nev, rows=2048, depth=None):
 
     from flashpca_tpu_torch.ops.genotypes import decode_standardized
     from flashpca_tpu_torch.ops.standardize import lookup_tables
-    from flashpca_tpu_torch.solvers.block_lanczos import eigsh_block
 
     dev = top.device
     p, nb = top.packed.shape
@@ -2120,18 +2525,12 @@ def f64_reference(top, nev, rows=2048, depth=None):
         G.addmm_(Xc * m[None, :], Xc.T)
         del Xc
     G /= p
-
-    def solve(A):
-        return eigsh_block(lambda x: A @ x, A.shape[0], nev, block=16,
-                           ncv=160, maxiter=200, tol=1e-12,
-                           dtype=torch.float64, device=dev, seed=3)
-
-    res = solve(G)
+    res = f64_eigsh(G, nev)
     cut = None
     if depth is not None and depth < p:
         Gd = G[:depth, :depth] * (p / depth)
         del G
-        cut = solve(Gd)
+        cut = f64_eigsh(Gd, nev)
     return res, cut
 
 
@@ -3056,6 +3455,8 @@ def main(argv=None) -> int:
         head["seed_witness"], twins)
     del host, head_res, twins
     torch.cuda.empty_cache()
+    dense = dense_headline(dev, smi)
+    torch.cuda.empty_cache()
     sweep_rows, sweep = kernel_sweep(
         dev, args.p, args.n, worst, b1_library_ms, head["launches"],
         sass_mix[SPLIT3_SASS]["ops_per_genotype"])
@@ -3107,7 +3508,7 @@ def main(argv=None) -> int:
                       "tall": {**tall_stream,
                                "same_order": tall_streamed_checks}},
         **{key: val for key, val in head.items()},
-        "one_pass": one_pass,
+        "one_pass": one_pass, "dense": dense,
         "gram_tall_ff_max_abs_err": worst["gram_tall_ff"],
         "tall_kernels_f64_rel": tall_f64,
         "b1_turns_ms": b1_turns, "b2_turns_ms": b2_turns,

@@ -6,9 +6,10 @@ hand-written CUDA kernels for its fused decode->product passes
 (kernels/csrc/), the thick-restart block Lanczos solver with its
 compensated (two-float) refinement, ``pca`` on the wide (X X^T) or the
 tall (X^T X) gram -- each also streamed from the host under a
-device-memory bound -- ``check``, ``project`` (new samples onto
-loadings), ``ucca`` (per-SNP multivariate ANOVA) and the
-flag-compatible CLI, at float32 (the kernels) or float64 (the PyTorch
+device-memory bound -- or on a numeric matrix held whole
+(``DenseOperator``), with mid-run checkpoints; ``check``, ``project``
+(new samples onto loadings), ``ucca`` (per-SNP multivariate ANOVA) and
+the flag-compatible CLI, at float32 (the kernels) or float64 (the PyTorch
 functional core, on the card or the CPU).  Imports ``torch`` (never
 JAX); entry points run on ``cuda`` unless given ``device="cpu"``.
 """
@@ -16,11 +17,12 @@ JAX); entry points run on ``cuda`` unless given ``device="cpu"``.
 __version__ = "0.1.0"
 
 from .io import PlinkDataset
-from .ops import (PackedOperator, StreamingPackedOperator,
+from .ops import (DenseOperator, PackedOperator, StreamingPackedOperator,
                   TallPackedOperator, TallStreamingOperator,
-                  packed_operator_from_numpy, resolve_streaming, standardize,
-                  streaming_operator_from_numpy, tall_operator_from_numpy,
+                  packed_operator_from_numpy, resolve_streaming, scale2,
+                  standardize, streaming_operator_from_numpy,
+                  tall_operator_from_numpy,
                   tall_streaming_operator_from_numpy)
-from .models import (pca, PCAResult, check, CheckResult, project,
+from .models import (pca, flashpca, PCAResult, check, CheckResult, project,
                      ProjectResult, ucca, UccaResult)
 from .solvers import eigsh, eigsh_block, EigshResult

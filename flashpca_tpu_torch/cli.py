@@ -6,19 +6,24 @@ maxiter=500, seed=1, precision=7, suffix=.txt) and output files and
 formats (:755-878) for the modes this package ports: PCA (the
 default), ``--check``, ``--project`` (``--inload`` with ``--inmeansd``
 or ``--inmaf``, written to ``--outproj``) and ``--ucca`` (``--pheno``,
-``--standy``, written to ucca.txt).  ``--scca`` and ``--batch`` exit
-with an error naming the ROADMAP item that ports them, as do the JAX
-CLI's options not ported yet: ``--shards`` above 1,
-``--checkpoint-every`` above 0 and ``--profile``.  ``--stream on``
+``--standy``, written to ucca.txt); ``--batch`` loads the genotypes
+whole as a matrix for PCA and UCCA, held on ``--device`` (UCCA's in
+float64 unless ``--dtype`` says otherwise).  ``--scca`` exits with an error
+naming the ROADMAP item that ports it, as do the JAX CLI's options not
+ported yet: ``--shards`` above 1 and ``--profile``; SCCA's own flags
+(``--lambda1``, ``--lambda2``, ``--outpcx``, ``--outpcy``,
+``--outvecx``, ``--outvecy``, ``--save-vinit``) are accepted and unused
+in the other modes, as by the JAX CLI.  ``--stream on``
 streams the operator from the host: the wide one in blocks of the
 reference's ``--memory`` block size (or ``--blocksize``; about 1 GiB a
 block without either), the tall one (``--opmode tall``) in blocks of
 samples of about 1 GiB; as the JAX CLI, the tall one refuses the SNP
 block size that ``--memory`` or ``--blocksize`` sets.  ``--debug`` is
 the reference's no-op; ``--outstate``/``--instate`` write and resume the
-JAX package's .npz checkpoint.  ``--device`` (default ``cuda``) selects
-the card or the CPU path, ``--dtype`` float32 (the kernels) or float64
-(the PyTorch functional core) on either.
+JAX package's .npz checkpoint, and ``--checkpoint-every R`` rewrites
+it after every R-th restart during the solve.  ``--device`` (default
+``cuda``) selects the card or the CPU path, ``--dtype`` float32 (the
+kernels) or float64 (the PyTorch functional core) on either.
 """
 
 from __future__ import annotations
@@ -40,10 +45,8 @@ from .utils.logging import log, set_show_timestamp, timestamp
 # modes of the reference CLI that are not ported yet -> ROADMAP item
 NOT_PORTED = {
     "scca": "A14 'SCCA family'",
-    "batch": "A12 'Dense and matrix inputs'",
     # options of the ported modes
     "shards": "A18 'Multi-GPU'",
-    "checkpoint-every": "A17 'Checkpoints'",
     "profile": "A10 'Bench script and --profile'",
 }
 
@@ -67,7 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--check", "-c", action="store_true",
                    help="check eigenvalues/eigenvectors")
     p.add_argument("--batch", action="store_true",
-                   help="load all genotypes into RAM [not ported yet]")
+                   help="load all genotypes into RAM at once (PCA/UCCA)")
     p.add_argument("--memory", "-m", type=int, default=None,
                    help="size of block, in MB")
     p.add_argument("--blocksize", "-b", type=int, default=None,
@@ -84,14 +87,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--standy", default="sd",
                    choices=["sd", "binom", "binom2", "none", "center"])
     p.add_argument("--div", default="p", choices=["p", "n1", "none"])
-    p.add_argument("--outpc"), p.add_argument("--outvec")
-    p.add_argument("--outload"), p.add_argument("--outval")
+    p.add_argument("--outpc"), p.add_argument("--outpcx")
+    p.add_argument("--outpcy"), p.add_argument("--outvec")
+    p.add_argument("--outload"), p.add_argument("--outvecx")
+    p.add_argument("--outvecy"), p.add_argument("--outval")
     p.add_argument("--outpve"), p.add_argument("--outmeansd")
     p.add_argument("--outproj")
     p.add_argument("--inload"), p.add_argument("--inmeansd")
     p.add_argument("--inmaf")
     p.add_argument("--verbose", "-v", action="store_true")
     p.add_argument("--tol", type=float, default=1e-6)
+    p.add_argument("--lambda1", type=float, default=0.0,
+                   help="SCCA penalty on X [read by --scca only]")
+    p.add_argument("--lambda2", type=float, default=0.0,
+                   help="SCCA penalty on Y [read by --scca only]")
     p.add_argument("--maxiter", type=int, default=500)
     p.add_argument("--debug", action="store_true",
                    help="accepted and ignored, as by the reference")
@@ -101,6 +110,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--suffix", "-f", default=".txt")
     p.add_argument("--precision", type=int, default=7)
     p.add_argument("--notime", action="store_true")
+    p.add_argument("--save-vinit", action="store_true", dest="save_vinit",
+                   help="write SCCA's initial vectors [read by --scca "
+                        "only]")
     p.add_argument("--version", action="store_true")
     p.add_argument("--dtype", default=None, choices=["float32", "float64"],
                    help="compute dtype (default: float32 on cuda, "
@@ -124,8 +136,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="warm-start PCA from a checkpoint written by "
                         "--outstate")
     p.add_argument("--checkpoint-every", metavar="R", type=int, default=0,
-                   help="rewrite the checkpoint every R restarts during "
-                        "the solve [not ported yet; 0 = off]")
+                   help="PCA with --outstate: also rewrite the checkpoint "
+                        "after every R-th restart during the solve (0 = "
+                        "off)")
     p.add_argument("--opmode", default="auto",
                    choices=["auto", "wide", "tall"],
                    help="decompose X X^T (wide), X^T X (tall, for "
@@ -195,10 +208,9 @@ def main(argv=None) -> int:
     if mode == "cca":
         print("Error: CCA is currently disabled", file=sys.stderr)
         return 1
-    for flag in (mode, "batch" if args.batch else None):
-        if flag in NOT_PORTED:
-            return _die(f"--{flag} is not ported to the PyTorch package "
-                        f"yet (ROADMAP {NOT_PORTED[flag]})")
+    if mode in NOT_PORTED:
+        return _die(f"--{mode} is not ported to the PyTorch package yet "
+                    f"(ROADMAP {NOT_PORTED[mode]})")
     if unknown:
         return _die("unrecognized arguments: " + " ".join(unknown))
     if mode == "project":
@@ -210,16 +222,20 @@ def main(argv=None) -> int:
     if args.inmeansd and args.inmaf:
         return _die("conflicting options requested --inmeansd, --inmaf")
     for flag, asked in (("shards", (args.shards or 1) > 1),
-                        ("checkpoint-every", args.checkpoint_every > 0),
                         ("profile", args.profile is not None)):
         if asked:
             return _die(f"--{flag} is not ported to the PyTorch package "
                         f"yet (ROADMAP {NOT_PORTED[flag]})")
     if args.shards is not None and args.shards < 1:
         return _die(f"--shards must be >= 1 (got {args.shards})")
-    if args.checkpoint_every < 0:
-        return _die("--checkpoint-every must be a positive restart "
-                    "interval")
+    if args.checkpoint_every:
+        if args.checkpoint_every < 0:
+            return _die("--checkpoint-every must be a positive restart "
+                        "interval")
+        if mode != "pca":
+            return _die("--checkpoint-every applies to PCA mode only")
+        if not args.outstate:
+            return _die("--checkpoint-every requires --outstate")
     if (args.outstate or args.instate) and mode != "pca":
         return _die("--outstate/--instate apply to PCA mode only (this "
                     "mode has no restart state)")
@@ -241,6 +257,10 @@ def main(argv=None) -> int:
         return _die("--maxiter can't be less than 1")
     if args.tol <= 0:
         return _die("--tol can't be zero or negative")
+    if args.lambda1 < 0:
+        return _die("--lambda1 can't be negative")
+    if args.lambda2 < 0:
+        return _die("--lambda2 can't be negative")
     if args.precision is not None and args.precision <= 1:
         return _die("output --precision too low")
     if args.opmode != "auto" and mode != "pca":
@@ -321,11 +341,12 @@ def main(argv=None) -> int:
                 ds, args.ndim, stand=args.standx, divisor=args.div,
                 maxiter=args.maxiter, tol=args.tol, seed=args.seed,
                 block_size=block_size, do_loadings=bool(args.outload),
-                dtype=args.dtype, device=args.device, verbose=args.verbose,
-                operator_mode=args.opmode, polish=args.polish,
-                streaming=stream, memory_mb=args.memory,
-                state_in=args.instate,
-                state_out=args.outstate)
+                dtype=args.dtype, device=args.device, batch=args.batch,
+                verbose=args.verbose, operator_mode=args.opmode,
+                polish=args.polish, streaming=stream,
+                memory_mb=args.memory, state_in=args.instate,
+                state_out=args.outstate,
+                checkpoint_every=args.checkpoint_every)
             print(timestamp() + "PCA done")
             save_text(res.values.reshape(-1, 1), out["val"], precision=prec)
             ucol = ["FID" + TXT_SEP + "IID"] + [
@@ -345,10 +366,15 @@ def main(argv=None) -> int:
             meansd_out = np.column_stack([res.center, res.scale])
         elif mode == "ucca":
             print(timestamp() + "UCCA begin")
-            res = run_ucca(ds, Y, stand_x=args.standx, stand_y=args.standy,
-                           block_size=block_size, dtype=args.dtype,
-                           device=args.device, streaming=stream,
-                           memory_mb=args.memory)
+            if args.batch:
+                res = run_ucca(ds.read_matrix(), Y, stand_x=args.standx,
+                               stand_y=args.standy, dtype=args.dtype,
+                               device=args.device)
+            else:
+                res = run_ucca(ds, Y, stand_x=args.standx,
+                               stand_y=args.standy, block_size=block_size,
+                               dtype=args.dtype, device=args.device,
+                               streaming=stream, memory_mb=args.memory)
             print(timestamp() + "UCCA done")
             save_text(res.result, out["ucca"],
                       colnames=["SNP", "R", "Fstat", "P"],

@@ -1,4 +1,4 @@
-from .pca import pca, PCAResult
+from .pca import pca, flashpca, PCAResult
 from .check import check, CheckResult
 from .project import project, ProjectResult
 from .ucca import ucca, UccaResult

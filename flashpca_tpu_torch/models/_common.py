@@ -20,3 +20,22 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     item that ports it."""
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet (ROADMAP {item})")
+
+
+def matrix_operator(X, stand: str, dtype, device):
+    """A numeric (N, p) matrix standardized on the host in float64 (as
+    the JAX package does) and held by a DenseOperator on the resolved
+    device, in float64 unless ``dtype`` says otherwise.  The device is
+    resolved first, so that a missing GPU fails before the
+    standardization."""
+    import numpy as np
+    import torch
+
+    from ..ops.operator import DenseOperator
+    from ..ops.standardize import standardize
+    from ..utils.device import resolve_device
+
+    device = resolve_device(device)
+    X_std, _, _ = standardize(np.asarray(X, dtype=np.float64), stand)
+    return DenseOperator(torch.from_numpy(X_std),
+                         dtype=dtype or torch.float64, device=device)

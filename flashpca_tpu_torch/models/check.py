@@ -6,9 +6,12 @@ per-component squared error of ``(X X^T U)/div - U diag(d)``, plus
 
 The error reduction runs on the operator's device and fetches only the
 (K,) per-component sums.  ``data`` may be a PLINK root /
-:class:`PlinkDataset` or a prebuilt :class:`PackedOperator` or
-:class:`StreamingPackedOperator`; ``evec`` may be a numpy array or a
-device tensor.
+:class:`PlinkDataset`, a prebuilt :class:`PackedOperator`,
+:class:`StreamingPackedOperator` or :class:`DenseOperator`, or a numeric
+(N, p) matrix, standardized on the host and checked through a
+:class:`DenseOperator` on the requested device (``None`` -> ``cuda``,
+which raises without a GPU), in float64 unless ``dtype`` says otherwise;
+``evec`` may be a numpy array or a device tensor.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from ..io.plink import PlinkDataset
 from ..ops.operator import (TALL_OPERATORS, WIDE_OPERATORS,
                             build_packed_operator, check_operator_conflicts)
-from ._common import not_ported
+from ._common import matrix_operator, not_ported
 from ._common import resolve_divisor as _div
 
 
@@ -67,10 +70,10 @@ def check(data, evec, eval_, *, stand: str | None = None,
             "check() verifies the WIDE decomposition X X^T U = U d "
             "(randompca.cpp:663-703); a tall operator exposes X^T X -- "
             "pass the PLINK data (or a wide operator) instead")
-    if not isinstance(data, (PlinkDataset, *WIDE_OPERATORS)):
-        raise not_ported("check() on a numeric matrix",
-                         "A12 'Dense and matrix inputs'")
-    if stand is not None and isinstance(data, WIDE_OPERATORS):
+    matrix = not isinstance(data, (PlinkDataset, *WIDE_OPERATORS))
+    if matrix:
+        data = matrix_operator(data, stand or "binom2", dtype, device)
+    elif stand is not None and isinstance(data, WIDE_OPERATORS):
         raise ValueError(
             "stand= was passed with a prebuilt operator, whose "
             "standardization is baked in; rebuild the operator with the "
@@ -87,7 +90,9 @@ def check(data, evec, eval_, *, stand: str | None = None,
             "Eigenvector dimension doesn't match the number of eigenvalues")
     _div(divisor, data.n_samples, data.n_snps)
 
-    if isinstance(data, WIDE_OPERATORS):
+    if matrix:
+        op = data
+    elif isinstance(data, WIDE_OPERATORS):
         check_operator_conflicts(data, dtype=dtype, streaming=streaming,
                                  memory_mb=memory_mb, block_size=block_size,
                                  device=device)
@@ -128,3 +133,4 @@ def check(data, evec, eval_, *, stand: str | None = None,
         err = (R * R).sum(dim=0).to("cpu").numpy()
     mse = float(err.sum() / (n * K))
     return CheckResult(err=err, mse=mse, rmse=float(np.sqrt(mse)))
+

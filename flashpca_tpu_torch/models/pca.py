@@ -12,14 +12,13 @@ with identical post-processing:
 plus the dimension cap ``ndim <= (min(N, p) - 1) / 2``
 (flashpca.cpp:614-633).
 
-This package ports the single-device paths: a PLINK fileset, a
-prebuilt :class:`PackedOperator` (the wide gram X X^T), a prebuilt
-:class:`StreamingPackedOperator` (the same gram with the bytes streamed
-from the host), a prebuilt :class:`TallPackedOperator` (the tall gram
-X^T X, taken by ``operator_mode="auto"`` when n > 2p) or a prebuilt
-:class:`TallStreamingOperator` (the tall gram streamed).  Multi-GPU,
-dense matrix input, ``batch=True`` and mid-run checkpoints raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Inputs: a PLINK fileset (the packed wide gram X X^T, resident or
+streamed from the host, or the tall gram X^T X, taken by
+``operator_mode="auto"`` when n > 2p), a numeric (N, p) matrix or
+``batch=True`` (standardized on the host and held whole by a
+:class:`DenseOperator`), or any prebuilt operator of those.  Multi-GPU
+(``mesh=``) raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -30,9 +29,9 @@ import numpy as np
 import torch
 
 from ..io.plink import PlinkDataset
-from ..ops.operator import (TALL_OPERATORS, PackedOperator,
-                            StreamingPackedOperator, build_packed_operator,
-                            check_operator_conflicts)
+from ..ops.operator import (TALL_OPERATORS, WIDE_OPERATORS, DenseOperator,
+                            build_packed_operator, check_operator_conflicts)
+from ..ops.standardize import standardize
 from ..solvers.block_lanczos import eigsh_block, polish_subspace
 from ..utils.device import host64
 from ._common import not_ported
@@ -80,19 +79,25 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
         maxiter: int = 500, tol: float = 1e-6, seed: int = 1,
         block_size: int | None = None, do_loadings: bool = False,
         dtype=None, device=None, mesh=None, batch: bool = False,
-        ncv: int | None = None, panel: int = 16, verbose: bool = False,
-        operator_mode: str = "auto", streaming="auto",
-        memory_mb: int | None = None, device_results: bool = False,
-        state_in: str | None = None, state_out: str | None = None,
-        checkpoint_every: int = 0, polish: str = "contract") -> PCAResult:
+        check_geno: bool = True, ncv: int | None = None, panel: int = 16,
+        verbose: bool = False, operator_mode: str = "auto",
+        streaming="auto", memory_mb: int | None = None,
+        device_results: bool = False, state_in: str | None = None,
+        state_out: str | None = None, checkpoint_every: int = 0,
+        polish: str = "contract") -> PCAResult:
     """Compute the top ``ndim`` principal components.
 
-    ``data`` is a PLINK root path / :class:`PlinkDataset` or a prebuilt
+    ``data`` is a PLINK root path / :class:`PlinkDataset` (the packed
+    path; ``stand`` must be binom or binom2), a numeric (N, p) matrix
+    (any ``stand``; NaN is missing and mean-imputed; ``check_geno``
+    refuses values other than 0, 1, 2 under binom/binom2), or a prebuilt
     :class:`PackedOperator` / :class:`StreamingPackedOperator` /
-    :class:`TallPackedOperator` / :class:`TallStreamingOperator` (e.g.
-    genotypes generated on the card).  ``operator_mode`` picks the gram
-    for PLINK input: ``"wide"`` (X X^T), ``"tall"`` (X^T X, for n >> p)
-    or ``"auto"`` (tall when n > 2p).  ``streaming`` (``"auto"``, True,
+    :class:`TallPackedOperator` / :class:`TallStreamingOperator` /
+    :class:`DenseOperator` (e.g. genotypes generated on the card).
+    ``batch=True`` loads a PLINK fileset whole as a matrix (the
+    reference's ``--batch``).  ``operator_mode`` picks the gram for
+    PLINK input: ``"wide"`` (X X^T), ``"tall"`` (X^T X, for n >> p) or
+    ``"auto"`` (tall when n > 2p).  ``streaming`` (``"auto"``, True,
     False) streams the gram's bytes from the host in blocks, of SNPs on
     the wide path and of samples on the tall one (``"auto"``: when they
     exceed 0.7 x the card's memory); ``memory_mb`` bounds the two device
@@ -125,7 +130,9 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
     tensors.  ``state_out`` writes an .npz restart checkpoint (the Ritz
     panel of the solved gram: n sample rows on the wide path, p SNP rows
     on the tall one) after the solve; ``state_in`` warm-starts from one
-    (the JAX package's checkpoint format).
+    (the JAX package's checkpoint format).  ``checkpoint_every=R`` also
+    rewrites ``state_out`` after every R-th thick restart DURING the
+    solve, so a killed process resumes from its last checkpoint.
     """
     if polish not in ("contract", "fast"):
         raise ValueError(
@@ -133,22 +140,29 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
     if operator_mode not in ("auto", "wide", "tall"):
         raise ValueError(f"unknown operator_mode: {operator_mode}")
     if checkpoint_every:
-        raise not_ported("checkpoint_every (mid-run checkpoints)",
-                         "A17 'Checkpoints'")
-    if batch:
-        raise not_ported("batch=True (the dense in-RAM path)",
-                         "A12 'Dense and matrix inputs'")
+        if checkpoint_every < 0:
+            raise ValueError(
+                f"checkpoint_every must be a positive restart interval, "
+                f"got {checkpoint_every}")
+        if state_out is None:
+            raise ValueError(
+                "checkpoint_every requires state_out (a path to write "
+                "the mid-run checkpoints to)")
     if mesh is not None:
         raise not_ported("mesh= (multi-device sharding)", "A18 'Multi-GPU'")
+    run_kw = dict(panel=panel, device_results=device_results,
+                  state_in=state_in, state_out=state_out, verbose=verbose,
+                  polish=polish, checkpoint_every=checkpoint_every)
 
     if isinstance(data, str):
         data = PlinkDataset.open(data)
 
-    if isinstance(data, (PackedOperator, StreamingPackedOperator,
-                         *TALL_OPERATORS)):
+    if isinstance(data, (*WIDE_OPERATORS, *TALL_OPERATORS)):
         check_operator_conflicts(data, dtype=dtype, streaming=streaming,
                                  memory_mb=memory_mb, block_size=block_size,
                                  device=device)
+        if batch:
+            raise ValueError("batch=True has no effect on a prebuilt operator")
         # the decomposition shape is fixed by the operator class too
         if operator_mode != "auto" and (operator_mode == "tall") != (
                 isinstance(data, TALL_OPERATORS)):
@@ -165,6 +179,28 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
                 "'binom2'")
         n, p = data.n_samples, data.n_snps
         _check_ndim(ndim, n, p)
+        if batch:
+            # the reference's --batch loads the whole matrix and ignores
+            # the memory budget (flashpca.cpp:230-235): say so when the
+            # caller asked for bounded memory
+            if streaming is True or memory_mb is not None:
+                from ..utils.logging import log
+
+                log("note: batch=True loads the whole matrix; the "
+                    "streaming/memory_mb request is ignored (reference "
+                    "--batch semantics)")
+            if operator_mode == "tall":
+                raise ValueError(
+                    "operator_mode='tall' has no batch (dense) "
+                    "implementation; drop batch=True for the tall path")
+            if device_results:
+                raise ValueError(
+                    "device_results=True is not supported on the batch "
+                    "(dense) path; use the packed path or a prebuilt "
+                    "operator")
+            return _pca_matrix(data.read_matrix(), ndim, stand, divisor,
+                               maxiter, tol, seed, do_loadings, ncv, dtype,
+                               device, **run_kw)
         # one host pass yields (mean, sd) AND the exact per-SNP sum of
         # squares, so trace/pve cost no device data pass
         mean, sd, sumsq = data.snp_stats(stand, with_sumsq=True)
@@ -175,13 +211,52 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
             streaming=streaming, memory_mb=memory_mb, block_size=block_size,
             dtype=dtype, device=device, snp_sumsq=sumsq)
     else:
-        raise not_ported("pca() on a numeric matrix",
-                         "A12 'Dense and matrix inputs'")
+        # a numeric matrix: packed-path and device-residency requests
+        # cannot be honoured, so they raise instead of being dropped
+        if streaming is True or memory_mb is not None:
+            raise ValueError(
+                "streaming=True / memory_mb apply to packed (PLINK) data; "
+                "a dense matrix X is held in device memory whole")
+        if operator_mode == "tall":
+            raise ValueError(
+                "operator_mode='tall' is a packed-path option; the dense "
+                "matrix path has no tall operator")
+        if device_results:
+            raise ValueError(
+                "device_results=True is not supported on the dense matrix "
+                "path; standardize and build a DenseOperator, then call "
+                "pca(op, ...) for device-resident results")
+        X = np.asarray(data, dtype=np.float64)
+        if X.ndim != 2:
+            raise ValueError("X must be a 2-D matrix")
+        if X.shape[1] < 2 or X.shape[0] < 2:
+            raise ValueError("X must have at least two rows and columns")
+        if stand in ("binom", "binom2") and check_geno:
+            ok = np.isnan(X) | np.isin(X, (0.0, 1.0, 2.0))
+            if not ok.all():
+                raise ValueError(
+                    "Your data contains values other than {0, 1, 2}, "
+                    "stand='binom'/'binom2' can't be used here")
+        _check_ndim(ndim, X.shape[0], X.shape[1])
+        return _pca_matrix(X, ndim, stand, divisor, maxiter, tol, seed,
+                           do_loadings, ncv, dtype, device, **run_kw)
 
     run = _pca_tall if isinstance(op, TALL_OPERATORS) else _pca_operator
     return run(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
-               panel=panel, device_results=device_results, state_in=state_in,
-               state_out=state_out, verbose=verbose, polish=polish)
+               **run_kw)
+
+
+def _pca_matrix(X, ndim, stand, divisor, maxiter, tol, seed, do_loadings,
+                ncv, dtype, device, **run_kw) -> PCAResult:
+    """A numeric matrix: standardized on the host in float64 (NaN
+    mean-imputed), then held whole by a :class:`DenseOperator` that
+    reports the stats it was standardized with."""
+    X_std, mean, sd = standardize(X, stand)
+    op = DenseOperator(torch.from_numpy(X_std), dtype=dtype, device=device,
+                       center=mean, scale=sd)
+    del X_std
+    return _pca_operator(op, ndim, divisor, maxiter, tol, seed, do_loadings,
+                         ncv, **run_kw)
 
 
 def _solver_v0(op, native_len, seed, state_in):
@@ -208,6 +283,25 @@ def _save_solver_state(op, res, state_out, converged=None):
         save_state(state_out, op.unpermute(res.eigenvectors),
                    res.eigenvalues, res.residuals,
                    res.converged if converged is None else converged)
+
+
+def _mid_run_checkpointer(op, state_out, checkpoint_every):
+    """Solver callback persisting the current Ritz panel every R-th
+    restart, marked not converged (mid-run fault tolerance: it survives
+    the death of the process, not just a maxiter cap).  None when not
+    requested."""
+    if state_out is None or checkpoint_every <= 0:
+        return None
+    from ..solvers.lanczos import save_state
+    from ..utils.logging import log
+
+    log(f"mid-run checkpoints every {checkpoint_every} restart(s) -> "
+        f"{state_out} (each copies the Ritz panel to the host)")
+
+    def ckpt(panel, values, residuals):
+        save_state(state_out, op.unpermute(panel), values, residuals, False)
+
+    return ckpt
 
 
 def _clamp_buffer(extra, ndim, ncv, panel):
@@ -263,8 +357,8 @@ def _gate_convergence(res, ndim, tol):
 
 def _pca_operator(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
                   panel=16, device_results=False, state_in=None,
-                  state_out=None, verbose=False,
-                  polish="contract") -> PCAResult:
+                  state_out=None, verbose=False, polish="contract",
+                  checkpoint_every=0) -> PCAResult:
     n, p = op.n_samples, op.n_snps
     dtype = op.dtype
     div = _resolve_divisor(divisor, n, p)
@@ -291,12 +385,14 @@ def _pca_operator(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
     # the float32 solve past ~1e-4 burns data passes
     solver_tol = max(tol, 1e-4) if use_ff else tol
     mv = op.gram_permuted
+    ckpt = _mid_run_checkpointer(op, state_out, checkpoint_every)
 
     def solve(iters):
         return eigsh_block(mv, op.op_dim, nev_solve, block=panel, ncv=ncv,
                            maxiter=iters, tol=solver_tol, dtype=dtype,
                            device=op.device, seed=seed, v0=v0,
-                           verbose=verbose)
+                           verbose=verbose, checkpoint_every=checkpoint_every,
+                           checkpoint_fn=ckpt)
 
     # fixed schedule: cap the float32 solve at 8 thick restarts
     cap = min(8, maxiter) if capped else maxiter
@@ -398,8 +494,8 @@ def _pca_operator(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
 
 def _pca_tall(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
               panel=16, device_results=False, state_in=None,
-              state_out=None, verbose=False,
-              polish="contract") -> PCAResult:
+              state_out=None, verbose=False, polish="contract",
+              checkpoint_every=0) -> PCAResult:
     """Tall path: eigenpairs of X^T X, with the wide path's outputs:
     lambda(X^T X) = lambda(X X^T) on the top spectrum,
     U = X V_s Lambda^{-1/2}, and the loadings V equal V_s exactly
@@ -434,7 +530,10 @@ def _pca_tall(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
 
     res = eigsh_block(mv, op.op_dim, nev_solve, block=panel, ncv=ncv,
                       maxiter=maxiter, tol=solver_tol, dtype=dtype,
-                      device=op.device, seed=seed, v0=v0, verbose=verbose)
+                      device=op.device, seed=seed, v0=v0, verbose=verbose,
+                      checkpoint_every=checkpoint_every,
+                      checkpoint_fn=_mid_run_checkpointer(
+                          op, state_out, checkpoint_every))
     _save_solver_state(op, res, state_out)
     converged = _gate_convergence(res, ndim, tol)
 
@@ -475,3 +574,19 @@ def _pca_tall(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
         n_restarts=res.n_restarts,
         residuals=res.residuals[:ndim],
     )
+
+
+def flashpca(X, ndim=10, stand="binom2", divisor="p", maxiter=100,
+             tol=1e-4, seed=1, block_size=1000, verbose=False,
+             do_loadings=False, check_geno=True, **kw) -> PCAResult:
+    """Alias with the R package's defaults (flashpcaR/R/flashpca.R:99-103).
+
+    ``block_size`` keeps the R default (1000) for the signature but only
+    reaches ``pca()`` for PLINK input, where it means SNPs per block: a
+    matrix has no blocking, and a prebuilt operator's geometry is fixed
+    at construction (the R default would trip its conflict check)."""
+    if isinstance(X, (str, PlinkDataset)):
+        kw.setdefault("block_size", block_size)
+    return pca(X, ndim, stand=stand, divisor=divisor, maxiter=maxiter,
+               tol=tol, seed=seed, do_loadings=do_loadings,
+               check_geno=check_geno, verbose=verbose, **kw)

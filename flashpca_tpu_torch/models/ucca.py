@@ -14,7 +14,11 @@ On the packed path the per-SNP covariances and sums are one
 ``crossprod`` pass of the k + 1 columns ``[Y_c, 1]`` (kernel B1 on a
 float32 CUDA operator, resident or streamed from the host; the
 functional core at float64); the variances come from the per-SNP sums
-of squares of the stats pass.  The k x k SVD and the F statistics run
+of squares of the stats pass.  On a :class:`DenseOperator` the same
+crossprod is one ``torch.matmul`` and the variances come from its
+row-chunked sums of squares; an (N, p) matrix is standardized on the
+host in float64 and held by such an operator (float64 unless ``dtype``
+says otherwise) on the requested device.  The k x k SVD and the F statistics run
 on the host in float64.
 """
 
@@ -30,7 +34,7 @@ from ..ops.operator import (TALL_OPERATORS, WIDE_OPERATORS,
                             build_packed_operator, check_operator_conflicts)
 from ..ops.standardize import standardize
 from ..utils.device import host64
-from ._common import not_ported
+from ._common import matrix_operator, not_ported
 
 
 @dataclass
@@ -82,8 +86,9 @@ def ucca(
     memory_mb: int | None = None,
 ) -> UccaResult:
     """Per-SNP CCA of ``data`` (PLINK root / dataset, a prebuilt
-    :class:`PackedOperator` / :class:`StreamingPackedOperator`, or an
-    (N, p) matrix) against the (N, k) phenotype matrix Y.
+    :class:`PackedOperator` / :class:`StreamingPackedOperator` /
+    :class:`DenseOperator`, or an (N, p) matrix) against the (N, k)
+    phenotype matrix Y.
 
     ``streaming`` bounds device memory via the host-streaming operator
     (the reference's online UCCA, randompca.cpp:578-625); 'auto' streams
@@ -110,22 +115,26 @@ def ucca(
             "pass the PLINK data (or a wide operator) instead of a "
             "tall operator")
     prebuilt = isinstance(data, WIDE_OPERATORS)
-    if not prebuilt and hasattr(data, "crossprod"):
-        raise not_ported("ucca() on a dense operator",
-                         "A12 'Dense and matrix inputs'")
+    matrix = not prebuilt and not isinstance(data, PlinkDataset)
+    if matrix and hasattr(data, "crossprod"):
+        raise TypeError(
+            f"ucca() got a {type(data).__module__}.{type(data).__name__}, "
+            "which is not an operator of this package; build a "
+            "flashpca_tpu_torch operator (e.g. DenseOperator) instead")
     if prebuilt and stand_x is not None:
         raise ValueError(
             "stand_x= was passed with a prebuilt operator, whose "
             "standardization is baked in; rebuild the operator with "
             "the desired stats")
     stand_x = stand_x or "binom2"
-    op = None
-    if prebuilt:
+    if matrix:
+        op = matrix_operator(data, stand_x, dtype, device)
+    elif prebuilt:
         check_operator_conflicts(data, dtype=dtype, streaming=streaming,
                                  memory_mb=memory_mb, block_size=block_size,
                                  device=device)
         op = data
-    elif isinstance(data, PlinkDataset):
+    else:
         if data.n_samples != n:
             # fail BEFORE the full-file stats pass and device upload
             raise ValueError("Y rows must equal the number of samples")
@@ -136,33 +145,21 @@ def ucca(
             data, mean, sd, streaming=streaming, memory_mb=memory_mb,
             block_size=block_size, dtype=dtype, device=device,
             snp_sumsq=sumsq)
-    if op is not None:
-        if op.n_samples != n:
-            raise ValueError("Y rows must equal the number of samples")
-        Yc = Y_std - Y_std.mean(axis=0, keepdims=True)
-        # cov(x_j, Y) = x_j^T Yc / (n-1): Yc columns sum to zero, so the
-        # x-mean correction vanishes.  The all-ones column (the per-SNP
-        # sums) rides the SAME pass: the kernels are decode-bound, so an
-        # extra panel column is nearly free, and a second pass would
-        # double the host-to-device traffic when streaming
-        both = np.concatenate([Yc, np.ones((n, 1))], axis=1)
-        out = host64(op.crossprod(both))
-        covXY = out[:, :k] / (n - 1.0)
-        xsum = out[:, k]
-        # var(x_j) of the standardized column (not exactly 1 with missing)
-        xsumsq = op.snp_sumsq
-        varx = (xsumsq - xsum * xsum / n) / (n - 1.0)
-    else:
-        X = np.asarray(data, dtype=np.float64)
-        if X.shape[0] != n:
-            raise ValueError("Y rows must equal the number of samples")
-        X_std, _, _ = standardize(X, stand_x)
-        Yc = Y_std - Y_std.mean(axis=0, keepdims=True)
-        # Yc columns sum to zero, so the x-mean correction in cov(x, Y)
-        # vanishes: X_std.T @ Yc is exact without a centered copy
-        covXY = X_std.T @ Yc / (n - 1.0)
-        varx = (X_std ** 2).sum(axis=0) - X_std.sum(axis=0) ** 2 / n
-        varx = varx / (n - 1.0)
+    if op.n_samples != n:
+        raise ValueError("Y rows must equal the number of samples")
+    Yc = Y_std - Y_std.mean(axis=0, keepdims=True)
+    # cov(x_j, Y) = x_j^T Yc / (n-1): Yc columns sum to zero, so the
+    # x-mean correction vanishes.  The all-ones column (the per-SNP sums)
+    # rides the SAME pass: the kernels are decode-bound, so an extra
+    # panel column is nearly free, and a second pass would double the
+    # host-to-device traffic when streaming
+    both = np.concatenate([Yc, np.ones((n, 1))], axis=1)
+    out = host64(op.crossprod(both))
+    covXY = out[:, :k] / (n - 1.0)
+    xsum = out[:, k]
+    # var(x_j) of the standardized column (not exactly 1 with missing)
+    xsumsq = op.snp_sumsq
+    varx = (xsumsq - xsum * xsum / n) / (n - 1.0)
 
     r2 = _r2_from_moments(covXY, varx, sv, Vy, n)
     res = wilks(r2, n, k)

@@ -14,6 +14,7 @@ from .genotypes import (
     valid_mask_permuted,
 )
 from .operator import (
+    DenseOperator,
     PackedOperator,
     StreamingPackedOperator,
     TallPackedOperator,

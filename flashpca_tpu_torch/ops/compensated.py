@@ -149,6 +149,34 @@ def rowdot_ff(W, X2, *, chunk: int | None = None):
     return sum_ff(parts)
 
 
+def dense_gram_ff(X, x2, *, chunk: int | None = None):
+    """(hi, lo) of X X^T x2 for a dense matrix X (N, p) held whole, both
+    contractions chunk-compensated; the exact matrix here is X itself.
+
+    Built from views of X: one matmul per contraction chunk, written
+    into a preallocated ``parts`` tensor and reduced by :func:`sum_ff`.
+    A short last chunk needs no padding, so no part of X is copied
+    (:func:`matdot_ff` / :func:`rowdot_ff` would pad or permute a copy
+    of the whole matrix)."""
+    chunk = chunk or default_chunk()
+    n, p = X.shape
+    k = x2.shape[1]
+    # z = X^T x2, the contraction over samples in chunks of rows
+    parts = torch.empty((-(-n // chunk), p, k), dtype=X.dtype,
+                        device=X.device)
+    for i, r0 in enumerate(range(0, n, chunk)):
+        torch.matmul(X[r0: r0 + chunk].T, x2[r0: r0 + chunk], out=parts[i])
+    zh, zl = sum_ff(parts)
+    del parts
+    # y = X z, the contraction over SNPs in chunks of columns
+    parts = torch.empty((-(-p // chunk), n, k), dtype=X.dtype,
+                        device=X.device)
+    for i, c0 in enumerate(range(0, p, chunk)):
+        torch.matmul(X[:, c0: c0 + chunk], zh[c0: c0 + chunk], out=parts[i])
+    yh, yl = sum_ff(parts)
+    return yh, yl + X @ zl
+
+
 # ---------------------------------------------------------------------------
 # Exact two-float genotype lookup tables
 # ---------------------------------------------------------------------------

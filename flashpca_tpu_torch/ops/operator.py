@@ -10,6 +10,8 @@ eigenproblem is the p x p gram X^T X (for N >> p).
 left on the host, staged to the card in blocks of SNP rows (bounded
 device memory, the reference's ``SVDWideOnline``), and
 ``TallStreamingOperator`` the tall ones, staged in blocks of samples.
+``DenseOperator`` holds a standardized numeric matrix whole and computes
+the same products with ``torch.matmul`` (no kernel of its own).
 
 Wide products (reference naming in parens):
 
@@ -1154,11 +1156,161 @@ def tall_streaming_operator_from_numpy(packed, mean, sd, n_samples: int, *,
                                  dtype=dtype, **kw)
 
 
+
+# ---------------------------------------------------------------------------
+# Dense matrix operator
+# ---------------------------------------------------------------------------
+
+# float64 bytes of one row chunk when summing squares of a dense X
+_SUMSQ_CHUNK_BYTES = 256 << 20
+
+
+def _dense_cross(x, X):
+    return X.T @ x
+
+
+def _dense_mv(v, X):
+    return X @ v
+
+
+class DenseOperator:
+    """Operator over a standardized dense matrix X (N samples x p SNPs)
+    held whole on one device: the analog of the reference's ``SVDWide``
+    over an in-RAM matrix (svdwide.h:11-31), behind ``pca()``,
+    ``check()`` and ``ucca()`` on a numeric matrix and ``--batch``.
+
+    Its products are ``torch.matmul`` in the operator's dtype, with TF32
+    off (:func:`resolve_device`), as the JAX package's are ``jnp.dot``
+    outside any Pallas kernel: no hand-written kernel runs on it, so it
+    launches and counts none.  The sample "permutation" is the identity.
+
+    Parameters
+    ----------
+    X_std : (N, p) numpy array or torch tensor.  A tensor already on
+        the operator's device in its dtype is held as it is (a matrix
+        built on the card never goes through the host); anything else,
+        a numpy array above all, is copied, so that editing the
+        caller's array later leaves the operator as it was.
+    dtype : float32 (CUDA default) or float64 (CPU default).
+    device : ``None`` -> ``cuda`` (raises without a GPU).
+    center, scale : the per-SNP stats X was standardized with, reported
+        as ``PCAResult.center/scale`` (default zeros and ones).
+    """
+
+    def __init__(self, X_std, *, dtype=None, device=None, center=None,
+                 scale=None):
+        self.device = resolve_device(device)
+        self.dtype = as_torch_dtype(dtype) or default_dtype(self.device)
+        X = (X_std if isinstance(X_std, torch.Tensor)
+             else torch.tensor(np.asarray(X_std)))
+        if X.ndim != 2:
+            raise ValueError(f"X must be a 2-D matrix, got {X.ndim}-D")
+        self.X = X.to(self.device, self.dtype).contiguous()
+        self.n_samples, self.n_snps = (int(d) for d in self.X.shape)
+        self.center = (np.zeros(self.n_snps) if center is None
+                       else np.asarray(center, dtype=np.float64))
+        self.scale = (np.ones(self.n_snps) if scale is None
+                      else np.asarray(scale, dtype=np.float64))
+        self._sumsq = None
+        self.nops = 0
+
+    _as_2d = _PackedBase._as_2d
+
+    # -- permuted-space interface (identity) ---------------------------------
+    @property
+    def op_dim(self) -> int:
+        return self.n_samples
+
+    @property
+    def supports_ff(self) -> bool:
+        return True
+
+    def permute(self, x):
+        return torch.as_tensor(x, device=self.device).to(self.dtype)
+
+    def permute_np(self, x):
+        return np.asarray(x)
+
+    def unpermute(self, yp):
+        return yp
+
+    def gram_permuted(self, xp):
+        """X X^T xp; (N,) or (N, k) -> same."""
+        vec = xp.ndim == 1
+        x2 = xp[:, None] if vec else xp
+        y = self.X @ (self.X.T @ x2.to(self.dtype))
+        self.nops += 1
+        return y[:, 0] if vec else y
+
+    def gram_ff_permuted(self, xp):
+        """(y_hi, y_lo) two-float pair of X X^T xp; the exact matrix here
+        is X itself (:func:`dense_gram_ff`, which copies no part of
+        X)."""
+        from .compensated import dense_gram_ff
+
+        vec = xp.ndim == 1
+        x2 = (xp[:, None] if vec else xp).to(self.dtype)
+        hi, lo = dense_gram_ff(self.X, x2)
+        self.nops += 1
+        return (hi[:, 0], lo[:, 0]) if vec else (hi, lo)
+
+    def products_pure(self):
+        """(cross_fn, mv_fn, operands): ``cross_fn(x, X)`` = X^T x and
+        ``mv_fn(v, X)`` = X v, the same function objects every call."""
+        return _dense_cross, _dense_mv, (self.X,)
+
+    # -- public products -----------------------------------------------------
+    def perform_op(self, x):
+        """y = X X^T x; x is (N,) or (N, k)."""
+        x2, vec = self._as_2d(x, self.n_samples, "perform_op")
+        y = self.gram_permuted(x2)
+        return y[:, 0] if vec else y
+
+    def perform_op_ff(self, x):
+        """Two-float twin of :meth:`perform_op`."""
+        x2, vec = self._as_2d(x, self.n_samples, "perform_op_ff")
+        hi, lo = self.gram_ff_permuted(x2)
+        return (hi[:, 0], lo[:, 0]) if vec else (hi, lo)
+
+    def crossprod(self, x):
+        """z = X^T x; x is (N,) or (N, k) -> (p,) or (p, k)."""
+        x2, vec = self._as_2d(x, self.n_samples, "crossprod")
+        z = _dense_cross(x2, self.X)
+        self.nops += 1
+        return z[:, 0] if vec else z
+
+    def prod(self, v):
+        """y = X v; v is (p,) or (p, k) -> (N,) or (N, k)."""
+        v2, vec = self._as_2d(v, self.n_snps, "prod")
+        y = _dense_mv(v2, self.X)
+        self.nops += 1
+        return y[:, 0] if vec else y
+
+    @property
+    def snp_sumsq(self) -> np.ndarray:
+        """Per-SNP sum of squares of X (float64 host), summed in row
+        chunks in float64: X * X whole would be a second X."""
+        if self._sumsq is None:
+            rows = max(1, _SUMSQ_CHUNK_BYTES // (8 * self.n_snps))
+            acc = torch.zeros(self.n_snps, dtype=torch.float64,
+                              device=self.device)
+            for r0 in range(0, self.n_samples, rows):
+                blk = self.X[r0: r0 + rows].to(torch.float64)
+                acc += (blk * blk).sum(dim=0)
+            self._sumsq = acc.to("cpu").numpy()
+        return self._sumsq
+
+    @property
+    def trace(self) -> float:
+        """trace(X X^T) = sum of squares of X."""
+        return float(self.snp_sumsq.sum())
+
+
 # the fraction of the card's memory above which "auto" streams
 STREAM_FRACTION = 0.7
 STREAMING_OPERATORS = (StreamingPackedOperator, TallStreamingOperator)
 # the operators of the wide gram X X^T, and of the tall gram X^T X
-WIDE_OPERATORS = (PackedOperator, StreamingPackedOperator)
+WIDE_OPERATORS = (PackedOperator, StreamingPackedOperator, DenseOperator)
 TALL_OPERATORS = (TallPackedOperator, TallStreamingOperator)
 
 

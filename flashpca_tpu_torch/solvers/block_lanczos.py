@@ -281,14 +281,22 @@ def eigsh_block(matvec, n: int, nev: int, *, block: int = 16,
                 ncv: int | None = None, maxiter: int = 500,
                 tol: float = 1e-6, dtype=torch.float32, device=None,
                 seed: int = 1, v0: np.ndarray | None = None,
-                verbose: bool = False) -> EigshResult:
+                verbose: bool = False, checkpoint_every: int = 0,
+                checkpoint_fn=None) -> EigshResult:
     """Largest-algebraic eigenpairs via thick-restart block Lanczos.
 
     ``matvec`` maps an (n, b) device panel to an (n, b) device panel.
     Falls back to the scalar solver when the problem is too small for
     blocking.  ``conv_mask`` in the result tells callers that solve
     buffer pairs beyond the dimensions they return WHICH pairs met
-    tolerance."""
+    tolerance.
+
+    ``checkpoint_every=R`` (with a ``checkpoint_fn``) calls
+    ``checkpoint_fn(panel, values, residuals)`` after every R-th thick
+    restart with the current top Ritz panel (a device tensor of up to
+    one solver panel of columns, what a ``v0`` warm start takes): the
+    solve survives the death of its process.  The scalar fallback takes
+    no mid-run checkpoints and warns when they were asked for."""
     if maxiter < 1:
         raise ValueError("maxiter must be >= 1")
     b = int(block)
@@ -304,6 +312,14 @@ def eigsh_block(matvec, n: int, nev: int, *, block: int = 16,
     ncv = b * (cc // b) if cc % b else cc
     # require a full panel of headroom beyond the basis (ncv + 2b <= n)
     if ncv + 2 * b > n or nev + b > ncv or b < 2:
+        if checkpoint_fn is not None and checkpoint_every > 0:
+            import warnings
+
+            warnings.warn(
+                "problem too small for the block solver; falling back to "
+                "scalar Lanczos, which does NOT take mid-run checkpoints "
+                "(checkpoint_every ignored; the end-of-solve state write "
+                "still happens)", RuntimeWarning, stacklevel=2)
         return eigsh(lambda x: matvec(x[:, None])[:, 0], n, nev,
                      maxiter=maxiter, tol=tol, dtype=dtype, device=device,
                      seed=seed, v0=v0)
@@ -404,6 +420,14 @@ def eigsh_block(matvec, n: int, nev: int, *, block: int = 16,
         S_pad[:ncv, :l] = S[:, :l]
         S_pad[ncv:, l: l + b] = np.eye(b)        # residual panel -> col l
         V = V @ torch.as_tensor(S_pad, device=V.device).to(dtype)
+
+        # after the rotation V[:, :l] ARE the kept Ritz vectors
+        # (theta_kept, descending): a checkpoint costs no device work
+        if (checkpoint_fn is not None and checkpoint_every > 0
+                and (restart + 1) % checkpoint_every == 0):
+            m = min(l, b)   # a v0 warm start seeds at most one panel
+            checkpoint_fn(V[:, :m], theta_kept[:m].copy(),
+                          res_all[:m].copy())
 
     S_pad = np.zeros((ncv + b, S_keep.shape[1]), dtype=np.float64)
     S_pad[:ncv] = S_keep

@@ -656,3 +656,77 @@ def test_tall_stream_device_bytes_within_memory_mb(cuda):
     st = op.stats()
     assert st["n_cached"] == 0
     assert st["device_bytes"] == 2 * p * 512 <= 1 << 20
+
+
+def _dense_geno(n, p, seed, pops=6):
+    rng = np.random.default_rng(seed)
+    freq = np.clip(rng.uniform(0.05, 0.5, p)[:, None]
+                   + rng.normal(0, 0.15, (p, pops)), 0.02, 0.98)
+    geno = rng.binomial(2, freq[:, np.arange(n) % pops].T).astype(float)
+    geno[rng.uniform(size=geno.shape) < 0.01] = np.nan
+    return geno
+
+
+@pytest.mark.cuda
+def test_dense_pca_on_card_matches_cpu_float64(cuda):
+    """pca() on a numeric matrix at float32 on the card (the dense
+    operator's torch.matmul products in full float32, TF32 off, no
+    kernel launched; n % 2048 != 0, a ragged two-float chunk) against
+    the CPU float64 path on six populations' five PCs: eigenvalues
+    within 1e-6 of the largest (float32 Ritz values carry ~1e-7 of
+    ||A||, as chip_smoke.py's mid-size bar), |cos| > 1 - 1e-6,
+    check mse < 1e-8 on the matrix (a float64 DenseOperator on the
+    card) and through a float32 DenseOperator on the card; ucca on that
+    operator within rtol 1e-5 (R, F) and 1e-4 (-log10 P) of the CPU
+    float64 matrix path, and the matrix path on the card (float64)
+    within rtol 1e-10 of the CPU's."""
+    from flashpca_tpu_torch import DenseOperator, check, pca, ucca
+    from flashpca_tpu_torch.ops.standardize import standardize
+
+    n, p = 2100, 700
+    geno = _dense_geno(n, p, 12)
+    tpk.reset_launch_counts()
+    r32 = pca(geno, 5, device=cuda)
+    X_std, mean, sd = standardize(geno, "binom2")
+    op = DenseOperator(X_std, center=mean, scale=sd, device=cuda)
+    assert op.dtype == torch.float32
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    r64 = pca(geno, 5, device="cpu")
+    assert np.all(np.abs(r32.values - r64.values) <= 1e-6 * r64.values[0])
+    dots = np.abs(np.sum(r32.vectors * r64.vectors, axis=0))
+    assert np.all(dots > 1 - 1e-6)
+    assert check(geno, r32.vectors, r32.values).mse < 1e-8
+    assert check(op, r32.vectors, r32.values).mse < 1e-8
+    Y = np.random.default_rng(13).standard_normal((n, 3))
+    got, want = ucca(op, Y).result, ucca(geno, Y, device="cpu").result
+    np.testing.assert_allclose(ucca(geno, Y).result, want, rtol=1e-10)
+    np.testing.assert_allclose(got[:, :2], want[:, :2], rtol=1e-5)
+    np.testing.assert_allclose(-np.log10(got[:, 2]), -np.log10(want[:, 2]),
+                               atol=1e-4)
+    assert set(tpk.launch_counts.values()) == {0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, p, k", [(10_001, 3_000, 24), (4_097, 2_049, 48)])
+def test_dense_gram_ff_extra_peak_memory_on_card(cuda, n, p, k):
+    """The ragged two-float dense gram copies no part of X: its extra
+    peak device memory stays within a quarter of X's bytes, and hi + lo
+    is within 1e-6 of each column's largest entry of the float64
+    product of the same float32 X."""
+    from flashpca_tpu_torch.ops.compensated import dense_gram_ff
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    X = torch.randn((n, p), device=cuda, generator=g)
+    x = torch.randn((n, k), device=cuda, generator=g)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hi, lo = dense_gram_ff(X, x)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra <= 0.25 * X.numel() * X.element_size()
+    X64 = X.double()
+    exact = X64 @ (X64.T @ x.double())
+    err = (hi.double() + lo.double() - exact).abs().amax(dim=0)
+    assert bool((err <= 1e-6 * exact.abs().amax(dim=0)).all())

@@ -153,13 +153,17 @@ def test_pca_fast_polish_and_device_results(fileset, jax_results):
     np.testing.assert_allclose(rt.values, rj.values, rtol=1e-4)
 
 
-def _cli(args, cwd):
+def _run_in(main, args, cwd):
     old = os.getcwd()
     os.chdir(cwd)
     try:
-        return tmain(args)
+        return main(args)
     finally:
         os.chdir(old)
+
+
+def _cli(args, cwd):
+    return _run_in(tmain, args, cwd)
 
 
 @pytest.mark.parametrize("extra", [
@@ -247,9 +251,8 @@ def test_cli_checkpoints_resume_across_packages(fileset, tmp_path):
 @pytest.mark.parametrize("flags, item", [
     (["--scca"], "A14"),
     (["--shards", "2"], "A18"),
-    (["--outstate", "f.npz", "--checkpoint-every", "2"], "A17"),
     (["--profile", "trace"], "A10"),
-], ids=["scca", "shards2", "checkpoint-every", "profile"])
+], ids=["scca", "shards2", "profile"])
 def test_cli_unported_options_name_their_item(fileset, tmp_path, capsys,
                                               flags, item):
     assert _cli(["--bfile", fileset[0], "--device", "cpu"] + flags,
@@ -276,15 +279,17 @@ def test_entry_points_raise_without_gpu(fileset, tmp_path, monkeypatch):
 
 
 def test_unported_options_raise(fileset, tmp_path, capsys):
+    """mesh= and --scca still name their ROADMAP items; the options that
+    named A12 and A17 now run."""
     root, n, p = fileset
-    cases = [
-        (dict(checkpoint_every=2), "A17"),
-        (dict(batch=True), "A12"),
-        (dict(mesh=object()), "A18"),
-    ]
-    for kw, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            ft.pca(root, K, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A18"):
+        ft.pca(root, K, device="cpu", mesh=object())
+    state = str(tmp_path / "ck.npz")
+    ran = ft.pca(root, K, device="cpu", checkpoint_every=2, state_out=state)
+    assert ran.converged and jload_state(state)["vectors"].shape == (n, K)
+    np.testing.assert_allclose(
+        ft.pca(root, K, device="cpu", batch=True).values, ran.values,
+        rtol=1e-6)
     # streaming the tall gram is ported: it runs and gives the resident
     # tall path's values
     np.testing.assert_allclose(
@@ -292,15 +297,73 @@ def test_unported_options_raise(fileset, tmp_path, capsys):
                streaming=True).values,
         ft.pca(root, K, device="cpu", operator_mode="tall").values,
         rtol=1e-10)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ft.pca(np.zeros((20, 30)), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        ft.check(np.zeros((20, 30)), np.zeros((20, 2)), np.ones(2),
-                 device="cpu")
-    for flag, item in (("--scca", "A14"), ("--batch", "A12")):
-        assert _cli(["--bfile", root, flag, "--device", "cpu"],
-                    tmp_path) == 1
-        assert item in capsys.readouterr().err
+    X = ft.PlinkDataset.open(root).read_matrix(impute_mean=False)
+    dense = ft.pca(X, K, device="cpu")
+    np.testing.assert_allclose(dense.values, ran.values, rtol=1e-6)
+    assert ft.check(X, dense.vectors, dense.values,
+                    device="cpu").mse < 1e-8
+    assert _cli(["--bfile", root, "--scca", "--device", "cpu"],
+                tmp_path) == 1
+    assert "A14" in capsys.readouterr().err
+    assert _cli(["--bfile", root, "--batch", "--ndim", str(K), "--device",
+                 "cpu"], tmp_path) == 0
+    assert "ROADMAP" not in capsys.readouterr().err
+
+
+# the JAX CLI's SCCA flags, each accepted and unused outside --scca
+SCCA_FLAGS = {"outpcx": ["--outpcx", "px.txt"],
+              "outpcy": ["--outpcy", "py.txt"],
+              "outvecx": ["--outvecx", "vx.txt"],
+              "outvecy": ["--outvecy", "vy.txt"],
+              "lambda1": ["--lambda1", "0.25"],
+              "lambda2": ["--lambda2", "0.5"],
+              "save-vinit": ["--save-vinit"]}
+
+
+def _both_clis(args, tmp_path):
+    """Run ``args`` through the JAX CLI and the port's in two fresh
+    directories; return the two exit codes and directories."""
+    from flashpca_tpu.cli import main as jmain
+
+    jd, td = tmp_path / "jax", tmp_path / "port"
+    jd.mkdir()
+    td.mkdir()
+    return (_run_in(jmain, args, jd),
+            _run_in(tmain, args + ["--device", "cpu"], td), jd, td)
+
+
+@pytest.mark.parametrize("mode", ["pca", "ucca"])
+@pytest.mark.parametrize("flag", sorted(SCCA_FLAGS))
+def test_cli_scca_flags_match_jax(small_plink, tmp_path, flag, mode):
+    root, geno = small_plink
+    args = ["--bfile", root, "--ndim", "3", "--tol", "1e-9", "--notime",
+            "--shards", "1"] + SCCA_FLAGS[flag]
+    if mode == "ucca":
+        fam = np.loadtxt(root + ".fam", dtype=str)
+        Y = np.random.default_rng(7).standard_normal((geno.shape[0], 2))
+        pheno = tmp_path / "pheno.txt"
+        pheno.write_text("".join(
+            f"{f}\t{i}\t{y[0]:.10g}\t{y[1]:.10g}\n"
+            for f, i, y in zip(fam[:, 0], fam[:, 1], Y)))
+        args += ["--ucca", "--pheno", str(pheno)]
+    rj, rt, jd, td = _both_clis(args, tmp_path)
+    assert rj == rt == 0
+    outs = sorted(os.listdir(jd))
+    assert outs and outs == sorted(os.listdir(td))
+    for fn in outs:
+        assert (td / fn).read_bytes() == (jd / fn).read_bytes(), fn
+
+
+@pytest.mark.parametrize("flag", ["--lambda1", "--lambda2"])
+def test_cli_negative_lambda_exits_1_in_both(small_plink, tmp_path, capsys,
+                                             flag):
+    root, _ = small_plink
+    rj, rt, jd, td = _both_clis(["--bfile", root, "--ndim", "2", flag,
+                                 "-0.1", "--notime"], tmp_path)
+    assert rj == rt == 1
+    err = capsys.readouterr().err
+    assert err.count(f"{flag} can't be negative") == 2
+    assert not os.listdir(jd) and not os.listdir(td)
 
 
 def test_tall_fileset_takes_the_tall_path_under_auto(tmp_path):

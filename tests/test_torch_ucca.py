@@ -131,7 +131,7 @@ def test_ucca_numeric_matrix_matches_jax(data):
     X[:, 11] = 1.0
     for stand_x in ("binom2", "sd"):
         want = fj.ucca(X, data["Y"], stand_x=stand_x)
-        got = ft.ucca(X, data["Y"], stand_x=stand_x)
+        got = ft.ucca(X, data["Y"], stand_x=stand_x, device="cpu")
         _same(got.result, want.result, 1e-12)
 
 
@@ -180,10 +180,18 @@ def test_ucca_errors(data):
 
 
 def test_ucca_refuses_a_dense_operator_naming_a12(data):
-    """The JAX package's prebuilt DenseOperator path waits for A12."""
-    dense = fj.DenseOperator(np.nan_to_num(data["geno"]), dtype=jnp.float64)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ft.ucca(dense, data["Y"])
+    """The port's DenseOperator against the JAX one on the same matrix
+    (R, F and P at rtol 1e-10, nan at the constant SNP in both); a JAX
+    DenseOperator handed to the port is refused, not run."""
+    X = np.nan_to_num(data["geno"])
+    jdense = fj.DenseOperator(X, dtype=jnp.float64)
+    want = fj.ucca(jdense, data["Y"]).result
+    got = ft.ucca(ft.DenseOperator(X, device="cpu"), data["Y"]).result
+    flat = np.isnan(want[:, 0])
+    assert flat[11] and np.array_equal(np.isnan(got[:, 0]), flat)
+    np.testing.assert_allclose(got[~flat], want[~flat], rtol=1e-10)
+    with pytest.raises(TypeError, match="not an operator of this package"):
+        ft.ucca(jdense, data["Y"])
 
 
 def _run_cli(main, args, cwd):
@@ -252,13 +260,17 @@ def test_cli_ucca_checks(data, tmp_path, capsys):
                             "--device", "cpu"], tmp_path) == 1
     assert ("phenotype file rows must match .fam rows"
             in capsys.readouterr().err)
-    # --ucca --batch waits for the dense path
+    # --ucca --batch runs the dense path: the JAX CLI's file
     pheno = str(tmp_path / "pheno.txt")
     _write_pheno(pheno, root, data["Y"])
-    assert _run_cli(tmain, ["--bfile", root, "--ucca", "--batch", "--pheno",
-                            pheno, "--device", "cpu"], tmp_path) == 1
-    assert "ROADMAP A12" in capsys.readouterr().err
-    assert not (tmp_path / "ucca.txt").exists()
+    (tmp_path / "jax").mkdir()
+    args = ["--bfile", root, "--ucca", "--batch", "--pheno", pheno]
+    assert _run_cli(tmain, args + ["--device", "cpu"], tmp_path) == 0
+    assert "ROADMAP" not in capsys.readouterr().err
+    assert _run_cli(jmain, args, tmp_path / "jax") == 0
+    assert ((tmp_path / "ucca.txt").read_bytes()
+            == (tmp_path / "jax" / "ucca.txt").read_bytes())
+    (tmp_path / "ucca.txt").unlink()
     # a stale --pheno on a PCA command line is not read
     assert _run_cli(tmain, ["--bfile", root, "--ndim", "2", "--pheno",
                             str(tmp_path / "missing.txt"), "--device",
