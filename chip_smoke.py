@@ -73,6 +73,13 @@ Phases, all in this one process; any failure raises and exits nonzero:
    ``--batch`` pca then ``--check`` (mse < 1e-8), and a float64
    ``pca(root, 20, checkpoint_every=1)`` whose first mid-run .npz
    resumes with ``state_in`` to eigenvalues within 1e-6 of the largest;
+   then SCCA on the fileset (``mid_scca``): 5 phenotypes, two carrying
+   20 SNPs' effects, ``scca(root, Y, 2.5 / sqrt(p), 0.02, ndim=2)`` at
+   float32 (B1 and B2 must launch), at float64 (no launch) and streamed
+   (``memory_mb=1``, the host engine), float32 and streamed held to
+   float64 (d within 1e-5 relative, U and V 2e-4); the CLI's ``--scca``
+   held to its ``--dtype float64`` run, and its ``--outstate`` cut after
+   dimension 1 and resumed with ``--instate`` byte for byte;
 5. the wide headline: structured genotypes 501,760 x 100,352 generated
    on the card (12.6 GB packed, never decoded whole), ``pca(op, 20)``
    with ``polish="contract"`` at float32, then ``check(op, U, d)``; the
@@ -88,8 +95,19 @@ Phases, all in this one process; any failure raises and exits nonzero:
    ``ucca(op, Y)`` on 7 seeded phenotypes, each carrying one SNP's
    effect (B1 at kc 8), held on the causal SNPs' 512-SNP window to a
    float64 crossprod's R, F and P at the CLI's bars, the causal SNPs at
-   P < 1e-8; then B1-B4 timed at the headline shapes (B1/B2 at kc 16 and 24,
-   B3/B4 at 24) beside their bounds, their plain versions and the
+   P < 1e-8; then SCCA (``scca_headline``): 10 phenotypes, three with
+   a planted 200-SNP direction added through one prod pass,
+   ``scca(op, Y, 2.5 / sqrt(p), 0.02, ndim=3, maxiter=100, tol=1e-4)``
+   (counts reset just before and read just after: B1 and B2 must
+   launch, on one column, which the wrappers pad to kc 8), held to
+   converge with every d > 0, finite Px and Py,
+   and one iteration redone in float64 on a float64 PackedOperator over
+   the same bytes (the functional core) moving u and v by at most 1e-3
+   and d by 1e-5 relative; then ``scca_grid`` over the 4 x 4 penalty
+   grid (B1 and B2 at kc 16), its cell 9 held to the solo run (d 1e-4
+   relative, U and V 1e-3, iterations within 2); then B1-B4 timed at
+   the headline shapes (B1/B2 at kc 16 and 24, B3/B4 at 24, B1/B2 on
+   scca's one column) beside their bounds, their plain versions and the
    torch.matmul calls on the same block decoded to float32, and B1 (kc
    16), B2 (kc 16 and 24), B3 (kc 24) and B4 (kc 24) beside their first
    designs in turns; then the same bytes, copied to the host and the
@@ -109,8 +127,13 @@ Phases, all in this one process; any failure raises and exits nonzero:
    per-launch medians on the blocks; then ``ucca`` and
    ``_project_operator`` on the streamed operator (counts around each:
    B1 for ucca, B2 for project), ucca equal to the resident result bit
-   for bit, project within 1e-6 relative of it; then B1-B4, B2 at kc 24
-   and B1 at kc 8 timed on one block held resident; then the dense
+   for bit, project within 1e-6 relative of it; SCCA (``streamed_scca``:
+   one dimension, 5 iterations at tol 0 on the host engine, U and V
+   within 1e-4 of the resident device engine's; a 16-cell zero-penalty
+   grid staging no more block passes than one solo run); then B1-B4,
+   B2 at kc 24, B1 at kc 8 and B1/B2 on one column timed on one block
+   held resident; then
+   the dense
    headline (``dense_headline``): 50,176 x 100,352 genotypes generated
    packed on the card, decoded there into one float32 X (20.1 GB) and
    held by ``DenseOperator(X, center=mean, scale=sd)`` (torch.matmul
@@ -179,10 +202,12 @@ widths the headlines launch and B4 at the tall bytes' kc 24, the first
 designs of B1-B5 from the timing phases, V1-V4 and their first designs
 from the sweep, B1-B4 at the streamed block's shape with ``"path":
 "streaming"``, B1, B2, B3 and B5 at the streamed tall block's with
-``"path": "tall_streaming"``, B2 at kc 24 and B1 at kc 8 with ``"path":
-"project"`` and ``"ucca"`` at the headline's shape and
-``"project_streaming"`` and ``"ucca_streaming"`` at the streamed
-block's), with a ``streaming`` entry (the streamed
+``"path": "tall_streaming"``, B2 at kc 24, B1 at kc 8 and B1/B2 on one
+column with ``"path": "project"``, ``"ucca"`` and ``"scca"`` at the
+headline's shape, B1/B2 at kc 16 with ``"scca_grid"`` (the solver
+panel's rows with the grid's launches), and ``"project_streaming"``,
+``"ucca_streaming"``, ``"scca_streaming"`` and ``"scca_grid_streaming"``
+at the streamed block's), with a ``streaming`` entry (the streamed
 path's launches and per-launch medians, and under ``tall`` the streamed
 tall path's); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -193,6 +218,8 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import re
@@ -316,6 +343,7 @@ WIDE_PATH = ("crossprod", "matvec", "crossprod_ff", "matvec_ff")
 TALL_PATH = ("crossprod", "matvec", "crossprod_ff", "matvec_ff_novl")
 PROJECT_PATH = ("matvec",)               # project(): one prod pass, B2
 UCCA_PATH = ("crossprod",)               # ucca(): one crossprod pass, B1
+SCCA_PATH = ("crossprod", "matvec")      # scca(): B1 u-steps, B2 v-steps
 # float64 on the card runs the functional core; the mid-size runs are
 # held to dense float64 eigh: a float64 solve stops at residuals of 1e-6
 # of each eigenvalue, so a pair's eigenvalue is off by about that
@@ -356,6 +384,37 @@ KERNEL_CASES = (("full width 4096 x 501760", 4096, 501_760, 21),
 TALL_CASE = ("tall width 2048 x 1003520", 2048, 1_003_520, 23)
 # the headlines' populations (POPS - 1 population PCs lead the spectrum)
 POPS = 8
+# SCCA at the wide headline, the JAX package's sparse-SCCA bench
+# configuration (bench.py): SCCA_K phenotypes from default_rng(SCCA_SEED),
+# SCCA_NDIM of them carrying one planted sparse direction of SCCA_PLANT
+# SNPs each at 3 / std, lambda1 = SCCA_L1 / sqrt(p), lambda2 = SCCA_L2,
+# V0 from seed SCCA_V0_SEED
+SCCA_K, SCCA_NDIM, SCCA_PLANT, SCCA_SEED, SCCA_V0_SEED = 10, 3, 200, 11, 7
+SCCA_L1, SCCA_L2, SCCA_MAXITER, SCCA_TOL = 2.5, 0.02, 100, 1e-4
+# one iteration redone in float64 from the float32 result moves no entry
+# of u or v by more than 10 x tol, and d recomputed in float64 is within
+# SCCA_D_BAR relative of the result's
+SCCA_FIXED_BAR, SCCA_D_BAR = 10 * SCCA_TOL, 1e-5
+# the 4 x 4 penalty grid (lambda1 in units of 1 / sqrt(p)); its cell
+# SCCA_GRID_CELL (row-major) is the solo run's, held to it: d within
+# SCCA_GRID_D_BAR relative, U and V within SCCA_GRID_UV_BAR, iterations
+# per dimension within SCCA_GRID_ITERS (the grid's B1/B2 run at kc 16,
+# the solo's at kc 8: the same fixed point, reached in other roundings)
+SCCA_GRID_L1 = (1.5, 2.0, 2.5, 3.0)
+SCCA_GRID_L2 = (0.01, 0.02, 0.05, 0.1)
+SCCA_GRID_CELL = 9
+SCCA_GRID_D_BAR, SCCA_GRID_UV_BAR, SCCA_GRID_ITERS = 1e-4, 1e-3, 2
+# streamed SCCA (host engines, float64 host arithmetic around float32
+# products) against the resident device engine (float32 throughout),
+# SCCA_TWIN_ITERS iterations at tol 0 from the same V0: U and V within
+# SCCA_STREAM_BAR; the streamed grid runs SCCA_STREAM_GRID_ITERS
+SCCA_TWIN_ITERS, SCCA_STREAM_GRID_ITERS, SCCA_STREAM_BAR = 5, 3, 1e-4
+# float32 SCCA against float64 (d relative, U and V absolute) on the
+# mid-size fileset at tol SCCA_MID_TOL, and its CLI's pcsX/pcsY columns
+# relative in their norms (tol 1e-5 stops each fit within about 1e-5 of
+# its fixed point: the U/V bar leaves 20x over that)
+SCCA_MID_TOL, SCCA_F32_D_BAR, SCCA_F32_UV_BAR, SCCA_F32_PC_BAR = (
+    1e-5, 1e-5, 2e-4, 1e-3)
 # the tall headline: the JAX package's tall bench shape (bench.py)
 TALL_N, TALL_P = 1_003_520, 50_176
 # the dense headline: the headline's SNP width with a tenth of its
@@ -496,6 +555,25 @@ class Phase:
             sync()
             self.seconds = time.time() - self.t0
             say(f"   {self.name}: {self.seconds:.2f} s")
+
+
+def cli_in(cdir, args, title):
+    """The port's CLI run with ``args`` from the directory ``cdir``
+    (where it writes its files) in a Phase called ``title``; returns its
+    exit code and what it printed."""
+    from flashpca_tpu_torch.cli import main as cli_main
+
+    cwd = os.getcwd()
+    os.chdir(cdir)
+    buf = io.StringIO()
+    try:
+        with Phase(title), contextlib.redirect_stdout(buf):
+            rc = cli_main(args)
+    finally:
+        os.chdir(cwd)
+    if rc:
+        say(buf.getvalue())
+    return rc, buf.getvalue()
 
 
 def close(name, got, want, rtol, atol):
@@ -1020,6 +1098,7 @@ def mid_size(dev, workdir, n=8001, p=4096, k=10, seed=5):
         raise AssertionError(f"mid-size streamed: check mse {chk_s.mse:.3e}")
     f64 = mid_float64(dev, root, ds, k, d_ref, U_ref)
     cli = mid_cli(dev, workdir, root, ds, k, seed)
+    scca = mid_scca(dev, workdir, root, ds, seed)
     dense = mid_dense(dev, workdir, root, ds, k, d_ref, U_ref)
     return {"n_ops": res.n_ops, "check_mse": chk.mse, "pca_s": t_pca,
             "eig_rel_err": float(rel.max()),
@@ -1029,7 +1108,7 @@ def mid_size(dev, workdir, n=8001, p=4096, k=10, seed=5):
                          "gate_mse": res_s.gate_mse, "check_mse": chk_s.mse,
                          "eig_rel_err_vs_resident": float(rel_s.max()),
                          "launches": {nm: launches[nm] for nm in WIDE_PATH}},
-            "float64": f64, "cli": cli, "dense": dense}
+            "float64": f64, "cli": cli, "dense": dense, "scca": scca}
 
 
 def vector_rmse(U, U_ref):
@@ -1116,15 +1195,12 @@ def mid_dense(dev, workdir, root, ds, k, d_ref, U_ref):
     one): its first mid-run .npz (marked not converged) resumes with
     ``state_in`` to eigenvalues within 1e-6 of the largest of the
     checkpointed run's."""
-    import contextlib
-    import io
     import shutil
 
     import torch
 
     import flashpca_tpu_torch.solvers.lanczos as lz
     from flashpca_tpu_torch import flashpca, pca
-    from flashpca_tpu_torch.cli import main as cli_main
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
     from flashpca_tpu_torch.models.check import check
 
@@ -1162,19 +1238,11 @@ def mid_dense(dev, workdir, root, ds, k, d_ref, U_ref):
 
     cdir = os.path.join(workdir, "cli_batch")
     os.makedirs(cdir)
-    cwd = os.getcwd()
-    os.chdir(cdir)
-    try:
-        args = ["--bfile", root, "--notime", "--device", dev.type,
-                "--ndim", str(k)]
-        with Phase("CLI --batch, then --check"):
-            rc = cli_main(args + ["--batch"])
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                rc_check = cli_main(args + ["--check"])
-    finally:
-        os.chdir(cwd)
-    line = [ln for ln in buf.getvalue().splitlines()
+    args = ["--bfile", root, "--notime", "--device", dev.type,
+            "--ndim", str(k)]
+    rc, _ = cli_in(cdir, args + ["--batch"], "CLI --batch")
+    rc_check, printed = cli_in(cdir, args + ["--check"], "CLI --check")
+    line = [ln for ln in printed.splitlines()
             if "Mean squared error" in ln]
     if rc or rc_check or not line:
         raise AssertionError(f"CLI --batch exited {rc}, --check {rc_check}")
@@ -1313,7 +1381,6 @@ def mid_cli(dev, workdir, root, ds, k, seed, n_pheno=3):
     oracle on the dense standardized matrix, the projection by
     :func:`hold_projection`, ucca by :func:`hold_ucca`.  B2 must launch
     for --project and B1 for --ucca."""
-    from flashpca_tpu_torch.cli import main as cli_main
     from flashpca_tpu_torch.io.text import read_text
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
     from flashpca_tpu_torch.ops.genotypes import dense_standardized_np
@@ -1323,14 +1390,8 @@ def mid_cli(dev, workdir, root, ds, k, seed, n_pheno=3):
 
     def run(*args):
         tpk.reset_launch_counts()
-        cwd = os.getcwd()
-        os.chdir(cdir)
-        try:
-            with Phase("CLI " + " ".join(args)):
-                rc = cli_main(["--bfile", root, "--notime", "--device",
-                               dev.type, *args])
-        finally:
-            os.chdir(cwd)
+        rc, _ = cli_in(cdir, ["--bfile", root, "--notime", "--device",
+                              dev.type, *args], "CLI " + " ".join(args))
         if rc != 0:
             raise AssertionError(f"CLI {args} exited {rc}")
         return dict(tpk.launch_counts)
@@ -1380,6 +1441,141 @@ def mid_cli(dev, workdir, root, ds, k, seed, n_pheno=3):
             "ucca_errs": errs, "ucca_vs_batch_errs": batch_errs,
             "launches": {"project": proj_launches["matvec"],
                          "ucca": ucca_launches["crossprod"]}}
+
+
+def mid_scca(dev, workdir, root, ds, seed, n_pheno=5, ndim=2):
+    """SCCA on the mid-size fileset: ``n_pheno`` phenotypes, two of them
+    carrying 20 SNPs' effects each, penalties SCCA_L1 / sqrt(p) and
+    SCCA_L2.  ``scca`` on ``dev`` at its default dtype (float32 on the
+    card: B1 and B2 must launch) held to the same call at float64 on
+    ``dev`` with the same V0 (the functional core, no launch), and the
+    same call streamed (``streaming=True, memory_mb=1``, the host
+    engine) held to it too: d within SCCA_F32_D_BAR relative, U and V
+    within SCCA_F32_UV_BAR, all at tol SCCA_MID_TOL.  Then the CLI's
+    ``--scca`` on ``dev``, its files held to a ``--dtype float64`` run
+    (pcsX / pcsY columns within SCCA_F32_PC_BAR of their norms), and
+    ``--outstate`` cut after dimension 1 and resumed with ``--instate``:
+    the same files byte for byte as the uninterrupted run."""
+    import torch
+
+    from flashpca_tpu_torch import load_scca_state, scca
+    from flashpca_tpu_torch.io.text import read_text
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+    from flashpca_tpu_torch.models.scca import make_gaussian
+    from flashpca_tpu_torch.ops.genotypes import dense_standardized_np
+
+    n, p = ds.n_samples, ds.n_snps
+    rng = np.random.default_rng(seed + 2)
+    mean, sd = ds.snp_stats("binom2")
+    X = dense_standardized_np(ds.read_codes(), mean, sd).T
+    support = rng.choice(p, size=(2, 20), replace=False)
+    Y = rng.standard_normal((n, n_pheno))
+    Y[:, :2] += 0.05 * np.stack([X[:, s].sum(axis=1) for s in support], 1)
+    del X
+    lam = (SCCA_L1 / np.sqrt(p), SCCA_L2)
+    kw = dict(ndim=ndim, maxiter=500, tol=SCCA_MID_TOL, device=dev,
+              V0=make_gaussian(n_pheno, ndim, seed))
+    out = {}
+    tpk.reset_launch_counts()
+    with Phase("mid-size scca, default dtype") as ph:
+        r32 = scca(root, Y, *lam, **kw)
+    launches = dict(tpk.launch_counts)
+    out["s"] = ph.seconds
+    tpk.reset_launch_counts()
+    with Phase("mid-size scca, float64"):
+        r64 = scca(root, Y, *lam, dtype=torch.float64, **kw)
+    launches64 = sum(tpk.launch_counts.values())
+    with Phase("mid-size scca streamed, memory_mb=1"):
+        rs = scca(root, Y, *lam, streaming=True, memory_mb=1, **kw)
+
+    def off(a, b):
+        return (float((np.abs(a.d - b.d) / np.abs(b.d)).max()),
+                max(float(np.abs(a.U - b.U).max()),
+                    float(np.abs(a.V - b.V).max())))
+
+    out.update(d=r32.d.tolist(), iters=r32.n_iters.tolist(),
+               launches={nm: launches[nm] for nm in SCCA_PATH},
+               vs_float64=off(r32, r64), streamed_vs_float64=off(rs, r64),
+               float64_launches=launches64)
+    say(f"   d {r32.d}, iterations {r32.n_iters.tolist()} (float64: "
+        f"{r64.n_iters.tolist()}); B1/B2 launches {launches['crossprod']}/"
+        f"{launches['matvec']}; vs float64 d rel, U/V abs "
+        f"{out['vs_float64']}, streamed {out['streamed_vs_float64']}")
+    if dev.type == "cuda":
+        require_launched(launches, SCCA_PATH, "mid-size scca")
+    if launches64:
+        raise AssertionError(f"mid-size scca at float64: {launches64} "
+                             "kernel launches")
+    for tag, (e_d, e_uv) in (("float32", out["vs_float64"]),
+                             ("streamed", out["streamed_vs_float64"])):
+        if not (r32.converged and r64.converged and rs.converged
+                and e_d <= SCCA_F32_D_BAR and e_uv <= SCCA_F32_UV_BAR):
+            raise AssertionError(f"mid-size scca {tag} vs float64: d rel "
+                                 f"{e_d:.2e}, U/V {e_uv:.2e}")
+
+    cdir = os.path.join(workdir, "scca_cli")
+    os.makedirs(cdir)
+    fam = [f + "\t" + i for f, i in zip(ds.fam_ids, ds.indiv_ids)]
+    pheno = os.path.join(cdir, "pheno.txt")
+    with open(pheno, "w") as fh:
+        for ids, row in zip(fam, Y):
+            fh.write(ids + "\t" + "\t".join(f"{v:.17g}" for v in row)
+                     + "\n")
+    files = ("eigenvalues.txt", "eigenvectorsX.txt", "eigenvectorsY.txt",
+             "pcsX.txt", "pcsY.txt")
+
+    def run(sub, *args):
+        d = os.path.join(cdir, sub)
+        os.makedirs(d)
+        rc, _ = cli_in(d, ["--bfile", root, "--scca", "--pheno", pheno,
+                           "--ndim", str(ndim), "--lambda1",
+                           repr(float(lam[0])), "--lambda2", repr(lam[1]),
+                           "--tol", repr(SCCA_MID_TOL), "--notime",
+                           "--device", dev.type, *args],
+                       f"CLI --scca {' '.join(args)}")
+        if rc != 0:
+            raise AssertionError(f"CLI --scca {args} exited {rc}")
+        return d
+
+    def read(d, fn):
+        return np.atleast_2d(np.loadtxt(os.path.join(d, fn)))
+
+    state = os.path.join(cdir, "state.npz")
+    a = run("card", "--outstate", state)
+    b = run("float64", "--dtype", "float64")
+    d_rel = np.abs(read(a, files[0]) - read(b, files[0])) / np.abs(
+        read(b, files[0]))
+    uv = max(float(np.abs(read(a, fn) - read(b, fn)).max())
+             for fn in files[1:3])
+    pc = max(float((np.linalg.norm(read(a, fn) - read(b, fn), axis=0)
+                    / np.linalg.norm(read(b, fn), axis=0)).max())
+             for fn in files[3:])
+    st = load_scca_state(state)
+    st.update(next_dim=np.asarray(1),
+              d=np.concatenate([st["d"][:1], np.zeros(ndim - 1)]))
+    st["U"][:, 1:] = 0.0
+    st["V"][:, 1:] = st["V0"][:, 1:]
+    cut = os.path.join(cdir, "cut.npz")
+    np.savez(cut, **st)
+    c = run("resumed", "--instate", cut)
+    def raw(d, fn):
+        with open(os.path.join(d, fn), "rb") as fh:
+            return fh.read()
+
+    same = all(raw(a, fn) == raw(c, fn) for fn in files)
+    out["cli"] = {"d_rel_vs_float64": float(d_rel.max()),
+                  "uv_abs_vs_float64": uv, "pc_col_rel_vs_float64": pc,
+                  "resumed_equal": same}
+    say(f"   --scca vs --dtype float64: d rel {d_rel.max():.2e}, U/V abs "
+        f"{uv:.2e}, pcsX/pcsY column rel {pc:.2e}; --instate after "
+        f"dimension 1 byte-equal to the uninterrupted run: {same}")
+    if not (d_rel.max() <= SCCA_F32_D_BAR and uv <= SCCA_F32_UV_BAR
+            and pc <= SCCA_F32_PC_BAR):
+        raise AssertionError(f"CLI --scca vs --dtype float64: {out['cli']}")
+    if not same:
+        raise AssertionError("CLI --scca --instate: not the uninterrupted "
+                             "run's files")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1995,6 +2191,202 @@ def project_ucca(op, res, seed=13):
     return {"V": V, "Px": Px, "Y": Y, "ucca": u.result}, out
 
 
+def scca_phenotypes(op, rng):
+    """SCCA_K phenotypes for the headline SCCA, as the JAX package's
+    sparse-SCCA bench builds them: SCCA_NDIM unit directions of
+    SCCA_PLANT SNPs each (drawn from ``rng``), their X u* in one prod
+    pass (B2), added to the first SCCA_NDIM standard normal columns at
+    3 / std.  Returns (Y, the planted supports)."""
+    from flashpca_tpu_torch.utils.device import host64
+
+    p, n = op.n_snps, op.n_samples
+    Ustar = np.zeros((p, SCCA_NDIM))
+    supports = []
+    for j in range(SCCA_NDIM):
+        idx = rng.choice(p, size=SCCA_PLANT, replace=False)
+        Ustar[idx, j] = rng.normal(size=SCCA_PLANT)
+        Ustar[:, j] /= np.linalg.norm(Ustar[:, j])
+        supports.append(np.sort(idx))
+    Xu = host64(op.prod(Ustar))
+    Y = rng.standard_normal((n, SCCA_K))
+    Y[:, :SCCA_NDIM] += Xu * (3.0 / Xu.std(axis=0, keepdims=True))
+    return Y, supports
+
+
+def scca_fixed_point(op, Y, res, lam1, lam2):
+    """One SCCA iteration redone in float64 from the result ``res`` of
+    ``scca(op, Y, lam1, lam2)`` (divisor "p"): a float64 PackedOperator
+    on the same bytes (the functional core, no kernel) takes one
+    crossprod of the Y v_j and one prod of the u_j; each u_j' is
+    X^T Y v_j orthogonalized against the earlier u and thresholded, each
+    v_j' likewise from Y^T X u_j, and d_j' = (X u_j)^T (Y v_j).  Returns
+    per dimension (max |u' - u|, max |v' - v|, |d' - d| / |d'|)."""
+    import torch
+
+    from flashpca_tpu_torch import PackedOperator
+    from flashpca_tpu_torch.models.scca import _gram_schmidt, norm_thresh
+    from flashpca_tpu_torch.ops.standardize import standardize
+    from flashpca_tpu_torch.utils.device import host64
+
+    op64 = PackedOperator(op.packed, op.center, op.scale, op.n_samples,
+                          device=op.device, dtype=torch.float64,
+                          block_size=512)
+    Y_std = standardize(Y, "sd")[0]
+    Z = host64(op64.crossprod(Y_std @ res.V))
+    XU = host64(op64.prod(res.U))
+    del op64
+    du, dv, dd = [], [], []
+    for j in range(res.U.shape[1]):
+        u1 = norm_thresh(_gram_schmidt(Z[:, j], res.U, j), lam1)
+        v1 = norm_thresh(_gram_schmidt(Y_std.T @ XU[:, j], res.V, j), lam2)
+        d1 = XU[:, j] @ (Y_std @ res.V[:, j])
+        du.append(float(np.abs(u1 - res.U[:, j]).max()))
+        dv.append(float(np.abs(v1 - res.V[:, j]).max()))
+        dd.append(float(abs(d1 - res.d[j]) / abs(d1)))
+    return du, dv, dd
+
+
+def busy_and_span(log):
+    """(seconds the launches of a ``time_launches`` log ran, seconds from
+    the first one's start to the last one's end); (0, 0) when nothing
+    launched (the CPU)."""
+    if not log:
+        return 0.0, 0.0
+    busy = sum(a.elapsed_time(b) for _, _, a, b in log) / 1e3
+    return busy, log[0][2].elapsed_time(log[-1][3]) / 1e3
+
+
+def scca_headline(op, seed=SCCA_SEED):
+    """SCCA at the wide headline, on its resident float32 operator:
+    ``scca(op, Y, SCCA_L1 / sqrt(p), SCCA_L2)`` with SCCA_NDIM
+    dimensions (:func:`scca_phenotypes`), counts set to 0 just before
+    and read just after (B1 and B2 must launch, at kc 8: a one-column
+    panel), held to converge with every d > 0 and finite Px / Py, and to
+    its float64 fixed point (:func:`scca_fixed_point`: u and v within
+    SCCA_FIXED_BAR, d within SCCA_D_BAR); each dimension's nonzeros and
+    overlap with the planted supports printed; the wall, iterations, and
+    per iteration the kernels' time and the rest of the span from the
+    first launch to the last (the loop's host work and syncs; CUDA
+    events), the wall outside that span printed apart (set-up: Y
+    standardized and copied to the card; the result's transfers).  Then
+    ``scca_grid`` over the 4 x 4 penalty grid (C = 16: B1 and B2 at kc
+    16), its cell SCCA_GRID_CELL held to the solo run; and the solo
+    run's streamed twin's resident reference (SCCA_TWIN_ITERS iterations
+    at tol 0, one dimension).  Returns (the inputs and results the
+    streamed phase holds to, a summary)."""
+    from flashpca_tpu_torch import scca, scca_grid
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    p = op.n_snps
+    rng = np.random.default_rng(seed)
+    with Phase(f"SCCA phenotypes: {SCCA_NDIM} planted {SCCA_PLANT}-SNP "
+               "directions, one prod pass"):
+        Y, supports = scca_phenotypes(op, rng)
+    lam1 = SCCA_L1 / np.sqrt(p)
+    kw = dict(ndim=SCCA_NDIM, maxiter=SCCA_MAXITER, tol=SCCA_TOL,
+              seed=SCCA_V0_SEED)
+    tpk.reset_launch_counts()
+    with tpk.time_launches() as log:
+        with Phase(f"scca(op, Y), {SCCA_K} phenotypes, ndim {SCCA_NDIM}, "
+                   f"lambda1 {lam1:.3e}, lambda2 {SCCA_L2}") as ph:
+            res = scca(op, Y, lam1, SCCA_L2, **kw)
+    launches = dict(tpk.launch_counts)
+    wall = ph.seconds
+    kern_s, span_s = busy_and_span(log)
+    kcs = sorted({kc for _, kc, _, _ in log})
+    iters = res.n_iters.tolist()
+    its = max(1, sum(iters))
+    launch_ms = launch_medians(log)
+    nz = [int(np.count_nonzero(res.U[:, j])) for j in range(SCCA_NDIM)]
+    overlap = [[int(np.count_nonzero(res.U[s, j])) for s in supports]
+               for j in range(SCCA_NDIM)]
+    say(f"   converged {res.converged}, d " + " ".join(
+        f"{x:.6f}" for x in res.d) + f"; iterations per dimension {iters}")
+    say(f"   U nonzeros {nz} of {p}; per dimension, nonzeros on each "
+        f"planted {SCCA_PLANT}-SNP support: {overlap}; V nonzeros "
+        f"{[int(np.count_nonzero(res.V[:, j])) for j in range(SCCA_NDIM)]}")
+    say(f"   wall {wall:.2f} s; B1/B2 launches {launches['crossprod']}/"
+        f"{launches['matvec']} at kc {kcs}, busy {kern_s:.3f} s of the "
+        f"{span_s:.3f} s from the first launch to the last: per iteration "
+        f"(of {its}; d and Px included) kernels {kern_s / its * 1e3:.2f} ms"
+        f", the rest {(span_s - kern_s) / its * 1e3:.2f} ms; outside the "
+        f"span {wall - span_s:.3f} s")
+    require_launched(launches, SCCA_PATH, "headline scca")
+    require_no_first_design(launches, "headline scca")
+    if not (res.converged and np.all(res.d > 0)
+            and np.isfinite(res.Px).all() and np.isfinite(res.Py).all()):
+        raise AssertionError(f"headline scca: converged {res.converged}, d "
+                             f"{res.d}, Px/Py finite "
+                             f"{np.isfinite(res.Px).all()}/"
+                             f"{np.isfinite(res.Py).all()}")
+    with Phase("SCCA float64 fixed point: one float64 crossprod and prod"):
+        du, dv, dd = scca_fixed_point(op, Y, res, lam1, SCCA_L2)
+    say("   one float64 iteration from the result: max |du| " + " ".join(
+        f"{x:.2e}" for x in du) + ", max |dv| " + " ".join(
+        f"{x:.2e}" for x in dv) + f" (bar {SCCA_FIXED_BAR}); d rel "
+        + " ".join(f"{x:.2e}" for x in dd) + f" (bar {SCCA_D_BAR})")
+    if not (max(du + dv) <= SCCA_FIXED_BAR and max(dd) <= SCCA_D_BAR):
+        raise AssertionError("headline scca: not at its float64 fixed "
+                             f"point (du {du}, dv {dv}, d {dd})")
+    out = {"s": wall, "d": res.d.tolist(), "iters": iters, "nonzeros": nz,
+           "support_overlap": overlap, "launches": launches,
+           "launch_ms": launch_ms, "kcs": kcs, "kernel_s": kern_s,
+           "span_s": span_s, "kernel_ms_per_iter": kern_s / its * 1e3,
+           "host_ms_per_iter": (span_s - kern_s) / its * 1e3,
+           "outside_span_s": wall - span_s,
+           "fixed_point": {"du": du, "dv": dv, "d_rel": dd}}
+
+    l1 = np.array(SCCA_GRID_L1) / np.sqrt(p)
+    l2 = np.array(SCCA_GRID_L2)
+    tpk.reset_launch_counts()
+    with tpk.time_launches() as log:
+        with Phase(f"scca_grid(op, Y), {len(l1)} x {len(l2)} cells") as ph:
+            g = scca_grid(op, Y, l1, l2, **kw)
+    glaunches = dict(tpk.launch_counts)
+    gkern_s, gspan_s = busy_and_span(log)
+    gkcs = sorted({kc for _, kc, _, _ in log})
+    git = max(1, int(g.n_iters.max(axis=1).sum()))
+    c = SCCA_GRID_CELL
+    d_rel = np.abs(g.d[:, c] - res.d) / np.abs(res.d)
+    uv = max(float(np.abs(g.U[:, :, c] - res.U).max()),
+             float(np.abs(g.V[:, :, c] - res.V).max()))
+    it_off = np.abs(g.n_iters[:, c] - res.n_iters)
+    say(f"   grid wall {ph.seconds:.2f} s beside 16 x the solo wall "
+        f"{16 * wall:.2f} s; B1/B2 launches {glaunches['crossprod']}/"
+        f"{glaunches['matvec']} at kc {gkcs}, busy {gkern_s:.3f} s of the "
+        f"{gspan_s:.3f} s launch span: per iteration (of {git}) kernels "
+        f"{gkern_s / git * 1e3:.2f} ms, the rest "
+        f"{(gspan_s - gkern_s) / git * 1e3:.2f} ms; converged cells "
+        f"{int(g.converged.sum())} of {len(g.converged)}")
+    say("   iterations per dimension and cell: " + "; ".join(
+        " ".join(str(x) for x in row) for row in g.n_iters))
+    say(f"   cell {c} (lambda1 {g.lambda1[c]:.3e}, lambda2 "
+        f"{g.lambda2[c]}) vs the solo run: d rel " + " ".join(
+            f"{x:.2e}" for x in d_rel) + f", U/V max abs {uv:.2e}, "
+        f"iterations {g.n_iters[:, c].tolist()} vs {iters}")
+    require_launched(glaunches, SCCA_PATH, "headline scca_grid")
+    require_no_first_design(glaunches, "headline scca_grid")
+    if not (g.lambda1[c] == lam1 and g.lambda2[c] == SCCA_L2
+            and g.converged[c] and d_rel.max() <= SCCA_GRID_D_BAR
+            and uv <= SCCA_GRID_UV_BAR and it_off.max() <= SCCA_GRID_ITERS):
+        raise AssertionError(
+            f"headline scca_grid: cell {c} off the solo run (d rel "
+            f"{d_rel}, U/V {uv:.2e}, iterations {g.n_iters[:, c]} vs "
+            f"{iters}, converged {g.converged[c]})")
+    out["grid"] = {"s": ph.seconds, "solo_x16_s": 16 * wall,
+                   "launches": glaunches, "kcs": gkcs, "kernel_s": gkern_s,
+                   "span_s": gspan_s, "iters": git,
+                   "n_iters": g.n_iters.tolist(),
+                   "converged": g.converged.tolist(),
+                   "cell_d_rel": d_rel.tolist(), "cell_uv_abs": uv}
+
+    with Phase(f"scca(op, Y), ndim 1, {SCCA_TWIN_ITERS} iterations at tol "
+               "0: the streamed twin's reference"):
+        twin = scca(op, Y, lam1, SCCA_L2, ndim=1, maxiter=SCCA_TWIN_ITERS,
+                    tol=0.0, seed=SCCA_V0_SEED)
+    return {"Y": Y, "lam1": lam1, "twin": twin}, out
+
+
 def dense_matrix(op, rows=1024):
     """The packed operator's standardized genotypes as one float32 (N,
     p) tensor X on the card, and their float64 gram X X^T / p beside it
@@ -2264,9 +2656,81 @@ def twin_cosines(U, U_r, d_r, near):
     return cos, held, clusters
 
 
+def streamed_scca(op, tw):
+    """SCCA on the streamed headline operator ``op``, against the
+    resident headline's ``tw`` (:func:`scca_headline`): ``scca(op, Y)``
+    with one dimension, SCCA_TWIN_ITERS iterations at tol 0, on the host
+    engine (counts set to 0 just before and read just after: B1 and B2
+    must launch), U and V within SCCA_STREAM_BAR of the resident device
+    engine's; then ``scca_grid`` of 16 zero-penalty cells and one solo
+    run at zero penalties, SCCA_STREAM_GRID_ITERS iterations each at tol
+    0: the grid must stage no more block passes than the solo run (its
+    cells share every pass), and each cell must hold the solo result
+    within SCCA_STREAM_BAR."""
+    from flashpca_tpu_torch import scca, scca_grid
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    Y, lam1, twin = tw["Y"], tw["lam1"], tw["twin"]
+    out = {}
+    tpk.reset_launch_counts()
+    op.reset_stats()
+    with Phase(f"streamed scca(op, Y), ndim 1, {SCCA_TWIN_ITERS} "
+               "iterations at tol 0, host engine") as ph:
+        s = scca(op, Y, lam1, SCCA_L2, ndim=1, maxiter=SCCA_TWIN_ITERS,
+                 tol=0.0, seed=SCCA_V0_SEED)
+    launches = dict(tpk.launch_counts)
+    err = max(float(np.abs(s.U - twin.U).max()),
+              float(np.abs(s.V - twin.V).max()))
+    out["twin"] = {"s": ph.seconds, "passes": op.nops,
+                   "launches": {nm: launches[nm] for nm in SCCA_PATH},
+                   "uv_abs_vs_resident": err}
+    say(f"   {op.nops} passes, B1/B2 launches {launches['crossprod']}/"
+        f"{launches['matvec']}; U/V vs the resident device engine: max "
+        f"abs {err:.2e} (bar {SCCA_STREAM_BAR})")
+    require_launched(launches, SCCA_PATH, "streamed scca")
+    require_no_first_design(launches, "streamed scca")
+    if not err <= SCCA_STREAM_BAR:
+        raise AssertionError(f"streamed scca: {err:.2e} off the resident "
+                             "device engine")
+    zeros = np.zeros(4)
+    kw = dict(ndim=1, maxiter=SCCA_STREAM_GRID_ITERS, tol=0.0,
+              seed=SCCA_V0_SEED)
+    runs = {}
+    for what, label, call in (
+            ("grid", "scca_grid, 16 zero-penalty cells",
+             lambda: scca_grid(op, Y, zeros, zeros, **kw)),
+            ("solo", "scca, zero penalties",
+             lambda: scca(op, Y, 0.0, 0.0, **kw))):
+        op.reset_stats()
+        tpk.reset_launch_counts()
+        with Phase(f"streamed {label}, {SCCA_STREAM_GRID_ITERS} iterations "
+                   "at tol 0") as ph:
+            r = call()
+        st = op.stats()
+        runs[what] = (r, st["staged_host_blocks"], st["nops"], ph.seconds,
+                      {nm: tpk.launch_counts[nm] for nm in SCCA_PATH})
+    g, s0 = runs["grid"][0], runs["solo"][0]
+    gerr = max(float(np.abs(g.U[:, :, c] - s0.U).max()) for c in range(16))
+    gerr = max(gerr, max(float(np.abs(g.V[:, :, c] - s0.V).max())
+                         for c in range(16)))
+    out["grid"] = {what: {"staged_blocks": b, "passes": n_, "s": t,
+                          "launches": lc}
+                   for what, (_, b, n_, t, lc) in runs.items()}
+    out["grid"]["uv_abs_vs_solo"] = gerr
+    say(f"   grid of 16 cells: {runs['grid'][2]} passes, "
+        f"{runs['grid'][1]} staged blocks; one solo run: "
+        f"{runs['solo'][2]} passes, {runs['solo'][1]} staged blocks; "
+        f"cells vs the solo run max abs {gerr:.2e}")
+    if not (runs["grid"][1] <= runs["solo"][1] and gerr <= SCCA_STREAM_BAR):
+        raise AssertionError(f"streamed scca_grid: {runs['grid'][1]} staged "
+                             f"blocks vs the solo run's {runs['solo'][1]}, "
+                             f"cells {gerr:.2e} off it")
+    return out
+
+
 def streamed_headline(dev, host, center, scale, sumsq, resident,
                       resident_launch_ms, witness=None, twins=None,
-                      memory_mb=STREAM_MEMORY_MB):
+                      memory_mb=STREAM_MEMORY_MB, scca_twins=None):
     """The reference's headline job under its 2 GB bound: the headline's
     bytes, copied to the host after the resident phase, streamed by a
     StreamingPackedOperator with two device block buffers of
@@ -2288,10 +2752,13 @@ def streamed_headline(dev, host, center, scale, sumsq, resident,
     just before and read just after each: B1 must run for ucca, whose
     result must equal the resident one bit for bit (B1's rows do not
     depend on the blocking), and B2 for project, within PROJECT_BAR
-    relative (column norms) of the resident projection.  Then B1-B4,
-    and B2 at kc 24 and B1 at kc 8 (project's and ucca's), held to their
-    plain versions and timed on one resident block of the streamed
-    shape.  Returns (the kernels rows of the block shape, a summary)."""
+    relative (column norms) of the resident projection.  Given the
+    resident headline's ``scca_twins``, :func:`streamed_scca` on the
+    same operator.  Then B1-B4,
+    B2 at kc 24 and B1 at kc 8 (project's and ucca's), and B1/B2 on
+    the one column of the SCCA solo runs, held to their plain versions
+    and timed on one resident block of the streamed shape (the SCCA
+    grid's rows: the kc 16 ones with its launches).  Returns (the kernels rows of the block shape, a summary)."""
     import torch
 
     from flashpca_tpu_torch import PackedOperator, StreamingPackedOperator
@@ -2366,7 +2833,7 @@ def streamed_headline(dev, host, center, scale, sumsq, resident,
     st = op.stats()
     wall = out["pca_s"] + out["check_s"]
     passes = st["staged_host_blocks"] / op.n_blocks
-    busy = sum(a.elapsed_time(b) for _, _, a, b in log) / 1e3
+    busy, _ = busy_and_span(log)
     launch_ms = launch_medians(log)
     d, d_r = res.values, resident.values
     rel = np.abs(d - d_r) / d_r
@@ -2469,6 +2936,8 @@ def streamed_headline(dev, host, center, scale, sumsq, resident,
         if not err.max() < PROJECT_BAR:
             raise AssertionError(f"streamed project: {err.max():.2e} "
                                  "relative off the resident projection")
+    if scca_twins is not None:
+        out["scca"] = streamed_scca(op, scca_twins)
     bs = op.block_snps
     op.close()
     del op
@@ -2492,6 +2961,15 @@ def streamed_headline(dev, host, center, scale, sumsq, resident,
                                         twin_launches[what], None,
                                         slices=4):
                     rows.append(dict(row, path=f"{what}_streaming"))
+        if "scca" in out:
+            sc = out["scca"]
+            rows += scca_rows(
+                bop, {nm: sc["twin"]["launches"][nm]
+                      + sc["grid"]["solo"]["launches"][nm]
+                      for nm in SCCA_PATH},
+                sc["grid"]["grid"]["launches"],
+                [r for r in rows if r["path"] == "streaming"], "_streaming",
+                slices=4)
         del bop
     return rows, out
 
@@ -2804,7 +3282,7 @@ def streamed_tall_headline(dev, host, center, scale, sumsq, resident,
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     st = op.stats()
     passes = st["staged_host_blocks"] / op.n_blocks
-    busy = sum(a.elapsed_time(b) for _, _, a, b in log) / 1e3
+    busy, _ = busy_and_span(log)
     launch_ms = launch_medians(log)
     op.close()
     del op
@@ -3074,6 +3552,25 @@ def time_kernels(op, widths, launches, worst, slices):
             "library_ms": lib_ms, "k": k, "shape": [p, 4 * nb],
         })
     return rows
+
+
+def scca_rows(op, solo, grid, rows, suffix, slices):
+    """The kernels rows of SCCA on ``op``'s shape: B1 and B2 on the one
+    column of a solo run (the wrappers pad it to kc 8), timed and held
+    to their plain versions on it, with the solo runs' launches
+    ``solo``; and the grid's: the kc 16 B1 and B2 rows among ``rows``
+    (16 cells are the same work as those rows' 16 columns) with the
+    grid's launches ``grid``.  Paths "scca" and "scca_grid", each plus
+    ``suffix``."""
+    out = [dict(row, path="scca" + suffix)
+           for row in time_kernels(op, [("crossprod", 1), ("matvec", 1)],
+                                   solo, None, slices)]
+    for row in rows:
+        if row["name"] in SCCA_PATH and row["k"] == 16:
+            row = {k: v for k, v in row.items() if k != "stream_launch_ms"}
+            out.append(dict(row, launches=grid[row["name"]],
+                            path="scca_grid" + suffix))
+    return out
 
 
 def time_turns(fns, kc, out):
@@ -3416,6 +3913,9 @@ def main(argv=None) -> int:
     # project() and ucca() on the headline's operator, one pass each
     twins, one_pass = project_ucca(op, head_res)
     torch.cuda.empty_cache()
+    # scca() and scca_grid() on the headline's operator (B1 and B2)
+    scca_twins, scca_out = scca_headline(op)
+    torch.cuda.empty_cache()
     with Phase("kernel times at the headline shapes"):
         # B1/B2 at the solver panel and the polish sweeps' width, B3/B4
         # at the polish / check width
@@ -3443,6 +3943,12 @@ def main(argv=None) -> int:
                                     {name: one_pass[what]["launches"]},
                                     None, slices=32):
                 kernels.append(dict(row, path=what))
+    # scca()'s B1 and B2 on its one column; the grid's at kc 16
+    with Phase("kernel times: scca's B1 and B2 on one column"):
+        kernels += scca_rows(
+            op, scca_out["launches"], scca_out["grid"]["launches"],
+            [r for r in kernels if r.get("design") != "first"
+             and "path" not in r], "", slices=32)
     # the same bytes streamed from the host: the card cannot hold them
     # twice, so the resident operator goes first
     with Phase("headline bytes to the host"):
@@ -3452,8 +3958,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     stream_rows, stream = streamed_headline(
         dev, host, center, scale, sumsq, head_res, head["launch_ms"],
-        head["seed_witness"], twins)
-    del host, head_res, twins
+        head["seed_witness"], twins, scca_twins=scca_twins)
+    del host, head_res, twins, scca_twins
     torch.cuda.empty_cache()
     dense = dense_headline(dev, smi)
     torch.cuda.empty_cache()
@@ -3508,7 +4014,7 @@ def main(argv=None) -> int:
                       "tall": {**tall_stream,
                                "same_order": tall_streamed_checks}},
         **{key: val for key, val in head.items()},
-        "one_pass": one_pass, "dense": dense,
+        "one_pass": one_pass, "dense": dense, "scca": scca_out,
         "gram_tall_ff_max_abs_err": worst["gram_tall_ff"],
         "tall_kernels_f64_rel": tall_f64,
         "b1_turns_ms": b1_turns, "b2_turns_ms": b2_turns,

@@ -8,8 +8,10 @@ compensated (two-float) refinement, ``pca`` on the wide (X X^T) or the
 tall (X^T X) gram -- each also streamed from the host under a
 device-memory bound -- or on a numeric matrix held whole
 (``DenseOperator``), with mid-run checkpoints; ``check``, ``project``
-(new samples onto loadings), ``ucca`` (per-SNP multivariate ANOVA) and
-the flag-compatible CLI, at float32 (the kernels) or float64 (the PyTorch
+(new samples onto loadings), ``ucca`` (per-SNP multivariate ANOVA),
+``scca`` and ``scca_grid`` (sparse CCA, one run or a whole penalty grid
+through shared passes, with per-dimension checkpoints) and the
+flag-compatible CLI, at float32 (the kernels) or float64 (the PyTorch
 functional core, on the card or the CPU).  Imports ``torch`` (never
 JAX); entry points run on ``cuda`` unless given ``device="cpu"``.
 """
@@ -24,5 +26,7 @@ from .ops import (DenseOperator, PackedOperator, StreamingPackedOperator,
                   tall_operator_from_numpy,
                   tall_streaming_operator_from_numpy)
 from .models import (pca, flashpca, PCAResult, check, CheckResult, project,
-                     ProjectResult, ucca, UccaResult)
+                     ProjectResult, ucca, UccaResult, scca, scca_grid,
+                     SCCAResult, SCCAGridResult, save_scca_state,
+                     load_scca_state, soft_thresh, norm_thresh)
 from .solvers import eigsh, eigsh_block, EigshResult

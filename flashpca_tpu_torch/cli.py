@@ -5,23 +5,26 @@ Mirrors flashpca.cpp's option table (flashpca.cpp:40-92), checks
 maxiter=500, seed=1, precision=7, suffix=.txt) and output files and
 formats (:755-878) for the modes this package ports: PCA (the
 default), ``--check``, ``--project`` (``--inload`` with ``--inmeansd``
-or ``--inmaf``, written to ``--outproj``) and ``--ucca`` (``--pheno``,
-``--standy``, written to ucca.txt); ``--batch`` loads the genotypes
+or ``--inmaf``, written to ``--outproj``), ``--ucca`` (``--pheno``,
+``--standy``, written to ucca.txt) and ``--scca`` (``--pheno``,
+``--lambda1``, ``--lambda2``, ``--standy``, written to eigenvalues.txt,
+eigenvectorsX/Y.txt and pcsX/Y.txt or ``--outvecx``, ``--outvecy``,
+``--outpcx``, ``--outpcy``, and with ``--save-vinit`` the initial V to
+scca_v0.txt); SCCA's own flags are accepted and unused in the other
+modes, as by the JAX CLI.  ``--batch`` loads the genotypes
 whole as a matrix for PCA and UCCA, held on ``--device`` (UCCA's in
-float64 unless ``--dtype`` says otherwise).  ``--scca`` exits with an error
-naming the ROADMAP item that ports it, as do the JAX CLI's options not
-ported yet: ``--shards`` above 1 and ``--profile``; SCCA's own flags
-(``--lambda1``, ``--lambda2``, ``--outpcx``, ``--outpcy``,
-``--outvecx``, ``--outvecy``, ``--save-vinit``) are accepted and unused
-in the other modes, as by the JAX CLI.  ``--stream on``
+float64 unless ``--dtype`` says otherwise).  The JAX CLI's options not
+ported yet, ``--shards`` above 1 and ``--profile``, exit with an error
+naming the ROADMAP item that ports them.  ``--stream on``
 streams the operator from the host: the wide one in blocks of the
 reference's ``--memory`` block size (or ``--blocksize``; about 1 GiB a
 block without either), the tall one (``--opmode tall``) in blocks of
 samples of about 1 GiB; as the JAX CLI, the tall one refuses the SNP
 block size that ``--memory`` or ``--blocksize`` sets.  ``--debug`` is
 the reference's no-op; ``--outstate``/``--instate`` write and resume the
-JAX package's .npz checkpoint, and ``--checkpoint-every R`` rewrites
-it after every R-th restart during the solve.  ``--device`` (default
+JAX package's .npz checkpoints (PCA's Ritz panel, and SCCA's state after
+every completed dimension), and ``--checkpoint-every R`` rewrites PCA's
+after every R-th restart during the solve.  ``--device`` (default
 ``cuda``) selects the card or the CPU path, ``--dtype`` float32 (the
 kernels) or float64 (the PyTorch functional core) on either.
 """
@@ -39,13 +42,12 @@ from .io.text import maf2meansd, read_maf, read_text, save_text, TXT_SEP
 from .models.check import check as run_check
 from .models.pca import pca as run_pca
 from .models.project import project as run_project
+from .models.scca import scca as run_scca
 from .models.ucca import ucca as run_ucca
 from .utils.logging import log, set_show_timestamp, timestamp
 
-# modes of the reference CLI that are not ported yet -> ROADMAP item
+# options of the JAX CLI that are not ported yet -> ROADMAP item
 NOT_PORTED = {
-    "scca": "A14 'SCCA family'",
-    # options of the ported modes
     "shards": "A18 'Multi-GPU'",
     "profile": "A10 'Bench script and --profile'",
 }
@@ -61,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="canonical correlation analysis [DISABLED, "
                         "matches the reference]")
     p.add_argument("--scca", action="store_true",
-                   help="sparse CCA [not ported yet]")
+                   help="perform sparse canonical correlation analysis "
+                        "(SCCA)")
     p.add_argument("--ucca", action="store_true",
                    help="perform per-SNP canonical correlation analysis")
     p.add_argument("--project", "-p", action="store_true",
@@ -98,9 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--verbose", "-v", action="store_true")
     p.add_argument("--tol", type=float, default=1e-6)
     p.add_argument("--lambda1", type=float, default=0.0,
-                   help="SCCA penalty on X [read by --scca only]")
+                   help="SCCA penalty on X")
     p.add_argument("--lambda2", type=float, default=0.0,
-                   help="SCCA penalty on Y [read by --scca only]")
+                   help="SCCA penalty on Y")
     p.add_argument("--maxiter", type=int, default=500)
     p.add_argument("--debug", action="store_true",
                    help="accepted and ignored, as by the reference")
@@ -111,8 +114,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", type=int, default=7)
     p.add_argument("--notime", action="store_true")
     p.add_argument("--save-vinit", action="store_true", dest="save_vinit",
-                   help="write SCCA's initial vectors [read by --scca "
-                        "only]")
+                   help="write SCCA's initial V to scca_v0.txt")
     p.add_argument("--version", action="store_true")
     p.add_argument("--dtype", default=None, choices=["float32", "float64"],
                    help="compute dtype (default: float32 on cuda, "
@@ -130,11 +132,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "of samples ('auto': when the packed genotypes "
                         "exceed 0.7 x the card's memory)")
     p.add_argument("--outstate", metavar="FILE", default=None,
-                   help="write an .npz restart checkpoint (the Ritz panel "
-                        "after the solve; the JAX package's format)")
+                   help="write an .npz restart checkpoint (PCA: the Ritz "
+                        "panel after the solve; SCCA: after every "
+                        "completed dimension; the JAX package's format)")
     p.add_argument("--instate", metavar="FILE", default=None,
-                   help="warm-start PCA from a checkpoint written by "
-                        "--outstate")
+                   help="warm-start PCA, or resume SCCA, from a "
+                        "checkpoint written by --outstate")
     p.add_argument("--checkpoint-every", metavar="R", type=int, default=0,
                    help="PCA with --outstate: also rewrite the checkpoint "
                         "after every R-th restart during the solve (0 = "
@@ -208,9 +211,6 @@ def main(argv=None) -> int:
     if mode == "cca":
         print("Error: CCA is currently disabled", file=sys.stderr)
         return 1
-    if mode in NOT_PORTED:
-        return _die(f"--{mode} is not ported to the PyTorch package yet "
-                    f"(ROADMAP {NOT_PORTED[mode]})")
     if unknown:
         return _die("unrecognized arguments: " + " ".join(unknown))
     if mode == "project":
@@ -233,12 +233,14 @@ def main(argv=None) -> int:
             return _die("--checkpoint-every must be a positive restart "
                         "interval")
         if mode != "pca":
-            return _die("--checkpoint-every applies to PCA mode only")
+            return _die("--checkpoint-every applies to PCA mode only "
+                        "(SCCA persists per completed dimension with "
+                        "--outstate)")
         if not args.outstate:
             return _die("--checkpoint-every requires --outstate")
-    if (args.outstate or args.instate) and mode != "pca":
-        return _die("--outstate/--instate apply to PCA mode only (this "
-                    "mode has no restart state)")
+    if (args.outstate or args.instate) and mode not in ("pca", "scca"):
+        return _die("--outstate/--instate apply to PCA and SCCA modes "
+                    "only (this mode has no restart state)")
     stream = {"auto": "auto", "on": True, "off": False}[args.stream]
     if args.numthreads is not None and args.numthreads > 0:
         from .io.cbed import set_num_threads
@@ -276,14 +278,18 @@ def main(argv=None) -> int:
     else:
         return _die("you must specify either --bfile or --bed / --fam / "
                     "--bim")
-    if mode == "ucca" and not args.pheno:
+    if mode in ("scca", "ucca") and not args.pheno:
         return _die("you must specify a phenotype file in CCA/UCCA/SCCA "
                     "mode using --pheno")
 
     suffix = args.suffix
     out = {
         "pc": args.outpc or f"pcs{suffix}",
+        "pcx": args.outpcx or f"pcsX{suffix}",
+        "pcy": args.outpcy or f"pcsY{suffix}",
         "vec": args.outvec or f"eigenvectors{suffix}",
+        "vecx": args.outvecx or f"eigenvectorsX{suffix}",
+        "vecy": args.outvecy or f"eigenvectorsY{suffix}",
         "val": args.outval or f"eigenvalues{suffix}",
         "pve": args.outpve or f"pve{suffix}",
         "meansd": args.outmeansd or f"meansd{suffix}",
@@ -299,7 +305,7 @@ def main(argv=None) -> int:
             f"{ds.n_snps} SNPs", verbose=args.verbose)
 
         Y = None
-        if mode == "ucca":
+        if mode in ("scca", "ucca"):
             # the reference reads --pheno only for (S)CCA/UCCA and the
             # .fam phenotype otherwise (flashpca.cpp:585-588): a stale
             # --pheno on another mode's command line is ignored
@@ -364,6 +370,26 @@ def main(argv=None) -> int:
                 save_text(res.loadings, out["load"], colnames=vcol,
                           rownames=snp_rownames(), precision=prec)
             meansd_out = np.column_stack([res.center, res.scale])
+        elif mode == "scca":
+            print(timestamp() + "SCCA begin")
+            res = run_scca(
+                ds, Y, args.lambda1, args.lambda2, ndim=args.ndim,
+                stand_x=args.standx, stand_y=args.standy, divisor=args.div,
+                maxiter=args.maxiter, tol=args.tol, seed=args.seed,
+                block_size=block_size, dtype=args.dtype, device=args.device,
+                verbose=args.verbose, streaming=stream,
+                memory_mb=args.memory, state_out=args.outstate,
+                state_in=args.instate)
+            print(timestamp() + "SCCA done")
+            if not res.converged:
+                print(timestamp() + "SCCA did not converge")
+            if args.save_vinit:
+                save_text(res.V0, "scca_v0.txt", precision=prec)
+            save_text(res.d.reshape(-1, 1), out["val"], precision=prec)
+            save_text(res.U, out["vecx"], precision=prec)
+            save_text(res.V, out["vecy"], precision=prec)
+            save_text(res.Px, out["pcx"], precision=prec)
+            save_text(res.Py, out["pcy"], precision=prec)
         elif mode == "ucca":
             print(timestamp() + "UCCA begin")
             if args.batch:

@@ -2,3 +2,6 @@ from .pca import pca, flashpca, PCAResult
 from .check import check, CheckResult
 from .project import project, ProjectResult
 from .ucca import ucca, UccaResult
+from .scca import (scca, scca_grid, SCCAResult, SCCAGridResult,
+                   save_scca_state, load_scca_state, soft_thresh,
+                   norm_thresh)

@@ -1165,14 +1165,6 @@ def tall_streaming_operator_from_numpy(packed, mean, sd, n_samples: int, *,
 _SUMSQ_CHUNK_BYTES = 256 << 20
 
 
-def _dense_cross(x, X):
-    return X.T @ x
-
-
-def _dense_mv(v, X):
-    return X @ v
-
-
 class DenseOperator:
     """Operator over a standardized dense matrix X (N samples x p SNPs)
     held whole on one device: the analog of the reference's ``SVDWide``
@@ -1254,10 +1246,12 @@ class DenseOperator:
         self.nops += 1
         return (hi[:, 0], lo[:, 0]) if vec else (hi, lo)
 
-    def products_pure(self):
-        """(cross_fn, mv_fn, operands): ``cross_fn(x, X)`` = X^T x and
-        ``mv_fn(v, X)`` = X v, the same function objects every call."""
-        return _dense_cross, _dense_mv, (self.X,)
+    # -- products in (identity) permuted space, uncounted ---------------------
+    def _cross_p(self, xp):
+        return self.X.T @ xp
+
+    def _mv_p(self, v):
+        return self.X @ v
 
     # -- public products -----------------------------------------------------
     def perform_op(self, x):
@@ -1275,14 +1269,14 @@ class DenseOperator:
     def crossprod(self, x):
         """z = X^T x; x is (N,) or (N, k) -> (p,) or (p, k)."""
         x2, vec = self._as_2d(x, self.n_samples, "crossprod")
-        z = _dense_cross(x2, self.X)
+        z = self._cross_p(x2)
         self.nops += 1
         return z[:, 0] if vec else z
 
     def prod(self, v):
         """y = X v; v is (p,) or (p, k) -> (N,) or (N, k)."""
         v2, vec = self._as_2d(v, self.n_snps, "prod")
-        y = _dense_mv(v2, self.X)
+        y = self._mv_p(v2)
         self.nops += 1
         return y[:, 0] if vec else y
 

@@ -471,6 +471,57 @@ def test_project_and_ucca_on_card_match_cpu(cuda, tmp_path, stream):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stream", [{}, {"streaming": True,
+                                         "block_size": 64}],
+                         ids=["resident", "streamed"])
+def test_scca_and_grid_on_card_match_cpu(cuda, tmp_path, stream):
+    """scca() and a 2 x 2 scca_grid() on the card against the CPU
+    float64 path on the same fileset (the device engine resident, the
+    host engines streamed).  At float64 (the functional core, no launch)
+    d within rtol 1e-10, U and V within 1e-10, the grid's iterations
+    equal; at float32 (tol 1e-5) through B1 and B2, both launched, d
+    within rtol 1e-5 and U, V within 2e-4 of the float64 result (tol 1e-5
+    stops each fit within about 1e-5 of its fixed point)."""
+    from flashpca_tpu_torch import scca, scca_grid
+    from flashpca_tpu_torch.ops.genotypes import dense_standardized_np
+
+    ds = _card_fileset(tmp_path, 803, 450, 10)
+    rng = np.random.default_rng(11)
+    mean, sd = ds.snp_stats("binom2")
+    X = dense_standardized_np(ds.read_codes(), mean, sd).T
+    Y = rng.standard_normal((803, 4)) + 0.3 * X[:, [5, 50, 400, 7]]
+    kw = dict(ndim=2, maxiter=1000, V0=rng.normal(size=(4, 2)))
+    lam, l1, l2 = (2e-3, 1e-3), [1e-3, 2e-3], [1e-3, 5e-3]
+    want = scca(ds, Y, *lam, device="cpu", tol=1e-6, **kw)
+    want_g = scca_grid(ds, Y, l1, l2, device="cpu", tol=1e-6, **kw)
+    assert want.converged and want_g.converged.all()
+
+    tpk.reset_launch_counts()
+    f64 = dict(device=cuda, dtype=torch.float64, tol=1e-6, **stream, **kw)
+    got = scca(ds, Y, *lam, **f64)
+    got_g = scca_grid(ds, Y, l1, l2, **f64)
+    assert set(tpk.launch_counts.values()) == {0}
+    np.testing.assert_allclose(got.d, want.d, rtol=1e-10)
+    np.testing.assert_array_equal(got_g.n_iters, want_g.n_iters)
+    for a, b in ((got.U, want.U), (got.V, want.V), (got_g.U, want_g.U),
+                 (got_g.V, want_g.V), (got_g.d, want_g.d)):
+        np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-10)
+
+    tpk.reset_launch_counts()
+    f32 = dict(device=cuda, tol=1e-5, **stream, **kw)
+    got = scca(ds, Y, *lam, **f32)
+    got_g = scca_grid(ds, Y, l1, l2, **f32)
+    assert tpk.launch_counts["crossprod"] > 0
+    assert tpk.launch_counts["matvec"] > 0
+    assert got.converged and got_g.converged.all()
+    np.testing.assert_allclose(got.d, want.d, rtol=1e-5)
+    np.testing.assert_allclose(got_g.d, want_g.d, rtol=1e-5)
+    for a, b in ((got.U, want.U), (got.V, want.V), (got_g.U, want_g.U),
+                 (got_g.V, want_g.V)):
+        np.testing.assert_allclose(a, b, atol=2e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k", [3, 16, 24, 40])
 @pytest.mark.parametrize("n", [1001, 1024])
 def test_sweep_kernels_match_plain(cuda, k, n):

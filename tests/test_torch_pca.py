@@ -249,10 +249,9 @@ def test_cli_checkpoints_resume_across_packages(fileset, tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--scca"], "A14"),
     (["--shards", "2"], "A18"),
     (["--profile", "trace"], "A10"),
-], ids=["scca", "shards2", "profile"])
+], ids=["shards2", "profile"])
 def test_cli_unported_options_name_their_item(fileset, tmp_path, capsys,
                                               flags, item):
     assert _cli(["--bfile", fileset[0], "--device", "cpu"] + flags,
@@ -279,8 +278,8 @@ def test_entry_points_raise_without_gpu(fileset, tmp_path, monkeypatch):
 
 
 def test_unported_options_raise(fileset, tmp_path, capsys):
-    """mesh= and --scca still name their ROADMAP items; the options that
-    named A12 and A17 now run."""
+    """mesh= still names its ROADMAP item; the options that named A12,
+    A14 and A17 now run."""
     root, n, p = fileset
     with pytest.raises(NotImplementedError, match="A18"):
         ft.pca(root, K, device="cpu", mesh=object())
@@ -302,15 +301,13 @@ def test_unported_options_raise(fileset, tmp_path, capsys):
     np.testing.assert_allclose(dense.values, ran.values, rtol=1e-6)
     assert ft.check(X, dense.vectors, dense.values,
                     device="cpu").mse < 1e-8
-    assert _cli(["--bfile", root, "--scca", "--device", "cpu"],
-                tmp_path) == 1
-    assert "A14" in capsys.readouterr().err
     assert _cli(["--bfile", root, "--batch", "--ndim", str(K), "--device",
                  "cpu"], tmp_path) == 0
     assert "ROADMAP" not in capsys.readouterr().err
 
 
-# the JAX CLI's SCCA flags, each accepted and unused outside --scca
+# the JAX CLI's SCCA flags: each read by --scca, accepted and unused in
+# the other modes
 SCCA_FLAGS = {"outpcx": ["--outpcx", "px.txt"],
               "outpcy": ["--outpcy", "py.txt"],
               "outvecx": ["--outvecx", "vx.txt"],
@@ -332,20 +329,23 @@ def _both_clis(args, tmp_path):
             _run_in(tmain, args + ["--device", "cpu"], td), jd, td)
 
 
-@pytest.mark.parametrize("mode", ["pca", "ucca"])
+@pytest.mark.parametrize("mode", ["pca", "ucca", "scca"])
 @pytest.mark.parametrize("flag", sorted(SCCA_FLAGS))
 def test_cli_scca_flags_match_jax(small_plink, tmp_path, flag, mode):
     root, geno = small_plink
     args = ["--bfile", root, "--ndim", "3", "--tol", "1e-9", "--notime",
             "--shards", "1"] + SCCA_FLAGS[flag]
-    if mode == "ucca":
+    if mode != "pca":
+        # scca's ndim 3 needs 3 phenotypes (ndim <= min(p, n, k))
+        npheno = 2 if mode == "ucca" else 3
         fam = np.loadtxt(root + ".fam", dtype=str)
-        Y = np.random.default_rng(7).standard_normal((geno.shape[0], 2))
+        Y = np.random.default_rng(7).standard_normal((geno.shape[0],
+                                                       npheno))
         pheno = tmp_path / "pheno.txt"
         pheno.write_text("".join(
-            f"{f}\t{i}\t{y[0]:.10g}\t{y[1]:.10g}\n"
+            f"{f}\t{i}\t" + "\t".join(f"{v:.10g}" for v in y) + "\n"
             for f, i, y in zip(fam[:, 0], fam[:, 1], Y)))
-        args += ["--ucca", "--pheno", str(pheno)]
+        args += [f"--{mode}", "--pheno", str(pheno)]
     rj, rt, jd, td = _both_clis(args, tmp_path)
     assert rj == rt == 0
     outs = sorted(os.listdir(jd))
