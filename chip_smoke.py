@@ -79,7 +79,16 @@ Phases, all in this one process; any failure raises and exits nonzero:
    (``memory_mb=1``, the host engine), float32 and streamed held to
    float64 (d within 1e-5 relative, U and V 2e-4); the CLI's ``--scca``
    held to its ``--dtype float64`` run, and its ``--outstate`` cut after
-   dimension 1 and resumed with ``--instate`` byte for byte;
+   dimension 1 and resumed with ``--instate`` byte for byte; then SCCA
+   penalty selection on the fileset (``mid_cv_split``): ``cv_scca``
+   (5 folds, ``init=True``) and ``split_scca`` on a 3 x 3 grid at
+   float32 (B1 and B2 must launch), each held to the same call at
+   float64 (no launch) and to its sequential fallback
+   (``engine="host"``), ``cv_scca`` streamed (``memory_mb=1``) to the
+   resident run and on the numeric matrix at float32 to float64 (no
+   launch): correlations within CV_CORR_BAR, flags equal, the best cell
+   the same but for a tie within CV_TIE_BAR, non-zeros within
+   CV_NZ_SHARE;
 5. the wide headline: structured genotypes 501,760 x 100,352 generated
    on the card (12.6 GB packed, never decoded whole), ``pca(op, 20)``
    with ``polish="contract"`` at float32, then ``check(op, U, d)``; the
@@ -133,6 +142,20 @@ Phases, all in this one process; any failure raises and exits nonzero:
    grid staging no more block passes than one solo run); then B1-B4,
    B2 at kc 24, B1 at kc 8 and B1/B2 on one column timed on one block
    held resident; then
+   penalty selection at all 501,760 samples (``headline_cv_split``):
+   the first D SNPs of the same bytes written as a PLINK fileset, D the
+   largest multiple of 4,096 whose time, estimated from one timed
+   repack of 4,096 SNPs, fits CV_BUDGET_S, the free disk checked;
+   ``split_scca`` (train 0.8) and ``cv_scca`` (3 folds, ``init=True``)
+   on the 4 x 4 grid (lambda1 / sqrt(D)), counts reset just before and
+   read just after each: the grid path (the split's B1 and B2 launches
+   exactly its grid's steps, d passes and projections), the best split
+   cell held to a solo ``scca()`` on its train fileset, its dim-1 test
+   correlation to a float64 recomputation within 1e-5 and at least 0.8,
+   three repacked rows to the source's codes, no scratch left; the
+   repack's seconds and GB/s, and init, grid and projection seconds,
+   per fold; B1 and B2 timed at kc 16 on the split's and the first
+   fold's train operators; then
    the dense
    headline (``dense_headline``): 50,176 x 100,352 genotypes generated
    packed on the card, decoded there into one float32 X (20.1 GB) and
@@ -169,7 +192,7 @@ Phases, all in this one process; any failure raises and exits nonzero:
    of X^T X / p formed on the card (p x p float64, 20 GB, ~100 s), save
    that in the Marchenko-Pastur bulk the bar below is 3.6e-5 (and
    between the paths 3.6e-5 both ways); one float64 gram pass timed
-   and, where 250 passes of it would exceed 180 s, the SNP depth cut
+   and, where 250 passes of it would exceed 60 s, the SNP depth cut
    (never the samples) to fit, then ``pca(TallPackedOperator(...,
    dtype=float64), 20)`` on that depth through the functional core (no
    kernel may launch), its eigenvalues within 2e-6 of the largest of
@@ -207,7 +230,8 @@ column with ``"path": "project"``, ``"ucca"`` and ``"scca"`` at the
 headline's shape, B1/B2 at kc 16 with ``"scca_grid"`` (the solver
 panel's rows with the grid's launches), and ``"project_streaming"``,
 ``"ucca_streaming"``, ``"scca_streaming"`` and ``"scca_grid_streaming"``
-at the streamed block's), with a ``streaming`` entry (the streamed
+at the streamed block's, B1/B2 at kc 16 with ``"split_scca"`` and
+``"cv_scca"`` on their train bytes), with a ``streaming`` entry (the streamed
 path's launches and per-launch medians, and under ``tall`` the streamed
 tall path's); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -374,8 +398,11 @@ UCCA_K, UCCA_BETA, UCCA_SLICE = 7, 0.02, 512
 # passes it takes, which grow with the SNP depth (118, 168 and 226 at
 # 2,048, 4,096 and 6,144 SNPs of the 1,003,520 samples on the H100:
 # tools/tall_f64_depths.py and this script, PERF.md), taken as 250; and
-# the restarts it may take before it fails
-F64_SOLVE_S, F64_PASSES, F64_MAXITER = 180.0, 250, 400
+# the restarts it may take before it fails.  120 s cuts the depth to
+# 4,096 SNPs on the H100 (~80 s; 180 s gives 6,144 in ~162 s, which
+# left the whole script ~60 s inside 1,200 s on the slowest host seen:
+# PERF.md section 5)
+F64_SOLVE_S, F64_PASSES, F64_MAXITER = 120.0, 250, 400
 # kernel-check shapes (label, SNPs, samples, seed): a full-width slice of
 # the headline and a small odd case (n % 4 != 0); the tall kernels also
 # run at the tall headline's width
@@ -415,6 +442,37 @@ SCCA_TWIN_ITERS, SCCA_STREAM_GRID_ITERS, SCCA_STREAM_BAR = 5, 3, 1e-4
 # its fixed point: the U/V bar leaves 20x over that)
 SCCA_MID_TOL, SCCA_F32_D_BAR, SCCA_F32_UV_BAR, SCCA_F32_PC_BAR = (
     1e-5, 1e-5, 2e-4, 1e-3)
+# penalty selection (cv_scca, split_scca) against float64, and each path
+# against its twin (the sequential fallback, streamed, the matrix
+# input).  A test correlation is a Pearson correlation of two
+# projections whose inputs U and V sit within SCCA_F32_UV_BAR of
+# float64's: over ~1,600-8,000 test rows that moves it by ~1e-5, and
+# CV_CORR_BAR leaves 10x over it, where both runs converged.  The best
+# cell is the same unless its correlation is within CV_TIE_BAR of the
+# runner-up's (a tie within the bar may fall either way).  Non-zero
+# counts are within CV_NZ_SHARE of float64's: an entry within rounding
+# of its threshold may land on either side in float32, and 2% of a
+# cell's non-zeros leaves room for that and not for a different fit
+CV_CORR_BAR, CV_TIE_BAR, CV_NZ_SHARE = 1e-4, 1e-4, 0.02
+# the mid-size search: a 3 x 3 grid (lambda1 in units of 1 / sqrt(p))
+CV_MID_L1, CV_MID_L2 = (1.5, 2.5, 3.5), (0.01, 0.02, 0.05)
+# the headline search on its first D SNPs: the phase's time budget (the
+# estimate from one timed repack of CV_PROBE_SNPS SNPs sets D: 8,192 on
+# an H100's host, where with the float64 tall run at F64_SOLVE_S the
+# script must end within 1,200 s on the slowest host: PERF.md section
+# 5), the CV's
+# folds and the split's share of training samples; the best split
+# cell's dim-1 test correlation recomputed in float64 within
+# CV_F64_CORR_BAR, and at least CV_MIN_CORR (the planted directions at
+# 3 / std give ~0.95)
+CV_BUDGET_S, CV_PROBE_SNPS, CV_FOLDS, CV_PROP_TRAIN = 70.0, 4096, 3, 0.8
+CV_F64_CORR_BAR, CV_MIN_CORR = 1e-5, 0.8
+# the card's share of the headline phase in the estimate: its grids,
+# init runs and projections, ~27 s at the full 100,352 SNPs by the
+# headline SCCA's grid (5.02 s) and solo run (1.87 s) on an H100 (PERF.md
+# section 6), so 3e-4 s a SNP, beside CV_FIXED_S for the rest
+# (phenotypes, the solo and float64 holds, the kernel rows)
+CV_CARD_S_PER_SNP, CV_FIXED_S = 3e-4, 40.0
 # the tall headline: the JAX package's tall bench shape (bench.py)
 TALL_N, TALL_P = 1_003_520, 50_176
 # the dense headline: the headline's SNP width with a tenth of its
@@ -1099,6 +1157,7 @@ def mid_size(dev, workdir, n=8001, p=4096, k=10, seed=5):
     f64 = mid_float64(dev, root, ds, k, d_ref, U_ref)
     cli = mid_cli(dev, workdir, root, ds, k, seed)
     scca = mid_scca(dev, workdir, root, ds, seed)
+    cv_split = mid_cv_split(dev, root, ds, seed)
     dense = mid_dense(dev, workdir, root, ds, k, d_ref, U_ref)
     return {"n_ops": res.n_ops, "check_mse": chk.mse, "pca_s": t_pca,
             "eig_rel_err": float(rel.max()),
@@ -1108,7 +1167,8 @@ def mid_size(dev, workdir, n=8001, p=4096, k=10, seed=5):
                          "gate_mse": res_s.gate_mse, "check_mse": chk_s.mse,
                          "eig_rel_err_vs_resident": float(rel_s.max()),
                          "launches": {nm: launches[nm] for nm in WIDE_PATH}},
-            "float64": f64, "cli": cli, "dense": dense, "scca": scca}
+            "float64": f64, "cli": cli, "dense": dense, "scca": scca,
+            "cv_split": cv_split}
 
 
 def vector_rmse(U, U_ref):
@@ -1443,6 +1503,22 @@ def mid_cli(dev, workdir, root, ds, k, seed, n_pheno=3):
                          "ucca": ucca_launches["crossprod"]}}
 
 
+def mid_phenotypes(ds, seed, n_pheno=5):
+    """``n_pheno`` standard normal phenotypes of the mid-size fileset
+    from ``default_rng(seed + 2)``, the first two each carrying the
+    summed standardized genotypes of 20 SNPs at 0.05."""
+    from flashpca_tpu_torch.ops.genotypes import dense_standardized_np
+
+    n, p = ds.n_samples, ds.n_snps
+    rng = np.random.default_rng(seed + 2)
+    mean, sd = ds.snp_stats("binom2")
+    X = dense_standardized_np(ds.read_codes(), mean, sd).T
+    support = rng.choice(p, size=(2, 20), replace=False)
+    Y = rng.standard_normal((n, n_pheno))
+    Y[:, :2] += 0.05 * np.stack([X[:, s].sum(axis=1) for s in support], 1)
+    return Y
+
+
 def mid_scca(dev, workdir, root, ds, seed, n_pheno=5, ndim=2):
     """SCCA on the mid-size fileset: ``n_pheno`` phenotypes, two of them
     carrying 20 SNPs' effects each, penalties SCCA_L1 / sqrt(p) and
@@ -1462,16 +1538,9 @@ def mid_scca(dev, workdir, root, ds, seed, n_pheno=5, ndim=2):
     from flashpca_tpu_torch.io.text import read_text
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
     from flashpca_tpu_torch.models.scca import make_gaussian
-    from flashpca_tpu_torch.ops.genotypes import dense_standardized_np
 
     n, p = ds.n_samples, ds.n_snps
-    rng = np.random.default_rng(seed + 2)
-    mean, sd = ds.snp_stats("binom2")
-    X = dense_standardized_np(ds.read_codes(), mean, sd).T
-    support = rng.choice(p, size=(2, 20), replace=False)
-    Y = rng.standard_normal((n, n_pheno))
-    Y[:, :2] += 0.05 * np.stack([X[:, s].sum(axis=1) for s in support], 1)
-    del X
+    Y = mid_phenotypes(ds, seed, n_pheno)
     lam = (SCCA_L1 / np.sqrt(p), SCCA_L2)
     kw = dict(ndim=ndim, maxiter=500, tol=SCCA_MID_TOL, device=dev,
               V0=make_gaussian(n_pheno, ndim, seed))
@@ -1576,6 +1645,190 @@ def mid_scca(dev, workdir, root, ds, seed, n_pheno=5, ndim=2):
         raise AssertionError("CLI --scca --instate: not the uninterrupted "
                              "run's files")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Penalty selection: cv_scca and split_scca
+# ---------------------------------------------------------------------------
+
+class CallClock:
+    """Wraps the functions ``(module, name, label)`` of ``targets`` for
+    the duration of a ``with`` block: each call is timed between two
+    synchronizations and logged with its result as (label, seconds,
+    result), in call order; the positional arguments of the first call
+    of each label in ``keep`` are kept in ``first_args``."""
+
+    def __init__(self, targets, keep=()):
+        self.targets = targets
+        self.keep = keep
+        self.calls = []
+        self.first_args = {}
+
+    def __enter__(self):
+        self.saved = []
+        for mod, name, label in self.targets:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def timed(*a, _fn=fn, _label=label, **k):
+                if _label in self.keep:
+                    self.first_args.setdefault(_label, a)
+                sync()
+                t0 = time.time()
+                out = _fn(*a, **k)
+                sync()
+                self.calls.append((_label, time.time() - t0, out))
+                return out
+
+            setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def results(self, label):
+        return [out for lab, _, out in self.calls if lab == label]
+
+    def seconds(self, label):
+        return [t for lab, t, _ in self.calls if lab == label]
+
+
+def search_fields(res):
+    """The correlation arrays of a penalty search: a SplitSCCAResult's
+    test and train, or a CVSCCAResult's pooled ones."""
+    if hasattr(res, "corr_test"):
+        return {"corr_test": res.corr_test, "corr_train": res.corr_train}
+    return {"corr": res.corr}
+
+
+def hold_search(tag, got, ref):
+    """Hold the penalty search ``got`` (a CVSCCAResult or
+    SplitSCCAResult) to ``ref`` on the same grid: the converged flags
+    equal, the correlations within CV_CORR_BAR where both are finite
+    (and finite in the same cells), the best cell the same unless the
+    reference's correlation there is within CV_TIE_BAR of its best, and
+    in every cell that converged throughout the non-zero counts within
+    CV_NZ_SHARE of the reference's.  Returns the worst of each."""
+    if not np.array_equal(got.converged, ref.converged):
+        raise AssertionError(f"{tag}: converged {got.converged.tolist()} "
+                             f"vs {ref.converged.tolist()}")
+    corr = 0.0
+    for key, a in search_fields(got).items():
+        b = getattr(ref, key)
+        if not np.array_equal(np.isfinite(a), np.isfinite(b)):
+            raise AssertionError(f"{tag}: {key} finite in other cells")
+        both = np.isfinite(a)
+        if both.any():
+            corr = max(corr, float(np.abs(a[both] - b[both]).max()))
+    sl = search_fields(ref)["corr_test" if hasattr(ref, "corr_test")
+                            else "corr"][ref.opt_dim - 1]
+    i = int(np.flatnonzero(ref.lambda1 == got.best_lambda1)[0])
+    j = int(np.flatnonzero(ref.lambda2 == got.best_lambda2)[0])
+    tie = float(ref.best_corr - sl[i, j])
+    conv = (got.converged if got.converged.ndim == 2
+            else got.converged.all(axis=0))
+    share = 0.0
+    for a, b in ((got.nzero_x, ref.nzero_x), (got.nzero_y, ref.nzero_y)):
+        a, b = a[:, conv], b[:, conv]
+        off = np.abs(a - b)
+        if (off > CV_NZ_SHARE * b).any():
+            raise AssertionError(f"{tag}: non-zeros {a.tolist()} vs "
+                                 f"{b.tolist()}")
+        if off.size:
+            share = max(share, float((off / np.maximum(b, 1)).max()))
+    out = {"corr_abs": corr, "best_tie": tie, "nz_share": share,
+           "best": [got.best_lambda1, got.best_lambda2, got.best_corr]}
+    say(f"   {tag}: correlations max abs {corr:.2e} (bar {CV_CORR_BAR}); "
+        f"best (lambda1 {got.best_lambda1:.4g}, lambda2 "
+        f"{got.best_lambda2:g}) corr {got.best_corr:.6f}, the reference's "
+        f"best {ref.best_corr:.6f} there {sl[i, j]:.6f}; non-zeros off by "
+        f"{share:.2%} at most")
+    if corr > CV_CORR_BAR or tie > CV_TIE_BAR:
+        raise AssertionError(f"{tag}: {out}")
+    return out
+
+
+def mid_cv_split(dev, root, ds, seed, ndim=2):
+    """Penalty selection on the mid-size fileset, its phenotypes
+    :func:`mid_phenotypes` and the CV_MID_L1 x CV_MID_L2 grid (lambda1
+    in units of 1 / sqrt(p)): ``cv_scca(root, ...)`` with 5 folds and
+    ``init=True`` and ``split_scca(root, ...)`` at CV_PROP_TRAIN, each on
+    ``dev`` at its default dtype (float32 on the card: B1 and B2 must
+    launch), held (:func:`hold_search`) to the same call at float64 on
+    ``dev`` (the functional core: no launch) and to the sequential
+    fallback (``engine="host"``); ``cv_scca`` streamed (``streaming=True,
+    memory_mb=1``) held to the resident run, and on the fileset's
+    numeric matrix (a DenseOperator a fold, no launch) at float32 held
+    to its float64 default."""
+    import torch
+
+    from flashpca_tpu_torch import cv_scca, split_scca
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    p = ds.n_snps
+    Y = mid_phenotypes(ds, seed)
+    l1 = np.array(CV_MID_L1) / np.sqrt(p)
+    l2 = np.array(CV_MID_L2)
+    kw = dict(ndim=ndim, maxiter=500, tol=SCCA_MID_TOL, device=dev)
+    runs = {}
+
+    def run(tag, fn, X, **extra):
+        tpk.reset_launch_counts()
+        with Phase(f"mid-size {tag}") as ph:
+            res = fn(X, Y, l1, l2, **kw, **extra)
+        runs[tag] = {"s": ph.seconds, "launches": dict(tpk.launch_counts)}
+        return res
+
+    f64 = torch.float64
+    cv = dict(nfolds=5, init=True)
+    sp = dict(prop_train=CV_PROP_TRAIN)
+    c32 = run("cv_scca", cv_scca, root, **cv)
+    c64 = run("cv_scca float64", cv_scca, root, dtype=f64, **cv)
+    ch = run("cv_scca engine=host", cv_scca, root, engine="host", **cv)
+    cs = run("cv_scca streamed memory_mb=1", cv_scca, root, streaming=True,
+             memory_mb=1, **cv)
+    X = ds.read_matrix()
+    cm32 = run("cv_scca numeric matrix float32", cv_scca, X,
+               dtype=torch.float32, **cv)
+    cm64 = run("cv_scca numeric matrix", cv_scca, X, **cv)
+    del X
+    s32 = run("split_scca", split_scca, root, **sp)
+    s64 = run("split_scca float64", split_scca, root, dtype=f64, **sp)
+    sh = run("split_scca engine=host", split_scca, root, engine="host",
+             **sp)
+    for tag in ("cv_scca", "split_scca", "cv_scca engine=host",
+                "split_scca engine=host", "cv_scca streamed memory_mb=1"):
+        if dev.type == "cuda":
+            require_launched(runs[tag]["launches"], SCCA_PATH,
+                             f"mid-size {tag}")
+        require_no_first_design(runs[tag]["launches"], f"mid-size {tag}")
+    for tag in ("cv_scca float64", "split_scca float64",
+                "cv_scca numeric matrix float32", "cv_scca numeric matrix"):
+        if sum(runs[tag]["launches"].values()):
+            raise AssertionError(f"mid-size {tag}: kernel launches "
+                                 f"{runs[tag]['launches']}")
+    for res in (c64, ch, cs, cm32, cm64):
+        if not np.array_equal(res.folds, c32.folds):
+            raise AssertionError("mid-size cv_scca: the folds differ")
+    holds = {
+        "cv_vs_float64": hold_search("cv_scca vs float64", c32, c64),
+        "cv_vs_host": hold_search("cv_scca vs engine=host", c32, ch),
+        "cv_streamed_vs_resident": hold_search(
+            "cv_scca streamed vs resident", cs, c32),
+        "cv_matrix_vs_float64": hold_search(
+            "cv_scca numeric matrix float32 vs float64", cm32, cm64),
+        "split_vs_float64": hold_search("split_scca vs float64", s32, s64),
+        "split_vs_host": hold_search("split_scca vs engine=host", s32, sh),
+    }
+    say(f"   folds {np.bincount(c32.folds).tolist()}; split train "
+        f"{len(s32.train_idx)}, test {len(s32.test_idx)}; B1/B2 launches "
+        + ", ".join(f"{tag} {r['launches']['crossprod']}/"
+                    f"{r['launches']['matvec']}" for tag, r in runs.items()))
+    return {"runs": runs, "holds": holds,
+            "cv_best": [c32.best_lambda1, c32.best_lambda2, c32.best_corr],
+            "split_best": [s32.best_lambda1, s32.best_lambda2,
+                           s32.best_corr]}
 
 
 # ---------------------------------------------------------------------------
@@ -2385,6 +2638,286 @@ def scca_headline(op, seed=SCCA_SEED):
         twin = scca(op, Y, lam1, SCCA_L2, ndim=1, maxiter=SCCA_TWIN_ITERS,
                     tol=0.0, seed=SCCA_V0_SEED)
     return {"Y": Y, "lam1": lam1, "twin": twin}, out
+
+
+def cv_phase_snps(per_snp_s, p):
+    """D for :func:`headline_cv_split`: the largest multiple of
+    CV_PROBE_SNPS, at least one and at most ``p``, whose estimated phase
+    time ``D * per_snp_s + CV_FIXED_S`` fits CV_BUDGET_S."""
+    fit = int((CV_BUDGET_S - CV_FIXED_S) / per_snp_s) // CV_PROBE_SNPS
+    return int(min(max(fit, 1) * CV_PROBE_SNPS,
+                   p // CV_PROBE_SNPS * CV_PROBE_SNPS))
+
+
+def repack_probe(workdir, host, n, train):
+    """Seconds a SNP of the headline phase's host work: one
+    CV_PROBE_SNPS-SNP slice of ``host`` written as a .bed, repacked into
+    the ``train`` samples and the rest in one read, and the train file's
+    stats; the phase writes once, and repacks and takes the stats
+    1 + CV_FOLDS times (the split and the folds).  Returns (seconds a
+    SNP, the probe's timings)."""
+    from flashpca_tpu_torch import PlinkDataset
+    from flashpca_tpu_torch.io.plink import subset_samples_many
+
+    root = os.path.join(workdir, "probe")
+    t0 = time.time()
+    write_packed_fileset(root, host[:CV_PROBE_SNPS], n)
+    t_write = time.time() - t0
+    ds = PlinkDataset.open(root)
+    t0 = time.time()
+    subset_samples_many(ds, [(np.flatnonzero(train), root + "_tr"),
+                             (np.flatnonzero(~train), root + "_te")])
+    t_repack = time.time() - t0
+    t0 = time.time()
+    PlinkDataset.open(root + "_tr").snp_stats("binom2")
+    t_stats = time.time() - t0
+    for r in (root, root + "_tr", root + "_te"):
+        for ext in (".bed", ".bim", ".fam"):
+            os.remove(r + ext)
+    probe = {"snps": CV_PROBE_SNPS, "write_s": t_write,
+             "repack_s": t_repack, "stats_s": t_stats}
+    host_s = t_write + (1 + CV_FOLDS) * (t_repack + t_stats)
+    return host_s / CV_PROBE_SNPS + CV_CARD_S_PER_SNP, probe
+
+
+def headline_cv_split(dev, host, center, scale, n, seed=SCCA_SEED):
+    """Penalty selection at the full sample width on the headline's own
+    bytes: the first D SNP rows of ``host`` (:func:`cv_phase_snps` from
+    :func:`repack_probe`) written as a PLINK fileset (the free disk
+    checked first: three times the source's bytes), the headline
+    SCCA's phenotypes (:func:`scca_phenotypes` on a resident operator of
+    the cut), then ``split_scca`` (CV_PROP_TRAIN, SCCA_NDIM dimensions,
+    the SCCA_GRID_L1 / sqrt(D) x SCCA_GRID_L2 grid; its workdir kept)
+    and ``cv_scca`` (CV_FOLDS folds, ``init=True``, the default workdir)
+    on the card, counts set to 0 just before and read just after each.
+    Held: each took the grid path (one scca_grid a split or fold, no
+    sequential scca() cell; the split's B1 and B2 launches exactly its
+    grid's steps, d passes and two projections), the best split cell
+    against a solo scca() of it on the train fileset (SCCA_GRID_D_BAR,
+    SCCA_GRID_UV_BAR), its dim-1 test correlation recomputed with a
+    float64 PackedOperator on the test bytes (CV_F64_CORR_BAR) and at
+    least CV_MIN_CORR, three SNP rows of the train fileset equal to the
+    source's codes at ``train_idx``, and cv_scca's temporary directory
+    gone.  Per fold the repack seconds and the
+    source's packed GB/s, and the seconds of init, grid and projection
+    are printed.  Returns (the kernels rows of B1 and B2 at kc 16 on the
+    split's and the first fold's train operators, with each path's
+    launches of the kernel at every width on its train and test
+    operators and their split by kc, and a summary)."""
+    import shutil
+
+    import torch
+
+    import flashpca_tpu_torch.io.plink as tplink
+    from flashpca_tpu_torch import (PackedOperator, PlinkDataset, cv_scca,
+                                    scca, split_scca)
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+    from flashpca_tpu_torch.models import scca_split as split_mod
+    from flashpca_tpu_torch.ops.standardize import standardize
+    from flashpca_tpu_torch.utils.device import host64
+
+    cv_mod = sys.modules["flashpca_tpu_torch.models.scca"]
+    p, nb = host.shape
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        split_mask = np.random.default_rng(1).uniform(size=n) < CV_PROP_TRAIN
+        with Phase(f"repack probe: {CV_PROBE_SNPS} SNPs x {n} samples"):
+            per_snp, probe = repack_probe(workdir, host, n, split_mask)
+        D = cv_phase_snps(per_snp, p)
+        # the source, the split's kept train and test, a fold's both
+        need = 3 * D * nb
+        free = shutil.disk_usage(workdir).free
+        say(f"   probe {probe}; {per_snp * 1e3:.3f} ms a SNP: D = {D} of "
+            f"{p} SNPs (estimate {D * per_snp + CV_FIXED_S:.0f} s of the "
+            f"{CV_BUDGET_S:.0f} s budget), all {n} samples; disk "
+            f"{free / 1e9:.1f} GB free, {need / 1e9:.1f} GB needed")
+        if free < need:
+            raise AssertionError(f"headline cv/split: {free} bytes free "
+                                 f"under {workdir}, {need} needed")
+        out.update(snps=D, samples=n, probe=probe, per_snp_ms=per_snp * 1e3)
+        root = os.path.join(workdir, "cut")
+        with Phase(f"the first {D} SNPs to {root}.bed") as ph:
+            write_packed_fileset(root, host[:D], n)
+        out["write_s"] = ph.seconds
+        with Phase("SCCA phenotypes on the cut"):
+            op = PackedOperator(host[:D], center[:D], scale[:D], n,
+                                device=dev)
+            Y, _ = scca_phenotypes(op, np.random.default_rng(seed))
+            del op
+            torch.cuda.empty_cache()
+        l1 = np.array(SCCA_GRID_L1) / np.sqrt(D)
+        l2 = np.array(SCCA_GRID_L2)
+        kw = dict(ndim=SCCA_NDIM, maxiter=SCCA_MAXITER, tol=SCCA_TOL,
+                  device=dev)
+
+        # split_scca, its workdir kept for the holds
+        sdir = os.path.join(workdir, "split")
+        targets = [(split_mod, nm, nm) for nm in (
+            "subset_samples_many", "scca_grid", "scca", "_project_cells")]
+        tpk.reset_launch_counts()
+        with CallClock(targets, keep=("scca_grid",)) as clk, \
+                tpk.time_launches() as log:
+            with Phase(f"split_scca: {len(l1)} x {len(l2)} grid, "
+                       f"prop_train {CV_PROP_TRAIN}") as ph:
+                sres = split_scca(root, Y, l1, l2, prop_train=CV_PROP_TRAIN,
+                                  workdir=sdir, **kw)
+        slaunch = dict(tpk.launch_counts)
+        skcs = launches_by_kc(log)
+        g = clk.results("scca_grid")
+        if len(g) != 1 or clk.results("scca"):
+            raise AssertionError("headline split_scca: not the grid path "
+                                 f"({[c[0] for c in clk.calls]})")
+        g = g[0]
+        C = len(g.lambda1)
+        steps = int(g.n_iters.max(axis=1).sum())
+        dims = int((g.n_iters.max(axis=1) > 0).sum())
+        proj = 2 * len(tpk._widths(SCCA_NDIM * C))
+        want = {"crossprod": steps, "matvec": steps + dims + proj}
+        t_sub = clk.seconds("subset_samples_many")
+        sp = {"s": ph.seconds, "launches": slaunch, "kcs": skcs,
+              "repack_s": t_sub,
+              "repack_gb_s": [D * nb / t / 1e9 for t in t_sub],
+              "grid_s": clk.seconds("scca_grid")[0],
+              "projection_s": clk.seconds("_project_cells"),
+              "steps": steps, "train": len(sres.train_idx),
+              "test": len(sres.test_idx),
+              "best": [sres.best_lambda1, sres.best_lambda2,
+                       sres.best_corr]}
+        say(f"   split: train {sp['train']}, test {sp['test']}; repack "
+            f"{t_sub[0]:.2f} s ({sp['repack_gb_s'][0]:.2f} GB/s of source)"
+            f"; grid {sp['grid_s']:.2f} s ({steps} steps), projections "
+            + ", ".join(f"{t:.3f}" for t in sp["projection_s"])
+            + f" s; B1/B2 launches {slaunch['crossprod']}/"
+            f"{slaunch['matvec']} (the grid's {want['crossprod']}/"
+            f"{want['matvec']}) at {skcs}; best lambda1 "
+            f"{sres.best_lambda1:.4g}, lambda2 {sres.best_lambda2:g}, test "
+            f"corr {sres.best_corr:.6f}")
+        require_launched(slaunch, SCCA_PATH, "headline split_scca")
+        require_no_first_design(slaunch, "headline split_scca")
+        if (dev.type == "cuda"
+                and {nm: slaunch[nm] for nm in SCCA_PATH} != want):
+            raise AssertionError(f"headline split_scca: launches {slaunch}, "
+                                 f"the grid's {want}")
+
+        # the best cell: solo scca() on the train fileset, and its test
+        # correlation in float64
+        i = int(np.flatnonzero(l1 == sres.best_lambda1)[0])
+        j = int(np.flatnonzero(l2 == sres.best_lambda2)[0])
+        c = i * len(l2) + j
+        base = os.path.join(sdir, "cut")
+        ds_tr = PlinkDataset.open(base + "_train")
+        ds_te = PlinkDataset.open(base + "_test")
+        tr, te = sres.train_idx, sres.test_idx
+        with Phase("solo scca() of the best cell on the train fileset"):
+            solo = scca(ds_tr, Y[tr], float(l1[i]), float(l2[j]), seed=1,
+                        **kw)
+        d_rel = np.abs(g.d[:, c] - solo.d) / np.abs(solo.d)
+        uv = max(float(np.abs(g.U[:, :, c] - solo.U).max()),
+                 float(np.abs(g.V[:, :, c] - solo.V).max()))
+        op_tr = clk.first_args["scca_grid"][0]
+        xm, xs = op_tr.center, op_tr.scale
+        with Phase("the best cell's test correlation in float64"):
+            op64 = PackedOperator(ds_te.read_packed(), xm, xs,
+                                  ds_te.n_samples, device=dev,
+                                  dtype=torch.float64, block_size=512)
+            xu = host64(op64.prod(g.U[:, 0, c]))
+            del op64
+        _, y_mean, y_sd = standardize(Y[tr].copy(), "sd")
+        yv = ((Y[te] - y_mean) / y_sd) @ g.V[:, 0, c]
+        r64 = float(np.corrcoef(xu, yv)[0, 1])
+        rows_ok = all(np.array_equal(
+            ds_tr.read_codes(r, r + 1)[0],
+            tplink.unpack_codes(host[r:r + 1], n)[0, tr])
+            for r in (0, D // 2, D - 1))
+        sp.update(cell=c, solo_d_rel=d_rel.tolist(), solo_uv_abs=uv,
+                  solo_converged=bool(solo.converged), corr_float64=r64,
+                  rows_equal=rows_ok)
+        say(f"   best cell {c} vs solo scca(): d rel " + " ".join(
+            f"{x:.2e}" for x in d_rel) + f", U/V {uv:.2e}; test corr "
+            f"{sres.best_corr:.8f}, float64 {r64:.8f}; train rows 0, "
+            f"{D // 2}, {D - 1} equal to the source's: {rows_ok}")
+        if not (solo.converged and g.converged[c]
+                and d_rel.max() <= SCCA_GRID_D_BAR
+                and uv <= SCCA_GRID_UV_BAR):
+            raise AssertionError(f"headline split_scca: cell {c} off its "
+                                 f"solo run ({sp})")
+        if not (abs(r64 - sres.best_corr) <= CV_F64_CORR_BAR
+                and sres.best_corr >= CV_MIN_CORR and rows_ok):
+            raise AssertionError(f"headline split_scca: {sp}")
+        out["split"] = sp
+
+        # cv_scca in the default workdir
+        cv_targets = [(tplink, "subset_samples_many", "subset_samples_many"),
+                      (tempfile, "mkdtemp", "mkdtemp")] + [
+            (cv_mod, nm, nm) for nm in ("scca", "scca_grid",
+                                        "_project_cells")]
+        tpk.reset_launch_counts()
+        with CallClock(cv_targets, keep=("scca_grid",)) as clk, \
+                tpk.time_launches() as log:
+            with Phase(f"cv_scca: {CV_FOLDS} folds, init=True") as ph:
+                cres = cv_scca(root, Y, l1, l2, nfolds=CV_FOLDS, init=True,
+                               **kw)
+        claunch = dict(tpk.launch_counts)
+        ckcs = launches_by_kc(log)
+        t_sub = clk.seconds("subset_samples_many")
+        cv = {"s": ph.seconds, "launches": claunch, "kcs": ckcs,
+              "folds": np.bincount(cres.folds).tolist(),
+              "repack_s": t_sub, "init_s": clk.seconds("scca"),
+              "grid_s": clk.seconds("scca_grid"),
+              "projection_s": clk.seconds("_project_cells"),
+              "best": [cres.best_lambda1, cres.best_lambda2,
+                       cres.best_corr]}
+        cv["repack_gb_s"] = [D * nb / t / 1e9 for t in t_sub]
+        for f, t in enumerate(t_sub):
+            say(f"   fold {f + 1}: {cv['folds'][f]} test samples; repack "
+                f"{t:.2f} s ({D * nb / t / 1e9:.2f} GB/s of source), "
+                f"init {cv['init_s'][f]:.2f} s, grid {cv['grid_s'][f]:.2f}"
+                f" s, projection {cv['projection_s'][f]:.3f} s")
+        say(f"   cv: {ph.seconds:.2f} s; B1/B2 launches "
+            f"{claunch['crossprod']}/{claunch['matvec']} at {ckcs}; best "
+            f"lambda1 {cres.best_lambda1:.4g}, lambda2 "
+            f"{cres.best_lambda2:g}, pooled corr {cres.best_corr:.6f}")
+        require_launched(claunch, SCCA_PATH, "headline cv_scca")
+        require_no_first_design(claunch, "headline cv_scca")
+        if (len(cv["grid_s"]) != CV_FOLDS or len(cv["init_s"]) != CV_FOLDS
+                or (dev.type == "cuda"
+                    and "16" not in ckcs.get("crossprod", {}))):
+            raise AssertionError(f"headline cv_scca: not the grid path "
+                                 f"({[c[0] for c in clk.calls]}, {ckcs})")
+        made = clk.results("mkdtemp")
+        if len(made) != 1 or os.path.exists(made[0]):
+            raise AssertionError(f"headline cv_scca: scratch {made} left")
+        out["cv"] = cv
+
+        # B1 and B2 at kc 16 on the split's and on fold 0's train
+        # operators (the ones their grids ran on)
+        rows = []
+        with Phase("kernel times: the grid's B1 and B2 on the train bytes"):
+            for op, launched, kcs, path in (
+                    (op_tr, slaunch, skcs, "split_scca"),
+                    (clk.first_args["scca_grid"][0], claunch, ckcs,
+                     "cv_scca")):
+                for row in time_kernels(op, [("crossprod", 16),
+                                             ("matvec", 16)],
+                                        launched, None, slices=8):
+                    rows.append(dict(
+                        row, path=path,
+                        launches_by_kc=kcs.get(row["name"], {}),
+                        launches_cover="every width, train and test "
+                                       "operators"))
+        del op, op_tr, clk
+        torch.cuda.empty_cache()
+    return rows, out
+
+
+def launches_by_kc(log):
+    """{kernel: {kc: launches}} from a ``time_launches`` log."""
+    out = {}
+    for nm, kc, _, _ in log:
+        by = out.setdefault(nm, {})
+        by[str(kc)] = by.get(str(kc), 0) + 1
+    return {nm: dict(sorted(by.items(), key=lambda kv: int(kv[0])))
+            for nm, by in out.items()}
 
 
 def dense_matrix(op, rows=1024):
@@ -3959,7 +4492,11 @@ def main(argv=None) -> int:
     stream_rows, stream = streamed_headline(
         dev, host, center, scale, sumsq, head_res, head["launch_ms"],
         head["seed_witness"], twins, scca_twins=scca_twins)
-    del host, head_res, twins, scca_twins
+    del head_res, twins, scca_twins
+    torch.cuda.empty_cache()
+    # cv_scca and split_scca on the headline's first SNPs, all samples
+    cv_rows, cv_split = headline_cv_split(dev, host, center, scale, args.n)
+    del host
     torch.cuda.empty_cache()
     dense = dense_headline(dev, smi)
     torch.cuda.empty_cache()
@@ -4006,6 +4543,7 @@ def main(argv=None) -> int:
     del host, tall_res
     kernels.extend(sweep_rows)
     kernels.extend(stream_rows)
+    kernels.extend(cv_rows)
     kernels.extend(tall_stream_rows)
     say(json.dumps({"summary": {
         "card": smi, "n": args.n, "p": args.p, "k": args.k,
@@ -4015,6 +4553,7 @@ def main(argv=None) -> int:
                                "same_order": tall_streamed_checks}},
         **{key: val for key, val in head.items()},
         "one_pass": one_pass, "dense": dense, "scca": scca_out,
+        "cv_split": cv_split,
         "gram_tall_ff_max_abs_err": worst["gram_tall_ff"],
         "tall_kernels_f64_rel": tall_f64,
         "b1_turns_ms": b1_turns, "b2_turns_ms": b2_turns,

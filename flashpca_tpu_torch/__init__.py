@@ -10,7 +10,9 @@ device-memory bound -- or on a numeric matrix held whole
 (``DenseOperator``), with mid-run checkpoints; ``check``, ``project``
 (new samples onto loadings), ``ucca`` (per-SNP multivariate ANOVA),
 ``scca`` and ``scca_grid`` (sparse CCA, one run or a whole penalty grid
-through shared passes, with per-dimension checkpoints) and the
+through shared passes, with per-dimension checkpoints), ``cv_scca`` and
+``split_scca`` (penalty selection by k-fold CV or a train/test split,
+PLINK filesets repacked per split), ``plots`` and the
 flag-compatible CLI, at float32 (the kernels) or float64 (the PyTorch
 functional core, on the card or the CPU).  Imports ``torch`` (never
 JAX); entry points run on ``cuda`` unless given ``device="cpu"``.
@@ -28,5 +30,7 @@ from .ops import (DenseOperator, PackedOperator, StreamingPackedOperator,
 from .models import (pca, flashpca, PCAResult, check, CheckResult, project,
                      ProjectResult, ucca, UccaResult, scca, scca_grid,
                      SCCAResult, SCCAGridResult, save_scca_state,
-                     load_scca_state, soft_thresh, norm_thresh)
+                     load_scca_state, soft_thresh, norm_thresh, cv_scca,
+                     CVSCCAResult, split_scca, SplitSCCAResult)
 from .solvers import eigsh, eigsh_block, EigshResult
+from . import plots  # matplotlib itself loads lazily inside plots

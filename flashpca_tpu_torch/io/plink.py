@@ -32,22 +32,63 @@ BED_MAGIC = b"\x6c\x1b\x01"
 CODE_TO_DOSAGE = np.array([2.0, 0.0, 1.0, 0.0], dtype=np.float64)
 CODE_IS_NA = np.array([False, True, False, False])
 
-_SHIFTS = np.array([0, 2, 4, 6], dtype=np.uint8)
+# byte -> its four 2-bit codes as one little-endian word: viewed as bytes,
+# the word holds code s of the byte in byte s (one gather a packed byte)
+_CODE_WORDS = np.array(
+    [sum(((b >> (2 * s)) & 3) << (8 * s) for s in range(PACK_DENSITY))
+     for b in range(256)], dtype="<u4")
+# bytes of codes a host work item holds (the repack and the moments run
+# over SNP rows in such chunks on up to _THREADS worker threads: numpy
+# releases the GIL in take and in its elementwise loops)
+_CHUNK_BYTES = 16 << 20
+_THREADS = 8
+_M55 = np.uint64(0x5555555555555555)
 
 
 def bytes_per_snp(n_samples: int) -> int:
     return (n_samples + PACK_DENSITY - 1) // PACK_DENSITY
 
 
+def _over_rows(fn, m: int, row_bytes: int) -> None:
+    """Run ``fn(lo, hi)`` over chunks of ``m`` rows of ``row_bytes``
+    bytes each, on up to ``_THREADS`` threads (inline on one)."""
+    rows = max(1, _CHUNK_BYTES // max(1, row_bytes))
+    starts = range(0, m, rows)
+    threads = min(_THREADS, os.cpu_count() or 1, len(starts))
+    if threads <= 1:
+        for lo in starts:
+            fn(lo, min(lo + rows, m))
+        return
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(threads) as ex:
+        for f in [ex.submit(fn, lo, min(lo + rows, m)) for lo in starts]:
+            f.result()
+
+
 def unpack_codes(packed: np.ndarray, n_samples: int) -> np.ndarray:
     """(m, nbytes) packed uint8 -> (m, n_samples) 2-bit codes (uint8).
 
-    Equivalent of ``decode_plink_simple`` (reference: data.cpp:128-148).
+    Equivalent of ``decode_plink_simple`` (reference: data.cpp:128-148):
+    one table word a byte (``_CODE_WORDS``), viewed as its four codes.
     """
     packed = np.ascontiguousarray(packed, dtype=np.uint8)
     m, nb = packed.shape
-    codes = (packed[:, :, None] >> _SHIFTS[None, None, :]) & np.uint8(3)
+    codes = _CODE_WORDS.take(packed).view(np.uint8)
     return codes.reshape(m, nb * PACK_DENSITY)[:, :n_samples]
+
+
+def _pack_words(padded: np.ndarray) -> np.ndarray:
+    """(m, 4 nb) uint8 codes (padding positions 0..3, C order) -> (m,
+    nb) .bed bytes: each run of four codes, read as one little-endian
+    word with a code in each byte's low two bits, folds into its low
+    byte by two shift-ORs (codes 0 and 1 land in bits 0-3 of the first
+    fold, 2 and 3 in bits 16-19, which the second fold moves to 4-7)."""
+    w = padded.view("<u4")
+    t = w >> 6
+    t |= w
+    t |= t >> 12
+    return t.astype(np.uint8)
 
 
 def codes_to_dosage(codes: np.ndarray) -> np.ndarray:
@@ -76,6 +117,42 @@ def snp_moments_from_codes(
     # dosage in {0, 1, 2}: g^2 = 2g - [g == 1], cheaper than squaring
     d2sum = 2.0 * dsum - (dosage == 1.0).sum(axis=1)
     return ngood, dsum, d2sum
+
+
+def snp_moments_from_packed(
+    packed: np.ndarray, n_samples: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`snp_moments_from_codes` of ``unpack_codes(packed,
+    n_samples)``, the same exact values, counted on the bytes: each
+    64-bit word's low and high code bits split by a mask, and the codes
+    0 (dosage 2), 1 (missing) and 2 (dosage 1) counted by popcount.  The
+    last byte's padding positions count as code 3 (dosage 0, not
+    missing), which adds nothing."""
+    packed = np.asarray(packed, dtype=np.uint8)
+    m, nb = packed.shape
+    nw = -(-nb // 8)
+    na = np.empty(m, dtype=np.int64)
+    c0 = np.empty(m, dtype=np.int64)
+    c2 = np.empty(m, dtype=np.int64)
+    rem = n_samples % PACK_DENSITY
+
+    def count(lo_row, hi_row):
+        buf = np.full((hi_row - lo_row, nw * 8), 0xFF, dtype=np.uint8)
+        buf[:, :nb] = packed[lo_row:hi_row]
+        if rem:
+            buf[:, nb - 1] |= np.uint8((0xFF << (2 * rem)) & 0xFF)
+        w = buf.view("<u8")
+        lo = w & _M55
+        hi = (w >> np.uint64(1)) & _M55
+        s = slice(lo_row, hi_row)
+        for out, bits in ((na, lo & ~hi), (c2, hi & ~lo),
+                          (c0, ~(lo | hi) & _M55)):
+            out[s] = np.bitwise_count(bits).sum(axis=1, dtype=np.int64)
+
+    _over_rows(count, m, nw * 8)
+    ngood = (n_samples - na).astype(np.float64)
+    dsum = (2 * c0 + c2).astype(np.float64)
+    return ngood, dsum, 2.0 * dsum - c2
 
 
 def stats_from_moments(
@@ -326,9 +403,9 @@ class PlinkDataset:
             d2sum = np.empty(m, dtype=np.float64)
             for start in range(lo, hi, block_size):
                 stop = min(start + block_size, hi)
-                codes = self.read_codes(start, stop)
                 s = slice(start - lo, stop - lo)
-                ngood[s], dsum[s], d2sum[s] = snp_moments_from_codes(codes)
+                ngood[s], dsum[s], d2sum[s] = snp_moments_from_packed(
+                    self.read_packed(start, stop), self.n_samples)
             out = ngood, dsum, d2sum
         if full:
             self._moments = out
@@ -378,14 +455,9 @@ class PlinkDataset:
         if cbed.available():
             return cbed.stats(self.read_packed(lo, hi), self.n_samples,
                               method)
-        means = np.empty(hi - lo, dtype=np.float64)
-        sds = np.empty(hi - lo, dtype=np.float64)
-        for start in range(lo, hi, block_size):
-            stop = min(start + block_size, hi)
-            codes = self.read_codes(start, stop)
-            means[start - lo: stop - lo], sds[start - lo: stop - lo] = (
-                snp_stats_from_codes(codes, method))
-        return means, sds
+        ngood, dsum, _ = self.snp_moments(block_size=block_size,
+                                          snp_range=(lo, hi))
+        return stats_from_moments(ngood, dsum, method)
 
 
 def pack_codes(codes: np.ndarray, n_samples: int) -> np.ndarray:
@@ -397,13 +469,30 @@ def pack_codes(codes: np.ndarray, n_samples: int) -> np.ndarray:
     nb = bytes_per_snp(n_samples)
     padded = np.zeros((m, nb * PACK_DENSITY), dtype=np.uint8)
     padded[:, :n_samples] = codes
-    shaped = padded.reshape(m, nb, PACK_DENSITY)
-    return (
-        shaped[:, :, 0]
-        | (shaped[:, :, 1] << 2)
-        | (shaped[:, :, 2] << 4)
-        | (shaped[:, :, 3] << 6)
-    ).astype(np.uint8)
+    return _pack_words(padded)
+
+
+def _subset_packed(packed: np.ndarray, subsets) -> None:
+    """.bed bytes (m, nb) of some samples -> for each ``(idx, n_out,
+    out)`` of ``subsets``, ``out`` (m, ceil(n_out/4)) the bytes of the
+    samples ``idx`` (padded to a multiple of 4 with any valid index):
+    per chunk of rows one table gather unpacks the codes once, and for
+    each subset one column gather keeps its samples, :func:`_pack_words`
+    repacks them and the last byte's padding positions are zeroed."""
+    m, nb = packed.shape
+
+    def job(lo, hi):
+        codes = _CODE_WORDS.take(packed[lo:hi]).view(np.uint8)
+        for idx, n_out, out in subsets:
+            sub = np.empty((hi - lo, idx.size), dtype=np.uint8)
+            np.take(codes, idx, axis=1, out=sub, mode="clip")
+            res = _pack_words(sub)
+            rem = n_out % PACK_DENSITY
+            if rem:
+                res[:, -1] &= np.uint8((1 << (2 * rem)) - 1)
+            out[lo:hi] = res
+
+    _over_rows(job, m, nb * PACK_DENSITY)
 
 
 def write_bed(path_root: str, genotypes: np.ndarray,
@@ -461,40 +550,68 @@ def subset_samples(ds: PlinkDataset, sample_idx, out_root: str,
     memory stays bounded by one block regardless of p.  Returns
     ``out_root``.
     """
-    idx = np.asarray(sample_idx)
-    if idx.dtype == bool:
-        if idx.shape != (ds.n_samples,):
+    return subset_samples_many(ds, [(sample_idx, out_root)],
+                               block_size)[0]
+
+
+def subset_samples_many(ds: PlinkDataset, subsets,
+                        block_size: int = 8192) -> list[str]:
+    """:func:`subset_samples` for each ``(sample_idx, out_root)`` of
+    ``subsets`` from ONE read of the source: each SNP block is unpacked
+    once and repacked into every subset (a train and a test fileset
+    cost one unpack, not two).  Returns the ``out_root``s."""
+    keep = []       # (indices, indices padded, count, out_root)
+    for sample_idx, out_root in subsets:
+        idx = np.asarray(sample_idx)
+        if idx.dtype == bool:
+            if idx.shape != (ds.n_samples,):
+                raise ValueError(
+                    f"boolean mask has {idx.size} entries for "
+                    f"{ds.n_samples} samples")
+            idx = np.flatnonzero(idx)
+        elif idx.size and (idx.min() < 0 or idx.max() >= ds.n_samples):
             raise ValueError(
-                f"boolean mask has {idx.size} entries for "
-                f"{ds.n_samples} samples")
-        idx = np.flatnonzero(idx)
-    elif idx.size and (idx.min() < 0 or idx.max() >= ds.n_samples):
-        raise ValueError(
-            f"sample indices span [{idx.min()}, {idx.max()}] but the "
-            f"dataset holds {ds.n_samples} samples")
-    n_out = int(idx.size)
-    if n_out < 1:
-        raise ValueError("sample subset is empty")
-    if os.path.abspath(out_root + ".bed") == os.path.abspath(ds.bed_path):
-        # open(..., 'wb') would TRUNCATE the source .bed mid-read
-        raise ValueError(
-            f"out_root {out_root!r} collides with the source fileset; "
-            "write the subset somewhere else")
-    with open(out_root + ".bed", "wb") as fh:
-        fh.write(BED_MAGIC)
+                f"sample indices span [{idx.min()}, {idx.max()}] but the "
+                f"dataset holds {ds.n_samples} samples")
+        n_out = int(idx.size)
+        if n_out < 1:
+            raise ValueError("sample subset is empty")
+        if (os.path.abspath(out_root + ".bed")
+                == os.path.abspath(ds.bed_path)):
+            # open(..., 'wb') would TRUNCATE the source .bed mid-read
+            raise ValueError(
+                f"out_root {out_root!r} collides with the source fileset; "
+                "write the subset somewhere else")
+        nbo = bytes_per_snp(n_out)
+        idx_pad = np.concatenate(
+            [idx, np.full(nbo * PACK_DENSITY - n_out, idx[-1])]
+        ).astype(np.intp)
+        keep.append((idx, idx_pad, n_out, out_root))
+    import shutil
+    from contextlib import ExitStack
+
+    with ExitStack() as stack:
+        fhs = [stack.enter_context(open(k[-1] + ".bed", "wb"))
+               for k in keep]
+        for fh in fhs:
+            fh.write(BED_MAGIC)
         for start in range(0, ds.n_snps, block_size):
             stop = min(start + block_size, ds.n_snps)
-            codes = ds.read_codes(start, stop)[:, idx]
-            fh.write(pack_codes(codes, n_out).tobytes())
-    import shutil
-
-    shutil.copyfile(ds.bim_path, out_root + ".bim")
+            blocks = [np.empty((stop - start, bytes_per_snp(n_out)),
+                               dtype=np.uint8) for _, _, n_out, _ in keep]
+            _subset_packed(ds.read_packed(start, stop), [
+                (pad, n_out, block)
+                for (_, pad, n_out, _), block in zip(keep, blocks)])
+            for fh, block in zip(fhs, blocks):
+                fh.write(block.tobytes())
     with open(ds.fam_path) as fh:
         # skip blank lines so row i matches sample index i exactly as
         # read_fam assigns indices (a blank line would otherwise shift
         # every later sample's FID/IID)
         fam_lines = [ln for ln in fh.read().splitlines() if ln.strip()]
-    with open(out_root + ".fam", "w") as fh:
-        for i in idx:
-            fh.write(fam_lines[i] + "\n")
-    return out_root
+    for idx, _, _, out_root in keep:
+        shutil.copyfile(ds.bim_path, out_root + ".bim")
+        with open(out_root + ".fam", "w") as fh:
+            for i in idx:
+                fh.write(fam_lines[i] + "\n")
+    return [k[-1] for k in keep]

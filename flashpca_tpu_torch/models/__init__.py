@@ -4,4 +4,5 @@ from .project import project, ProjectResult
 from .ucca import ucca, UccaResult
 from .scca import (scca, scca_grid, SCCAResult, SCCAGridResult,
                    save_scca_state, load_scca_state, soft_thresh,
-                   norm_thresh)
+                   norm_thresh, cv_scca, CVSCCAResult, grid_fastpath)
+from .scca_split import split_scca, SplitSCCAResult

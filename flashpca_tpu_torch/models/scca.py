@@ -26,8 +26,9 @@ engines drive the iteration:
   cells through ONE C-column panel pass per product;
 * the host engine (:func:`_scca_dim_host_grid`, its twin) keeps U/V
   and the thresholding on the host in float64, one C-column operator
-  product per step; a solo run is again its one-cell case.  It is the
-  only engine a :class:`StreamingPackedOperator` runs.
+  product per step; a solo run is again its one-cell case, with the
+  JAX package's solo host loop's semantics on a failed run (``solo``).
+  It is the only engine a :class:`StreamingPackedOperator` runs.
 """
 
 from __future__ import annotations
@@ -299,7 +300,7 @@ class _DeviceGrid:
 # ---------------------------------------------------------------------------
 
 def _scca_dim_host_grid(op, U, V, Y_std, j, v0, alive, lam1, lam2,
-                        invdiv, tol, maxiter):
+                        invdiv, tol, maxiter, solo=False):
     """One SCCA dimension for ALL penalty-grid cells, driven from the
     host: the batched twin of :func:`_scca_dim_device_grid` for
     streaming operators, whose products stage host blocks.
@@ -311,7 +312,13 @@ def _scca_dim_host_grid(op, U, V, Y_std, j, v0, alive, lam1, lam2,
     norm_thresh, zero and convergence tests, frozen-cell masking) in
     float64 host arithmetic.  ``U`` (p, ndim, C) / ``V`` (k, ndim, C)
     are the float64 histories (read only); returns ``(u, v, it, conv,
-    uz, vz, d)`` per cell, as :func:`_unpack_dim`."""
+    uz, vz, d)`` per cell, as :func:`_unpack_dim`.
+
+    ``solo`` gives a solo ``scca(engine='host')`` run the JAX package's
+    solo host loop where it differs from the grid engines: it takes at
+    least two steps before it tests convergence, and a dimension-0 abort
+    keeps the vector of the step before in place of the one that was
+    zeroed (u and v when u is zeroed, v when v is)."""
     p, C = U.shape[0], v0.shape[1]
 
     def gs(x, basis):
@@ -345,9 +352,11 @@ def _scca_dim_host_grid(op, U, V, Y_std, j, v0, alive, lam1, lam2,
     uz = np.zeros(C, dtype=bool)
     vz = np.zeros(C, dtype=bool)
 
+    first = 2 if solo else 1     # steps taken before the first test
+
     def active():
         act = (alive & (it < maxiter)
-               & ((it == 0) | (du >= tol) | (dv >= tol)))
+               & ((it < first) | (du >= tol) | (dv >= tol)))
         return act & ~((j == 0) & (uz | vz))
 
     act = active()
@@ -355,17 +364,20 @@ def _scca_dim_host_grid(op, U, V, Y_std, j, v0, alive, lam1, lam2,
         u_new = nthresh(gs(cross_panel(Y_std @ v), U), lam1)
         uzi = np.max(np.abs(u_new), axis=0) < tol     # u zeroed THIS iter
         v_new = nthresh(gs(Y_std.T @ prod_panel(u_new), V), lam2)
+        vzi = np.max(np.abs(v_new), axis=0) < tol
         du_new = np.max(np.abs(u_new - u), axis=0)
         dv_new = np.max(np.abs(v_new - v), axis=0)
-        uz_new = uz | uzi
-        vz_new = vz | (np.max(np.abs(v_new), axis=0) < tol)
-        keep_v = act & ~((j == 0) & uzi)
-        u = np.where(act, u_new, u)
-        v = np.where(keep_v, v_new, v)
+        # a dim-0 u-zero abort stops before the v step
+        stepped_v = act & ~((j == 0) & uzi)
+        set_u, set_v = act, stepped_v
+        if solo and j == 0:
+            set_u, set_v = act & ~uzi, stepped_v & ~vzi
+        u = np.where(set_u, u_new, u)
+        v = np.where(set_v, v_new, v)
         du = np.where(act, du_new, du)
-        dv = np.where(keep_v, dv_new, dv)
-        uz = np.where(act, uz_new, uz)
-        vz = np.where(keep_v, vz_new, vz)
+        dv = np.where(stepped_v, dv_new, dv)
+        uz = np.where(act, uz | uzi, uz)
+        vz = np.where(stepped_v, vz | vzi, vz)
         it = it + act.astype(np.int64)
         act = active()
 
@@ -610,18 +622,13 @@ def scca(
         step = _DeviceGrid(op, Y_std, U[:, :, None], V[:, :, None],
                            [lambda1], [lambda2], invdiv, tol).dim
     else:
-        # The JAX package's solo host loop differs from this engine only
-        # in a run that fails or stalls: on a dimension-0 abort it keeps
-        # the u (u zeroed) or v (v zeroed) of the step before where this
-        # engine keeps the zeroed vector (a u-zero abort leaves v at V0
-        # on both), and it never stops after a single step.
         lam1_c = np.array([lambda1], dtype=np.float64)
         lam2_c = np.array([lambda2], dtype=np.float64)
 
         def step(j, v0, alive, maxiter):
             return _scca_dim_host_grid(op, U[:, :, None], V[:, :, None],
                                        Y_std, j, v0, alive, lam1_c, lam2_c,
-                                       invdiv, tol, maxiter)
+                                       invdiv, tol, maxiter, solo=True)
 
     alive = np.ones(1, dtype=bool)
     for j in range(start_dim, ndim):
@@ -803,3 +810,442 @@ def scca_grid(
         lambda1=lam1_c, lambda2=lam2_c, U=U_host, V=V_host, d=d_host,
         converged=conv_all, n_iters=n_iters, V0=V0,
     )
+
+
+# ---------------------------------------------------------------------------
+# Penalty selection: k-fold cross-validation (split validation:
+# models/scca_split.py)
+# ---------------------------------------------------------------------------
+
+# scca() keywords the batched grid engine understands: the one definition
+# that cv_scca and split_scca share (each adds its own extras through
+# grid_fastpath), so that neither is stranded on the C-times-slower
+# sequential fallback by a keyword the other accepts.  ``device`` is the
+# port's own: every call that names its device must ride the grid too.
+GRID_COMPAT_KWARGS = frozenset({
+    "divisor", "maxiter", "tol", "seed", "dtype", "device", "mesh",
+    "block_size", "auto_init",
+})
+# resolved by the caller (operator choice, engine gate) and dropped
+# before forwarding to scca_grid, which takes none of them
+_GRID_RESOLVED_KWARGS = frozenset({"engine", "streaming", "memory_mb"})
+
+
+def grid_fastpath(scca_kwargs, *extra):
+    """Whether ``scca_kwargs`` can ride the batched grid engine.
+
+    Returns ``(ok, gkw)``: ``ok`` is False when the caller forced the
+    host engine or passed a keyword the grid engine does not understand
+    (the caller falls back to sequential per-cell scca() runs); ``gkw``
+    is the keywords to forward to :func:`scca_grid`.  ``extra`` lists
+    caller-specific keywords that are also acceptable (cv_scca forwards
+    stand_x/stand_y; split_scca resolves them itself but may forward
+    V0)."""
+    allowed = GRID_COMPAT_KWARGS | _GRID_RESOLVED_KWARGS
+    for names in extra:
+        allowed = allowed | frozenset(names)
+    eng = scca_kwargs.get("engine", "auto")
+    ok = eng in ("auto", "device") and set(scca_kwargs) <= allowed
+    if (eng == "device"
+            and (scca_kwargs.get("streaming") is True
+                 or scca_kwargs.get("memory_mb") is not None)):
+        # solo scca() raises on engine='device' with a streaming
+        # operator: the sequential path surfaces that same error instead
+        # of quietly running the host-driven grid
+        ok = False
+    gkw = {kk: vv for kk, vv in scca_kwargs.items()
+           if kk not in _GRID_RESOLVED_KWARGS}
+    return ok, gkw
+
+
+@dataclass
+class CVSCCAResult:
+    """k-fold cross-validation over a (lambda1, lambda2) grid
+    (equivalent of flashpcaR::cv.scca, scca.R:410-557)."""
+
+    ndim: int
+    lambda1: np.ndarray
+    lambda2: np.ndarray
+    opt_dim: int
+    best_lambda1: float
+    best_lambda2: float
+    best_corr: float
+    corr: np.ndarray       # (ndim, len(l1), len(l2)) pooled test correlation
+    nzero_x: np.ndarray    # (ndim, len(l1), len(l2)) mean non-zeros in U
+    nzero_y: np.ndarray
+    nfolds: int
+    converged: np.ndarray  # (nfolds, len(l1), len(l2))
+    folds: np.ndarray      # (n,) fold assignment, 0-based
+
+    def __repr__(self):
+        return (f"CVSCCAResult(best_lambda1={self.best_lambda1:g}, "
+                f"best_lambda2={self.best_lambda2:g}, "
+                f"best_corr={self.best_corr:.4f})")
+
+
+def _penalty_axis(lam, default):
+    return np.atleast_1d(np.asarray(lam if lam is not None else default,
+                                    dtype=np.float64))
+
+
+def _cv_setup(Y, n, lambda1, lambda2, ndim, nfolds, folds, opt_dim, seed):
+    """What both CV paths check and draw first, in the JAX package's
+    order: Y as (n, k) float64, the penalty axes, and the folds (explicit,
+    or ``default_rng(seed).integers``; the same generator then draws each
+    fold's init V0).  Returns (Y, lambda1, lambda2, rng, folds,
+    nfolds)."""
+    Y = np.asarray(Y, dtype=np.float64)
+    if Y.ndim == 1:
+        Y = Y[:, None]
+    lambda1 = _penalty_axis(lambda1, np.linspace(1e-6, 1e-3, 5))
+    lambda2 = _penalty_axis(lambda2, np.linspace(1e-6, 1e-3, 5))
+    if not (1 <= opt_dim <= ndim):
+        raise ValueError("opt_dim must be between 1 and ndim")
+    rng = np.random.default_rng(seed)
+    if folds is not None:
+        folds = np.asarray(folds, dtype=np.int64)
+        if folds.shape != (n,):
+            raise ValueError("folds must have one entry per sample")
+        nfolds = int(folds.max()) + 1
+    else:
+        if nfolds > n:
+            raise ValueError("nfolds is too large for the number of samples")
+        folds = rng.integers(0, nfolds, size=n)
+    return Y, lambda1, lambda2, rng, folds, nfolds
+
+
+class _CVTally:
+    """The pooled test-row predictions, the mean non-zeros and the
+    convergence of every (fold, cell)."""
+
+    def __init__(self, n, ndim, n1, n2, nfolds):
+        self.xpred = np.full((n, ndim, n1, n2), np.nan)
+        self.ypred = np.full((n, ndim, n1, n2), np.nan)
+        self.nzx = np.zeros((ndim, n1, n2))
+        self.nzy = np.zeros((ndim, n1, n2))
+        self.conv = np.zeros((nfolds, n1, n2), dtype=bool)
+        self.nfolds = nfolds
+
+    def add(self, fold, i, j, U, V, converged, test, px, py):
+        """One cell's fit on one fold; ``px`` / ``py`` (thunks) give its
+        test rows' predictions, taken only where it converged (a fold
+        whose test set is empty passes ``px=None``)."""
+        self.conv[fold, i, j] = converged
+        self.nzx[:, i, j] += np.count_nonzero(U, axis=0) / self.nfolds
+        self.nzy[:, i, j] += np.count_nonzero(V, axis=0) / self.nfolds
+        if converged and px is not None:
+            self.xpred[test, :, i, j] = px()
+            self.ypred[test, :, i, j] = py()
+
+
+def _fold_grid(tally, fold, g, n2, test, px, Y_test):
+    """Tally a fold's scca_grid result ``g``; ``px(c)`` gives cell c's
+    test projections (``px`` None: the fold has no test rows)."""
+    for c in range(len(g.lambda1)):
+        i, j = divmod(c, n2)
+        tally.add(fold, i, j, g.U[:, :, c], g.V[:, :, c], g.converged[c],
+                  test, None if px is None else (lambda c=c: px(c)),
+                  lambda c=c: Y_test @ g.V[:, :, c])
+
+
+def cv_scca(
+    X,
+    Y: np.ndarray,
+    lambda1=None,
+    lambda2=None,
+    *,
+    ndim: int = 3,
+    nfolds: int = 10,
+    folds: np.ndarray | None = None,
+    opt_dim: int = 1,
+    init: bool = True,
+    seed: int = 1,
+    verbose: bool = False,
+    workdir: str | None = None,
+    **scca_kwargs,
+) -> CVSCCAResult:
+    """Cross-validated SCCA penalty selection.
+
+    glmnet-style pooling (scca.R:497-523): per fold, train on the
+    complement and write the test rows' predictions ``X[test] U`` /
+    ``Y[test] V`` into pooled arrays; each dimension's score is the
+    Pearson correlation of the pooled predictions.  A model that did not
+    converge leaves its fold's predictions NaN.  ``init=True`` seeds
+    every fold's grid with the V of a near-zero-penalty run on that
+    fold's training data.
+
+    ``X`` is a numeric (N, p) matrix (one :class:`DenseOperator` a fold,
+    float64 unless ``dtype`` says otherwise) or a PLINK root /
+    :class:`PlinkDataset`: that path keeps the genotypes 2-bit packed
+    through the whole CV (a ``subset_samples`` repack a fold, packed
+    train operators, a packed raw-dosage test projection) and honors
+    ``streaming`` / ``memory_mb``.  ``workdir`` is where the fold
+    filesets are written and kept; by default they go to a temporary
+    directory and are deleted as each fold completes.  Further keywords
+    go to :func:`scca` / :func:`scca_grid`; ``device`` defaults to
+    ``cuda`` and raises without a GPU."""
+    for bad in ("state_out", "state_in"):
+        if bad in scca_kwargs:
+            raise ValueError(
+                f"{bad} cannot be forwarded to a penalty grid: every "
+                "(fold, lambda) cell would overwrite the same file; "
+                "checkpoint individual scca() runs instead")
+    if isinstance(X, (str, PlinkDataset)):
+        return _cv_scca_plink(
+            X, Y, lambda1, lambda2, ndim=ndim, nfolds=nfolds,
+            folds=folds, opt_dim=opt_dim, init=init, seed=seed,
+            verbose=verbose, workdir=workdir, **scca_kwargs)
+    # matrix CV has no bounded-memory path: an explicit streaming /
+    # memory_mb request would otherwise vanish into the grid fast
+    # path's resolved-keyword filter
+    if (scca_kwargs.get("streaming") is True
+            or scca_kwargs.get("memory_mb") is not None):
+        raise ValueError(
+            "an explicit streaming/memory_mb request needs packed "
+            "genotypes: pass the PLINK root (or PlinkDataset) as X "
+            "instead of a dense matrix"
+        )
+    from ._common import matrix_operator
+
+    X = np.asarray(X, dtype=np.float64)
+    n = np.shape(Y)[0]
+    if X.shape[0] != n:
+        raise ValueError("X and Y must have the same number of rows")
+    Y, lambda1, lambda2, rng, folds, nfolds = _cv_setup(
+        Y, n, lambda1, lambda2, ndim, nfolds, folds, opt_dim, seed)
+    n2 = len(lambda2)
+    tally = _CVTally(n, ndim, len(lambda1), n2, nfolds)
+
+    # the CV seed also seeds the inner runs' V0 (the init=False path)
+    scca_kwargs.setdefault("seed", seed)
+    grid_ok, gkw = grid_fastpath(scca_kwargs, ("stand_x", "stand_y"))
+    if not grid_ok:
+        log("cv_scca: sequential per-cell fallback (host engine or "
+            "keywords outside GRID_COMPAT_KWARGS)", verbose=verbose)
+    # one standardization and DenseOperator a fold, shared by the init
+    # run, the grid and every sequential cell; stand_y still applies
+    # inside scca()
+    cv_stand_x = scca_kwargs.pop("stand_x", "binom2")
+    gkw.pop("stand_x", None)
+    if scca_kwargs.get("mesh") is not None:
+        # as solo scca()'s dense path in the JAX package: noted, ignored
+        log("note: the dense-matrix SCCA path runs unsharded; mesh= is "
+            "ignored (use the packed PLINK path for SNP sharding)")
+        scca_kwargs.pop("mesh")
+        gkw.pop("mesh", None)
+    dtype, device = scca_kwargs.get("dtype"), scca_kwargs.get("device")
+
+    for fold in range(nfolds):
+        train = folds != fold
+        test = ~train
+        log(f"-> fold {fold + 1}/{nfolds}", verbose=verbose)
+        op_tr = matrix_operator(X[train], cv_stand_x, dtype, device)
+        V0 = None
+        if init:
+            V0g = rng.standard_normal((Y.shape[1], ndim))
+            V0 = scca(op_tr, Y[train], 1e-12, 1e-12, ndim=ndim, V0=V0g,
+                      verbose=verbose, **scca_kwargs).V
+        if grid_ok:
+            g = scca_grid(op_tr, Y[train], lambda1, lambda2, ndim=ndim,
+                          V0=V0, verbose=verbose, **gkw)
+            _fold_grid(tally, fold, g, n2, test,
+                       lambda c: X[test] @ g.U[:, :, c], Y[test])
+            continue
+        for i, l1 in enumerate(lambda1):
+            for j, l2 in enumerate(lambda2):
+                res = scca(op_tr, Y[train], float(l1), float(l2),
+                           ndim=ndim, V0=V0, verbose=verbose, **scca_kwargs)
+                tally.add(fold, i, j, res.U, res.V, res.converged, test,
+                          lambda: X[test] @ res.U, lambda: Y[test] @ res.V)
+    return _cv_pooled_result(tally, lambda1, lambda2, ndim, opt_dim, folds)
+
+
+def _cv_pooled_result(tally, lambda1, lambda2, ndim, opt_dim,
+                      folds) -> CVSCCAResult:
+    """Pooled-prediction scoring shared by the matrix and PLINK CV
+    paths (glmnet-style, scca.R:497-523), in numpy."""
+    n1, n2 = len(lambda1), len(lambda2)
+    corr = np.full((ndim, n1, n2), np.nan)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        for d_ in range(ndim):
+            for i in range(n1):
+                for j in range(n2):
+                    a = tally.xpred[:, d_, i, j]
+                    b = tally.ypred[:, d_, i, j]
+                    ok = ~(np.isnan(a) | np.isnan(b))
+                    if ok.sum() > 1 and a[ok].std() > 0 and b[ok].std() > 0:
+                        corr[d_, i, j] = np.corrcoef(a[ok], b[ok])[0, 1]
+
+    sl = corr[opt_dim - 1]
+    if np.all(np.isnan(sl)):
+        raise RuntimeError("no cv.scca model converged on any penalty pair")
+    best = np.unravel_index(np.nanargmax(sl), sl.shape)
+    return CVSCCAResult(
+        ndim=ndim, lambda1=lambda1, lambda2=lambda2, opt_dim=opt_dim,
+        best_lambda1=float(lambda1[best[0]]),
+        best_lambda2=float(lambda2[best[1]]),
+        best_corr=float(sl[best]), corr=corr,
+        nzero_x=tally.nzx, nzero_y=tally.nzy, nfolds=tally.nfolds,
+        converged=tally.conv, folds=folds,
+    )
+
+
+def _plink_operator_options(scca_kwargs):
+    """The operator keywords of a packed penalty search (cv_scca's and
+    split_scca's PLINK paths), taken out of ``scca_kwargs``: the inner
+    scca()/scca_grid() calls get prebuilt operators, whose conflict
+    check would refuse them.  ``mesh=`` raises here (ROADMAP A18), before
+    any repack, and an explicit device engine refuses a streaming
+    request as solo scca() does."""
+    if scca_kwargs.get("mesh") is not None:
+        raise not_ported("mesh= (multi-device sharding)", "A18 'Multi-GPU'")
+    if (scca_kwargs.get("engine") == "device"
+            and (scca_kwargs.get("streaming") is True
+                 or scca_kwargs.get("memory_mb") is not None)):
+        raise ValueError(
+            "engine='device' needs a resident operator; use "
+            "engine='host' or engine='auto' with streaming/memory_mb")
+    opts = dict(streaming=scca_kwargs.pop("streaming", "auto"),
+                memory_mb=scca_kwargs.pop("memory_mb", None),
+                block_size=scca_kwargs.pop("block_size", None),
+                dtype=scca_kwargs.get("dtype"),
+                device=scca_kwargs.get("device"))
+    return opts
+
+
+def _refuse_auto_streamed(scca_kwargs, op):
+    """An operator that streamed under streaming='auto' meets an explicit
+    device engine with the error an explicit request gets."""
+    if (scca_kwargs.get("engine") == "device"
+            and isinstance(op, StreamingPackedOperator)):
+        raise ValueError(
+            "engine='device' needs a resident operator, but this dataset "
+            "auto-streams; use engine='host'/'auto'")
+
+
+def _project_cells(op, U):
+    """``X U`` for every cell's U (p, ndim, C) in ONE product through the
+    operator (a panel of ndim * C columns), as (rows, ndim, C) float64."""
+    p, ndim, C = U.shape
+    panel = torch.as_tensor(U.reshape(p, ndim * C), dtype=op.dtype,
+                            device=op.device)
+    return host64(op.prod(panel)).reshape(-1, ndim, C)
+
+
+def _cv_scca_plink(data, Y, lambda1, lambda2, *, ndim, nfolds, folds,
+                   opt_dim, init, seed, verbose, workdir=None,
+                   **scca_kwargs) -> CVSCCAResult:
+    """k-fold CV over a PLINK fileset with the genotypes 2-bit packed
+    throughout (reference analog: scca.R:410-557's k-fold and
+    scca.sh's plink-subset workflow).  Per fold the train and test
+    samples are repacked from one read of the source
+    (:func:`io.plink.subset_samples_many`), the train
+    operator standardizes with the fold's training stats, and the test
+    projection ``X[test] @ U`` runs through a raw-dosage packed operator
+    (mean 0, sd 1: the matrix path's unstandardized ``X[test] @ U``;
+    a missing genotype contributes 0 where the matrix path's NaN drops
+    the row), all cells in one product.  ``streaming`` / ``memory_mb``
+    bound each fold's device memory."""
+    import os
+    import tempfile
+
+    from ..io.plink import subset_samples_many
+
+    ds = PlinkDataset.open(data) if isinstance(data, str) else data
+    n = ds.n_samples
+    if np.shape(Y)[0] != n:
+        raise ValueError("Y rows must match the number of samples")
+    Y, lambda1, lambda2, rng, folds, nfolds = _cv_setup(
+        Y, n, lambda1, lambda2, ndim, nfolds, folds, opt_dim, seed)
+    stand_x = scca_kwargs.get("stand_x", "binom2")
+    op_opts = _plink_operator_options(scca_kwargs)
+    # a validated device before any repack: without a GPU the default
+    # raises here
+    op_opts["device"] = resolve_device(op_opts["device"])
+
+    # without an explicit workdir the fold filesets are scratch, each
+    # fold's deleted once used (nfolds x the dataset otherwise); an
+    # explicit workdir keeps them
+    cleanup = workdir is None
+    if cleanup:
+        workdir = tempfile.mkdtemp(prefix="cv_scca_")
+    else:
+        os.makedirs(workdir, exist_ok=True)
+    base = os.path.basename(ds.bed_path)[:-4]
+
+    n2 = len(lambda2)
+    tally = _CVTally(n, ndim, len(lambda1), n2, nfolds)
+    # the CV seed also seeds the inner runs' V0 (the init=False path)
+    scca_kwargs.setdefault("seed", seed)
+    grid_ok, gkw = grid_fastpath(scca_kwargs, ("stand_x", "stand_y"))
+    if not grid_ok:
+        log("cv_scca: sequential per-cell fallback (host engine or "
+            "keywords outside GRID_COMPAT_KWARGS)", verbose=verbose)
+
+    for fold in range(nfolds):
+        train = folds != fold
+        test = ~train
+        log(f"-> fold {fold + 1}/{nfolds}", verbose=verbose)
+        test_idx = np.flatnonzero(test)
+        subsets = [(np.flatnonzero(train),
+                    os.path.join(workdir, f"{base}_f{fold}_train"))]
+        if test_idx.size:
+            subsets.append((test_idx, os.path.join(
+                workdir, f"{base}_f{fold}_test")))
+        fold_roots = [root for _, root in subsets]
+        # the whole fold sits inside the try, so that a failure anywhere
+        # still removes the fold's scratch filesets
+        try:
+            subset_samples_many(ds, subsets)
+            ds_tr = PlinkDataset.open(fold_roots[0])
+            op_te = None
+            if test_idx.size:
+                ds_te = PlinkDataset.open(fold_roots[1])
+                # the raw-dosage test projector (see the docstring)
+                op_te = build_packed_operator(
+                    ds_te, np.zeros(ds_te.n_snps), np.ones(ds_te.n_snps),
+                    **op_opts)
+            # an empty test fold (an unused label) trains and counts as
+            # the matrix path does, and projects nothing
+            xm, xs = ds_tr.snp_stats(stand_x)
+            op_tr = build_packed_operator(ds_tr, xm, xs, **op_opts)
+            _refuse_auto_streamed(scca_kwargs, op_tr)
+            V0 = None
+            if init:
+                V0g = rng.standard_normal((Y.shape[1], ndim))
+                V0 = scca(op_tr, Y[train], 1e-12, 1e-12, ndim=ndim,
+                          V0=V0g, verbose=verbose, **scca_kwargs).V
+            if grid_ok:
+                g = scca_grid(op_tr, Y[train], lambda1, lambda2,
+                              ndim=ndim, V0=V0, verbose=verbose, **gkw)
+                px = None
+                if op_te is not None:
+                    px_all = _project_cells(op_te, g.U)
+                    px = lambda c: px_all[:, :, c]      # noqa: E731
+                _fold_grid(tally, fold, g, n2, test, px, Y[test])
+                continue
+            for i, l1 in enumerate(lambda1):
+                for j, l2 in enumerate(lambda2):
+                    res = scca(op_tr, Y[train], float(l1), float(l2),
+                               ndim=ndim, V0=V0, verbose=verbose,
+                               **scca_kwargs)
+                    tally.add(fold, i, j, res.U, res.V, res.converged,
+                              test, None if op_te is None else
+                              (lambda: host64(op_te.prod(res.U))),
+                              lambda: Y[test] @ res.V)
+        finally:
+            if cleanup:
+                # the memmaps keep their descriptors; unlinking is safe
+                # and bounds the scratch at one fold
+                for root in fold_roots:
+                    for ext in (".bed", ".bim", ".fam"):
+                        try:
+                            os.remove(root + ext)
+                        except OSError:
+                            pass
+    if cleanup:
+        try:
+            os.rmdir(workdir)
+        except OSError:
+            pass
+    return _cv_pooled_result(tally, lambda1, lambda2, ndim, opt_dim, folds)

@@ -521,6 +521,67 @@ def test_scca_and_grid_on_card_match_cpu(cuda, tmp_path, stream):
         np.testing.assert_allclose(a, b, atol=2e-4)
 
 
+def _same_search(got, want, corr_atol, nz_share):
+    """Two penalty searches (cv_scca or split_scca) on one grid: the
+    converged flags equal, the correlations within ``corr_atol`` where
+    finite (finite in the same cells), the non-zero counts of the cells
+    that converged throughout within ``nz_share`` of ``want``'s."""
+    np.testing.assert_array_equal(got.converged, want.converged)
+    keys = (("corr_test", "corr_train") if hasattr(want, "corr_test")
+            else ("corr",))
+    for key in keys:
+        a, b = getattr(got, key), getattr(want, key)
+        np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b))
+        np.testing.assert_allclose(a[np.isfinite(a)], b[np.isfinite(b)],
+                                   rtol=0, atol=corr_atol)
+    conv = (want.converged if want.converged.ndim == 2
+            else want.converged.all(axis=0))
+    for a, b in ((got.nzero_x, want.nzero_x), (got.nzero_y, want.nzero_y)):
+        assert (np.abs(a - b)[:, conv] <= nz_share * b[:, conv]).all()
+
+
+@pytest.mark.cuda
+def test_cv_and_split_on_card_match_cpu(cuda, tmp_path):
+    """cv_scca (3 folds, init=True) and split_scca on a 2 x 2 grid, on a
+    fileset of 803 samples (n % 4 = 3: the folds' and splits' last
+    bytes are padding), on the card against the CPU float64 path: at
+    float64 (the functional core, no launch) correlations within 1e-9
+    and the non-zero counts equal; at float32 through B1 and B2 (both
+    launched, tol 1e-5) correlations within 1e-4 and non-zeros within 2%
+    (chip_smoke's CV_CORR_BAR and CV_NZ_SHARE); folds and splits equal,
+    and the best cell the same."""
+    from flashpca_tpu_torch import cv_scca, split_scca
+    from flashpca_tpu_torch.ops.genotypes import dense_standardized_np
+
+    ds = _card_fileset(tmp_path, 803, 450, 12)
+    rng = np.random.default_rng(13)
+    mean, sd = ds.snp_stats("binom2")
+    X = dense_standardized_np(ds.read_codes(), mean, sd).T
+    Y = rng.standard_normal((803, 4)) + 0.3 * X[:, [5, 50, 400, 7]]
+    l1, l2 = [1e-3, 2e-2], [1e-3, 5e-2]
+    kw = dict(ndim=2, maxiter=1000, tol=1e-5)
+    runs = {"cv": (cv_scca, dict(nfolds=3, init=True)),
+            "split": (split_scca, dict(prop_train=0.7))}
+    for name, (fn, extra) in runs.items():
+        want = fn(ds, Y, l1, l2, device="cpu", **kw, **extra)
+        tpk.reset_launch_counts()
+        got64 = fn(ds, Y, l1, l2, device=cuda, dtype=torch.float64, **kw,
+                   **extra)
+        assert set(tpk.launch_counts.values()) == {0}, name
+        _same_search(got64, want, 1e-9, 0.0)
+        tpk.reset_launch_counts()
+        got = fn(ds, Y, l1, l2, device=cuda, **kw, **extra)
+        assert tpk.launch_counts["crossprod"] > 0, name
+        assert tpk.launch_counts["matvec"] > 0, name
+        _same_search(got, want, 1e-4, 0.02)
+        assert (got.best_lambda1, got.best_lambda2) == (
+            want.best_lambda1, want.best_lambda2)
+        if name == "cv":
+            np.testing.assert_array_equal(got.folds, want.folds)
+        else:
+            np.testing.assert_array_equal(got.train_idx, want.train_idx)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [3, 16, 24, 40])
 @pytest.mark.parametrize("n", [1001, 1024])

@@ -122,3 +122,152 @@ def test_native_codes_match(small_plink):
         _same(cbed.codes(packed, ds.n_samples), want)
         assert os.path.basename(cbed._find_lib()) == "libbedio.so"
     _same(tplink.unpack_codes(packed, ds.n_samples), want)
+
+
+# ---------------------------------------------------------------------------
+# the host repack (subset_samples) and the byte-counted moments
+# ---------------------------------------------------------------------------
+
+def _geno(n, p, seed):
+    rng = np.random.default_rng(seed)
+    geno = rng.integers(0, 3, size=(n, p)).astype(np.float64)
+    geno[rng.uniform(size=(n, p)) < 0.1] = np.nan       # missing calls
+    geno[:, 1] = np.nan                                 # all missing
+    return geno
+
+
+def _subsets(n, seed):
+    rng = np.random.default_rng(seed)
+    return {"mask": rng.uniform(size=n) < 0.7,
+            "sorted": np.sort(rng.choice(n, size=n // 3, replace=False)),
+            "unordered": rng.permutation(n)[: n // 2 + 1],
+            "one": np.array([n - 1])}
+
+
+@pytest.mark.parametrize("subset", ["mask", "sorted", "unordered", "one"])
+@pytest.mark.parametrize("n", [40, 41, 42, 43])
+def test_subset_samples_bytes_match_jax(tmp_path, n, subset):
+    """The port's repack (table unpack, column gather, word pack, on
+    worker threads) writes the JAX package's .bed/.bim/.fam byte for
+    byte, on every n % 4 of the source and of the subset, with missing
+    calls, in blocks of 5 SNPs that the 13 SNPs cross twice."""
+    root = str(tmp_path / "src")
+    jplink.write_bed(root, _geno(n, 13, n))
+    idx = _subsets(n, n)[subset]
+    jplink.subset_samples(jplink.PlinkDataset.open(root), idx,
+                          str(tmp_path / "j"), block_size=5)
+    tplink.subset_samples(tplink.PlinkDataset.open(root), idx,
+                          str(tmp_path / "t"), block_size=5)
+    for ext in (".bed", ".bim", ".fam"):
+        assert ((tmp_path / ("j" + ext)).read_bytes()
+                == (tmp_path / ("t" + ext)).read_bytes()), ext
+
+
+@pytest.mark.parametrize("n", [40, 41, 42, 43])
+def test_subset_samples_many_matches_jax(tmp_path, n):
+    """Train and test from one read of the source (blocks of 5 SNPs
+    that the 13 SNPs cross twice) are the JAX package's two
+    ``subset_samples`` filesets byte for byte; a bad subset among them
+    raises before any file is written."""
+    root = str(tmp_path / "src")
+    jplink.write_bed(root, _geno(n, 13, n))
+    train = _subsets(n, n)["mask"]
+    ds = tplink.PlinkDataset.open(root)
+    subsets = [(train, str(tmp_path / "t_tr")),
+               (np.flatnonzero(~train), str(tmp_path / "t_te"))]
+    assert tplink.subset_samples_many(ds, subsets, block_size=5) == [
+        r for _, r in subsets]
+    dj = jplink.PlinkDataset.open(root)
+    for idx, tag in ((train, "tr"), (np.flatnonzero(~train), "te")):
+        jplink.subset_samples(dj, idx, str(tmp_path / ("j_" + tag)),
+                              block_size=5)
+        for ext in (".bed", ".bim", ".fam"):
+            assert ((tmp_path / ("j_" + tag + ext)).read_bytes()
+                    == (tmp_path / ("t_" + tag + ext)).read_bytes()), ext
+    x_tr = (train, str(tmp_path / "x_tr"))
+    for bad in (([], str(tmp_path / "x_te")),      # an empty subset
+                ([0], root)):                      # the source's root
+        with pytest.raises(ValueError):
+            tplink.subset_samples_many(ds, [x_tr, bad])
+    assert not (tmp_path / "x_tr.bed").exists()
+
+
+@pytest.mark.parametrize("n", [1000, 1001, 1002, 1003])
+def test_repack_threads_and_codes_match_jax(monkeypatch, tmp_path, n):
+    """With work items of a few rows (so that the rows run on several
+    threads), the repack, ``pack_codes`` and ``unpack_codes`` equal the
+    JAX package's on codes 0-3 in every position, and the source's
+    padding bits do not leak into the subset's last byte."""
+    monkeypatch.setattr(tplink, "_CHUNK_BYTES", 3 * n)
+    rng = np.random.default_rng(n)
+    p = 50
+    codes = rng.integers(0, 4, size=(p, n)).astype(np.uint8)
+    packed = jplink.pack_codes(codes, n)
+    _same(tplink.pack_codes(codes, n), packed)
+    _same(tplink.unpack_codes(packed, n), jplink.unpack_codes(packed, n))
+    if n % 4:
+        packed[:, -1] |= np.uint8(0xFF << (2 * (n % 4)) & 0xFF)
+    root = str(tmp_path / "src")
+    tplink.write_bed(root, np.zeros((n, p)))
+    with open(root + ".bed", "r+b") as fh:
+        fh.seek(3)
+        fh.write(packed.tobytes())
+    idx = np.flatnonzero(rng.uniform(size=n) < 0.8)
+    jplink.subset_samples(jplink.PlinkDataset.open(root), idx,
+                          str(tmp_path / "j"))
+    tplink.subset_samples(tplink.PlinkDataset.open(root), idx,
+                          str(tmp_path / "t"))
+    assert (tmp_path / "j.bed").read_bytes() == (tmp_path / "t.bed").read_bytes()
+    ds = tplink.PlinkDataset.open(str(tmp_path / "t"))
+    _same(ds.read_codes(), codes[:, idx])
+
+
+@pytest.mark.parametrize("n", [40, 41, 42, 43])
+def test_moments_without_native_match_jax(monkeypatch, tmp_path, n):
+    """Without the native library the port counts the moments on the
+    packed bytes (popcounts, on threads): the JAX package's exact
+    float64 moments and stats, padding bits set or not."""
+    from flashpca_tpu_torch.io import cbed
+
+    monkeypatch.setattr(cbed, "available", lambda: False)
+    monkeypatch.setattr(cbed, "moments_available", lambda: False)
+    monkeypatch.setattr(tplink, "_CHUNK_BYTES", 64)
+    root = str(tmp_path / "g")
+    jplink.write_bed(root, _geno(n, 13, 7 * n))
+    dj = jplink.PlinkDataset.open(root)
+    want = tplink.snp_moments_from_codes(jplink.unpack_codes(
+        dj.read_packed(), n))
+    for a, b in zip(tplink.PlinkDataset.open(root).snp_moments(), want):
+        _same(a, b)
+    for a, b in zip(dj.snp_moments(), want):
+        _same(a, b)
+    packed = dj.read_packed().copy()
+    if n % 4:
+        packed[:, -1] |= np.uint8(0xFF << (2 * (n % 4)) & 0xFF)
+    for a, b in zip(tplink.snp_moments_from_packed(packed, n), want):
+        _same(a, b)
+    for method in ("binom", "binom2"):
+        for a, b in zip(tplink.PlinkDataset.open(root).snp_stats(method),
+                        dj.snp_stats(method)):
+            _same(a, b)
+
+
+def test_repack_times_tool(monkeypatch, capsys):
+    """``tools/repack_times.py`` at a small size, with work items of a
+    few rows so that two threads share them: its repacks agree across
+    thread counts and with one read, and it restores what it changed."""
+    import json
+
+    from flashpca_tpu_torch.io import cbed
+    from flashpca_tpu_torch.tools import repack_times
+
+    monkeypatch.setattr(tplink, "_CHUNK_BYTES", 4 * 1001 * 3)
+    before = (cbed.available, tplink._THREADS)
+    assert repack_times.main(["--snps", "40", "--samples", "1001",
+                              "--threads", "1,2"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert set(out["by_threads"]) == {"1", "2"}
+    assert all(t["one_read_s"] is not None
+               for t in out["by_threads"].values())
+    assert 0 < out["kept"] < 1001 and out["source_bytes"] == 40 * 251
+    assert (cbed.available, tplink._THREADS) == before
