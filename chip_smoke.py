@@ -60,7 +60,9 @@ Phases, all in this one process; any failure raises and exits nonzero:
    (eigenvalues within 1e-9 of the largest, vectors RMSE < 1e-6),
    ``check()`` at float64 (mse < 1e-8) and the wide run streamed from
    the memmap within 1e-12 relative of the resident one; then the CLI
-   on the card: ``pca`` writes loadings and meansd, ``--project
+   on the card: ``pca`` writes loadings and meansd under ``--profile``
+   (its Chrome trace must name CUDA kernel events of B1 and B2),
+   ``--project
    --inload --inmeansd`` reads them back (B2), ``--ucca --pheno`` a
    phenotype file written here (B1), each held to a numpy float64
    oracle (the projection's columns within 1e-6 of their norms; ucca's
@@ -88,13 +90,27 @@ Phases, all in this one process; any failure raises and exits nonzero:
    resident run and on the numeric matrix at float32 to float64 (no
    launch): correlations within CV_CORR_BAR, flags equal, the best cell
    the same but for a tie within CV_TIE_BAR, non-zeros within
-   CV_NZ_SHARE;
+   CV_NZ_SHARE; then two processes with torch.distributed on the
+   fileset (``mp_mesh``: NCCL across two cards, or gloo with both ranks
+   on the one card; each rank ``python3 chip_smoke.py --mp-rank R`` with
+   240 s, reading only its shard's bytes): wide ``pca`` + ``check`` at
+   float32 (B1-B4 on every rank) and float64 (no launch), the wide and
+   the tall path streamed (``memory_mb=1``), the tall path and ``scca``
+   (ndim 2), the ranks bit-equal and each held to the one-process run
+   on the card (float32 eigenvalues 2e-5, float64 1e-10, check mse <
+   1e-8, scca d 1e-4 and U, V 1e-3), the collectives timed;
 5. the wide headline: structured genotypes 501,760 x 100,352 generated
    on the card (12.6 GB packed, never decoded whole), ``pca(op, 20)``
    with ``polish="contract"`` at float32, then ``check(op, U, d)``; the
    kernels' launch counts are reset just before ``pca`` and read just
    after ``check``, and every kernel of the wide path (B1-B4) must have
-   run; then ``project`` and ``ucca`` on the same operator, counts
+   run; then the same bytes on a 2-shard mesh of the card
+   (``sharded_headline``: row views, no copy), ``pca`` and ``check``
+   with the counts around them (B1-B4 must launch), eigenvalues within
+   1e-5 relative of the one-shard run, check mse < 1e-8, ``n_ops`` and
+   the gate's mse printed beside the one-shard run's, B1 and B2 timed at
+   kc 16 at one shard's shape; then ``project`` and ``ucca`` on the
+   same operator, counts
    reset just before and read just after each: the headline's loadings
    (one crossprod of its vectors, B1) projected back by
    ``_project_operator(op, V, p)`` (B2 at kc 24), held to the float64
@@ -192,12 +208,16 @@ Phases, all in this one process; any failure raises and exits nonzero:
    of X^T X / p formed on the card (p x p float64, 20 GB, ~100 s), save
    that in the Marchenko-Pastur bulk the bar below is 3.6e-5 (and
    between the paths 3.6e-5 both ways); one float64 gram pass timed
-   and, where 250 passes of it would exceed 60 s, the SNP depth cut
+   and, where 250 passes of it would exceed 65 s, the SNP depth cut
    (never the samples) to fit, then ``pca(TallPackedOperator(...,
    dtype=float64), 20)`` on that depth through the functional core (no
    kernel may launch), its eigenvalues within 2e-6 of the largest of
    the float64 eigendecomposition of that depth's gram (the leading
-   block of the same X^T X / p) for every pair; then B5 at kc 32 and 24 (and
+   block of the same X^T X / p) for every pair; then the same bytes on
+   2 byte-column shards of the card (``sharded_tall``), ``pca`` and
+   ``check()`` through a 2-shard wide operator, held as the sharded
+   headline (B1, B2, B3 and B5 must launch), B1 and B2 timed at kc 16
+   at one shard's shape; then B5 at kc 32 and 24 (and
    B1-B3 at their tall widths: B1 and B2 at 16, 24, 32, B3 at 24, 32)
    timed at the tall shapes, and beside B5, on the same inputs, its
    comparison entries, B1 at kc 16 and 32, B2 at kc 16, 24 and 32 and B3
@@ -231,7 +251,8 @@ headline's shape, B1/B2 at kc 16 with ``"scca_grid"`` (the solver
 panel's rows with the grid's launches), and ``"project_streaming"``,
 ``"ucca_streaming"``, ``"scca_streaming"`` and ``"scca_grid_streaming"``
 at the streamed block's, B1/B2 at kc 16 with ``"split_scca"`` and
-``"cv_scca"`` on their train bytes), with a ``streaming`` entry (the streamed
+``"cv_scca"`` on their train bytes, B1/B2 at kc 16 with ``"sharded"``
+and ``"sharded_tall"`` at one shard's shape), with a ``streaming`` entry (the streamed
 path's launches and per-launch medians, and under ``tall`` the streamed
 tall path's); the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -398,11 +419,11 @@ UCCA_K, UCCA_BETA, UCCA_SLICE = 7, 0.02, 512
 # passes it takes, which grow with the SNP depth (118, 168 and 226 at
 # 2,048, 4,096 and 6,144 SNPs of the 1,003,520 samples on the H100:
 # tools/tall_f64_depths.py and this script, PERF.md), taken as 250; and
-# the restarts it may take before it fails.  120 s cuts the depth to
-# 4,096 SNPs on the H100 (~80 s; 180 s gives 6,144 in ~162 s, which
-# left the whole script ~60 s inside 1,200 s on the slowest host seen:
-# PERF.md section 5)
-F64_SOLVE_S, F64_PASSES, F64_MAXITER = 120.0, 250, 400
+# the restarts it may take before it fails.  65 s cuts the depth to
+# 2,048 SNPs on the H100 for a full pass of 5.0-6.3 s (~30 s of solve;
+# 120 s gave 4,096 in ~80 s, 180 s 6,144 in ~162 s): the sharded
+# phases' time came out of it (PERF.md section 4)
+F64_SOLVE_S, F64_PASSES, F64_MAXITER = 65.0, 250, 400
 # kernel-check shapes (label, SNPs, samples, seed): a full-width slice of
 # the headline and a small odd case (n % 4 != 0); the tall kernels also
 # run at the tall headline's width
@@ -458,14 +479,14 @@ CV_CORR_BAR, CV_TIE_BAR, CV_NZ_SHARE = 1e-4, 1e-4, 0.02
 CV_MID_L1, CV_MID_L2 = (1.5, 2.5, 3.5), (0.01, 0.02, 0.05)
 # the headline search on its first D SNPs: the phase's time budget (the
 # estimate from one timed repack of CV_PROBE_SNPS SNPs sets D: 8,192 on
-# an H100's host, where with the float64 tall run at F64_SOLVE_S the
+# an H100's host at 70 s, 4,096 at 50 s, cut for the sharded phases: the
 # script must end within 1,200 s on the slowest host: PERF.md section
 # 5), the CV's
 # folds and the split's share of training samples; the best split
 # cell's dim-1 test correlation recomputed in float64 within
 # CV_F64_CORR_BAR, and at least CV_MIN_CORR (the planted directions at
 # 3 / std give ~0.95)
-CV_BUDGET_S, CV_PROBE_SNPS, CV_FOLDS, CV_PROP_TRAIN = 70.0, 4096, 3, 0.8
+CV_BUDGET_S, CV_PROBE_SNPS, CV_FOLDS, CV_PROP_TRAIN = 50.0, 4096, 3, 0.8
 CV_F64_CORR_BAR, CV_MIN_CORR = 1e-5, 0.8
 # the card's share of the headline phase in the estimate: its grids,
 # init runs and projections, ~27 s at the full 100,352 SNPs by the
@@ -473,6 +494,20 @@ CV_F64_CORR_BAR, CV_MIN_CORR = 1e-5, 0.8
 # section 6), so 3e-4 s a SNP, beside CV_FIXED_S for the rest
 # (phenotypes, the solo and float64 holds, the kernel rows)
 CV_CARD_S_PER_SNP, CV_FIXED_S = 3e-4, 40.0
+# sharding: the one-process headline phases' shard count on the card;
+# their eigenvalues against the one-shard run's on the same bytes (float32
+# runs of the same products summed in another order: 1e-5 relative, the
+# issue's bar; the mid-size streamed run's against its resident one,
+# another order too, meets 2e-6)
+SHARDS, SHARD_EIG_BAR = 2, 1e-5
+# the two-process phase on the mid-size fileset: processes, each rank's
+# time limit (tests/test_multiprocess.py's), k, the float32 and float64
+# eigenvalue bars against the one-process run (the CPU tests' two-process
+# bars: tests/test_torch_multiprocess.py), and the seed of its scca's
+# phenotypes (mid_phenotypes: the mid-size phase's seed, mid_scca's
+# problem)
+MP_NPROC, MP_TIMEOUT_S, MP_K, MP_SEED = 2, 240, 10, 5
+MP_F32_BAR, MP_F64_BAR = 2e-5, 1e-10
 # the tall headline: the JAX package's tall bench shape (bench.py)
 TALL_N, TALL_P = 1_003_520, 50_176
 # the dense headline: the headline's SNP width with a tenth of its
@@ -1071,18 +1106,15 @@ def check_tall_kernels(dev):
 # Phase 4: mid-size PLINK fileset against a float64 oracle
 # ---------------------------------------------------------------------------
 
-def mid_size(dev, workdir, n=8001, p=4096, k=10, seed=5):
-    import torch
-
-    from flashpca_tpu_torch import PlinkDataset, check, pca
+def write_mid_fileset(workdir, n=8001, p=4096, seed=5):
+    """The mid-size PLINK fileset ``workdir/mid``: n samples of 12
+    populations of unequal size (which keeps the structured eigenvalues
+    apart, so the eigenvectors are well determined), p SNPs, 1% missing
+    calls and one constant SNP.  Returns its root."""
     from flashpca_tpu_torch.io.plink import write_bed
-    from flashpca_tpu_torch.kernels import packed_matvec as tpk
-    from flashpca_tpu_torch.ops.genotypes import dense_standardized_np
 
     rng = np.random.default_rng(seed)
     pops = 12
-    # unequal population sizes keep the structured eigenvalues apart,
-    # so the eigenvectors are well determined for the comparison
     w = 0.8 ** np.arange(pops)
     pop = rng.choice(pops, size=n, p=w / w.sum())
     freq = np.clip(rng.uniform(0.05, 0.5, p)[:, None]
@@ -1092,8 +1124,17 @@ def mid_size(dev, workdir, n=8001, p=4096, k=10, seed=5):
     geno[:, 7] = 1.0                                   # a constant SNP
     root = os.path.join(workdir, "mid")
     write_bed(root, geno)
-    del geno
+    return root
 
+
+def mid_size(dev, workdir, n=8001, p=4096, k=10, seed=5):
+    import torch
+
+    from flashpca_tpu_torch import PlinkDataset, check, pca
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+    from flashpca_tpu_torch.ops.genotypes import dense_standardized_np
+
+    root = write_mid_fileset(workdir, n, p, seed)
     ds = PlinkDataset.open(root)
     t0 = time.time()
     res = pca(root, k, device=dev)
@@ -1460,8 +1501,11 @@ def mid_cli(dev, workdir, root, ds, k, seed, n_pheno=3):
         return os.path.join(cdir, fn)
 
     n, p = ds.n_samples, ds.n_snps
+    # pca under --profile: its Chrome trace must name B1's and B2's
+    # kernels among its CUDA kernel events
     run("--ndim", str(k), "--outload", "loadings.txt", "--outmeansd",
-        "meansd.txt")
+        "meansd.txt", "--profile", "prof")
+    profiled = profile_kernels(path("prof"), cuda=dev.type == "cuda")
     proj_launches = run("--project", "--inload", "loadings.txt",
                         "--inmeansd", "meansd.txt")
     V = read_text(path("loadings.txt"), firstcol=3, skip=1)
@@ -1499,8 +1543,43 @@ def mid_cli(dev, workdir, root, ds, k, seed, n_pheno=3):
     batch_errs = hold_ucca("--ucca vs --ucca --batch", got, batch)
     return {"project_col_rel_err": float(proj_err.max()),
             "ucca_errs": errs, "ucca_vs_batch_errs": batch_errs,
+            "profile": profiled,
             "launches": {"project": proj_launches["matvec"],
                          "ucca": ucca_launches["crossprod"]}}
+
+
+# the CUDA kernel names of B1 and B2 (crossprod_v2.cu, matvec_v2.cu) as a
+# profiler trace shows them
+PROFILE_KERNELS = {"crossprod": "crossprod_tile_kernel",
+                   "matvec": "matvec_tile_kernel"}
+
+
+def profile_kernels(prof_dir, cuda=True):
+    """The CLI's ``--profile`` trace in ``prof_dir``: one Chrome trace
+    file whose CUDA kernel events name B1 and B2 (PROFILE_KERNELS); a
+    run on the CPU (the phase rehearsed) has no CUDA events, and its
+    trace must hold operator events instead.  Returns {kernel: events,
+    ...} with the file's size."""
+    files = [f for f in os.listdir(prof_dir) if f.endswith(".json")]
+    if len(files) != 1:
+        raise AssertionError(f"--profile wrote {files} into {prof_dir}")
+    fn = os.path.join(prof_dir, files[0])
+    with open(fn) as fh:
+        events = json.load(fh)["traceEvents"]
+    kern = [str(e.get("name", "")) for e in events
+            if e.get("cat") == "kernel"]
+    found = {k: sum(sym in nm for nm in kern)
+             for k, sym in PROFILE_KERNELS.items()}
+    say(f"   --profile: {files[0]} ({os.path.getsize(fn) / 1e6:.1f} MB), "
+        f"{len(kern)} CUDA kernel events; B1/B2 events {found}")
+    if not cuda:
+        if not any(e.get("cat") == "cpu_op" for e in events):
+            raise AssertionError("--profile trace holds no operator event")
+    elif not all(found.values()):
+        raise AssertionError(f"--profile trace names no CUDA kernel event "
+                             f"of {[k for k, c in found.items() if not c]}")
+    return {"kernel_events": len(kern), "bytes": os.path.getsize(fn),
+            **found}
 
 
 def mid_phenotypes(ds, seed, n_pheno=5):
@@ -4351,12 +4430,392 @@ def kernel_sweep(dev, p, n, worst, b1_library_ms, main_launches,
     return rows, out
 
 
+# ---------------------------------------------------------------------------
+# Sharding (flashpca_tpu_torch.parallel): one process, two shards on the
+# card; and two processes with torch.distributed
+# ---------------------------------------------------------------------------
+
+def card_mesh(dev, shards, axis="snps"):
+    """A one-process mesh of ``shards`` shards on ``dev``'s card."""
+    import torch
+
+    from flashpca_tpu_torch.parallel import snp_mesh
+
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    return snp_mesh([f"cuda:{idx}"] * shards, axis_name=axis)
+
+
+def hold_sharded(tag, res, chk, ref, ref_check_mse, launches, path):
+    """A sharded run ``res`` (its check ``chk``) against the one-shard
+    run ``ref`` on the same bytes: every eigenvalue within SHARD_EIG_BAR
+    relative, check mse < max(1e-8, 2 x the one-shard run's), every
+    kernel of ``path`` launched and no first design; ``n_ops`` and the
+    gate's mse printed beside the one-shard run's (the float32 gate sits
+    near its bar, and the shards' order of sums may flip it: said, not
+    failed)."""
+    rel = np.abs(res.values - ref.values) / ref.values
+    say(f"   {tag}: n_ops {res.n_ops} (one shard {ref.n_ops}), gate mse "
+        f"{res.gate_mse!r} (one shard {ref.gate_mse!r}), check mse "
+        f"{chk.mse!r} (one shard {ref_check_mse!r}); eigenvalues vs one "
+        f"shard rel err max {rel.max():.2e} (bar {SHARD_EIG_BAR})")
+    if res.n_ops != ref.n_ops:
+        say(f"   {tag}: the contract gate FLIPPED: n_ops {res.n_ops} "
+            f"against the one-shard run's {ref.n_ops}")
+    require_launched(launches, path, tag)
+    require_no_first_design(launches, tag)
+    if not (np.isfinite(res.vectors).all() and np.isfinite(res.values).all()
+            and res.vectors.shape == ref.vectors.shape):
+        raise AssertionError(f"{tag}: non-finite or misshapen result")
+    if not rel.max() <= SHARD_EIG_BAR:
+        raise AssertionError(f"{tag}: eigenvalues {rel.max():.2e} relative "
+                             f"off the one-shard run (bar {SHARD_EIG_BAR})")
+    if not chk.mse < max(1e-8, 2.0 * ref_check_mse):
+        raise AssertionError(f"{tag}: check mse {chk.mse:.3e}")
+    return {"n_ops": res.n_ops, "gate_mse": res.gate_mse,
+            "check_mse": chk.mse, "one_shard_n_ops": ref.n_ops,
+            "one_shard_gate_mse": ref.gate_mse,
+            "eig_rel_err": float(rel.max()),
+            "launches": {nm: launches[nm] for nm in path}}
+
+
+def sharded_headline(dev, op, res, head, worst, k):
+    """The wide headline's bytes on a 2-shard mesh of the card: row views
+    of the resident tensor (no copy), ``pca(op, k)`` (contract, float32)
+    and ``check()`` with the counts set to 0 just before and read just
+    after (B1-B4 must launch), held to the one-shard run by
+    :func:`hold_sharded`; then B1 and B2 at kc 16 timed at one shard's
+    shape.  Returns (kernel rows, summary)."""
+    from flashpca_tpu_torch import PackedOperator, check, pca
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    sop = PackedOperator(op.packed, op.center, op.scale, op.n_samples,
+                         mesh=card_mesh(dev, SHARDS),
+                         snp_sumsq=op.snp_sumsq)
+    base, row = op.packed.data_ptr(), op.packed.shape[1]
+    if any(blk.data_ptr() != base + lo * row for blk, lo, _ in sop._shards):
+        raise AssertionError("sharded headline: a shard is not a row view")
+    tpk.reset_launch_counts()
+    with Phase(f"sharded headline: pca(op, {k}) on {SHARDS} shards of "
+               "the card") as ph:
+        res2 = pca(sop, k)
+    with Phase("check(sharded op, U, d)") as ph2:
+        chk2 = check(sop, res2.vectors, res2.values)
+    launches = dict(tpk.launch_counts)
+    out = hold_sharded("sharded headline", res2, chk2, res,
+                       head["check_mse"], launches, WIDE_PATH)
+    out.update(pca_s=ph.seconds, check_s=ph2.seconds,
+               one_shard_pca_s=head["pca_s"])
+    lo, hi = sop._shards[0][1:]
+    shard = PackedOperator(op.packed[lo:hi], op.center[lo:hi],
+                           op.scale[lo:hi], op.n_samples, device=op.device,
+                           snp_sumsq=op.snp_sumsq[lo:hi])
+    del sop
+    with Phase("kernel times at one shard's shape"):
+        rows = [dict(r, path="sharded") for r in time_kernels(
+            shard, [("crossprod", 16), ("matvec", 16)], launches, worst,
+            slices=16)]
+    return rows, out
+
+
+def sharded_tall(dev, top, res, tall, worst, k):
+    """The tall headline's bytes on 2 byte-column shards of the card
+    (each shard a contiguous copy of its columns): ``pca(op, k)``, then
+    ``check()`` of its result through a 2-shard wide operator on the
+    same bytes (row views), counts around both (B1, B2, B3, B5 must
+    launch), held to the one-shard tall run by :func:`hold_sharded`;
+    then B1 and B2 at kc 16 timed at one shard's shape.  Returns (kernel
+    rows, summary)."""
+    from flashpca_tpu_torch import PackedOperator, TallPackedOperator, check
+    from flashpca_tpu_torch import pca
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+
+    with Phase(f"sharded tall: {SHARDS} byte-column shards on the card"):
+        stop = TallPackedOperator(top.packed, top.center, top.scale,
+                                  top.n_samples,
+                                  mesh=card_mesh(dev, SHARDS, "samples"),
+                                  snp_sumsq=top.snp_sumsq)
+    wide = PackedOperator(top.packed, top.center, top.scale, top.n_samples,
+                          mesh=card_mesh(dev, SHARDS),
+                          snp_sumsq=top.snp_sumsq)
+    tpk.reset_launch_counts()
+    with Phase(f"sharded tall pca(op, {k})") as ph:
+        res2 = pca(stop, k)
+    with Phase("check() through the 2-shard wide operator"):
+        chk2 = check(wide, res2.vectors, res2.values)
+    launches = dict(tpk.launch_counts)
+    del wide
+    out = hold_sharded("sharded tall", res2, chk2, res, tall["check_mse"],
+                       launches, TALL_PATH)
+    out.update(pca_s=ph.seconds, one_shard_pca_s=tall["pca_s"])
+    blk = stop._shards[0][0]
+    shard = TallPackedOperator(blk, top.center, top.scale, 4 * blk.shape[1],
+                               device=top.device)
+    del stop
+    with Phase("kernel times at one tall shard's shape"):
+        rows = [dict(r, path="sharded_tall") for r in time_kernels(
+            shard, [("crossprod", 16), ("matvec", 16)], launches, worst,
+            slices=16)]
+    return rows, out
+
+
+def mp_modes(root, dev, mesh=None, tmesh=None):
+    """The two-process phase's runs on the mid-size fileset: in one
+    process on ``dev`` (``mesh`` None), or in each process of the group
+    on its shard of ``mesh`` (wide) and ``tmesh`` (tall), reading only
+    its shard's bytes and stats.  The launch counts are set to 0 just
+    before each mode and read just after.  Returns {mode: (values,
+    vectors, n_ops, check mse or None, launches)}; scca's "values" are
+    its d, its "vectors" U stacked on V."""
+    import torch
+
+    from flashpca_tpu_torch import (PackedOperator, PlinkDataset,
+                                    StreamingPackedOperator,
+                                    TallPackedOperator,
+                                    TallStreamingOperator, check, pca, scca)
+    from flashpca_tpu_torch.io.plink import stats_from_moments
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+    from flashpca_tpu_torch.parallel import (sample_sharded_moments,
+                                             sharded_operator,
+                                             tall_sharded_operator)
+    from flashpca_tpu_torch.parallel.dist import sharded_snp_stats
+
+    ds = PlinkDataset.open(root)
+    one = mesh is None
+    kw = {"device": dev} if one else {}
+
+    def wide(dtype):
+        return root if one else sharded_operator(ds, mesh, dtype=dtype)
+
+    def streamed(tall):
+        if one:
+            return root
+        p, nb = ds.n_snps, ds.nbytes_per_snp
+        if tall:
+            plan = TallPackedOperator.plan_layout(p, nb, nshards=tmesh.size)
+            ngood, dsum, _ = sample_sharded_moments(
+                ds, tmesh, nbytes_pad=plan["nbytes_pad"])
+            mean, sd = stats_from_moments(ngood, dsum, "binom2")
+            return TallStreamingOperator(ds, mean, sd, ds.n_samples,
+                                         memory_mb=1, mesh=tmesh)
+        plan = PackedOperator.plan_layout(p, nb, nshards=mesh.size)
+        mean, sd = sharded_snp_stats(ds, mesh, plan["p_pad"])
+        return StreamingPackedOperator(ds, mean, sd, ds.n_samples,
+                                       memory_mb=1, mesh=mesh)
+
+    f64 = {"dtype": torch.float64} if one else {}
+    stream = {"streaming": True, "memory_mb": 1} if one else {}
+    runs = {
+        "pca32": lambda: pca(wide(torch.float32), MP_K, **kw),
+        "pca64": lambda: pca(wide(torch.float64), MP_K, **kw, **f64),
+        "stream": lambda: pca(streamed(False), MP_K, **kw, **stream),
+        "tall": lambda: pca(root if one else tall_sharded_operator(
+            ds, tmesh), MP_K, operator_mode="tall", **kw),
+        "tallstream": lambda: pca(streamed(True), MP_K,
+                                  operator_mode="tall", **kw, **stream),
+    }
+    out = {}
+    for mode, run in runs.items():
+        tpk.reset_launch_counts()
+        res = run()
+        chk = None
+        if mode in ("pca32", "pca64"):
+            dt = torch.float64 if mode == "pca64" else torch.float32
+            chk = check(wide(dt), res.vectors, res.values, **kw,
+                        **(f64 if dt == torch.float64 else {})).mse
+        out[mode] = (res.values, res.vectors, res.n_ops, chk,
+                     dict(tpk.launch_counts))
+    # mid_scca's problem: the same phenotypes and V0 on every process
+    Y = mid_phenotypes(ds, MP_SEED)
+    tpk.reset_launch_counts()
+    sres = scca(wide(torch.float32), Y, SCCA_L1 / np.sqrt(ds.n_snps),
+                SCCA_L2, ndim=2, tol=SCCA_MID_TOL, **kw)
+    out["scca"] = (sres.d, np.concatenate([sres.U, sres.V]),
+                   int(sres.n_iters.sum()), None, dict(tpk.launch_counts))
+    return out
+
+
+def mp_worker(args) -> int:
+    """One process of the two-process phase (``--mp-rank``): joins the
+    group, runs :func:`mp_modes` on its own shard, times the two
+    collectives, and writes its results to ``--mp-out``."""
+    import torch
+
+    from flashpca_tpu_torch.parallel import init_distributed, snp_mesh
+
+    rank, world = args.mp_rank, args.mp_world
+    nccl = args.mp_backend == "nccl"
+    if args.mp_device == "cpu":
+        # the phase rehearsed on the CPU (tests/test_torch_dist.py)
+        dev = torch.device("cpu")
+        sync_dev = lambda: None                            # noqa: E731
+        torch.set_num_threads(2)
+    else:
+        dev = torch.device(f"cuda:{rank if nccl else 0}")
+        torch.cuda.set_device(dev)
+        sync_dev = torch.cuda.synchronize
+    init_distributed(backend=args.mp_backend,
+                     init_method=f"tcp://localhost:{args.mp_port}",
+                     world_size=world, rank=rank)
+    mesh = snp_mesh([str(dev)])
+    tmesh = snp_mesh([str(dev)], axis_name="samples")
+    assert mesh.size == world and mesh.multiprocess
+    out = mp_modes(args.mp_root, dev, mesh, tmesh)
+    # the collectives of one product and one solver cycle: the gram's
+    # (n4, 16) float32 all-reduce and a (64, 64) float64 broadcast
+    n4 = 4 * (-(-8001 // 4))
+    t = torch.randn((n4, 16), device=dev)
+    h = np.random.default_rng(0).standard_normal((64, 64))
+    coll = {}
+    for name, fn in (("all_reduce_n4x16_f32", lambda: mesh.all_sum(t)),
+                     ("broadcast_64x64_f64", lambda: mesh.agree(h))):
+        fn()
+        ts = []
+        for _ in range(20):
+            sync_dev()
+            t0 = time.perf_counter()
+            fn()
+            sync_dev()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        coll[name] = float(np.median(ts))
+    flat = {"collectives": json.dumps(coll)}
+    for mode, (vals, vecs, n_ops, chk, launches) in out.items():
+        flat.update({f"{mode}.values": vals, f"{mode}.vectors": vecs,
+                     f"{mode}.n_ops": n_ops,
+                     f"{mode}.check": np.nan if chk is None else chk,
+                     f"{mode}.launches": json.dumps(launches)})
+    np.savez(os.path.join(args.mp_out, f"rank{rank}.npz"), **flat)
+    mesh.barrier()
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def mp_mesh(dev, workdir, root):
+    """Two processes with torch.distributed over the mid-size fileset:
+    NCCL across two cards when there are two, else gloo with both ranks
+    on the one card; each rank (``python3 chip_smoke.py --mp-rank R``)
+    reads only its shard's bytes and runs wide ``pca`` + ``check`` at
+    float32 (the kernels on every rank) and float64, the wide and the
+    tall path streamed (``memory_mb=1``), the tall path and ``scca``
+    (ndim 2); each held to this process's one-process run: the ranks'
+    results bit-equal, float32 eigenvalues within MP_F32_BAR relative,
+    float64 within MP_F64_BAR, check mse < 1e-8, scca d within
+    SCCA_GRID_D_BAR and U, V within SCCA_GRID_UV_BAR.  Each rank has
+    MP_TIMEOUT_S: a hung group fails the phase.  Returns a summary."""
+    import socket
+
+    import torch
+
+    ncards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    backend = "nccl" if ncards >= MP_NPROC else "gloo"
+    say(f"   mp_mesh: {MP_NPROC} processes, backend {backend}, {ncards} "
+        "card(s) seen")
+    with Phase("mp_mesh: one-process runs on the card"):
+        ref = mp_modes(root, dev)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    out = os.path.join(workdir, "mp")
+    os.makedirs(out)
+    script = os.path.abspath(__file__)
+    cmd = [sys.executable, script, "--mp-world", str(MP_NPROC),
+           "--mp-port", str(port), "--mp-backend", backend, "--mp-root",
+           root, "--mp-out", out, "--mp-device", dev.type]
+    with Phase(f"mp_mesh: {MP_NPROC} ranks") as ph:
+        procs = [subprocess.Popen(cmd + ["--mp-rank", str(r)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(MP_NPROC)]
+        logs = []
+        try:
+            deadline = time.time() + MP_TIMEOUT_S
+            for pr in procs:
+                logs.append(pr.communicate(
+                    timeout=max(1.0, deadline - time.time()))[0])
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"mp_mesh: the ranks did not finish "
+                                 f"within {MP_TIMEOUT_S} s")
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+    for r, (pr, log) in enumerate(zip(procs, logs)):
+        if pr.returncode != 0:
+            say(log)
+            raise AssertionError(f"mp_mesh: rank {r} exited "
+                                 f"{pr.returncode}")
+    ranks = [np.load(os.path.join(out, f"rank{r}.npz"))
+             for r in range(MP_NPROC)]
+    summary = {"backend": backend, "cards": ncards, "ranks_s": ph.seconds,
+               "collectives_ms": json.loads(str(ranks[0]["collectives"]))}
+    for mode, (vals, vecs, n_ops, chk, launches) in ref.items():
+        got = [(d[f"{mode}.values"], d[f"{mode}.vectors"]) for d in ranks]
+        for key in ("values", "vectors", "n_ops"):
+            if not all(np.array_equal(d[f"{mode}.{key}"],
+                                      ranks[0][f"{mode}.{key}"])
+                       for d in ranks):
+                raise AssertionError(f"mp_mesh {mode}: the ranks' {key} "
+                                     "differ")
+        rank_launches = [json.loads(str(d[f"{mode}.launches"]))
+                         for d in ranks]
+        g_vals, g_vecs = got[0]
+        if mode == "scca":
+            rel = np.abs(g_vals - vals) / np.abs(vals)
+            uv = float(np.max(np.abs(g_vecs - vecs)))
+            ok = rel.max() <= SCCA_GRID_D_BAR and uv <= SCCA_GRID_UV_BAR
+            bar = f"d {SCCA_GRID_D_BAR}, U/V {SCCA_GRID_UV_BAR} (max {uv:.2e})"
+            path = SCCA_PATH
+        else:
+            rel = np.abs(g_vals - vals) / vals
+            f64 = mode == "pca64"
+            lim = MP_F64_BAR if f64 else MP_F32_BAR
+            ok = rel.max() <= lim
+            bar = str(lim)
+            path = () if f64 else (TALL_PATH if mode.startswith("tall")
+                                   else WIDE_PATH)
+        g_chk = float(ranks[0][f"{mode}.check"])
+        say(f"   {mode}: rel err vs one process {rel.max():.2e} (bar {bar}),"
+            f" n_ops {int(ranks[0][f'{mode}.n_ops'])} (one process "
+            f"{n_ops}), check mse {g_chk:.3e}; launches per rank "
+            + "; ".join(", ".join(f"{nm} {c}" for nm, c in lr.items() if c)
+                        or "none" for lr in rank_launches))
+        if not ok:
+            raise AssertionError(f"mp_mesh {mode}: off the one-process run")
+        if not np.isnan(g_chk) and not g_chk < 1e-8:
+            raise AssertionError(f"mp_mesh {mode}: check mse {g_chk:.3e}")
+        for r, lr in enumerate(rank_launches):
+            if path:
+                require_launched(lr, path, f"mp_mesh {mode} rank {r}")
+            elif any(lr.values()):
+                raise AssertionError(f"mp_mesh {mode}: rank {r} launched "
+                                     f"kernels at float64 {lr}")
+        summary[mode] = {"rel_err": float(rel.max()),
+                         "n_ops": int(ranks[0][f"{mode}.n_ops"]),
+                         "one_process_n_ops": int(n_ops),
+                         "check_mse": g_chk,
+                         "launches": rank_launches}
+    say(f"   collectives (rank 0, median ms): {summary['collectives_ms']}")
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=501_760)
     ap.add_argument("--p", type=int, default=100_352)
     ap.add_argument("--k", type=int, default=20)
+    # one rank of the two-process phase (mp_mesh starts them)
+    ap.add_argument("--mp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mp-world", type=int, default=MP_NPROC,
+                    help=argparse.SUPPRESS)
+    for opt in ("--mp-port", "--mp-backend", "--mp-root", "--mp-out",
+                "--mp-device"):
+        ap.add_argument(opt, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.mp_rank is not None and args.mp_device == "cpu":
+        return mp_worker(args)
 
     import torch
 
@@ -4364,6 +4823,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs the port on a "
               "GPU only", file=sys.stderr)
         return 1
+    if args.mp_rank is not None:
+        return mp_worker(args)
     t_start = time.time()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4440,8 +4901,15 @@ def main(argv=None) -> int:
         with Phase("mid-size PLINK fileset against float64 eigh, resident "
                    "and streamed"):
             mid = mid_size(dev, tmp)
+        torch.cuda.empty_cache()
+        with Phase("mp_mesh: two processes on the mid-size fileset"):
+            mp = mp_mesh(dev, tmp, os.path.join(tmp, "mid"))
     torch.cuda.empty_cache()
     op, head, head_res = headline(dev, args.n, args.p, args.k)
+    torch.cuda.empty_cache()
+    # the same bytes on two shards of the card (row views, no copy)
+    shard_rows, sharded = sharded_headline(dev, op, head_res, head, worst,
+                                           args.k)
     torch.cuda.empty_cache()
     # project() and ucca() on the headline's operator, one pass each
     twins, one_pass = project_ucca(op, head_res)
@@ -4506,6 +4974,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     top, tall, tall_res = tall_headline(dev, TALL_N, TALL_P, args.k)
     torch.cuda.empty_cache()
+    # the same bytes on two byte-column shards of the card
+    tall_shard_rows, sharded_tall_out = sharded_tall(dev, top, tall_res,
+                                                     tall, worst, args.k)
+    torch.cuda.empty_cache()
     with Phase("kernel times at the tall shapes"):
         # B5 at the polish widths (nev 28 -> kc 32, and kc 24); B1-B3 at
         # their tall widths (B1/B2 the solver panel, B1/B2/B3 the polish
@@ -4541,6 +5013,8 @@ def main(argv=None) -> int:
         dev, host, center, scale, sumsq, tall_res, tall["check_mse"],
         tall["launch_ms"])
     del host, tall_res
+    kernels.extend(shard_rows)
+    kernels.extend(tall_shard_rows)
     kernels.extend(sweep_rows)
     kernels.extend(stream_rows)
     kernels.extend(cv_rows)
@@ -4553,7 +5027,8 @@ def main(argv=None) -> int:
                                "same_order": tall_streamed_checks}},
         **{key: val for key, val in head.items()},
         "one_pass": one_pass, "dense": dense, "scca": scca_out,
-        "cv_split": cv_split,
+        "cv_split": cv_split, "sharded": sharded,
+        "sharded_tall": sharded_tall_out, "mp_mesh": mp,
         "gram_tall_ff_max_abs_err": worst["gram_tall_ff"],
         "tall_kernels_f64_rel": tall_f64,
         "b1_turns_ms": b1_turns, "b2_turns_ms": b2_turns,

@@ -14,8 +14,11 @@ through shared passes, with per-dimension checkpoints), ``cv_scca`` and
 ``split_scca`` (penalty selection by k-fold CV or a train/test split,
 PLINK filesets repacked per split), ``plots`` and the
 flag-compatible CLI, at float32 (the kernels) or float64 (the PyTorch
-functional core, on the card or the CPU).  Imports ``torch`` (never
-JAX); entry points run on ``cuda`` unless given ``device="cpu"``.
+functional core, on the card or the CPU); every packed operator and
+entry point also shards over several cards or processes (``mesh=``,
+``flashpca_tpu_torch.parallel`` on ``torch.distributed``).  Imports
+``torch`` (never JAX); entry points run on ``cuda`` unless given
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -13,9 +13,11 @@ eigenvectorsX/Y.txt and pcsX/Y.txt or ``--outvecx``, ``--outvecy``,
 scca_v0.txt); SCCA's own flags are accepted and unused in the other
 modes, as by the JAX CLI.  ``--batch`` loads the genotypes
 whole as a matrix for PCA and UCCA, held on ``--device`` (UCCA's in
-float64 unless ``--dtype`` says otherwise).  The JAX CLI's options not
-ported yet, ``--shards`` above 1 and ``--profile``, exit with an error
-naming the ROADMAP item that ports them.  ``--stream on``
+float64 unless ``--dtype`` says otherwise).  ``--shards N`` shards the
+packed operator over N devices in this process (the first N cards, or N
+CPU shards with ``--device cpu``); ``--profile DIR`` writes a
+``torch.profiler`` trace of the run (CPU and CUDA activities) into DIR
+as a Chrome trace file.  ``--stream on``
 streams the operator from the host: the wide one in blocks of the
 reference's ``--memory`` block size (or ``--blocksize``; about 1 GiB a
 block without either), the tall one (``--opmode tall``) in blocks of
@@ -45,13 +47,6 @@ from .models.project import project as run_project
 from .models.scca import scca as run_scca
 from .models.ucca import ucca as run_ucca
 from .utils.logging import log, set_show_timestamp, timestamp
-
-# options of the JAX CLI that are not ported yet -> ROADMAP item
-NOT_PORTED = {
-    "shards": "A18 'Multi-GPU'",
-    "profile": "A10 'Bench script and --profile'",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -108,8 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug", action="store_true",
                    help="accepted and ignored, as by the reference")
     p.add_argument("--profile", metavar="DIR", default=None,
-                   help="write a profiler trace of the run to DIR [not "
-                        "ported yet]")
+                   help="write a torch.profiler trace of the run (CPU and "
+                        "CUDA activities) to DIR as a Chrome trace file "
+                        "(view it in chrome://tracing or Perfetto)")
     p.add_argument("--suffix", "-f", default=".txt")
     p.add_argument("--precision", type=int, default=7)
     p.add_argument("--notime", action="store_true")
@@ -122,8 +118,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the GPU (default) or the CPU path")
     p.add_argument("--shards", type=int, default=None,
-                   help="shard SNPs over this many devices (only 1 is "
-                        "ported yet)")
+                   help="shard the packed genotypes over this many devices "
+                        "(the first N cards, or N CPU shards with --device "
+                        "cpu; default 1)")
     p.add_argument("--stream", default="auto",
                    choices=["auto", "on", "off"],
                    help="stream packed genotypes from host per block: "
@@ -221,13 +218,6 @@ def main(argv=None) -> int:
                         "--inmaf or --inmeansd, respectively")
     if args.inmeansd and args.inmaf:
         return _die("conflicting options requested --inmeansd, --inmaf")
-    for flag, asked in (("shards", (args.shards or 1) > 1),
-                        ("profile", args.profile is not None)):
-        if asked:
-            return _die(f"--{flag} is not ported to the PyTorch package "
-                        f"yet (ROADMAP {NOT_PORTED[flag]})")
-    if args.shards is not None and args.shards < 1:
-        return _die(f"--shards must be >= 1 (got {args.shards})")
     if args.checkpoint_every:
         if args.checkpoint_every < 0:
             return _die("--checkpoint-every must be a positive restart "
@@ -299,6 +289,25 @@ def main(argv=None) -> int:
     }
     prec = args.precision
 
+    mesh = None
+    nshards = args.shards if args.shards is not None else 1
+    if args.shards is not None and args.device == "cuda":
+        import torch
+
+        ndev = torch.cuda.device_count()
+        if nshards > ndev:
+            # never clamp silently: the user sized per-device memory on it
+            return _die(f"--shards {nshards} exceeds the {ndev} available "
+                        f"device(s)")
+    if nshards < 1:
+        return _die(f"--shards must be >= 1 (got {nshards})")
+    if nshards > 1:
+        from .parallel import snp_mesh
+
+        mesh = snp_mesh([f"cuda:{i}" for i in range(nshards)]
+                        if args.device == "cuda" else ["cpu"] * nshards)
+
+    profiler = _profiler(args.profile) if args.profile else None
     try:
         ds = PlinkDataset.open(bed, bim, fam)
         log(f"Detected BED file: {bed} with N={ds.n_samples} samples, "
@@ -348,7 +357,7 @@ def main(argv=None) -> int:
                 maxiter=args.maxiter, tol=args.tol, seed=args.seed,
                 block_size=block_size, do_loadings=bool(args.outload),
                 dtype=args.dtype, device=args.device, batch=args.batch,
-                verbose=args.verbose, operator_mode=args.opmode,
+                mesh=mesh, verbose=args.verbose, operator_mode=args.opmode,
                 polish=args.polish, streaming=stream,
                 memory_mb=args.memory, state_in=args.instate,
                 state_out=args.outstate,
@@ -377,7 +386,7 @@ def main(argv=None) -> int:
                 stand_x=args.standx, stand_y=args.standy, divisor=args.div,
                 maxiter=args.maxiter, tol=args.tol, seed=args.seed,
                 block_size=block_size, dtype=args.dtype, device=args.device,
-                verbose=args.verbose, streaming=stream,
+                mesh=mesh, verbose=args.verbose, streaming=stream,
                 memory_mb=args.memory, state_out=args.outstate,
                 state_in=args.instate)
             print(timestamp() + "SCCA done")
@@ -395,12 +404,13 @@ def main(argv=None) -> int:
             if args.batch:
                 res = run_ucca(ds.read_matrix(), Y, stand_x=args.standx,
                                stand_y=args.standy, dtype=args.dtype,
-                               device=args.device)
+                               device=args.device, mesh=mesh)
             else:
                 res = run_ucca(ds, Y, stand_x=args.standx,
                                stand_y=args.standy, block_size=block_size,
                                dtype=args.dtype, device=args.device,
-                               streaming=stream, memory_mb=args.memory)
+                               mesh=mesh, streaming=stream,
+                               memory_mb=args.memory)
             print(timestamp() + "UCCA done")
             save_text(res.result, out["ucca"],
                       colnames=["SNP", "R", "Fstat", "P"],
@@ -414,8 +424,8 @@ def main(argv=None) -> int:
             res = run_project(ds, V, meansd=meansd, maf=maf,
                               divisor=args.div, stand=args.standx,
                               block_size=block_size, dtype=args.dtype,
-                              device=args.device, streaming=stream,
-                              memory_mb=args.memory)
+                              device=args.device, mesh=mesh,
+                              streaming=stream, memory_mb=args.memory)
             pccol = ["FID" + TXT_SEP + "IID"] + [
                 f"PC{i+1}" for i in range(res.projection.shape[1])]
             save_text(res.projection, out["proj"], colnames=pccol,
@@ -425,7 +435,7 @@ def main(argv=None) -> int:
             evec = read_text(out["vec"], firstcol=3, skip=1)
             res = run_check(ds, evec, eval_, stand=args.standx,
                             divisor=args.div, block_size=block_size,
-                            dtype=args.dtype, device=args.device,
+                            dtype=args.dtype, device=args.device, mesh=mesh,
                             streaming=stream, memory_mb=args.memory)
             for j in range(len(res.err)):
                 print(timestamp() + f"eval({j+1}): {eval_[j]}, "
@@ -458,6 +468,26 @@ def main(argv=None) -> int:
         print(timestamp() + f"Exception: {e}", file=sys.stderr)
         print(timestamp() + "Terminating", file=sys.stderr)
         return 1
+    finally:
+        if profiler is not None:
+            profiler.stop()      # writes the trace
+
+
+def _profiler(outdir):
+    """A started ``torch.profiler`` over the CPU (and CUDA, when a card
+    is present) activities that writes a Chrome trace file into
+    ``outdir`` when it stops."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts,
+                   on_trace_ready=tensorboard_trace_handler(outdir))
+    prof.start()
+    return prof
 
 
 if __name__ == "__main__":

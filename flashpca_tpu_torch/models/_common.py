@@ -15,19 +15,23 @@ def resolve_divisor(divisor: str, n: int, p: int) -> float:
     raise ValueError(f"unknown divisor: {divisor}")
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error every not-yet-ported option raises, naming the ROADMAP
-    item that ports it."""
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP {item})")
+def note_unsharded(mesh, what: str) -> None:
+    """Say that a dense-matrix path ignores a ``mesh`` (it has no sharded
+    implementation), as the JAX package does."""
+    if mesh is not None and getattr(mesh, "size", 1) > 1:
+        from ..utils.logging import log
+
+        log(f"note: the dense-matrix {what} path runs unsharded; mesh= is "
+            "ignored (use the packed path for SNP sharding)")
 
 
-def matrix_operator(X, stand: str, dtype, device):
+def matrix_operator(X, stand: str, dtype, device, mesh=None,
+                    who: str = "check"):
     """A numeric (N, p) matrix standardized on the host in float64 (as
     the JAX package does) and held by a DenseOperator on the resolved
     device, in float64 unless ``dtype`` says otherwise.  The device is
     resolved first, so that a missing GPU fails before the
-    standardization."""
+    standardization.  A ``mesh`` is noted and not used."""
     import numpy as np
     import torch
 
@@ -36,6 +40,7 @@ def matrix_operator(X, stand: str, dtype, device):
     from ..utils.device import resolve_device
 
     device = resolve_device(device)
+    note_unsharded(mesh, who)
     X_std, _, _ = standardize(np.asarray(X, dtype=np.float64), stand)
     return DenseOperator(torch.from_numpy(X_std),
                          dtype=dtype or torch.float64, device=device)

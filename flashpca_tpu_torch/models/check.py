@@ -11,7 +11,8 @@ The error reduction runs on the operator's device and fetches only the
 (N, p) matrix, standardized on the host and checked through a
 :class:`DenseOperator` on the requested device (``None`` -> ``cuda``,
 which raises without a GPU), in float64 unless ``dtype`` says otherwise;
-``evec`` may be a numpy array or a device tensor.
+``evec`` may be a numpy array or a device tensor.  ``mesh=`` shards the
+packed operator (parallel/dist.py); a matrix is checked unsharded.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 from ..io.plink import PlinkDataset
 from ..ops.operator import (TALL_OPERATORS, WIDE_OPERATORS,
                             build_packed_operator, check_operator_conflicts)
-from ._common import matrix_operator, not_ported
+from ._common import matrix_operator
 from ._common import resolve_divisor as _div
 
 
@@ -55,8 +56,6 @@ def check(data, evec, eval_, *, stand: str | None = None,
     """
     if precision not in ("auto", "f32", "compensated"):
         raise ValueError(f"unknown precision: {precision!r}")
-    if mesh is not None:
-        raise not_ported("mesh= (multi-device sharding)", "A18 'Multi-GPU'")
     eval_np = np.asarray(eval_, dtype=np.float64).reshape(-1)
     if not isinstance(evec, torch.Tensor):
         evec = np.asarray(evec, dtype=np.float64)
@@ -72,7 +71,8 @@ def check(data, evec, eval_, *, stand: str | None = None,
             "pass the PLINK data (or a wide operator) instead")
     matrix = not isinstance(data, (PlinkDataset, *WIDE_OPERATORS))
     if matrix:
-        data = matrix_operator(data, stand or "binom2", dtype, device)
+        data = matrix_operator(data, stand or "binom2", dtype, device,
+                               mesh=mesh)
     elif stand is not None and isinstance(data, WIDE_OPERATORS):
         raise ValueError(
             "stand= was passed with a prebuilt operator, whose "
@@ -95,13 +95,13 @@ def check(data, evec, eval_, *, stand: str | None = None,
     elif isinstance(data, WIDE_OPERATORS):
         check_operator_conflicts(data, dtype=dtype, streaming=streaming,
                                  memory_mb=memory_mb, block_size=block_size,
-                                 device=device)
+                                 device=device, mesh=mesh)
         op = data
     else:
         mean, sd = data.snp_stats(stand)
         op = build_packed_operator(
             data, mean, sd, streaming=streaming, memory_mb=memory_mb,
-            block_size=block_size, dtype=dtype, device=device)
+            block_size=block_size, dtype=dtype, device=device, mesh=mesh)
 
     n, p = op.n_samples, op.n_snps
     K = min(evec.shape[1], eval_np.shape[0])

@@ -16,9 +16,9 @@ Inputs: a PLINK fileset (the packed wide gram X X^T, resident or
 streamed from the host, or the tall gram X^T X, taken by
 ``operator_mode="auto"`` when n > 2p), a numeric (N, p) matrix or
 ``batch=True`` (standardized on the host and held whole by a
-:class:`DenseOperator`), or any prebuilt operator of those.  Multi-GPU
-(``mesh=``) raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+:class:`DenseOperator`), or any prebuilt operator of those.  ``mesh=``
+shards the packed operator over several devices or processes
+(parallel/dist.py); the dense path runs unsharded.
 """
 
 from __future__ import annotations
@@ -33,8 +33,9 @@ from ..ops.operator import (TALL_OPERATORS, WIDE_OPERATORS, DenseOperator,
                             build_packed_operator, check_operator_conflicts)
 from ..ops.standardize import standardize
 from ..solvers.block_lanczos import eigsh_block, polish_subspace
+from ..parallel.dist import agree_fn, barrier, writer
 from ..utils.device import host64
-from ._common import not_ported
+from ._common import note_unsharded
 from ._common import resolve_divisor as _resolve_divisor
 
 DIVISORS = ("p", "n1", "none")
@@ -106,6 +107,10 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
     raises on the tall one.
     ``device`` defaults to ``cuda`` and raises without a GPU; pass
     ``device="cpu"`` for the PyTorch CPU path (float64 by default).
+    ``mesh`` (a :class:`~flashpca_tpu_torch.parallel.Mesh`) shards the
+    packed operator: SNP rows on the wide gram, samples on the tall
+    one.  Across processes every process calls ``pca`` alike and gets
+    the same result; only rank 0 writes ``state_out``.
 
     ``polish`` is the accuracy/speed knob for float32 runs:
 
@@ -148,8 +153,6 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
             raise ValueError(
                 "checkpoint_every requires state_out (a path to write "
                 "the mid-run checkpoints to)")
-    if mesh is not None:
-        raise not_ported("mesh= (multi-device sharding)", "A18 'Multi-GPU'")
     run_kw = dict(panel=panel, device_results=device_results,
                   state_in=state_in, state_out=state_out, verbose=verbose,
                   polish=polish, checkpoint_every=checkpoint_every)
@@ -160,7 +163,7 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
     if isinstance(data, (*WIDE_OPERATORS, *TALL_OPERATORS)):
         check_operator_conflicts(data, dtype=dtype, streaming=streaming,
                                  memory_mb=memory_mb, block_size=block_size,
-                                 device=device)
+                                 device=device, mesh=mesh)
         if batch:
             raise ValueError("batch=True has no effect on a prebuilt operator")
         # the decomposition shape is fixed by the operator class too
@@ -200,7 +203,7 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
                     "operator")
             return _pca_matrix(data.read_matrix(), ndim, stand, divisor,
                                maxiter, tol, seed, do_loadings, ncv, dtype,
-                               device, **run_kw)
+                               device, mesh, **run_kw)
         # one host pass yields (mean, sd) AND the exact per-SNP sum of
         # squares, so trace/pve cost no device data pass
         mean, sd, sumsq = data.snp_stats(stand, with_sumsq=True)
@@ -209,7 +212,7 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
             data, mean, sd, tall=operator_mode == "tall" or (
                 operator_mode == "auto" and n > 2 * p),
             streaming=streaming, memory_mb=memory_mb, block_size=block_size,
-            dtype=dtype, device=device, snp_sumsq=sumsq)
+            dtype=dtype, device=device, mesh=mesh, snp_sumsq=sumsq)
     else:
         # a numeric matrix: packed-path and device-residency requests
         # cannot be honoured, so they raise instead of being dropped
@@ -239,7 +242,7 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
                     "stand='binom'/'binom2' can't be used here")
         _check_ndim(ndim, X.shape[0], X.shape[1])
         return _pca_matrix(X, ndim, stand, divisor, maxiter, tol, seed,
-                           do_loadings, ncv, dtype, device, **run_kw)
+                           do_loadings, ncv, dtype, device, mesh, **run_kw)
 
     run = _pca_tall if isinstance(op, TALL_OPERATORS) else _pca_operator
     return run(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
@@ -247,10 +250,12 @@ def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
 
 
 def _pca_matrix(X, ndim, stand, divisor, maxiter, tol, seed, do_loadings,
-                ncv, dtype, device, **run_kw) -> PCAResult:
+                ncv, dtype, device, mesh, **run_kw) -> PCAResult:
     """A numeric matrix: standardized on the host in float64 (NaN
     mean-imputed), then held whole by a :class:`DenseOperator` that
-    reports the stats it was standardized with."""
+    reports the stats it was standardized with.  A ``mesh`` is noted and
+    not used: the dense path has no sharded implementation."""
+    note_unsharded(mesh, "(batch) PCA")
     X_std, mean, sd = standardize(X, stand)
     op = DenseOperator(torch.from_numpy(X_std), dtype=dtype, device=device,
                        center=mean, scale=sd)
@@ -277,12 +282,16 @@ def _solver_v0(op, native_len, seed, state_in):
 
 
 def _save_solver_state(op, res, state_out, converged=None):
+    """Write the restart state: rank 0 of a mesh's processes writes, the
+    others wait for it."""
     if state_out is not None:
         from ..solvers.lanczos import save_state
 
-        save_state(state_out, op.unpermute(res.eigenvectors),
-                   res.eigenvalues, res.residuals,
-                   res.converged if converged is None else converged)
+        if writer(op):
+            save_state(state_out, op.unpermute(res.eigenvectors),
+                       res.eigenvalues, res.residuals,
+                       res.converged if converged is None else converged)
+        barrier(op)
 
 
 def _mid_run_checkpointer(op, state_out, checkpoint_every):
@@ -299,7 +308,10 @@ def _mid_run_checkpointer(op, state_out, checkpoint_every):
         f"{state_out} (each copies the Ritz panel to the host)")
 
     def ckpt(panel, values, residuals):
-        save_state(state_out, op.unpermute(panel), values, residuals, False)
+        if writer(op):
+            save_state(state_out, op.unpermute(panel), values, residuals,
+                       False)
+        barrier(op)
 
     return ckpt
 
@@ -386,13 +398,14 @@ def _pca_operator(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
     solver_tol = max(tol, 1e-4) if use_ff else tol
     mv = op.gram_permuted
     ckpt = _mid_run_checkpointer(op, state_out, checkpoint_every)
+    agree = agree_fn(op)
 
     def solve(iters):
         return eigsh_block(mv, op.op_dim, nev_solve, block=panel, ncv=ncv,
                            maxiter=iters, tol=solver_tol, dtype=dtype,
                            device=op.device, seed=seed, v0=v0,
                            verbose=verbose, checkpoint_every=checkpoint_every,
-                           checkpoint_fn=ckpt)
+                           checkpoint_fn=ckpt, agree=agree)
 
     # fixed schedule: cap the float32 solve at 8 thick restarts
     cap = min(8, maxiter) if capped else maxiter
@@ -414,7 +427,8 @@ def _pca_operator(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
         ok = False
         for _ in range(2 if capped else 1):
             lam, U_dev, resid = polish_subspace(
-                mv, U_dev, iters=2, ff_gram=ff_gram, return_resid=True)
+                mv, U_dev, iters=2, ff_gram=ff_gram, return_resid=True,
+                agree=agree)
             mse_est = float(np.sum((resid[:ndim] / div) ** 2) / (n * ndim))
             if not capped or mse_est < GATE_MSE:
                 ok = capped or mse_est < 1e-8 or converged
@@ -435,7 +449,7 @@ def _pca_operator(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
             converged = _gate_convergence(res, ndim, tol)
             lam, U_dev, resid = polish_subspace(
                 mv, res.eigenvectors, iters=2, ff_gram=ff_gram,
-                return_resid=True)
+                return_resid=True, agree=agree)
             mse_est = float(np.sum((resid[:ndim] / div) ** 2) / (n * ndim))
             ok = mse_est < 1e-8
         elif not ok:
@@ -450,7 +464,7 @@ def _pca_operator(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
     elif dtype == torch.float32:
         # polish='fast': fresh subspace sweeps + host-float64
         # Rayleigh-Ritz recover accuracy near the float32 noise floor
-        lam, U_dev = polish_subspace(mv, U_dev, iters=2)
+        lam, U_dev = polish_subspace(mv, U_dev, iters=2, agree=agree)
     # drop the buffer pairs: only the requested dimensions are returned
     lam = lam[:ndim]
     U_dev = U_dev[:, :ndim]
@@ -528,12 +542,13 @@ def _pca_tall(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
     solver_tol = max(tol, 1e-4) if use_ff else tol
     mv = op.gram_permuted
 
+    agree = agree_fn(op)
     res = eigsh_block(mv, op.op_dim, nev_solve, block=panel, ncv=ncv,
                       maxiter=maxiter, tol=solver_tol, dtype=dtype,
                       device=op.device, seed=seed, v0=v0, verbose=verbose,
                       checkpoint_every=checkpoint_every,
                       checkpoint_fn=_mid_run_checkpointer(
-                          op, state_out, checkpoint_every))
+                          op, state_out, checkpoint_every), agree=agree)
     _save_solver_state(op, res, state_out)
     converged = _gate_convergence(res, ndim, tol)
 
@@ -542,7 +557,7 @@ def _pca_tall(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
     if f32:
         lam, V_dev = polish_subspace(
             mv, V_dev, iters=2,
-            ff_gram=op.gram_ff_permuted if use_ff else None)
+            ff_gram=op.gram_ff_permuted if use_ff else None, agree=agree)
     lam = lam[:ndim]
     V_dev = V_dev[:, :ndim]
     d = lam / div

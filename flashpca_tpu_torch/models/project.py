@@ -27,7 +27,6 @@ from ..io.text import maf2meansd
 from ..ops.operator import build_packed_operator
 from ..ops.standardize import _inv_sd
 from ..utils.device import host64
-from ._common import not_ported
 from ._common import resolve_divisor as _resolve_div
 
 
@@ -76,10 +75,10 @@ def project(
     without a GPU; ``device="cpu"`` runs the PyTorch path (float64 by
     default).  ``streaming``/``memory_mb`` stream the packed bytes from
     the host (the reference's online projection, randompca.cpp:790-820).
+    ``mesh`` shards the packed operator (parallel/dist.py); the numeric
+    path is numpy on the host and ignores it.
     ``check_geno`` is accepted for the JAX package's signature.
     """
-    if mesh is not None:
-        raise not_ported("mesh= (multi-device sharding)", "A18 'Multi-GPU'")
     V = np.asarray(loadings, dtype=np.float64)
     if V.ndim == 1:
         V = V[:, None]
@@ -145,7 +144,7 @@ def project(
         div = _resolve_div(divisor, data.n_samples, V.shape[0])
         op = build_packed_operator(
             data, mean, sd, streaming=streaming, memory_mb=memory_mb,
-            block_size=block_size, dtype=dtype, device=device)
+            block_size=block_size, dtype=dtype, device=device, mesh=mesh)
         return ProjectResult(projection=_project_operator(op, V, div))
 
     # numeric-matrix path (flashpcaR/R/project.R:86-93,149-156)

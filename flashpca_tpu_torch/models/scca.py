@@ -29,6 +29,12 @@ engines drive the iteration:
   product per step; a solo run is again its one-cell case, with the
   JAX package's solo host loop's semantics on a failed run (``solo``).
   It is the only engine a :class:`StreamingPackedOperator` runs.
+
+Under a mesh that spans processes (parallel/dist.py) every process runs
+the same iteration on replicated vectors; each step's continue test and
+each dimension's outcome come from rank 0 (:meth:`Mesh.agree`), so that
+no process runs a product the others skip, and only rank 0 writes the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -44,8 +50,9 @@ from ..ops.operator import (TALL_OPERATORS, WIDE_OPERATORS, DenseOperator,
                             check_operator_conflicts)
 from ..ops.standardize import standardize
 from ..utils.device import default_dtype, host64, resolve_device
+from ..parallel.dist import agree_fn, barrier, writer
 from ..utils.logging import log
-from ._common import not_ported
+from ._common import note_unsharded
 
 
 @dataclass
@@ -206,6 +213,7 @@ def _scca_dim_device_grid(op, U, V, Yp, j, v0, alive, lam1, lam2, invdiv,
         return _norm_thresh_cells(_gs_cells(Yp.T @ xu, V, j), lam2)
 
     C = v0.shape[1]
+    agree = agree_fn(op)
     u = torch.zeros((U.shape[0], C), dtype=dtype, device=Yp.device)
     v = v0.clone()
     it = torch.zeros(C, dtype=torch.int64, device=Yp.device)
@@ -216,7 +224,10 @@ def _scca_dim_device_grid(op, U, V, Yp, j, v0, alive, lam1, lam2, invdiv,
 
     def active():
         act = alive & (it < maxiter) & ((it == 0) | (du >= tol) | (dv >= tol))
-        return act & ~(uz | vz) if j == 0 else act
+        act = act & ~(uz | vz) if j == 0 else act
+        if agree is not None:
+            act = torch.as_tensor(agree(act.cpu().numpy()), device=act.device)
+        return act
 
     act = active()
     while bool(act.any()):
@@ -250,6 +261,8 @@ def _scca_dim_device_grid(op, U, V, Yp, j, v0, alive, lam1, lam2, invdiv,
     scalars = torch.stack([it.to(dtype), conv.to(dtype), uz.to(dtype),
                            vz.to(dtype), d])
     packed = host64(torch.cat([u, v, scalars], dim=0))
+    if agree is not None:
+        packed = agree(packed)
     return U, V, packed
 
 
@@ -320,6 +333,7 @@ def _scca_dim_host_grid(op, U, V, Y_std, j, v0, alive, lam1, lam2,
     keeps the vector of the step before in place of the one that was
     zeroed (u and v when u is zeroed, v when v is)."""
     p, C = U.shape[0], v0.shape[1]
+    agree = agree_fn(op) or (lambda *a: a if len(a) != 1 else a[0])
 
     def gs(x, basis):
         for t in range(j):
@@ -357,7 +371,7 @@ def _scca_dim_host_grid(op, U, V, Y_std, j, v0, alive, lam1, lam2,
     def active():
         act = (alive & (it < maxiter)
                & ((it < first) | (du >= tol) | (dv >= tol)))
-        return act & ~((j == 0) & (uz | vz))
+        return agree(act & ~((j == 0) & (uz | vz)))
 
     act = active()
     while act.any():
@@ -385,7 +399,7 @@ def _scca_dim_host_grid(op, U, V, Y_std, j, v0, alive, lam1, lam2,
     # d is read only where a cell converged: no staged pass otherwise
     d = (np.einsum("nc,nc->c", prod_panel(u), Y_std @ v) if conv.any()
          else np.zeros(C))
-    return u, v, it, conv, uz, vz, d
+    return agree(u, v, it, conv, uz, vz, d)
 
 
 # ---------------------------------------------------------------------------
@@ -400,9 +414,8 @@ def _xside_operator(X, n, k, ndim, stand_x, *, streaming, memory_mb,
     float64 and held by a :class:`DenseOperator` in ``dtype``, by
     default the device's), or a prebuilt wide operator (its keyword
     conflicts checked).  The ndim cap is checked before any genotype is
-    read (scca.R:210-215)."""
-    if mesh is not None:
-        raise not_ported("mesh= (multi-device sharding)", "A18 'Multi-GPU'")
+    read (scca.R:210-215).  ``mesh`` shards the packed operator; the
+    dense path runs unsharded and says so."""
     if isinstance(X, str):
         X = PlinkDataset.open(X)
     if isinstance(X, TALL_OPERATORS):
@@ -428,7 +441,7 @@ def _xside_operator(X, n, k, ndim, stand_x, *, streaming, memory_mb,
     if prebuilt:
         check_operator_conflicts(X, dtype=dtype, streaming=streaming,
                                  memory_mb=memory_mb, block_size=block_size,
-                                 device=device)
+                                 device=device, mesh=mesh)
         if X.n_samples != n:
             raise ValueError("Y rows must equal the number of samples")
         return X
@@ -438,7 +451,7 @@ def _xside_operator(X, n, k, ndim, stand_x, *, streaming, memory_mb,
         mean, sd = X.snp_stats(stand_x)
         return build_packed_operator(
             X, mean, sd, streaming=streaming, memory_mb=memory_mb,
-            block_size=block_size, dtype=dtype, device=device)
+            block_size=block_size, dtype=dtype, device=device, mesh=mesh)
     # a numeric matrix: there is no streaming dense operator, so an
     # explicit bounded-memory request cannot be honored
     if streaming is True or memory_mb is not None:
@@ -449,6 +462,7 @@ def _xside_operator(X, n, k, ndim, stand_x, *, streaming, memory_mb,
             "device memory"
         )
     dev = resolve_device(device)
+    note_unsharded(mesh, "SCCA")
     Xm = np.asarray(X, dtype=np.float64)
     if Xm.shape[0] != n:
         raise ValueError("Y rows must equal the number of samples")
@@ -523,7 +537,8 @@ def scca(
     finished dimensions are skipped and the run continues to the result
     of an uninterrupted run.  ``device`` defaults to ``cuda`` and raises
     without a GPU; ``device="cpu"`` runs the PyTorch path (float64 by
-    default).  ``mesh=`` raises (ROADMAP A18)."""
+    default).  ``mesh`` shards the packed operator (parallel/dist.py);
+    across processes only rank 0 writes ``state_out``."""
     if state_in is not None and V0 is None:
         auto_init = False      # the state carries the (possibly
         #                        auto-initialized) V0 already
@@ -599,9 +614,11 @@ def scca(
             verbose=verbose)
         log(f"d[{j}]: {d[j]}", verbose=verbose)
         if state_out is not None:
-            save_scca_state(state_out, U, V, d, j + 1, V0,
-                            lambda1, lambda2, divisor=divisor,
-                            stand_x=stand_x, stand_y=stand_y)
+            if writer(op):
+                save_scca_state(state_out, U, V, d, j + 1, V0,
+                                lambda1, lambda2, divisor=divisor,
+                                stand_x=stand_x, stand_y=stand_y)
+            barrier(op)
 
     streamed = isinstance(op, StreamingPackedOperator)
     if engine == "auto":
@@ -1094,11 +1111,9 @@ def _plink_operator_options(scca_kwargs):
     """The operator keywords of a packed penalty search (cv_scca's and
     split_scca's PLINK paths), taken out of ``scca_kwargs``: the inner
     scca()/scca_grid() calls get prebuilt operators, whose conflict
-    check would refuse them.  ``mesh=`` raises here (ROADMAP A18), before
-    any repack, and an explicit device engine refuses a streaming
-    request as solo scca() does."""
-    if scca_kwargs.get("mesh") is not None:
-        raise not_ported("mesh= (multi-device sharding)", "A18 'Multi-GPU'")
+    check would refuse them, ``mesh`` among them (every operator is
+    built on it).  An explicit device engine refuses a streaming request
+    as solo scca() does."""
     if (scca_kwargs.get("engine") == "device"
             and (scca_kwargs.get("streaming") is True
                  or scca_kwargs.get("memory_mb") is not None)):
@@ -1109,8 +1124,36 @@ def _plink_operator_options(scca_kwargs):
                 memory_mb=scca_kwargs.pop("memory_mb", None),
                 block_size=scca_kwargs.pop("block_size", None),
                 dtype=scca_kwargs.get("dtype"),
-                device=scca_kwargs.get("device"))
+                device=scca_kwargs.get("device"),
+                mesh=scca_kwargs.pop("mesh", None))
     return opts
+
+
+def search_device(op_opts):
+    """The validated device of a penalty search's operators, before any
+    repack (without a GPU the default raises here): the mesh's, when it
+    has one."""
+    mesh, device = op_opts["mesh"], op_opts["device"]
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and torch.device(device).type != \
+            mesh.devices[0].type:
+        raise ValueError(f"device={device} conflicts with the mesh's "
+                         f"devices ({mesh.devices[0].type})")
+    return resolve_device(mesh.devices[0])
+
+
+def shared_repack(mesh, workdir, repack) -> None:
+    """Run ``repack()`` (the writing of a search's scratch filesets)
+    once: under a mesh that spans processes and a shared ``workdir``,
+    rank 0 writes and the others wait; each process's own scratch
+    directory it writes itself."""
+    if mesh is None or not mesh.multiprocess or workdir is None:
+        repack()
+        return
+    if mesh.is_writer:
+        repack()
+    mesh.barrier()
 
 
 def _refuse_auto_streamed(scca_kwargs, op):
@@ -1159,9 +1202,7 @@ def _cv_scca_plink(data, Y, lambda1, lambda2, *, ndim, nfolds, folds,
         Y, n, lambda1, lambda2, ndim, nfolds, folds, opt_dim, seed)
     stand_x = scca_kwargs.get("stand_x", "binom2")
     op_opts = _plink_operator_options(scca_kwargs)
-    # a validated device before any repack: without a GPU the default
-    # raises here
-    op_opts["device"] = resolve_device(op_opts["device"])
+    op_opts["device"] = search_device(op_opts)
 
     # without an explicit workdir the fold filesets are scratch, each
     # fold's deleted once used (nfolds x the dataset otherwise); an
@@ -1196,7 +1237,8 @@ def _cv_scca_plink(data, Y, lambda1, lambda2, *, ndim, nfolds, folds,
         # the whole fold sits inside the try, so that a failure anywhere
         # still removes the fold's scratch filesets
         try:
-            subset_samples_many(ds, subsets)
+            shared_repack(op_opts["mesh"], None if cleanup else workdir,
+                          lambda: subset_samples_many(ds, subsets))
             ds_tr = PlinkDataset.open(fold_roots[0])
             op_te = None
             if test_idx.size:

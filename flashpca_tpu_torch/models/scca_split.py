@@ -30,10 +30,11 @@ import numpy as np
 from ..io.plink import PlinkDataset, subset_samples_many
 from ..ops.operator import build_packed_operator
 from ..ops.standardize import VAR_TOL, standardize
-from ..utils.device import host64, resolve_device
+from ..utils.device import host64
 from ..utils.logging import log
 from .scca import (_penalty_axis, _plink_operator_options, _project_cells,
-                   _refuse_auto_streamed, grid_fastpath, scca, scca_grid)
+                   _refuse_auto_streamed, grid_fastpath, scca, scca_grid,
+                   search_device, shared_repack)
 
 
 @dataclass
@@ -95,7 +96,8 @@ def split_scca(
     removed on success).  Further keywords go to :func:`scca` /
     :func:`scca_grid` (e.g. ``maxiter``, ``tol``, ``streaming``,
     ``dtype``); ``device`` defaults to ``cuda`` and raises without a
-    GPU."""
+    GPU.  ``mesh`` builds both operators sharded (parallel/dist.py);
+    across processes a named ``workdir`` is written by rank 0 alone."""
     for bad in ("state_out", "state_in"):
         if bad in scca_kwargs:
             raise ValueError(
@@ -124,9 +126,7 @@ def split_scca(
     train_idx = np.flatnonzero(train)
     test_idx = np.flatnonzero(~train)
     op_opts = _plink_operator_options(scca_kwargs)
-    # a validated device before any repack: without a GPU the default
-    # raises here
-    op_opts["device"] = resolve_device(op_opts["device"])
+    op_opts["device"] = search_device(op_opts)
 
     cleanup = workdir is None
     if cleanup:
@@ -135,12 +135,11 @@ def split_scca(
         os.makedirs(workdir, exist_ok=True)
     base = os.path.basename(data.bed_path)[:-4]
     # both filesets from one read of the source
-    ds_train, ds_test = (PlinkDataset.open(root) for root in
-                         subset_samples_many(data, [
-                             (train_idx, os.path.join(workdir,
-                                                      base + "_train")),
-                             (test_idx, os.path.join(workdir,
-                                                     base + "_test"))]))
+    subsets = [(train_idx, os.path.join(workdir, base + "_train")),
+               (test_idx, os.path.join(workdir, base + "_test"))]
+    shared_repack(op_opts["mesh"], None if cleanup else workdir,
+                  lambda: subset_samples_many(data, subsets))
+    ds_train, ds_test = (PlinkDataset.open(root) for _, root in subsets)
 
     Y_train = Y[train_idx]
     # the training standardization, applied to both splits; a missing

@@ -34,7 +34,7 @@ from ..ops.operator import (TALL_OPERATORS, WIDE_OPERATORS,
                             build_packed_operator, check_operator_conflicts)
 from ..ops.standardize import standardize
 from ..utils.device import host64
-from ._common import matrix_operator, not_ported
+from ._common import matrix_operator
 
 
 @dataclass
@@ -94,9 +94,9 @@ def ucca(
     (the reference's online UCCA, randompca.cpp:578-625); 'auto' streams
     when the packed data exceeds 0.7 x the card's memory.  ``device``
     defaults to ``cuda`` and raises without a GPU; ``device="cpu"`` runs
-    the PyTorch path (float64 by default)."""
-    if mesh is not None:
-        raise not_ported("mesh= (multi-device sharding)", "A18 'Multi-GPU'")
+    the PyTorch path (float64 by default).  ``mesh`` shards the packed
+    operator (parallel/dist.py): its one crossprod's SNP rows are
+    gathered."""
     Y = np.asarray(Y, dtype=np.float64)
     if Y.ndim == 1:
         Y = Y[:, None]
@@ -128,11 +128,12 @@ def ucca(
             "the desired stats")
     stand_x = stand_x or "binom2"
     if matrix:
-        op = matrix_operator(data, stand_x, dtype, device)
+        op = matrix_operator(data, stand_x, dtype, device, mesh=mesh,
+                             who="UCCA")
     elif prebuilt:
         check_operator_conflicts(data, dtype=dtype, streaming=streaming,
                                  memory_mb=memory_mb, block_size=block_size,
-                                 device=device)
+                                 device=device, mesh=mesh)
         op = data
     else:
         if data.n_samples != n:
@@ -143,7 +144,7 @@ def ucca(
         mean, sd, sumsq = data.snp_stats(stand_x, with_sumsq=True)
         op = build_packed_operator(
             data, mean, sd, streaming=streaming, memory_mb=memory_mb,
-            block_size=block_size, dtype=dtype, device=device,
+            block_size=block_size, dtype=dtype, device=device, mesh=mesh,
             snp_sumsq=sumsq)
     if op.n_samples != n:
         raise ValueError("Y rows must equal the number of samples")

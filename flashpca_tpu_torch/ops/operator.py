@@ -1,4 +1,4 @@
-"""Matrix-free genotype operators on one device.
+"""Matrix-free genotype operators, on one device or sharded over a mesh.
 
 ``PackedOperator`` is the counterpart of the reference's ``SVDWide``
 (svdwide.h:11-107): products against the implicitly standardized
@@ -34,6 +34,15 @@ No padding of either axis is needed: the kernels mask their own ragged
 edges and the core slices its last block.  Byte-padding SAMPLE
 positions (the garbage codes past n in the last byte) are masked on
 input and output of every gram product, which keeps it symmetric.
+
+With a ``mesh`` (parallel/dist.py) every packed operator splits its
+bytes into shards: SNP rows on the wide gram, byte columns (samples) on
+the tall one, and each staged block of a streaming operator likewise.
+Each shard runs the same kernels on its own device; the partial
+products are summed in shard order on the process's first device, then
+across processes, and sharded outputs (``crossprod``'s SNP rows, the
+tall ``prod``'s samples) are gathered.  Two-float pairs fold with
+TwoSum, shard by shard and process by process.
 """
 
 from __future__ import annotations
@@ -53,6 +62,32 @@ from .genotypes import (
     valid_mask_permuted,
 )
 from .standardize import lookup_tables
+
+
+def _acc(acc, t):
+    """``acc + t``, or ``t`` itself when nothing is accumulated yet."""
+    return t if acc is None else acc + t
+
+
+def _fold(pair, t):
+    """Two-float pair ``t`` folded into ``pair`` by TwoSum: the hi
+    halves' rounding error and both lo halves go to lo."""
+    if pair is None:
+        return t
+    from .compensated import twosum
+
+    hi, e = twosum(pair[0], t[0])
+    return hi, pair[1] + e + t[1]
+
+
+def window_valid(n_samples: int, lo: int, width: int, dtype,
+                 device=None) -> torch.Tensor:
+    """(4 width,) valid-sample mask of the byte columns [lo, lo + width)
+    in their permuted layout: position s * width + b holds sample
+    4 (lo + b) + s, zero past ``n_samples``."""
+    b = torch.arange(lo, lo + width, dtype=torch.int64)
+    samples = PACK_DENSITY * b[None, :] + torch.arange(PACK_DENSITY)[:, None]
+    return (samples < n_samples).reshape(-1).to(dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -175,11 +210,23 @@ class _PackedBase:
         :func:`runs_kernels`.
     snp_sumsq : optional precomputed per-SNP sums of squares (makes
         ``trace`` free).
+    mesh : optional 1-D :class:`~flashpca_tpu_torch.parallel.Mesh`; the
+        operator's device is then the mesh's first device of this
+        process (``device`` may name its type only).
     """
 
     def __init__(self, mean, sd, n_samples: int, n_snps: int, *,
                  device=None, dtype=None, use_kernels: bool | None = None,
-                 snp_sumsq=None):
+                 snp_sumsq=None, mesh=None):
+        self.mesh = mesh
+        self.nshards = 1 if mesh is None else mesh.size
+        if mesh is not None:
+            if device is not None and torch.device(device).type != \
+                    mesh.devices[0].type:
+                raise ValueError(
+                    f"device={device} conflicts with the mesh's devices "
+                    f"({mesh.devices[0].type})")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         dtype = as_torch_dtype(dtype) or default_dtype(self.device)
         self.use_kernels = runs_kernels(self.device.type, dtype, use_kernels)
@@ -201,6 +248,29 @@ class _PackedBase:
         self._trace = None
         self._luts = None
         self.nops = 0
+
+    def _reduced(self, acc, shape):
+        """A partial product summed over the mesh's processes (zeros
+        when this process holds no shard of it)."""
+        if acc is None:
+            acc = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        return acc if self.mesh is None else self.mesh.all_sum(acc)
+
+    def _pair_reduced(self, pair, shape):
+        """A two-float partial pair folded over the mesh's processes."""
+        if pair is None:
+            z = torch.zeros(shape, dtype=self.dtype, device=self.device)
+            pair = (z, z.clone())
+        return pair if self.mesh is None else self.mesh.fold_pairs(*pair)
+
+    def _rows(self, parts, total, like):
+        """Rows [lo, hi) from each ``parts`` entry (lo, hi, rows),
+        assembled to the (total, ...) result on this operator's
+        device."""
+        if self.mesh is None:
+            return (parts[0][2] if len(parts) == 1
+                    else torch.cat([r for _, _, r in parts]))
+        return self.mesh.gather_rows(parts, total, like, self.device)
 
     def _as_2d(self, x, length, name):
         x = torch.as_tensor(x, device=self.device).to(self.dtype)
@@ -239,55 +309,76 @@ class _PackedBase:
 
 class _ResidentPacked(_PackedBase):
     """What the wide and the tall resident operator share: the packed
-    bytes held on one device, beside :class:`_PackedBase`'s constants.
+    bytes held on the device, or with a ``mesh`` split into this
+    process's shards, each on its device, beside :class:`_PackedBase`'s
+    constants.
 
     Parameters
     ----------
     packed : (p, nbytes) uint8, the raw .bed payload (numpy or a torch
-        tensor, e.g. generated on the card).
-    mean, sd, n_samples, device, dtype, use_kernels, snp_sumsq : as
-        :class:`_PackedBase`.
+        tensor, e.g. generated on the card).  With a ``mesh``, either
+        those bytes whole (this process takes its shards of them: row
+        slices of a tensor on the shard's device are views) or this
+        process's shards as a list, in the padded layout of
+        :meth:`plan_layout` (parallel/dist.py's loaders).
+    mean, sd, n_samples, device, dtype, use_kernels, snp_sumsq, mesh :
+        as :class:`_PackedBase`.
     block_size : SNPs decoded per block on the CPU path (the analog of
         the reference's --blocksize).
+    n_snps : p; required when ``packed`` is a list of shards.
     """
 
     def __init__(self, packed, mean, sd, n_samples: int, *, device=None,
                  dtype=None, block_size: int | None = None,
                  use_kernels: bool | None = None, n_snps: int | None = None,
-                 snp_sumsq=None):
+                 snp_sumsq=None, mesh=None):
         nbytes = bytes_per_snp(n_samples)
+        listed = isinstance(packed, (list, tuple))
+        if listed and (mesh is None or n_snps is None):
+            raise ValueError("a list of shards needs its mesh and n_snps")
         p = int(n_snps) if n_snps is not None else int(packed.shape[0])
-        if tuple(packed.shape) != (p, nbytes):
+        if not listed and tuple(packed.shape) != (p, nbytes):
             raise ValueError(f"packed shape {tuple(packed.shape)} is not "
                              f"the raw ({p}, {nbytes}) layout")
         super().__init__(mean, sd, n_samples, p, device=device, dtype=dtype,
-                         use_kernels=use_kernels, snp_sumsq=snp_sumsq)
+                         use_kernels=use_kernels, snp_sumsq=snp_sumsq,
+                         mesh=mesh)
         self.block_size = self.plan_layout(p, nbytes, block_size=block_size,
                                            dtype=self.dtype)["block_size"]
-        if isinstance(packed, torch.Tensor):
-            self.packed = packed.to(self.device, torch.uint8).contiguous()
-        else:
-            # np.require copies read-only (memory-mapped) input once
-            self.packed = torch.from_numpy(
-                np.require(packed, np.uint8, ["C", "W"])).to(self.device)
+        if mesh is None:
+            self.packed = _uint8_on(packed, self.device)
+            self._shards = self._whole_shard()
+            return
+        # the shards hold the bytes; the whole array is not kept
+        self.packed = None
+        plan = self.plan_layout(p, nbytes, dtype=self.dtype,
+                                nshards=mesh.size)
+        if listed and len(packed) != len(mesh.devices):
+            raise ValueError(f"{len(packed)} shards for this process's "
+                             f"{len(mesh.devices)} mesh devices")
+        self._shards = []
+        for j, (i, dev) in enumerate(mesh.local_shards):
+            shard = self._shard(packed[j] if listed else packed, listed,
+                                plan, i, dev)
+            if shard is not None:
+                self._shards.append(shard)
 
-    @staticmethod
-    def plan_layout(p, nbytes, *, block_size=None, dtype=torch.float64):
+    @classmethod
+    def plan_layout(cls, p, nbytes, *, block_size=None, dtype=torch.float64,
+                    nshards: int = 1):
         """Layout of (p, nbytes) packed data.  The kernels mask their own
-        ragged edges, so nothing is padded (``p_pad == p``,
-        ``nbytes_pad == nbytes``); ``block_size`` is the CPU core's SNPs
+        ragged edges, so one device pads nothing (``p_pad == p``,
+        ``nbytes_pad == nbytes``); ``nshards`` rounds the sharded axis up
+        to equal shards (the wide operator's rows; the tall one's
+        bytes, in whole words).  ``block_size`` is the CPU core's SNPs
         per decoded block (~128 MiB of decoded floats)."""
         if block_size is None:
             itemsize = torch.finfo(dtype).bits // 8
             block_size = max(128, (128 << 20)
                              // (nbytes * PACK_DENSITY * itemsize))
-        return dict(p_pad=int(p), nbytes_pad=int(nbytes),
+        p_pad, nbytes_pad = cls._padded(int(p), int(nbytes), int(nshards))
+        return dict(p_pad=p_pad, nbytes_pad=nbytes_pad,
                     block_size=int(max(1, min(block_size, p))))
-
-    def _snp_sumsq_dev(self):
-        bs = budget_block_size(self.n_snps, self.n4)
-        return snp_sumsq_p(self.packed, self.mean, self.invsd, self._valid,
-                           block_size=bs)
 
     def stats(self) -> dict:
         """Observability counters: operator products dispatched, packed
@@ -305,18 +396,101 @@ class _ResidentPacked(_PackedBase):
             "use_kernels": self.use_kernels,
             "device": str(self.device),
             "block_size": self.block_size,
+            "nshards": self.nshards,
             "kernel_launches": {k: launch_counts[k]
                                 for k in OPERATOR_KERNELS},
         }
 
 
+def _uint8_on(packed, device) -> torch.Tensor:
+    """Packed bytes (numpy or a tensor) as a contiguous uint8 tensor on
+    ``device``: a contiguous tensor already there is used as it is."""
+    if isinstance(packed, torch.Tensor):
+        return packed.to(device, torch.uint8).contiguous()
+    # np.require copies read-only (memory-mapped) input once
+    return torch.from_numpy(
+        np.require(packed, np.uint8, ["C", "W"])).to(device)
+
+
 class _WideProducts:
     """The wide gram's public products (permuted-space interface for the
     eigensolver, sample-space products for the models), written over
-    four raw products of a subclass, each on byte-masked input in
-    permuted sample space: ``_gram_raw`` (W^T W xp), ``_cross_raw``
-    (W xp), ``_mv_raw`` (W^T v) and ``_ff_raw`` (the two-float
-    W^T W xp)."""
+    four raw products, each on byte-masked input in permuted sample
+    space: ``_gram_raw`` (W^T W xp), ``_cross_raw`` (W xp), ``_mv_raw``
+    (W^T v) and ``_ff_raw`` (the two-float W^T W xp).  They run over a
+    subclass's parts -- (bytes, lo, hi) for SNP rows [lo, hi) from
+    ``_row_parts()``: the resident operator's shards, the streaming
+    one's staged blocks -- summing the partials (folding two-float
+    pairs) and gathering ``crossprod``'s rows, across a mesh's processes
+    too.  ``_budget_rows(rows)`` is the SNP count the functional core
+    budgets its decoded blocks by on a part of ``rows`` SNPs."""
+
+    def _on_rows(self, name, blk, lo, hi, arg):
+        """Product ``name`` on one part, its rows of the decode constants
+        and ``arg`` on the part's device, back on the operator's: the
+        kernel wrapper, or the functional core."""
+        dev = blk.device
+        m, iv = self.mean[lo:hi].to(dev), self.invsd[lo:hi].to(dev)
+        if self.use_kernels:
+            from ..kernels import packed_matvec as kpm
+
+            out = getattr(kpm, name)(blk, m, iv, arg.to(dev))
+        else:
+            out = _CORE[name](blk, m, iv, arg.to(dev),
+                              block_size=self.block_size)
+        return out.to(self.device)
+
+    def _gram_raw(self, xp):
+        acc = None
+        for blk, lo, hi in self._row_parts():
+            acc = _acc(acc, self._on_rows("gram_matvec_p", blk, lo, hi, xp))
+        return self._reduced(acc, xp.shape)
+
+    def _cross_raw(self, xp):
+        return self._rows([(lo, hi, self._on_rows("crossprod_p", blk, lo,
+                                                  hi, xp))
+                           for blk, lo, hi in self._row_parts()],
+                          self.n_snps, xp)
+
+    def _mv_raw(self, v2):
+        acc = None
+        for blk, lo, hi in self._row_parts():
+            acc = _acc(acc, self._on_rows("matvec_p", blk, lo, hi,
+                                          v2[lo:hi]))
+        return self._reduced(acc, (self.n4, v2.shape[1]))
+
+    def _ff_raw(self, xp):
+        """The parts' two-float grams folded by TwoSum: y_hi's rounding
+        error and the parts' own lo halves into y_lo (the JAX package's
+        fold, flashpca_tpu/ops/operator.py:1568-1571)."""
+        from .compensated import default_chunk, gram_ff_p
+
+        lut_hi, lut_lo = self._ff_luts()
+        pair = None
+        for blk, lo, hi in self._row_parts():
+            dev = blk.device
+            lh, ll, x = (lut_hi[lo:hi].to(dev), lut_lo[lo:hi].to(dev),
+                         xp.to(dev))
+            if self.use_kernels:
+                from ..kernels import packed_matvec as kpm
+
+                t = kpm.gram_ff_p(blk, lh, ll, x)
+            else:
+                bs = budget_block_size(self._budget_rows(hi - lo), self.n4,
+                                       itemsize=8, cap=default_chunk())
+                t = gram_ff_p(blk, lh, ll, x, block_size=bs)
+            pair = _fold(pair, (t[0].to(self.device), t[1].to(self.device)))
+        return self._pair_reduced(pair, xp.shape)
+
+    def _snp_sumsq_dev(self):
+        parts = []
+        for blk, lo, hi in self._row_parts():
+            dev = blk.device
+            parts.append((lo, hi, snp_sumsq_p(
+                blk, self.mean[lo:hi].to(dev), self.invsd[lo:hi].to(dev),
+                self._valid.to(dev), block_size=budget_block_size(
+                    self._budget_rows(hi - lo), self.n4)).to(self.device)))
+        return self._rows(parts, self.n_snps, self._valid)
 
     # -- permuted-space interface (used by the eigensolver) ------------------
     @property
@@ -407,44 +581,46 @@ class _WideProducts:
 
 class PackedOperator(_WideProducts, _ResidentPacked):
     """Device-resident packed-genotype operator for the wide gram
-    X X^T (one device, no mesh); parameters as :class:`_ResidentPacked`.
-    """
+    X X^T; parameters as :class:`_ResidentPacked`.  With a mesh the SNP
+    rows are sharded: each shard computes its partial gram
+    ``W_s^T (W_s xp)`` and ``prod`` partial ``W_s^T v_s``, summed over
+    the shards, while ``crossprod``'s rows are gathered."""
 
-    def _gram_raw(self, xp):
-        if self.use_kernels:
-            from ..kernels import packed_matvec as kpm
+    @staticmethod
+    def _padded(p, nbytes, nshards):
+        return -(-p // nshards) * nshards, nbytes
 
-            return kpm.gram_matvec_p(self.packed, self.mean, self.invsd, xp)
-        return gram_matvec_p(self.packed, self.mean, self.invsd, xp,
-                             block_size=self.block_size)
+    def _whole_shard(self):
+        return [(self.packed, 0, self.n_snps)]
 
-    def _cross_raw(self, xp):
-        if self.use_kernels:
-            from ..kernels import packed_matvec as kpm
+    def _shard(self, src, listed, plan, i, dev):
+        """Shard ``i``'s (bytes on ``dev``, lo, hi): SNP rows [lo, hi) of
+        the equal row ranges, None when it holds only padding rows."""
+        from ..parallel.dist import plan_row_shards
 
-            return kpm.crossprod_p(self.packed, self.mean, self.invsd, xp)
-        return crossprod_p(self.packed, self.mean, self.invsd, xp,
-                           block_size=self.block_size)
+        start, stop = plan_row_shards(plan["p_pad"], self.nshards)[i]
+        lo, hi = min(start, self.n_snps), min(stop, self.n_snps)
+        if hi <= lo:
+            return None
+        if listed:
+            if tuple(src.shape) != (stop - start, self.nbytes):
+                raise ValueError(
+                    f"shard {i} has shape {tuple(src.shape)}, not "
+                    f"({stop - start}, {self.nbytes})")
+            rows = src[: hi - lo]
+        else:
+            rows = src[lo:hi]
+        return _uint8_on(rows, dev), lo, hi
 
-    def _mv_raw(self, v2):
-        if self.use_kernels:
-            from ..kernels import packed_matvec as kpm
+    def _row_parts(self):
+        return self._shards
 
-            return kpm.matvec_p(self.packed, self.mean, self.invsd, v2)
-        return matvec_p(self.packed, self.mean, self.invsd, v2,
-                        block_size=self.block_size)
+    def _budget_rows(self, rows):
+        return rows
 
-    def _ff_raw(self, xp):
-        lut_hi, lut_lo = self._ff_luts()
-        if self.use_kernels:
-            from ..kernels import packed_matvec as kpm
 
-            return kpm.gram_ff_p(self.packed, lut_hi, lut_lo, xp)
-        from .compensated import default_chunk, gram_ff_p
-
-        bs = budget_block_size(self.n_snps, self.n4, itemsize=8,
-                               cap=default_chunk())
-        return gram_ff_p(self.packed, lut_hi, lut_lo, xp, block_size=bs)
+_CORE = {"gram_matvec_p": gram_matvec_p, "crossprod_p": crossprod_p,
+         "matvec_p": matvec_p}
 
 
 class _SnpSpace:
@@ -455,7 +631,13 @@ class _SnpSpace:
     zeroed, then X^T y (B1); the two-float gram is B5, the mask, then B3
     plus B1 on the low half.  ``_mv``, ``_gram`` and ``_gram_ff`` run
     them on (p, w) packed bytes and the (4 w,) valid-sample mask of
-    those w bytes."""
+    those w bytes, on the bytes' device.
+
+    A subclass yields its parts -- (bytes, mask, lo, hi) for byte
+    columns [lo, hi) -- from ``_parts()``: the resident operator its
+    shards, the streaming one its staged blocks.  The gram sums the
+    parts' partials, the two-float gram folds them, ``prod`` gathers
+    their runs of samples; across a mesh's processes likewise."""
 
     @property
     def op_dim(self) -> int:
@@ -481,25 +663,26 @@ class _SnpSpace:
 
     def _mv(self, packed, v2, valid):
         """y = W^T v in permuted sample space, byte padding zeroed."""
+        dev = packed.device
+        m, iv, v2 = self.mean.to(dev), self.invsd.to(dev), v2.to(dev)
         if self.use_kernels:
             from ..kernels import packed_matvec as kpm
 
-            y = kpm.matvec_p(packed, self.mean, self.invsd, v2)
+            y = kpm.matvec_p(packed, m, iv, v2)
         else:
-            y = matvec_p(packed, self.mean, self.invsd, v2,
-                         block_size=self.block_size)
+            y = matvec_p(packed, m, iv, v2, block_size=self.block_size)
         return y.to(self.dtype) * valid[:, None]
 
     def _gram(self, packed, v2, valid):
         """u = W M W^T v, M = diag(valid)."""
         y = self._mv(packed, v2, valid)
+        dev = packed.device
+        m, iv = self.mean.to(dev), self.invsd.to(dev)
         if self.use_kernels:
             from ..kernels import packed_matvec as kpm
 
-            return kpm.crossprod_p(packed, self.mean, self.invsd,
-                                   y).to(self.dtype)
-        return crossprod_p(packed, self.mean, self.invsd, y,
-                           block_size=self.block_size)
+            return kpm.crossprod_p(packed, m, iv, y).to(self.dtype)
+        return crossprod_p(packed, m, iv, y, block_size=self.block_size)
 
     def _gram_ff(self, packed, v2, valid):
         """(z_hi, z_lo) two-float pair of W M W^T v."""
@@ -510,40 +693,121 @@ class _SnpSpace:
                 "CPU)")
         from ..kernels import packed_matvec as kpm
 
+        dev = packed.device
         lut_hi, lut_lo = self._ff_luts()
-        return kpm.gram_tall_ff_p(packed, lut_hi, lut_lo, self.mean,
-                                  self.invsd, v2, valid)
+        return kpm.gram_tall_ff_p(packed, lut_hi.to(dev), lut_lo.to(dev),
+                                  self.mean.to(dev), self.invsd.to(dev),
+                                  v2.to(dev), valid)
+
+    # -- products over the parts ---------------------------------------------
+    def gram_permuted(self, v):
+        """u = X^T X v in SNP space; (p,) or (p, k) -> same."""
+        vec = v.ndim == 1
+        v2 = v[:, None] if vec else v
+        acc = None
+        for blk, valid, _, _ in self._parts():
+            acc = _acc(acc, self._gram(blk, v2, valid).to(self.device))
+        acc = self._reduced(acc, v2.shape)
+        self.nops += 1
+        return acc[:, 0] if vec else acc
+
+    def prod(self, v):
+        """y = X v: (p,) or (p, k) -> (N,) or (N, k), natural order."""
+        v2, vec = self._as_2d(v, self.n_snps, "prod")
+        segs = [(PACK_DENSITY * lo, PACK_DENSITY * hi,
+                 unpermute_samples(self._mv(blk, v2, valid),
+                                   PACK_DENSITY * (hi - lo)))
+                for blk, valid, lo, hi in self._parts()]
+        y = self._rows(segs, PACK_DENSITY * self._bytes_total,
+                       v2)[: self.n_samples]
+        self.nops += 1
+        return y[:, 0] if vec else y
+
+    def gram_ff_permuted(self, v):
+        """(z_hi, z_lo) two-float pair of X^T X v in SNP space: each
+        part's pair folded in by TwoSum, its error and the part's own lo
+        half into z_lo (the JAX package's fold,
+        flashpca_tpu/ops/operator.py:2030-2033)."""
+        vec = v.ndim == 1
+        v2 = (v[:, None] if vec else v).to(self.dtype)
+        pair = None
+        for blk, valid, _, _ in self._parts():
+            t_hi, t_err = self._gram_ff(blk, v2, valid)
+            pair = _fold(pair, (t_hi.to(self.device), t_err.to(self.device)))
+        hi, lo = self._pair_reduced(pair, v2.shape)
+        self.nops += 1
+        return (hi[:, 0], lo[:, 0]) if vec else (hi, lo)
+
+    @property
+    def snp_sumsq(self) -> np.ndarray:
+        """Per-SNP sums of squares, the parts' partials summed in host
+        float64 (float32 sums across many parts would leak ~1e-6
+        relative into trace and pve)."""
+        if self._sumsq is None:
+            tot = np.zeros(self.n_snps)
+            for blk, valid, lo, hi in self._parts():
+                dev = blk.device
+                tot += snp_sumsq_p(
+                    blk, self.mean.to(dev), self.invsd.to(dev), valid,
+                    block_size=self._sumsq_block(hi - lo)).to(
+                        "cpu", torch.float64).numpy()
+            if self.mesh is not None:
+                tot = self.mesh.all_sum(torch.from_numpy(tot)).numpy()
+            self._sumsq = tot
+        return self._sumsq
 
 
 class TallPackedOperator(_SnpSpace, _ResidentPacked):
     """Tall-path operator: the eigenproblem is the p x p gram ``X^T X``
     (right singular vectors), for the n >> p regime, with the packed
     bytes on the device; parameters as :class:`_ResidentPacked`,
-    products as :class:`_SnpSpace`."""
+    products as :class:`_SnpSpace`.  With a mesh the byte columns
+    (samples) are sharded, each shard with its own valid-sample mask."""
 
-    def gram_permuted(self, v):
-        """u = X^T X v in SNP space; (p,) or (p, k) -> same."""
-        vec = v.ndim == 1
-        u = self._gram(self.packed, v[:, None] if vec else v, self._valid)
-        self.nops += 1
-        return u[:, 0] if vec else u
+    @staticmethod
+    def _padded(p, nbytes, nshards):
+        if nshards == 1:
+            return p, nbytes
+        unit = PACK_DENSITY * nshards          # whole words a shard
+        return p, -(-nbytes // unit) * unit
 
-    def prod(self, v):
-        """y = X v: (p,) or (p, k) -> (N,) or (N, k), natural order."""
-        v2, vec = self._as_2d(v, self.n_snps, "prod")
-        y = unpermute_samples(self._mv(self.packed, v2, self._valid),
-                              self.n_samples)
-        self.nops += 1
-        return y[:, 0] if vec else y
+    @property
+    def _bytes_total(self):
+        return self.plan_layout(self.n_snps, self.nbytes,
+                                nshards=self.nshards)["nbytes_pad"]
 
-    def gram_ff_permuted(self, v):
-        """(z_hi, z_lo) two-float pair of X^T X v in SNP space; see
-        PackedOperator.gram_ff_permuted."""
-        vec = v.ndim == 1
-        v2 = (v[:, None] if vec else v).to(self.dtype)
-        hi, lo = self._gram_ff(self.packed, v2, self._valid)
-        self.nops += 1
-        return (hi[:, 0], lo[:, 0]) if vec else (hi, lo)
+    def _whole_shard(self):
+        return [(self.packed, self._valid, 0, self.nbytes)]
+
+    def _shard(self, src, listed, plan, i, dev):
+        """Shard ``i``'s (bytes on ``dev``, mask, lo, hi): byte columns
+        [lo, hi) of the equal ranges, None when they are all padding; a
+        listed shard keeps its padding bytes, which its mask zeroes."""
+        from ..parallel.dist import plan_byte_shards
+
+        lo, hi = plan_byte_shards(plan["nbytes_pad"], self.nshards)[i]
+        if min(hi, self.nbytes) <= lo:
+            return None
+        if listed:
+            if tuple(src.shape) != (plan["p_pad"], hi - lo):
+                raise ValueError(
+                    f"shard {i} has shape {tuple(src.shape)}, not "
+                    f"({plan['p_pad']}, {hi - lo})")
+            cols = src[: self.n_snps]
+        else:
+            hi = min(hi, self.nbytes)
+            cols = src[:, lo:hi]
+            cols = (cols.contiguous() if isinstance(cols, torch.Tensor)
+                    else np.ascontiguousarray(cols))
+        blk = _uint8_on(cols, dev)
+        return (blk, window_valid(self.n_samples, lo, blk.shape[1],
+                                  self.dtype, dev), lo, lo + blk.shape[1])
+
+    def _parts(self):
+        return self._shards
+
+    def _sumsq_block(self, width):
+        return budget_block_size(self.n_snps, PACK_DENSITY * width)
 
 
 def _host_source(source, n_samples: int) -> np.ndarray:
@@ -568,12 +832,14 @@ class _StagedBlocks:
     device one block at a time, so device memory holds two block buffers
     whatever the cohort's size.
 
-    A subclass says what a block is: ``_bounds(i)``, block ``i``'s range
-    [lo, hi) on the blocked axis; ``_block_shape(lo, hi)``, its (SNPs,
-    bytes) on the device; and ``_host_block(lo, hi)``, the host slice it
-    copies.  The buffers hold ``block_nbytes`` bytes, a full block; a
-    shorter block runs on a contiguous prefix of them (the kernels take
-    contiguous bytes only).
+    A subclass says what a block is: ``_items``, each block's range
+    [lo, hi) on the blocked axis and the device it runs on (with a mesh,
+    each block is split into one item a shard, of which this process
+    stages its own); ``_block_shape(lo, hi)``, its (SNPs, bytes) on the
+    device; and ``_host_block(lo, hi)``, the host slice it copies.  The
+    buffers hold ``block_nbytes`` bytes, a full item; a shorter one runs
+    on a contiguous prefix of them (the kernels take contiguous bytes
+    only).
 
     Staging on CUDA: two pinned host buffers and two device buffers
     rotate; a side stream makes the host-to-device copies.  The compute
@@ -593,6 +859,33 @@ class _StagedBlocks:
     second fill at the start of each pass, which the host's memcpy rate
     makes worth a few percent of a pass (PERF.md).
     """
+
+    def _split_blocks(self, extent: int, block: int, unit: int):
+        """(block, items): the block length rounded to whole ``unit``s a
+        shard, and [lo, hi, device] of this process's items -- each
+        block of the axis [0, extent) split into equal shard ranges
+        (the whole block, on the operator's device, without a mesh)."""
+        if self.mesh is None:
+            return block, [(lo, min(lo + block, extent), self.device)
+                           for lo in range(0, extent, block)]
+        step = max(unit, block // self.nshards // unit * unit)
+        block = step * self.nshards
+        items = []
+        for b0 in range(0, extent, block):
+            b1 = min(b0 + block, extent)
+            for i, dev in self.mesh.local_shards:
+                lo = b0 + i * step
+                if lo < b1:
+                    items.append((lo, min(lo + step, b1), dev))
+        return block, items
+
+    def _bounds(self, i: int):
+        return self._items[i][:2]
+
+    def _staged(self):
+        """(block on its item's device, lo, hi) for every item in order."""
+        for i, (blk, lo, hi) in enumerate(self._blocks()):
+            yield blk.to(self._items[i][2]), lo, hi
 
     def _init_staging(self, packed, *, n_blocks: int, block_nbytes: int,
                       memory_mb, cache_mb, prefetch):
@@ -848,6 +1141,10 @@ class StreamingPackedOperator(_WideProducts, _StagedBlocks, _PackedBase):
     memory_mb : the device budget of the two block buffers (the CLI's
         ``--memory``); it also turns the automatic block cache off.
     cache_mb, prefetch : as :class:`_StagedBlocks`.
+    mesh : optional; each block's SNP rows are split into equal shard
+        ranges (``block_snps`` rounded down to a multiple of the shard
+        count), this process stages its own, and each device's buffers
+        hold one shard's part: block / shards.
 
     The products run the same kernels (B1 + B2, and B3 + B4 in
     two-float) as :class:`PackedOperator`, once per block, on the
@@ -861,31 +1158,31 @@ class StreamingPackedOperator(_WideProducts, _StagedBlocks, _PackedBase):
                  block_snps: int | None = None, memory_mb: int | None = None,
                  dtype=None, snp_sumsq=None, cache_mb="auto",
                  prefetch: bool | None = None, device=None,
-                 use_kernels: bool | None = None):
+                 use_kernels: bool | None = None, mesh=None):
         packed = _host_source(source, n_samples)
         p = packed.shape[0]
         super().__init__(mean, sd, n_samples, p, device=device, dtype=dtype,
-                         use_kernels=use_kernels, snp_sumsq=snp_sumsq)
+                         use_kernels=use_kernels, snp_sumsq=snp_sumsq,
+                         mesh=mesh)
         if block_snps is None:
             if memory_mb is not None:
                 # --memory semantics: two packed block buffers on device
                 block_snps = (int(memory_mb) << 20) // (2 * self.nbytes)
             else:
                 block_snps = (1 << 30) // self.nbytes          # ~1 GiB
-        self.block_snps = int(max(1, min(block_snps, p)))
-        self._init_staging(packed, n_blocks=-(-p // self.block_snps),
-                           block_nbytes=self.block_snps * self.nbytes,
+        block, self._items = self._split_blocks(
+            p, int(max(1, min(block_snps, p))), 1)
+        self.block_snps = block
+        # SNP rows of one staged item (a block, or a shard's part of it)
+        rows = block // self.nshards
+        self._init_staging(packed, n_blocks=len(self._items),
+                           block_nbytes=rows * self.nbytes,
                            memory_mb=memory_mb, cache_mb=cache_mb,
                            prefetch=prefetch)
-        # the functional core's decode blocks inside a staged block
-        self.block_size = budget_block_size(self.block_snps, self.n4,
-                                            cap=8192)
+        # the functional core's decode blocks inside a staged item
+        self.block_size = budget_block_size(rows, self.n4, cap=8192)
 
     # -- what a block is: a range of SNP rows --------------------------------
-    def _bounds(self, i: int):
-        lo = i * self.block_snps
-        return lo, min(lo + self.block_snps, self.n_snps)
-
     def _block_shape(self, lo: int, hi: int):
         return hi - lo, self.nbytes
 
@@ -893,67 +1190,12 @@ class StreamingPackedOperator(_WideProducts, _StagedBlocks, _PackedBase):
         return self._host_packed[lo:hi]
 
 
-    # -- raw products: one pass over the blocks ------------------------------
-    def _on_block(self, name, blk, lo, hi, arg):
-        """Product ``name`` on one staged block and its rows of the
-        decode constants: the kernel wrapper, or the functional core."""
-        m, iv = self.mean[lo:hi], self.invsd[lo:hi]
-        if self.use_kernels:
-            from ..kernels import packed_matvec as kpm
+    def _row_parts(self):
+        return self._staged()
 
-            return getattr(kpm, name)(blk, m, iv, arg)
-        core = {"gram_matvec_p": gram_matvec_p, "crossprod_p": crossprod_p,
-                "matvec_p": matvec_p}[name]
-        return core(blk, m, iv, arg, block_size=self.block_size)
-
-    def _gram_raw(self, xp):
-        acc = torch.zeros_like(xp)
-        for blk, lo, hi in self._blocks():
-            acc = acc + self._on_block("gram_matvec_p", blk, lo, hi, xp)
-        return acc
-
-    def _cross_raw(self, xp):
-        return torch.cat([self._on_block("crossprod_p", blk, lo, hi, xp)
-                          for blk, lo, hi in self._blocks()])
-
-    def _mv_raw(self, v2):
-        acc = torch.zeros((self.n4, v2.shape[1]), dtype=v2.dtype,
-                          device=self.device)
-        for blk, lo, hi in self._blocks():
-            acc = acc + self._on_block("matvec_p", blk, lo, hi, v2[lo:hi])
-        return acc
-
-    def _ff_raw(self, xp):
-        """Per-block two-float grams folded across blocks: y_hi by TwoSum,
-        its error and the blocks' own lo halves into y_err (the JAX
-        package's fold, flashpca_tpu/ops/operator.py:1568-1571)."""
-        from .compensated import default_chunk, gram_ff_p, twosum
-
-        lut_hi, lut_lo = self._ff_luts()
-        bs = budget_block_size(self.block_snps, self.n4, itemsize=8,
-                               cap=default_chunk())
-        y_hi = torch.zeros_like(xp)
-        y_err = torch.zeros_like(xp)
-        for blk, lo, hi in self._blocks():
-            lh, ll = lut_hi[lo:hi], lut_lo[lo:hi]
-            if self.use_kernels:
-                from ..kernels import packed_matvec as kpm
-
-                t_hi, t_err = kpm.gram_ff_p(blk, lh, ll, xp)
-            else:
-                t_hi, t_err = gram_ff_p(blk, lh, ll, xp, block_size=bs)
-            y_hi, e = twosum(y_hi, t_hi)
-            y_err = y_err + e + t_err
-        return y_hi, y_err
-
-    def _snp_sumsq_dev(self):
-        bs = budget_block_size(self.block_snps, self.n4)
-        return torch.cat([snp_sumsq_p(blk, self.mean[lo:hi],
-                                      self.invsd[lo:hi], self._valid,
-                                      block_size=bs)
-                          for blk, lo, hi in self._blocks()])
-
-
+    def _budget_rows(self, rows):
+        # every block's decode budget is a full block's, whatever its rows
+        return self.block_snps // self.nshards
 
 
 class TallStreamingOperator(_SnpSpace, _StagedBlocks, _PackedBase):
@@ -981,6 +1223,9 @@ class TallStreamingOperator(_SnpSpace, _StagedBlocks, _PackedBase):
     memory_mb : the device budget of the two block buffers; it also
         turns the automatic block cache off.
     cache_mb, prefetch : as :class:`_StagedBlocks`.
+    mesh : optional; each block's byte columns are split into equal
+        shard windows (whole words each), this process stages its own,
+        and each device's buffers hold one shard's part.
 
     Per block, on all p rows of the decode constants: the gram adds X_b^T
     (M_b X_b v) (B2, the block's valid-sample mask M_b, B1), the
@@ -994,11 +1239,12 @@ class TallStreamingOperator(_SnpSpace, _StagedBlocks, _PackedBase):
                  block_bytes: int | None = None,
                  memory_mb: int | None = None, dtype=None, snp_sumsq=None,
                  cache_mb="auto", prefetch: bool | None = None, device=None,
-                 use_kernels: bool | None = None):
+                 use_kernels: bool | None = None, mesh=None):
         packed = _host_source(source, n_samples)
         p = packed.shape[0]
         super().__init__(mean, sd, n_samples, p, device=device, dtype=dtype,
-                         use_kernels=use_kernels, snp_sumsq=snp_sumsq)
+                         use_kernels=use_kernels, snp_sumsq=snp_sumsq,
+                         mesh=mesh)
         if block_bytes is None:
             if memory_mb is not None:
                 # --memory semantics: two packed block buffers on device
@@ -1007,94 +1253,43 @@ class TallStreamingOperator(_SnpSpace, _StagedBlocks, _PackedBase):
                 block_bytes = (1 << 30) // p                   # ~1 GiB
         # whole bytes of 4 samples, in whole words (the JAX package's
         # rule on its jnp path)
-        self.block_bytes = int(max(PACK_DENSITY,
-                                   min(block_bytes, self.nbytes)
-                                   // PACK_DENSITY * PACK_DENSITY))
-        self._init_staging(packed, n_blocks=-(-self.nbytes
-                                              // self.block_bytes),
-                           block_nbytes=p * self.block_bytes,
+        block_bytes = int(max(PACK_DENSITY, min(block_bytes, self.nbytes)
+                              // PACK_DENSITY * PACK_DENSITY))
+        self.block_bytes, self._items = self._split_blocks(
+            self.nbytes, block_bytes, PACK_DENSITY)
+        # byte columns of one staged item (a block, or a shard's part)
+        self._item_bytes = self.block_bytes // self.nshards
+        self._init_staging(packed, n_blocks=len(self._items),
+                           block_nbytes=p * self._item_bytes,
                            memory_mb=memory_mb, cache_mb=cache_mb,
                            prefetch=prefetch)
-        # the functional core's decode blocks inside a staged block
+        # the functional core's decode blocks inside a staged item
         self.block_size = budget_block_size(p, PACK_DENSITY
-                                            * self.block_bytes, cap=8192)
-        # each block's valid-sample mask in its permuted layout: position
-        # s * w + b holds sample 4 (lo + b) + s, byte padding zeroed
-        planes = self._valid.view(PACK_DENSITY, self.nbytes)
-        self._block_valid = [planes[:, lo:hi].reshape(-1)
-                             for lo, hi in map(self._bounds,
-                                               range(self.n_blocks))]
+                                            * self._item_bytes, cap=8192)
+        # each item's valid-sample mask in its permuted layout
+        self._block_valid = [window_valid(n_samples, lo, hi - lo,
+                                          self.dtype, dev)
+                             for lo, hi, dev in self._items]
 
     # -- what a block is: a range of byte columns ----------------------------
-    def _bounds(self, i: int):
-        lo = i * self.block_bytes
-        return lo, min(lo + self.block_bytes, self.nbytes)
-
     def _block_shape(self, lo: int, hi: int):
         return self.n_snps, hi - lo
 
     def _host_block(self, lo: int, hi: int):
         return self._host_packed[:, lo:hi]
 
-    def _masked_blocks(self):
-        """(block on the device, its valid-sample mask, lo, hi)."""
-        for i, (blk, lo, hi) in enumerate(self._blocks()):
+    @property
+    def _bytes_total(self):
+        return self.nbytes
+
+    def _parts(self):
+        """(block on its device, its valid-sample mask, lo, hi)."""
+        for i, (blk, lo, hi) in enumerate(self._staged()):
             yield blk, self._block_valid[i], lo, hi
 
-    # -- products: one pass over the blocks ----------------------------------
-    def gram_permuted(self, v):
-        """u = X^T X v in SNP space; (p,) or (p, k) -> same."""
-        vec = v.ndim == 1
-        v2 = v[:, None] if vec else v
-        acc = torch.zeros_like(v2)
-        for blk, valid, _, _ in self._masked_blocks():
-            acc = acc + self._gram(blk, v2, valid)
-        self.nops += 1
-        return acc[:, 0] if vec else acc
-
-    def prod(self, v):
-        """y = X v: (p,) or (p, k) -> (N,) or (N, k), natural order."""
-        v2, vec = self._as_2d(v, self.n_snps, "prod")
-        segs = [unpermute_samples(self._mv(blk, v2, valid),
-                                  PACK_DENSITY * (hi - lo))
-                for blk, valid, lo, hi in self._masked_blocks()]
-        y = torch.cat(segs)[: self.n_samples]
-        self.nops += 1
-        return y[:, 0] if vec else y
-
-    def gram_ff_permuted(self, v):
-        """(z_hi, z_lo) two-float pair of X^T X v in SNP space: each
-        block's pair folded in by TwoSum, its error and the block's own
-        lo half into z_lo (the JAX package's fold,
-        flashpca_tpu/ops/operator.py:2030-2033)."""
-        from .compensated import twosum
-
-        vec = v.ndim == 1
-        v2 = (v[:, None] if vec else v).to(self.dtype)
-        z_hi = torch.zeros_like(v2)
-        z_err = torch.zeros_like(v2)
-        for blk, valid, _, _ in self._masked_blocks():
-            t_hi, t_err = self._gram_ff(blk, v2, valid)
-            z_hi, e = twosum(z_hi, t_hi)
-            z_err = z_err + e + t_err
-        self.nops += 1
-        return (z_hi[:, 0], z_err[:, 0]) if vec else (z_hi, z_err)
-
-    @property
-    def snp_sumsq(self) -> np.ndarray:
-        """Per-SNP sums of squares, the blocks' partials summed in host
-        float64 (float32 sums across many blocks would leak ~1e-6
-        relative into trace and pve)."""
-        if self._sumsq is None:
-            bs = budget_block_size(self.n_snps,
-                                   PACK_DENSITY * self.block_bytes)
-            tot = np.zeros(self.n_snps)
-            for blk, valid, _, _ in self._masked_blocks():
-                tot += snp_sumsq_p(blk, self.mean, self.invsd, valid,
-                                   block_size=bs).to(
-                                       "cpu", torch.float64).numpy()
-            self._sumsq = tot
-        return self._sumsq
+    def _sumsq_block(self, width):
+        return budget_block_size(self.n_snps,
+                                 PACK_DENSITY * self._item_bytes)
 
 
 def packed_operator_from_numpy(packed, mean, sd, n_samples: int, *,
@@ -1308,17 +1503,22 @@ WIDE_OPERATORS = (PackedOperator, StreamingPackedOperator, DenseOperator)
 TALL_OPERATORS = (TallPackedOperator, TallStreamingOperator)
 
 
-def resolve_streaming(streaming, ds, device=None) -> bool:
+def resolve_streaming(streaming, ds, device=None, mesh=None) -> bool:
     """Resolve the streaming tri-state ('auto'/True/False), for the wide
     and the tall gram alike: ``"auto"`` streams when the packed bytes
-    exceed 0.7 x the card's total memory, and never on the CPU."""
+    exceed 0.7 x the card's total memory -- times the mesh's shard
+    count, whose shards share the bytes -- and never on the CPU."""
     if streaming != "auto":
         return bool(streaming)
     dev = torch.device("cuda" if device is None else device)
+    if mesh is not None:
+        dev = mesh.devices[0]
     if dev.type != "cuda":
         return False
     total = torch.cuda.get_device_properties(
         resolve_device(dev)).total_memory
+    if mesh is not None:
+        total *= mesh.size
     return ds.n_snps * ds.nbytes_per_snp > STREAM_FRACTION * total
 
 
@@ -1329,39 +1529,48 @@ def build_packed_operator(ds, mean, sd, *, tall: bool = False,
     """The operator an analysis mode runs on: the wide gram X X^T, or
     with ``tall`` the tall gram X^T X; resident, or streamed from the
     host when ``streaming`` resolves to it (:func:`resolve_streaming`).
-    A ``mesh`` raises (ROADMAP A18).  ``memory_mb`` bounds the streaming
-    operators only, so the resident ones ignore it (as the JAX
-    package's do); ``block_size`` is the wide streaming operator's
-    ``block_snps``, and the tall one, which blocks the samples, refuses
-    it (as the JAX package's ``pca()`` does)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: multi-GPU sharding is not ported yet (ROADMAP A18 "
-            "'Multi-GPU')")
-    if resolve_streaming(streaming, ds, device):
+    With a ``mesh`` it is sharded, and each process reads only its own
+    shards' bytes (parallel/dist.py's loaders; the streaming operators
+    stage only theirs).  ``memory_mb`` bounds the streaming operators
+    only, so the resident ones ignore it (as the JAX package's do);
+    ``block_size`` is the wide streaming operator's ``block_snps``, and
+    the tall one, which blocks the samples, refuses it (as the JAX
+    package's ``pca()`` does)."""
+    kw = dict(dtype=dtype, snp_sumsq=snp_sumsq, device=device, mesh=mesh)
+    if resolve_streaming(streaming, ds, device, mesh):
         if not tall:
             return StreamingPackedOperator(
                 ds, mean, sd, ds.n_samples, memory_mb=memory_mb,
-                block_snps=block_size, dtype=dtype, snp_sumsq=snp_sumsq,
-                device=device)
+                block_snps=block_size, **kw)
         if block_size is not None:
             raise ValueError(
                 "block_size= (SNPs per block) does not apply to the tall "
                 "streaming path, which blocks the sample(byte) axis; "
                 "bound its staged buffers with memory_mb= instead")
         return TallStreamingOperator(
-            ds, mean, sd, ds.n_samples, memory_mb=memory_mb, dtype=dtype,
-            snp_sumsq=snp_sumsq, device=device)
+            ds, mean, sd, ds.n_samples, memory_mb=memory_mb, **kw)
     cls = TallPackedOperator if tall else PackedOperator
-    return cls(ds.read_packed(), mean, sd, ds.n_samples,
-               block_size=block_size, dtype=dtype, device=device,
-               snp_sumsq=snp_sumsq)
+    if mesh is None:
+        packed = ds.read_packed()
+    else:
+        from ..parallel.dist import (load_sample_sharded_packed,
+                                     load_sharded_packed)
+
+        plan = cls.plan_layout(ds.n_snps, ds.nbytes_per_snp,
+                               nshards=mesh.size)
+        load = load_sample_sharded_packed if tall else load_sharded_packed
+        packed = load(ds, mesh, p_pad=plan["p_pad"],
+                      nbytes_pad=plan["nbytes_pad"])
+    return cls(packed, mean, sd, ds.n_samples, block_size=block_size,
+               n_snps=ds.n_snps, **kw)
 
 
 def check_operator_conflicts(op, *, dtype=None, streaming="auto",
-                             memory_mb=None, block_size=None, device=None):
+                             memory_mb=None, block_size=None, device=None,
+                             mesh=None):
     """Reject keyword requests that a PREBUILT operator cannot honor
-    (its dtype, device and block geometry are fixed at construction)."""
+    (its dtype, device, sharding and block geometry are fixed at
+    construction)."""
     if memory_mb is not None:
         raise ValueError(
             "memory_mb= was passed with a prebuilt operator, whose "
@@ -1381,6 +1590,11 @@ def check_operator_conflicts(op, *, dtype=None, streaming="auto",
         raise ValueError(
             f"device={device} conflicts with the prebuilt operator's "
             f"device={op.device}; rebuild the operator on that device")
+    # value equality: an identical mesh built again is the same mesh
+    if mesh is not None and getattr(op, "mesh", None) != mesh:
+        raise ValueError(
+            "mesh= conflicts with the prebuilt operator's device "
+            "placement; build the operator on the target mesh instead")
     is_stream = isinstance(op, STREAMING_OPERATORS)
     if streaming is True and not is_stream:
         raise ValueError(

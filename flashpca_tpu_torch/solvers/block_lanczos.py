@@ -24,6 +24,13 @@ Algorithm (Wu & Simon thick restart, generalized to blocks):
 * Rank-deficient panels deflate to exactly-zero columns and are
   replaced by fresh random directions with zero coupling, drawn from a
   ``torch.Generator`` seeded with ``seed``.
+
+Under a mesh that spans processes every process runs the same solver on
+replicated vectors, and ``agree`` (:meth:`Mesh.agree`) hands every one
+rank 0's copy of the small host arrays each decision is taken from --
+the cycle's projected blocks, the refinement's small grams, the final
+residuals -- so that no process takes another branch (a product the
+others do not join would hang the group).
 """
 
 from __future__ import annotations
@@ -149,7 +156,11 @@ def _colnorm1(Y):
     return Y / torch.where(nrm > 0, nrm, torch.ones_like(nrm))[None, :]
 
 
-def _ff_resid_panel(U, y_hi, y_lo):
+def _same(*arrays):
+    return arrays if len(arrays) != 1 else arrays[0]
+
+
+def _ff_resid_panel(U, y_hi, y_lo, agree=_same):
     """Well-conditioned orthonormal panel spanning A U - U (U^T A U).
 
     CGS2 against U in float32 (direction accuracy ~1e-3 is plenty), then
@@ -164,7 +175,7 @@ def _ff_resid_panel(U, y_hi, y_lo):
     R = _colnorm1(R)
     R = R - U @ (U.T @ R)
     R = _colnorm1(R)
-    G = gram_small_ff(R)                        # float64 host, ff-accurate
+    G = agree(gram_small_ff(R))                 # float64 host, ff-accurate
     lam, V = np.linalg.eigh(G)
     keep = lam > 1e-4 * max(lam[-1], 1e-30)
     if not keep.any():
@@ -197,7 +208,7 @@ def _ritz_whitened(H, M):
 
 
 def _ff_krylov_refine(ff_gram, U, k, rounds: int = 1,
-                      return_resid: bool = False):
+                      return_resid: bool = False, agree=_same):
     """Block-Krylov refinement over the COMPENSATED operator.
 
     Each round takes ONE compensated data pass on the current residual
@@ -211,15 +222,14 @@ def _ff_krylov_refine(ff_gram, U, k, rounds: int = 1,
     B, Yh, Yl = U, y_hi, y_lo
     theta = None
     for _ in range(rounds):
-        R = _ff_resid_panel(U, y_hi, y_lo)
+        R = _ff_resid_panel(U, y_hi, y_lo, agree)
         if R.shape[1]:
             rh, rl = ff_gram(R)
             B = torch.cat([B, R], dim=1)
             Yh = torch.cat([Yh, rh], dim=1)
             Yl = torch.cat([Yl, rl], dim=1)
         H = ritz_ff(B, Yh, Yl)
-        H = 0.5 * (H + H.T)
-        M = gram_small_ff(B)
+        H, M = agree(0.5 * (H + H.T), gram_small_ff(B))
         theta, S = _ritz_generalized(H, M)
         order = np.argsort(theta)[::-1][:k]
         theta = theta[order]
@@ -230,13 +240,13 @@ def _ff_krylov_refine(ff_gram, U, k, rounds: int = 1,
     if return_resid:
         th = torch.as_tensor(theta, device=U.device).to(U.dtype)
         r = (y_hi - U * th[None, :]) + y_lo
-        resid = host64(torch.sqrt((r * r).sum(dim=0)))
+        resid = agree(host64(torch.sqrt((r * r).sum(dim=0))))
         return theta, U, resid
     return theta, U
 
 
 def polish_subspace(matvec, U, *, iters: int = 2, ff_gram=None,
-                    return_resid=False):
+                    return_resid=False, agree=None):
     """Refine converged Ritz vectors by orthogonal (subspace) iteration
     with a final host-float64 Rayleigh-Ritz.  Returns (theta, U) with
     theta descending.
@@ -252,6 +262,7 @@ def polish_subspace(matvec, U, *, iters: int = 2, ff_gram=None,
     spectrum, where the second refinement's residual panel sees it)."""
     k = U.shape[1]
     rank_tol = (100 * float(torch.finfo(U.dtype).eps)) ** 2
+    agree = agree or _same
 
     def sweep(U):
         Y = _colnorm1(matvec(U))
@@ -262,12 +273,12 @@ def polish_subspace(matvec, U, *, iters: int = 2, ff_gram=None,
     for _ in range(iters):
         U = sweep(U)
     if ff_gram is not None:
-        _, U = _ff_krylov_refine(ff_gram, U, k, rounds=1)
+        _, U = _ff_krylov_refine(ff_gram, U, k, rounds=1, agree=agree)
         U = sweep(U)
         return _ff_krylov_refine(ff_gram, U, k, rounds=1,
-                                 return_resid=return_resid)
+                                 return_resid=return_resid, agree=agree)
     Y = matvec(U)
-    G = host64(U.T @ Y)
+    G = agree(host64(U.T @ Y))
     G = 0.5 * (G + G.T)
     theta, S = np.linalg.eigh(G)
     order = np.argsort(theta)[::-1][:k]
@@ -282,7 +293,7 @@ def eigsh_block(matvec, n: int, nev: int, *, block: int = 16,
                 tol: float = 1e-6, dtype=torch.float32, device=None,
                 seed: int = 1, v0: np.ndarray | None = None,
                 verbose: bool = False, checkpoint_every: int = 0,
-                checkpoint_fn=None) -> EigshResult:
+                checkpoint_fn=None, agree=None) -> EigshResult:
     """Largest-algebraic eigenpairs via thick-restart block Lanczos.
 
     ``matvec`` maps an (n, b) device panel to an (n, b) device panel.
@@ -296,7 +307,8 @@ def eigsh_block(matvec, n: int, nev: int, *, block: int = 16,
     restart with the current top Ritz panel (a device tensor of up to
     one solver panel of columns, what a ``v0`` warm start takes): the
     solve survives the death of its process.  The scalar fallback takes
-    no mid-run checkpoints and warns when they were asked for."""
+    no mid-run checkpoints and warns when they were asked for.
+    ``agree``: see the module docstring (one broadcast a cycle)."""
     if maxiter < 1:
         raise ValueError("maxiter must be >= 1")
     b = int(block)
@@ -322,7 +334,7 @@ def eigsh_block(matvec, n: int, nev: int, *, block: int = 16,
                 "still happens)", RuntimeWarning, stacklevel=2)
         return eigsh(lambda x: matvec(x[:, None])[:, 0], n, nev,
                      maxiter=maxiter, tol=tol, dtype=dtype, device=device,
-                     seed=seed, v0=v0)
+                     seed=seed, v0=v0, agree=agree)
 
     eps = float(torch.finfo(dtype).eps)
     eps23 = eps ** (2.0 / 3.0)
@@ -361,7 +373,8 @@ def eigsh_block(matvec, n: int, nev: int, *, block: int = 16,
 
     for restart in range(maxiter):
         nsteps = (ncv - l) // b
-        H, R = _expand_cycle(matvec, V, gen, l, nsteps, b, jitter)
+        H, R = (agree or _same)(
+            *_expand_cycle(matvec, V, gen, l, nsteps, b, jitter))
         nops += nsteps
 
         # -- assemble symmetric T on the host -------------------------------

@@ -108,10 +108,12 @@ def _expand_cycle(matvec, V, gen, scale0, l, ncv, deflate_tol):
 
 def eigsh(matvec: Callable, n: int, nev: int, *, ncv: int | None = None,
           maxiter: int = 500, tol: float = 1e-6, dtype=torch.float32,
-          device=None, seed: int = 1, v0: np.ndarray | None = None
-          ) -> EigshResult:
+          device=None, seed: int = 1, v0: np.ndarray | None = None,
+          agree=None) -> EigshResult:
     """Largest-algebraic eigenpairs of the symmetric operator ``matvec``
-    (a device (n,) vector -> a device (n,) vector)."""
+    (a device (n,) vector -> a device (n,) vector).  ``agree`` (a mesh's
+    :meth:`Mesh.agree` across processes) gives every process rank 0's
+    coefficients of each cycle, which every decision derives from."""
     if ncv is None:
         ncv = 2 * nev + 1
     ncv = min(ncv, n)
@@ -157,6 +159,8 @@ def eigsh(matvec: Callable, n: int, nev: int, *, ncv: int | None = None,
             matvec, V, gen,
             float(np.max(np.abs(theta_kept))) if theta_kept.size else 0.0,
             l, ncv, 10.0 * eps)
+        if agree is not None:
+            alphas, betas = agree(alphas, betas)
         nops += ncv - l
 
         # -- host: build T (arrowhead + tridiagonal), solve, test --------

@@ -842,3 +842,57 @@ def test_dense_gram_ff_extra_peak_memory_on_card(cuda, n, p, k):
     exact = X64 @ (X64.T @ x.double())
     err = (hi.double() + lo.double() - exact).abs().amax(dim=0)
     assert bool((err <= 1e-6 * exact.abs().amax(dim=0)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tall", [False, True], ids=["wide", "tall"])
+def test_two_shard_operator_on_card_matches_one_shard(cuda, tmp_path, tall):
+    """A 2-shard mesh on cuda:0 (SNP rows, or byte columns on the tall
+    path) against the one-shard operator on the same bytes: float64 at
+    rtol 1e-10, atol 1e-8 (the same products summed in another order:
+    entries that cancel out of ~1e3-sized terms carry ~1e-11 absolute),
+    float32 within
+    the kernels' bars, two-float pairs at 5e-6 -- float32 through the
+    kernels, float64 through none."""
+    from flashpca_tpu_torch.io.plink import write_bed
+    from flashpca_tpu_torch.parallel import (sharded_operator, snp_mesh,
+                                             tall_sharded_operator)
+
+    rng = np.random.default_rng(19)
+    n, p = 3003, 1201
+    geno = rng.binomial(2, rng.uniform(0.05, 0.5, p)[None, :],
+                        size=(n, p)).astype(np.float64)
+    geno[rng.uniform(size=(n, p)) < 0.02] = np.nan
+    root = str(tmp_path / "shards")
+    write_bed(root, geno)
+    build = tall_sharded_operator if tall else sharded_operator
+    axis = "samples" if tall else "snps"
+    x = torch.randn((n, 20), device=cuda, dtype=torch.float64)
+    v = torch.randn((p, 20), device=cuda, dtype=torch.float64)
+    for dt in (torch.float64, torch.float32):
+        one = build(root, snp_mesh(["cuda:0"], axis_name=axis), dtype=dt)
+        tpk.reset_launch_counts()
+        two = build(root, snp_mesh(["cuda:0"] * 2, axis_name=axis),
+                    dtype=dt)
+        f64 = dt == torch.float64
+        bar = dict(rtol=1e-10, atol=1e-8) if f64 else {}
+        if tall:
+            vv = v.to(dt)
+            _close(two.gram_permuted(vv), one.gram_permuted(vv),
+                   **(bar or dict(rtol=2e-4, atol=2e-3)))
+            _close(two.prod(vv), one.prod(vv), **bar)
+            if not f64:
+                _close_pair(*two.gram_ff_permuted(vv),
+                            *one.gram_ff_permuted(vv))
+        else:
+            xx = x.to(dt)
+            _close(two.perform_op(xx), one.perform_op(xx),
+                   **(bar or dict(rtol=2e-4, atol=2e-3)))
+            _close(two.crossprod(xx), one.crossprod(xx), **bar)
+            _close(two.prod(v.to(dt)), one.prod(v.to(dt)), **bar)
+            _close_pair(*two.perform_op_ff(xx), *one.perform_op_ff(xx))
+        launched = {k for k, c in tpk.launch_counts.items() if c}
+        if f64:
+            assert not launched          # float64 runs the functional core
+        else:
+            assert {"crossprod", "matvec"} <= launched

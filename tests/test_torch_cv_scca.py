@@ -280,9 +280,9 @@ def test_cv_scca_plink_explicit_workdir_kept(complete_plink, tmp_path):
 
 
 def test_cv_scca_refusals(complete_plink, xy, tmp_path):
-    """The refusals of the JAX package, with its messages; ``mesh=`` on
-    the packed path raises (ROADMAP A18) before any repack, and on the
-    matrix path is noted and ignored, as in the JAX package."""
+    """The refusals of the JAX package, with its messages; a ``mesh=``
+    that conflicts with ``device=`` raises before any repack, and on the
+    matrix path a mesh is noted and ignored, as in the JAX package."""
     root, X = complete_plink
     Y = np.random.default_rng(1).normal(size=(X.shape[0], 2))
     args = (Y, [1e-4], [1e-3])
@@ -297,8 +297,11 @@ def test_cv_scca_refusals(complete_plink, xy, tmp_path):
         with pytest.raises(ValueError, match="needs a resident operator"):
             ft.cv_scca(root, *args, engine="device", **kw, **extra)
     wd = str(tmp_path / "wd")
-    with pytest.raises(NotImplementedError, match="A18"):
-        ft.cv_scca(root, *args, mesh=object(), workdir=wd, **kw)
+    from flashpca_tpu_torch.parallel import snp_mesh
+
+    with pytest.raises(ValueError, match="conflicts with the mesh"):
+        ft.cv_scca(root, *args, mesh=snp_mesh(["cpu"] * 2), workdir=wd,
+                   **dict(kw, device="cuda"))
     assert not os.path.exists(wd)
     with pytest.raises(ValueError, match="opt_dim must be between"):
         ft.cv_scca(X, *args, opt_dim=2, **kw)

@@ -190,9 +190,16 @@ def test_build_packed_operator_resident_only(data):
                                  streaming=True, device="cpu")
     assert isinstance(tsop, TallStreamingOperator)
     assert tsop.op_dim == data["p"] and tsop.dtype == torch.float64
-    with pytest.raises(NotImplementedError, match="A18"):
-        build_packed_operator(ds, data["mean"], data["sd"], mesh=object(),
-                              device="cpu")
+    # a mesh shards it: each shard's rows read from its own byte range,
+    # the products the unsharded operator's (float64, 1e-12)
+    from flashpca_tpu_torch.parallel import snp_mesh
+
+    mop = build_packed_operator(ds, data["mean"], data["sd"],
+                                mesh=snp_mesh(["cpu"] * 3))
+    assert isinstance(mop, PackedOperator) and mop.nshards == 3
+    x = np.random.default_rng(3).standard_normal((data["n"], 2))
+    torch.testing.assert_close(mop.perform_op(x), op.perform_op(x),
+                               rtol=1e-12, atol=1e-12)
     with pytest.raises(ValueError):
         PackedOperator(data["packed"][:, :-1], data["mean"], data["sd"],
                        data["n"], device="cpu")

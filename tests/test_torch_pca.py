@@ -254,10 +254,34 @@ def test_cli_checkpoints_resume_across_packages(fileset, tmp_path):
 ], ids=["shards2", "profile"])
 def test_cli_unported_options_name_their_item(fileset, tmp_path, capsys,
                                               flags, item):
-    assert _cli(["--bfile", fileset[0], "--device", "cpu"] + flags,
-                tmp_path) == 1
-    assert f"ROADMAP {item}" in capsys.readouterr().err
-    assert not (tmp_path / "eigenvalues.txt").exists()
+    """The JAX CLI's two options that once named their ROADMAP item (A18,
+    A10) now run: ``--shards 2 --device cpu`` writes ``--shards 1``'s
+    files (float64, two SNP shards: equal to 1e-12), ``--profile DIR``
+    writes a Chrome trace of the run into DIR; the CLI's stderr names no
+    ROADMAP item."""
+    args = ["--bfile", fileset[0], "--device", "cpu", "--ndim", str(K),
+            "--outload", "loadings.txt", "--notime"]
+    one = tmp_path / "one"
+    one.mkdir()
+    assert _cli(args, one) == 0
+    assert _cli(args + flags, tmp_path) == 0
+    assert "ROADMAP" not in capsys.readouterr().err
+    for name in ("eigenvalues.txt", "eigenvectors.txt", "pcs.txt",
+                 "pve.txt", "loadings.txt"):
+        skip = 0 if name in ("eigenvalues.txt", "pve.txt") else 1
+        got = np.loadtxt(tmp_path / name, skiprows=skip, usecols=None
+                         if skip == 0 else range(2, 2 + K))
+        want = np.loadtxt(one / name, skiprows=skip, usecols=None
+                          if skip == 0 else range(2, 2 + K))
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12,
+                                   err_msg=name)
+    if item == "A10":
+        traces = list((tmp_path / "trace").glob("*.json"))
+        assert len(traces) == 1
+        import json
+
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        assert any("aten::" in str(e.get("name", "")) for e in events)
 
 
 def test_entry_points_raise_without_gpu(fileset, tmp_path, monkeypatch):
@@ -278,11 +302,23 @@ def test_entry_points_raise_without_gpu(fileset, tmp_path, monkeypatch):
 
 
 def test_unported_options_raise(fileset, tmp_path, capsys):
-    """mesh= still names its ROADMAP item; the options that named A12,
-    A14 and A17 now run."""
+    """The options that named A12, A14, A17 and A18 run: ``mesh=`` on a
+    CPU mesh gives the unsharded values (and a prebuilt operator on
+    another mesh raises, as the JAX package's conflict check does)."""
+    from flashpca_tpu_torch.parallel import snp_mesh
+
     root, n, p = fileset
-    with pytest.raises(NotImplementedError, match="A18"):
-        ft.pca(root, K, device="cpu", mesh=object())
+    mesh = snp_mesh(["cpu"] * 2)
+    sharded = ft.pca(root, K, device="cpu", mesh=mesh)
+    np.testing.assert_allclose(sharded.values,
+                               ft.pca(root, K, device="cpu").values,
+                               rtol=1e-10)
+    from flashpca_tpu_torch.ops.operator import build_packed_operator
+
+    op = build_packed_operator(ft.PlinkDataset.open(root), sharded.center,
+                               sharded.scale, mesh=mesh)
+    with pytest.raises(ValueError, match="mesh= conflicts"):
+        ft.pca(op, K, mesh=snp_mesh(["cpu"] * 3))
     state = str(tmp_path / "ck.npz")
     ran = ft.pca(root, K, device="cpu", checkpoint_every=2, state_out=state)
     assert ran.converged and jload_state(state)["vectors"].shape == (n, K)

@@ -186,8 +186,14 @@ def test_project_errors_match_jax(data, case):
 
 
 def test_project_refuses_a_mesh_naming_its_item(data):
-    with pytest.raises(NotImplementedError, match="A18"):
-        ft.project(data["root"], data["V"], device="cpu", mesh=object())
+    """``mesh=`` runs (ROADMAP A18 is ported): the 3-shard projection is
+    the unsharded one at float64 (1e-12)."""
+    from flashpca_tpu_torch.parallel import snp_mesh
+
+    got = ft.project(data["root"], data["V"], mesh=snp_mesh(["cpu"] * 3))
+    want = ft.project(data["root"], data["V"], device="cpu")
+    np.testing.assert_allclose(got.projection, want.projection,
+                               rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("divisor", ["p", "n1", "none"])

@@ -42,6 +42,7 @@ from flashpca_tpu_torch.kernels import packed_matvec as tpk
 from flashpca_tpu_torch.models.scca import make_gaussian
 from flashpca_tpu_torch.ops.operator import packed_operator_from_numpy
 from flashpca_tpu_torch.ops.standardize import standardize
+from flashpca_tpu_torch.parallel import snp_mesh
 
 torch.set_num_threads(2)
 
@@ -317,7 +318,8 @@ def test_scca_host_engine_matches_device(small_plink):
 
 def test_scca_refusals(small_plink, xy):
     """The JAX package's refusals with its messages, and the port's own:
-    a tall operator, mesh= (A18), a missing GPU."""
+    a tall operator, a mesh= that conflicts with device=, a missing
+    GPU."""
     root, geno = small_plink
     n = geno.shape[0]
     Y = _pheno(n)
@@ -349,8 +351,10 @@ def test_scca_refusals(small_plink, xy):
         args = (1e-3, 1e-3) if fn is ft.scca else ([1e-3], [1e-3])
         with pytest.raises(ValueError, match="tall operator"):
             fn(top, Y, *args, ndim=2)
-        with pytest.raises(NotImplementedError, match="A18"):
-            fn(root, Y, *args, ndim=2, device="cpu", mesh=object())
+        # mesh= runs (A18): a CPU mesh conflicting with device= raises
+        with pytest.raises(ValueError, match="conflicts with the mesh"):
+            fn(root, Y, *args, ndim=2, device="cuda",
+               mesh=snp_mesh(["cpu"] * 2))
 
 
 def test_scca_raises_without_gpu(small_plink, monkeypatch):

@@ -161,8 +161,9 @@ def test_split_scca_workdirs(filesets, monkeypatch, tmp_path):
 
 
 def test_split_scca_refusals(filesets, monkeypatch, tmp_path):
-    """The JAX package's refusals and messages; ``mesh=`` raises (ROADMAP
-    A18) and a missing GPU raises, both before any repack."""
+    """The JAX package's refusals and messages; a ``mesh=`` conflicting
+    with ``device=`` raises and a missing GPU raises, both before any
+    repack."""
     root, _, Y = filesets[1]
     args = (Y, [1e-3], [1e-4])
     kw = dict(ndim=1, device="cpu")
@@ -182,8 +183,11 @@ def test_split_scca_refusals(filesets, monkeypatch, tmp_path):
         with pytest.raises(ValueError, match="needs a resident operator"):
             ft.split_scca(root, *args, engine="device", **kw, **extra)
     wd = str(tmp_path / "wd")
-    with pytest.raises(NotImplementedError, match="A18"):
-        ft.split_scca(root, *args, mesh=object(), workdir=wd, **kw)
+    from flashpca_tpu_torch.parallel import snp_mesh
+
+    with pytest.raises(ValueError, match="conflicts with the mesh"):
+        ft.split_scca(root, *args, mesh=snp_mesh(["cpu"] * 2), workdir=wd,
+                      **dict(kw, device="cuda"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ft.split_scca(root, *args, ndim=1, workdir=wd)

@@ -175,8 +175,15 @@ def test_ucca_errors(data):
             ft.ucca(op, Y, **kw)
     with pytest.raises(ValueError, match="unknown standardization"):
         ft.ucca(root, Y, stand_y="zz", device="cpu")
-    with pytest.raises(NotImplementedError, match="A18"):
-        ft.ucca(root, Y, device="cpu", mesh=object())
+    # mesh= runs (A18): 3 CPU shards give the unsharded result, and a
+    # prebuilt operator meets another mesh with the conflict error
+    from flashpca_tpu_torch.parallel import snp_mesh
+
+    np.testing.assert_allclose(
+        ft.ucca(root, Y, mesh=snp_mesh(["cpu"] * 3)).result,
+        ft.ucca(root, Y, device="cpu").result, rtol=1e-12, atol=1e-12)
+    with pytest.raises(ValueError, match="mesh= conflicts"):
+        ft.ucca(op, Y, mesh=snp_mesh(["cpu"] * 3))
 
 
 def test_ucca_refuses_a_dense_operator_naming_a12(data):
