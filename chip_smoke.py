@@ -3840,6 +3840,106 @@ def tall_headline(dev, n, p, k, seed=8):
     return top, out, res
 
 
+# the streamed tall crossprod z = X^T x: a vector and a 16-column panel;
+# each column within CROSSPROD_BAR of its largest |z| of the float64
+# product on the first CROSSPROD_F64_ROWS SNP rows and of the resident
+# wide operator's z on all rows (its blocks summed in another order)
+TALL_CROSSPROD_KS = (1, 16)
+CROSSPROD_BAR = 2e-5
+CROSSPROD_F64_ROWS = 512
+
+
+def column_max_err(got, ref):
+    """Largest over columns of max |got - ref| / max |ref| (float64)."""
+    got = got.double().reshape(ref.shape[0], -1)
+    ref = ref.double().reshape(ref.shape[0], -1)
+    return float(((got - ref).abs().amax(0) / ref.abs().amax(0)).max())
+
+
+def require_counts(launches, want, what):
+    """Every kernel's launches equal to ``want``'s (0 where unnamed)."""
+    bad = {nm: c for nm, c in launches.items() if c != want.get(nm, 0)}
+    if bad:
+        raise AssertionError(f"{what}: launches {bad}, expected {want}")
+
+
+def tall_crossprod(dev, host, center, scale, n, memory_mb, seed=19,
+                   ks=TALL_CROSSPROD_KS, f64_rows=CROSSPROD_F64_ROWS):
+    """TallStreamingOperator.crossprod on the streamed tall headline's
+    bytes under ``memory_mb`` (B1 on each staged block of samples, the
+    partials summed in block order): a seeded (N,) vector and a seeded
+    (N, 16) panel.  Counts set to 0 just before each call, read just
+    after: B1 once a staged block, nothing else.  Each column held to
+    float64 on the first ``f64_rows`` SNP rows and to the resident wide
+    operator's crossprod on the same bytes (rebuilt from the host bytes
+    once the streaming operator's buffers are freed), within
+    CROSSPROD_BAR of its largest |z|.  Returns {k: its summary}."""
+    import torch
+
+    from flashpca_tpu_torch import PackedOperator, TallStreamingOperator
+    from flashpca_tpu_torch.kernels import packed_matvec as tpk
+    from flashpca_tpu_torch.ops.genotypes import permute_samples
+
+    p, nbytes = host.shape
+    op = TallStreamingOperator(host, center, scale, n, memory_mb=memory_mb,
+                               cache_mb=0, device=dev)
+    lut6 = tpk.lut_rows(*op._ff_luts())[:, :f64_rows].contiguous()
+    head = torch.from_numpy(np.ascontiguousarray(host[:f64_rows])).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xs, zs, out = {}, {}, {}
+    for k in ks:
+        x = torch.randn((n, k), generator=g, device=dev)
+        xs[k] = x[:, 0] if k == 1 else x
+        tpk.reset_launch_counts()
+        with tpk.time_launches() as log:
+            with Phase(f"tall streamed crossprod of an (N, {k}) "
+                       f"{'vector' if k == 1 else 'panel'}, memory_mb="
+                       f"{memory_mb}") as ph:
+                z = op.crossprod(xs[k])
+        launches = dict(tpk.launch_counts)
+        by_kc = launches_by_kc(log)
+        launch_ms = launch_medians(log)
+        z64 = f64_product(head, lut6, permute_samples(x.double(), nbytes),
+                          transpose=False, rows=128)
+        zs[k] = z.reshape(p, k)
+        out[k] = {"wall_s": ph.seconds, "launches": launches["crossprod"],
+                  "launches_by_kc": by_kc, "launch_ms": launch_ms,
+                  "f64_err": column_max_err(zs[k][:f64_rows], z64)}
+        say(f"   k={k}: {launches['crossprod']} B1 launches "
+            f"({op.n_blocks} blocks), by kc {json.dumps(by_kc)}; each "
+            f"column within {out[k]['f64_err']:.2e} of its largest |z| of "
+            f"float64 on the first {f64_rows} SNPs")
+        require_counts(launches, {"crossprod": op.n_blocks},
+                       f"tall streamed crossprod k={k}")
+        if not (z.shape == ((p,) if k == 1 else (p, k))
+                and bool(torch.isfinite(z).all())):
+            raise AssertionError(f"tall streamed crossprod k={k}: "
+                                 "non-finite or misshapen z")
+    op.close()
+    del op, head
+    torch.cuda.empty_cache()
+    with Phase("the resident wide operator's crossprod on the same "
+               "bytes") as ph:
+        wide = PackedOperator(host, center, scale, n, device=dev)
+        for k in ks:
+            out[k]["wide_err"] = column_max_err(
+                zs[k], wide.crossprod(xs[k]).reshape(p, k))
+        del wide
+    torch.cuda.empty_cache()
+    say("   the streamed z against the resident wide operator's, of each "
+        "column's largest: " + ", ".join(f"k={k} {o['wide_err']:.2e}"
+                                         for k, o in out.items()))
+    for k, o in out.items():
+        if not (o["f64_err"] <= CROSSPROD_BAR
+                and o["wide_err"] <= CROSSPROD_BAR):
+            raise AssertionError(
+                f"tall streamed crossprod k={k}: {o['f64_err']:.2e} off "
+                f"float64, {o['wide_err']:.2e} off the resident wide "
+                f"operator (bar {CROSSPROD_BAR} of each column's largest)")
+    out["wide_s"] = ph.seconds
+    return out
+
+
 def streamed_tall_headline(dev, host, center, scale, sumsq, resident,
                            resident_check_mse, resident_launch_ms,
                            memory_mb=STREAM_MEMORY_MB):
@@ -3856,9 +3956,11 @@ def streamed_tall_headline(dev, host, center, scale, sumsq, resident,
     and within max(1e-8, 2 x ``resident_check_mse``), eigenvalues within
     EIG_BAR of the largest, every vector by the TWIN_NEAR rule
     (:func:`twin_cosines`), the packed bytes on the device within
-    ``memory_mb``.  Then B1, B2, B3 and B5 held to their plain versions
-    and timed on one resident block of the streamed shape.  Returns
-    (the kernels rows of the block shape, a summary)."""
+    ``memory_mb``.  Then the operator's crossprod (:func:`tall_crossprod`,
+    B1 once a block).  Then B1, B2, B3 and B5 held to their plain
+    versions and timed on one resident block of the streamed shape, and
+    B1 at the crossprod's two widths.  Returns (the kernels rows of the
+    block shape, a summary)."""
     import torch
 
     from flashpca_tpu_torch import (StreamingPackedOperator,
@@ -3910,6 +4012,8 @@ def streamed_tall_headline(dev, host, center, scale, sumsq, resident,
     wop.close()
     del wop
     torch.cuda.empty_cache()
+    crossprod = tall_crossprod(dev, host, center, scale, n, memory_mb)
+    out["tall_crossprod"] = {str(key): val for key, val in crossprod.items()}
 
     d, d_r = res.values, resident.values
     eig_err = np.abs(d - d_r) / d_r[0]
@@ -3992,12 +4096,20 @@ def streamed_tall_headline(dev, host, center, scale, sumsq, resident,
                                   ("matvec", 16), ("crossprod_ff", 32),
                                   ("matvec_ff_novl", 32)],
                             launches, None, slices=8)
+        # crossprod's B1 at the vector's width (kc 8) and the panel's
+        cp_rows = [row for k in TALL_CROSSPROD_KS for row in time_kernels(
+            bop, [("crossprod", k)],
+            {"crossprod": crossprod[k]["launches"]}, None, slices=8)]
         del bop
     for row in rows:
         row.update(path="tall_streaming",
                    stream_launch_ms=launch_ms.get(f"{row['name']}/"
                                                   f"{row['k']}"))
-    return rows, out
+    for row in cp_rows:
+        # a call launches B1 at one width: its log has one median
+        row.update(path="tall_crossprod", stream_launch_ms=next(
+            iter(crossprod[row["k"]]["launch_ms"].values()), None))
+    return rows + cp_rows, out
 
 
 # ---------------------------------------------------------------------------

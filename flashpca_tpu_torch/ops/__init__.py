@@ -21,6 +21,7 @@ from .operator import (
     TallStreamingOperator,
     build_packed_operator,
     check_operator_conflicts,
+    default_dtype,
     packed_operator_from_numpy,
     resolve_streaming,
     streaming_operator_from_numpy,

@@ -673,16 +673,19 @@ class _SnpSpace:
             y = matvec_p(packed, m, iv, v2, block_size=self.block_size)
         return y.to(self.dtype) * valid[:, None]
 
-    def _gram(self, packed, v2, valid):
-        """u = W M W^T v, M = diag(valid)."""
-        y = self._mv(packed, v2, valid)
+    def _cross(self, packed, xp):
+        """z = W xp, xp in the bytes' permuted sample layout (B1)."""
         dev = packed.device
         m, iv = self.mean.to(dev), self.invsd.to(dev)
         if self.use_kernels:
             from ..kernels import packed_matvec as kpm
 
-            return kpm.crossprod_p(packed, m, iv, y).to(self.dtype)
-        return crossprod_p(packed, m, iv, y, block_size=self.block_size)
+            return kpm.crossprod_p(packed, m, iv, xp).to(self.dtype)
+        return crossprod_p(packed, m, iv, xp, block_size=self.block_size)
+
+    def _gram(self, packed, v2, valid):
+        """u = W M W^T v, M = diag(valid)."""
+        return self._cross(packed, self._mv(packed, v2, valid))
 
     def _gram_ff(self, packed, v2, valid):
         """(z_hi, z_lo) two-float pair of W M W^T v."""
@@ -1230,9 +1233,10 @@ class TallStreamingOperator(_SnpSpace, _StagedBlocks, _PackedBase):
     Per block, on all p rows of the decode constants: the gram adds X_b^T
     (M_b X_b v) (B2, the block's valid-sample mask M_b, B1), the
     two-float gram folds the block's B5, mask, B3 + B1 pair in by TwoSum,
-    and ``prod`` un-permutes the block's masked B2 into its run of
-    samples.  The partials are summed in block order, so they differ
-    from the resident sums in the last bits.
+    ``prod`` un-permutes the block's masked B2 into its run of samples,
+    and ``crossprod`` adds B1 of the block's masked run of x.  The
+    partials are summed in block order, so they differ from the resident
+    sums in the last bits.
     """
 
     def __init__(self, source, mean, sd, n_samples: int, *,
@@ -1290,6 +1294,23 @@ class TallStreamingOperator(_SnpSpace, _StagedBlocks, _PackedBase):
     def _sumsq_block(self, width):
         return budget_block_size(self.n_snps,
                                  PACK_DENSITY * self._item_bytes)
+
+    def crossprod(self, x):
+        """z = X^T x: (N,) or (N, k) -> (p,) or (p, k), natural SNP order
+        (the JAX package's ``TallStreamingOperator.crossprod``).  Each
+        staged item takes x's run of samples [4 lo, 4 hi), zero past
+        ``n_samples``, in its permuted layout and masked, through B1; the
+        partials are summed in block order, then over a mesh's
+        processes."""
+        x2, vec = self._as_2d(x, self.n_samples, "crossprod")
+        acc = None
+        for blk, valid, lo, hi in self._parts():
+            seg = x2[PACK_DENSITY * lo: PACK_DENSITY * hi].to(blk.device)
+            xp = permute_samples(seg, hi - lo) * valid[:, None]
+            acc = _acc(acc, self._cross(blk, xp).to(self.device))
+        acc = self._reduced(acc, (self.n_snps, x2.shape[1]))
+        self.nops += 1
+        return acc[:, 0] if vec else acc
 
 
 def packed_operator_from_numpy(packed, mean, sd, n_samples: int, *,
@@ -1525,7 +1546,8 @@ def resolve_streaming(streaming, ds, device=None, mesh=None) -> bool:
 def build_packed_operator(ds, mean, sd, *, tall: bool = False,
                           streaming="auto", memory_mb: int | None = None,
                           block_size: int | None = None, dtype=None,
-                          device=None, mesh=None, snp_sumsq=None):
+                          device=None, mesh=None, snp_sumsq=None,
+                          cache_mb="auto"):
     """The operator an analysis mode runs on: the wide gram X X^T, or
     with ``tall`` the tall gram X^T X; resident, or streamed from the
     host when ``streaming`` resolves to it (:func:`resolve_streaming`).
@@ -1535,20 +1557,23 @@ def build_packed_operator(ds, mean, sd, *, tall: bool = False,
     only, so the resident ones ignore it (as the JAX package's do);
     ``block_size`` is the wide streaming operator's ``block_snps``, and
     the tall one, which blocks the samples, refuses it (as the JAX
-    package's ``pca()`` does)."""
+    package's ``pca()`` does).  ``cache_mb`` is the streaming operators'
+    device block cache (:class:`_StagedBlocks`); the resident ones ignore
+    it."""
     kw = dict(dtype=dtype, snp_sumsq=snp_sumsq, device=device, mesh=mesh)
     if resolve_streaming(streaming, ds, device, mesh):
         if not tall:
             return StreamingPackedOperator(
                 ds, mean, sd, ds.n_samples, memory_mb=memory_mb,
-                block_snps=block_size, **kw)
+                block_snps=block_size, cache_mb=cache_mb, **kw)
         if block_size is not None:
             raise ValueError(
                 "block_size= (SNPs per block) does not apply to the tall "
                 "streaming path, which blocks the sample(byte) axis; "
                 "bound its staged buffers with memory_mb= instead")
         return TallStreamingOperator(
-            ds, mean, sd, ds.n_samples, memory_mb=memory_mb, **kw)
+            ds, mean, sd, ds.n_samples, memory_mb=memory_mb,
+            cache_mb=cache_mb, **kw)
     cls = TallPackedOperator if tall else PackedOperator
     if mesh is None:
         packed = ds.read_packed()

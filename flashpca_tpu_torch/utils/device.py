@@ -34,9 +34,11 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def default_dtype(device: torch.device) -> torch.dtype:
-    """float32 on CUDA (the kernels' type), float64 on the CPU."""
-    return torch.float32 if device.type == "cuda" else torch.float64
+def default_dtype(device=None) -> torch.dtype:
+    """float32 on CUDA (the kernels' type), float64 on the CPU; ``None``
+    is the entry points' default device, ``cuda``."""
+    dev = torch.device("cuda" if device is None else device)
+    return torch.float32 if dev.type == "cuda" else torch.float64
 
 
 def as_torch_dtype(dtype) -> torch.dtype | None:

@@ -129,6 +129,15 @@ def test_tall_kernels_match_plain(cuda, k, p, n):
     ch, cl = tpk.crossprod_ff_p(packed.cpu(), lut6.cpu(), ym.cpu())
     _close(bh, ch, rtol=2e-4, atol=2e-3)
     _close_pair(bh, bl, ch, cl)
+    # the gram against a float64 gram over all its entries, held as
+    # chip_smoke.py holds it (relative in norm, GRAM_F64_BAR), on the
+    # exact two-float tables of mean and invsd (entry by entry, in units
+    # of a column's largest |z|, an H100 reads up to 2.5e-7 at these
+    # cases: ``python -m flashpca_tpu_torch.tools.tall_gram_f64``)
+    from flashpca_tpu_torch.tools.tall_gram_f64 import readings
+
+    r = readings(cuda, p, n, k)
+    assert r["norm_rel"] < _chip_smoke().GRAM_F64_BAR
 
 
 @pytest.mark.cuda
@@ -748,6 +757,36 @@ def test_tall_streamed_pca_matches_resident(cuda):
     assert res_s.n_ops == res.n_ops
     assert np.all(np.abs(res_s.values - res.values)
                   <= 2e-6 * res.values[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16])
+def test_tall_streamed_crossprod_on_card_matches_cpu(cuda, k):
+    """TallStreamingOperator.crossprod (B1 on each of eleven blocks of
+    1,000 bytes, the last ragged) on the card against the CPU operator
+    on the same bytes through the kernels' plain versions, both at
+    float32: each column within 1e-5 of its largest |z|; one B1 launch
+    a block."""
+    from flashpca_tpu_torch import TallStreamingOperator
+
+    cs = _chip_smoke()
+    n, p = 40_003, 1024
+    packed, mean, sd, _ = cs.card_data(cuda, n, p, 36)
+    host = packed.cpu().numpy()
+    kw = dict(block_bytes=1000, cache_mb=0, dtype=torch.float32,
+              use_kernels=True)
+    op = TallStreamingOperator(host, mean, sd, n, device=cuda, **kw)
+    ref = TallStreamingOperator(host, mean, sd, n, device="cpu", **kw)
+    assert op.n_blocks == 11
+    x = torch.randn((n, k), generator=torch.Generator().manual_seed(k))
+    x = x[:, 0] if k == 1 else x
+    tpk.reset_launch_counts()
+    z = op.crossprod(x.to(cuda))
+    assert tpk.launch_counts["crossprod"] == op.n_blocks
+    assert sum(tpk.launch_counts.values()) == op.n_blocks
+    want = ref.crossprod(x).double().reshape(p, k)
+    err = (z.cpu().double().reshape(p, k) - want).abs().amax(0)
+    assert float((err / want.abs().amax(0)).max()) < 1e-5
 
 
 @pytest.mark.cuda

@@ -1326,3 +1326,28 @@ def test_tall_gram_seed_tool_exits_nonzero_without_gpu(monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tgs.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_tall_gram_f64_tool_takes_the_card_tests_cases_on_the_cpu(
+        monkeypatch, capsys):
+    """tools/tall_gram_f64.py reads the card test's cases (its
+    parametrize values), its norm reading on the CPU (the plain gram)
+    sits inside the smoke's GRAM_F64_BAR, and it exits 1 without a
+    GPU."""
+    from flashpca_tpu_torch.tools import tall_gram_f64 as tgf
+
+    spec = importlib.util.spec_from_file_location(
+        "card_tests", os.path.join(ROOT, "tests", "test_torch_cuda.py"))
+    card = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(card)
+    params = {m.args[0]: m.args[1] for m in
+              card.test_tall_kernels_match_plain.pytestmark
+              if m.name == "parametrize"}
+    assert set(tgf.CASES) == {(p, n, k) for p, n in params["p,n"]
+                              for k in params["k"]}
+    r = tgf.readings(torch.device("cpu"), 133, 771, 5)
+    assert 0.0 < r["norm_rel"] < 1.5e-7
+    assert 0.0 < r["entry_of_column_max"] < 1e-6
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tgf.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err

@@ -31,6 +31,11 @@ Tolerances, with their reasons:
   bars).
 * staging: prefetch on and off, and any block cache, give the same
   products bit for bit (the same blocks summed in the same order).
+* ``crossprod`` (z = X^T x): at float64 within 1e-12 of each column's
+  largest |z| against the JAX operator, the dense oracle and a 2-shard
+  mesh; at float32 through the kernels' plain versions within 1e-5 of
+  it against the JAX operator's interpreted Pallas B1 and float64 (a
+  float32 sum over n samples, in another block order).
 """
 
 import contextlib
@@ -550,3 +555,208 @@ def test_smoke_tall_same_order_phase_on_the_cpu(monkeypatch, tmp_path):
     # twelve products, the first staging every block, each later one the
     # uncached blocks
     assert out["aligned/1/3"]["staged_host_blocks"] == 5 + 11 * 2
+
+
+def _col_err(got, want):
+    """Largest error of each column over that column's largest |want|."""
+    got = np.asarray(got, dtype=np.float64).reshape(len(want), -1)
+    want = np.asarray(want, dtype=np.float64).reshape(len(want), -1)
+    return float(np.max(np.abs(got - want).max(0) / np.abs(want).max(0)))
+
+
+@pytest.mark.parametrize("shape", ["vector", "panel"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_crossprod_matches_jax(fs, dtype, shape):
+    """z = X^T x on the streamed blocks (the last one ragged) against the
+    JAX TallStreamingOperator's on the same 128-byte blocks -- its jnp
+    path at float64, its Pallas B1 interpreted at float32 -- and the
+    dense oracle; one product counted a call."""
+    n, X = fs["n"], fs["X"]
+    rng = np.random.default_rng(11 if shape == "vector" else 12)
+    x = rng.standard_normal(n if shape == "vector" else (n, 3))
+    f64 = dtype == "float64"
+    jop = JTallStreaming(fs["jds"], fs["mean"], fs["sd"], n, block_bytes=BB,
+                         dtype=jnp.float64 if f64 else jnp.float32,
+                         use_pallas=False if f64 else "interpret")
+    top = _stream(fs) if f64 else _stream(fs, dtype=torch.float32,
+                                          use_kernels=True)
+    assert top.n_blocks == 3 and top.nbytes % BB
+    if not f64:
+        x = x.astype(np.float32)
+    tpk.reset_launch_counts()
+    z = _np(top.crossprod(x))
+    zj = np.asarray(jop.crossprod(jnp.asarray(x)))
+    assert z.shape == zj.shape == ((fs["p"],) if shape == "vector"
+                                   else (fs["p"], 3))
+    assert top.nops == jop.nops == 1
+    bar = 1e-12 if f64 else 1e-5
+    assert _col_err(z, zj) < bar
+    assert _col_err(z, X.T @ x.astype(np.float64)) < bar
+    assert set(tpk.launch_counts.values()) == {0}
+    top.crossprod(x)
+    assert top.nops == 2 and top.stats()["nops"] == 2
+
+
+def test_crossprod_wrong_leading_dim_raises_as_jax(fs):
+    n = fs["n"]
+    jop = JTallStreaming(fs["jds"], fs["mean"], fs["sd"], n, block_bytes=BB,
+                         dtype=jnp.float64, use_pallas=False)
+    top = _stream(fs)
+    for bad in (np.zeros(n - 1), np.zeros((n + 4, 2)), np.zeros(fs["p"])):
+        with pytest.raises(ValueError, match="crossprod: expected leading"):
+            jop.crossprod(jnp.asarray(bad))
+        with pytest.raises(ValueError, match="crossprod: expected leading"):
+            top.crossprod(bad)
+    assert top.nops == jop.nops == 0
+
+
+@pytest.mark.parametrize("n", [52, 53, 54, 55])
+def test_crossprod_every_n_mod_4(tmp_path, n):
+    """Every n % 4 residue in blocks of 4 bytes with a narrower last one:
+    x's rows past n never reach a product, at float64 against the JAX
+    operator and float64 X^T x, and at float32 through the plain B1."""
+    rng = np.random.default_rng(300 + n)
+    p = 9
+    geno = rng.binomial(2, 0.3, size=(n, p)).astype(np.float64)
+    geno[rng.uniform(size=(n, p)) < 0.07] = np.nan
+    root = str(tmp_path / f"cp{n}")
+    write_bed(root, geno)
+    ds = TPlinkDataset.open(root)
+    mean, sd = ds.snp_stats("binom2")
+    X = dense_standardized_np(ds.read_codes(), mean, sd).T
+    jop = JTallStreaming(JPlinkDataset.open(root), mean, sd, n,
+                         block_bytes=4, dtype=jnp.float64, use_pallas=False)
+    op = TallStreamingOperator(ds, mean, sd, n, block_bytes=4, device="cpu")
+    f32 = TallStreamingOperator(ds, mean, sd, n, block_bytes=4,
+                                device="cpu", dtype=torch.float32,
+                                use_kernels=True)
+    assert op.n_blocks == jop.n_blocks == 4 and op.nbytes % 4
+    for x in (rng.normal(size=n), rng.normal(size=(n, 2))):
+        z = _np(op.crossprod(x))
+        assert _col_err(z, np.asarray(jop.crossprod(jnp.asarray(x)))) < 1e-12
+        assert _col_err(z, X.T @ x) < 1e-12
+        x32 = x.astype(np.float32)
+        assert _col_err(_np(f32.crossprod(x32)),
+                        X.T @ x32.astype(np.float64)) < 1e-5
+
+
+def test_crossprod_two_shards_match_unsharded(fs):
+    """A 2-shard CPU mesh (each block split into two byte windows, as
+    tests/test_torch_dist.py builds its sharded TallStreamingOperator):
+    each window takes its own run of x, and the shards' partials sum to
+    the unsharded z."""
+    from flashpca_tpu_torch.parallel import snp_mesh
+
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((fs["n"], 4))
+    one = _stream(fs, block_bytes=8)
+    two = TallStreamingOperator(fs["tds"], fs["mean"], fs["sd"], fs["n"],
+                                block_bytes=8,
+                                mesh=snp_mesh(["cpu"] * 2,
+                                              axis_name="samples"))
+    # 301 bytes: 38 blocks, the last of 5 bytes split into 4 + 1
+    assert two.nshards == 2 and len(two._items) == 2 * one.n_blocks == 76
+    assert two._items[-1][:2] == (300, 301)
+    z1, z2 = _np(one.crossprod(x)), _np(two.crossprod(x))
+    assert _col_err(z2, z1) < 1e-12
+    assert _col_err(_np(two.crossprod(x[:, 0])), z1[:, 0]) < 1e-12
+    assert two.nops == 2
+
+
+@pytest.fixture(scope="module")
+def cache_fs(tmp_path_factory):
+    """Blocks of about half a MB, so that an MB cache budget holds some
+    of them: 4,000 samples (1,000 bytes a SNP) x 1,200 SNPs."""
+    rng = np.random.default_rng(14)
+    n, p = 4000, 1200
+    root = str(tmp_path_factory.mktemp("cache") / "c")
+    write_bed(root, rng.binomial(2, 0.3, size=(n, p)).astype(np.float64))
+    jds = JPlinkDataset.open(root)
+    mean, sd = jds.snp_stats("binom2")
+    return dict(root=root, n=n, p=p, mean=mean, sd=sd, jds=jds,
+                tds=TPlinkDataset.open(root))
+
+
+@pytest.mark.parametrize("cache_mb", [0, 1, 2, 64])
+@pytest.mark.parametrize("tall", [False, True], ids=["wide", "tall"])
+def test_build_packed_operator_cache_mb(cache_fs, tall, cache_mb):
+    """build_packed_operator(streaming=True, cache_mb=N) hands the budget
+    to the streaming operator, which keeps as many leading blocks on the
+    device as the JAX package's _resolve_cache_blocks does for N MB (0:
+    none); the resident builds take the keyword and ignore it."""
+    from flashpca_tpu.ops.operator import \
+        build_packed_operator as jbuild
+    from flashpca_tpu_torch.ops.operator import build_packed_operator
+
+    c = cache_fs
+    geo = dict(memory_mb=1) if tall else dict(block_size=600)
+    top = build_packed_operator(c["tds"], c["mean"], c["sd"], tall=tall,
+                                streaming=True, device="cpu",
+                                cache_mb=cache_mb, **geo)
+    assert isinstance(top, TallStreamingOperator if tall
+                      else ft.StreamingPackedOperator)
+    if tall:
+        jop = JTallStreaming(c["jds"], c["mean"], c["sd"], c["n"],
+                             dtype=jnp.float64, use_pallas=False,
+                             cache_mb=cache_mb, **geo)
+    else:
+        jop = jbuild(c["jds"], c["mean"], c["sd"], streaming=True,
+                     dtype=jnp.float64, cache_mb=cache_mb, **geo)
+    n_cached = top.stats()["n_cached"]
+    assert top.n_blocks == jop.n_blocks
+    assert n_cached == jop._resolve_cache_blocks()
+    assert n_cached == min(top.n_blocks,
+                           (cache_mb << 20) // top.block_nbytes)
+    want = {0: 0, 1: 2, 2: 3, 64: 3} if tall else {0: 0, 1: 1, 2: 2, 64: 2}
+    assert (top.n_blocks, n_cached) == (3 if tall else 2, want[cache_mb])
+    # a product stages every block once; the cached ones never again
+    v = torch.as_tensor(np.random.default_rng(15).standard_normal(
+        (c["p"] if tall else c["n"], 2)))
+
+    def gram(op):
+        return _np(op.gram_permuted(v) if tall else op.perform_op(v))
+
+    np.testing.assert_array_equal(gram(top), gram(top))
+    assert top.staged_host_blocks == 2 * top.n_blocks - n_cached
+    # the resident builds accept the keyword and ignore it
+    res = build_packed_operator(c["tds"], c["mean"], c["sd"], tall=tall,
+                                streaming=False, device="cpu",
+                                cache_mb=cache_mb)
+    ref = build_packed_operator(c["tds"], c["mean"], c["sd"], tall=tall,
+                                streaming=False, device="cpu")
+    assert type(res) is type(ref) is (TallPackedOperator if tall
+                                      else ft.PackedOperator)
+    np.testing.assert_array_equal(gram(res), gram(ref))
+
+
+def test_smoke_tall_crossprod_step_on_the_cpu(monkeypatch):
+    """chip_smoke.tall_crossprod rehearsed at 601 x 97 on the CPU: the
+    operators at float32 through the kernels' plain versions, the card's
+    sync and launch counts stubbed (the plain versions launch nothing):
+    the vector and the panel each held to float64 and to the resident
+    wide operator within CROSSPROD_BAR, the count checked once a call
+    against the streamed blocks."""
+    import functools
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "sync", lambda: None)
+    want = []
+    monkeypatch.setattr(cs, "require_counts",
+                        lambda launches, w, what: want.append(w))
+    for name in ("PackedOperator", "TallStreamingOperator"):
+        monkeypatch.setattr(ft, name, functools.partial(
+            getattr(ft.ops.operator, name), dtype=torch.float32,
+            use_kernels=True))
+    dev = torch.device("cpu")
+    n, p = 601, 97
+    packed, mean, sd, _ = cs.card_data(dev, n, p, 3)
+    host = packed.numpy()
+    # memory_mb 0 gives the smallest blocks: one word of bytes each
+    out = cs.tall_crossprod(dev, host, mean, sd, n, memory_mb=0,
+                            f64_rows=64)
+    n_blocks = -(-host.shape[1] // 4)
+    assert want == [{"crossprod": n_blocks}] * 2
+    for k in cs.TALL_CROSSPROD_KS:
+        assert out[k]["f64_err"] <= cs.CROSSPROD_BAR
+        assert out[k]["wide_err"] <= cs.CROSSPROD_BAR
+        assert out[k]["launches"] == 0               # the plain versions
