@@ -16,8 +16,9 @@ whole as a matrix for PCA and UCCA, held on ``--device`` (UCCA's in
 float64 unless ``--dtype`` says otherwise).  ``--shards N`` shards the
 packed operator over N devices in this process (the first N cards, or N
 CPU shards with ``--device cpu``); ``--profile DIR`` writes a
-``torch.profiler`` trace of the run (CPU and CUDA activities) into DIR
-as a Chrome trace file.  ``--stream on``
+``torch.profiler`` trace of the run (CPU and CUDA activities, with the
+port's ``flashpca/`` spans, utils/trace.py) into DIR as a Chrome trace
+file.  ``--stream on``
 streams the operator from the host: the wide one in blocks of the
 reference's ``--memory`` block size (or ``--blocksize``; about 1 GiB a
 block without either), the tall one (``--opmode tall``) in blocks of

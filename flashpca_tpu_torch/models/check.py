@@ -25,6 +25,7 @@ import torch
 from ..io.plink import PlinkDataset
 from ..ops.operator import (TALL_OPERATORS, WIDE_OPERATORS,
                             build_packed_operator, check_operator_conflicts)
+from ..utils.trace import span, traced
 from ._common import matrix_operator
 from ._common import resolve_divisor as _div
 
@@ -36,6 +37,7 @@ class CheckResult:
     rmse: float
 
 
+@traced("check")
 def check(data, evec, eval_, *, stand: str | None = None,
           divisor: str = "p", block_size: int | None = None, dtype=None,
           device=None, mesh=None, streaming="auto",
@@ -112,25 +114,29 @@ def check(data, evec, eval_, *, stand: str | None = None,
         raise ValueError(
             "precision='compensated' needs a float32 operator (the "
             "two-float product path)")
-    U = torch.as_tensor(evec, device=op.device)
+    with span("check/upload"):
+        U = torch.as_tensor(evec, device=op.device)
+        Uop = (U[:, :K].to(torch.float32).contiguous() if use_ff
+               else U.to(op.dtype))
     if use_ff:
         from ..ops.compensated import residual_sums_ff
 
-        U32 = U[:, :K].to(torch.float32).contiguous()
-        hi, lo = op.perform_op_ff(U32)
+        hi, lo = op.perform_op_ff(Uop)
         # residual measured UNdivided -- (X X^T U) - U * (d * div) in
         # two-float arithmetic -- then rescaled exactly on the host
-        err = residual_sums_ff(hi, lo, U32, eval_np[:K] * div)
-        err = err / (float(div) * float(div))
+        with span("check/residual"):
+            err = residual_sums_ff(hi, lo, Uop, eval_np[:K] * div)
+            err = err / (float(div) * float(div))
     else:
-        XXU = op.perform_op(U.to(op.dtype))
+        XXU = op.perform_op(Uop)
         # the residual is a near-cancelling subtraction of two O(d)
         # quantities: form it in float64 from the caller's vectors
-        Ur = U.to(torch.float64)
-        D = torch.as_tensor(eval_np[:K], device=op.device)
-        R = (XXU[:, :K].to(torch.float64) * (1.0 / div)
-             - Ur[:, :K] * D[None, :])
-        err = (R * R).sum(dim=0).to("cpu").numpy()
+        with span("check/residual"):
+            Ur = U.to(torch.float64)
+            D = torch.as_tensor(eval_np[:K], device=op.device)
+            R = (XXU[:, :K].to(torch.float64) * (1.0 / div)
+                 - Ur[:, :K] * D[None, :])
+            err = (R * R).sum(dim=0).to("cpu").numpy()
     mse = float(err.sum() / (n * K))
     return CheckResult(err=err, mse=mse, rmse=float(np.sqrt(mse)))
 

@@ -35,6 +35,7 @@ from ..ops.standardize import standardize
 from ..solvers.block_lanczos import eigsh_block, polish_subspace
 from ..parallel.dist import agree_fn, barrier, writer
 from ..utils.device import host64
+from ..utils.trace import span, traced
 from ._common import note_unsharded
 from ._common import resolve_divisor as _resolve_divisor
 
@@ -76,6 +77,7 @@ def _check_ndim(ndim: int, n: int, p: int) -> None:
             f"You asked for {ndim} dimensions, but only {max_dim} allowed")
 
 
+@traced("pca")
 def pca(data, ndim: int = 10, *, stand: str = "binom2", divisor: str = "p",
         maxiter: int = 500, tol: float = 1e-6, seed: int = 1,
         block_size: int | None = None, do_loadings: bool = False,
@@ -374,7 +376,8 @@ def _pca_operator(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
     n, p = op.n_samples, op.n_snps
     dtype = op.dtype
     div = _resolve_divisor(divisor, n, p)
-    v0 = _solver_v0(op, n, seed, state_in)
+    with span("pca/start"):
+        v0 = _solver_v0(op, n, seed, state_in)
 
     use_ff = dtype == torch.float32 and polish == "contract"
     # fixed-schedule contract regime: validated for ndim <= 32 (restarts
@@ -437,21 +440,22 @@ def _pca_operator(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
             # the measured estimate missed the contract: rerun the
             # adaptive schedule from scratch (the capped attempt's
             # passes stay on the bill)
-            if verbose:
-                from ..utils.logging import log
+            with span("pca/fallback"):
+                if verbose:
+                    from ..utils.logging import log
 
-                log(f"pca: capped schedule missed the contract "
-                    f"(mse_est {mse_est:.2e}); falling back to the "
-                    "adaptive solve")
-            n_ops_extra = res.n_ops
-            res = solve(maxiter)
-            _save_solver_state(op, res, state_out)
-            converged = _gate_convergence(res, ndim, tol)
-            lam, U_dev, resid = polish_subspace(
-                mv, res.eigenvectors, iters=2, ff_gram=ff_gram,
-                return_resid=True, agree=agree)
-            mse_est = float(np.sum((resid[:ndim] / div) ** 2) / (n * ndim))
-            ok = mse_est < 1e-8
+                    log(f"pca: capped schedule missed the contract "
+                        f"(mse_est {mse_est:.2e}); falling back to the "
+                        "adaptive solve")
+                n_ops_extra = res.n_ops
+                res = solve(maxiter)
+                _save_solver_state(op, res, state_out)
+                converged = _gate_convergence(res, ndim, tol)
+                lam, U_dev, resid = polish_subspace(
+                    mv, res.eigenvectors, iters=2, ff_gram=ff_gram,
+                    return_resid=True, agree=agree)
+                mse_est = float(np.sum((resid[:ndim] / div) ** 2) / (n * ndim))
+                ok = mse_est < 1e-8
         elif not ok:
             # the user capped maxiter at/below the schedule and the gate
             # missed: the adaptive path's failure semantics apply
@@ -465,29 +469,30 @@ def _pca_operator(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
         # polish='fast': fresh subspace sweeps + host-float64
         # Rayleigh-Ritz recover accuracy near the float32 noise floor
         lam, U_dev = polish_subspace(mv, U_dev, iters=2, agree=agree)
-    # drop the buffer pairs: only the requested dimensions are returned
-    lam = lam[:ndim]
-    U_dev = U_dev[:, :ndim]
-    d = lam / div
-    trace = op.trace / div
-    pve = d / trace
+    with span("pca/finish"):
+        # drop the buffer pairs: only the requested dimensions are returned
+        lam = lam[:ndim]
+        U_dev = U_dev[:, :ndim]
+        d = lam / div
+        trace = op.trace / div
+        pve = d / trace
 
-    U_unperm = op.unpermute(U_dev)
-    loadings = None
-    if device_results:
-        U = U_unperm
-        Px = U * torch.as_tensor(np.sqrt(d), device=U.device).to(U.dtype)
-        if do_loadings:
-            Vt = op.crossprod(U)
-            loadings = Vt * torch.as_tensor(
-                1.0 / np.sqrt(d) / np.sqrt(div), device=Vt.device
-            ).to(Vt.dtype)[None, :]
-    else:
-        U = host64(U_unperm)
-        if do_loadings:
-            Vt = host64(op.crossprod(U_unperm))
-            loadings = Vt * (1.0 / np.sqrt(d) / np.sqrt(div))[None, :]
-        Px = U * np.sqrt(d)[None, :]
+        U_unperm = op.unpermute(U_dev)
+        loadings = None
+        if device_results:
+            U = U_unperm
+            Px = U * torch.as_tensor(np.sqrt(d), device=U.device).to(U.dtype)
+            if do_loadings:
+                Vt = op.crossprod(U)
+                loadings = Vt * torch.as_tensor(
+                    1.0 / np.sqrt(d) / np.sqrt(div), device=Vt.device
+                ).to(Vt.dtype)[None, :]
+        else:
+            U = host64(U_unperm)
+            if do_loadings:
+                Vt = host64(op.crossprod(U_unperm))
+                loadings = Vt * (1.0 / np.sqrt(d) / np.sqrt(div))[None, :]
+            Px = U * np.sqrt(d)[None, :]
 
     return PCAResult(
         values=d,
@@ -519,7 +524,8 @@ def _pca_tall(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
     n, p = op.n_samples, op.n_snps
     dtype = op.dtype
     div = _resolve_divisor(divisor, n, p)
-    v0 = _solver_v0(op, p, seed, state_in)
+    with span("pca/start"):
+        v0 = _solver_v0(op, p, seed, state_in)
 
     f32 = dtype == torch.float32
     use_ff = f32 and op.supports_ff and polish == "contract"
@@ -558,22 +564,23 @@ def _pca_tall(op, ndim, divisor, maxiter, tol, seed, do_loadings, ncv,
         lam, V_dev = polish_subspace(
             mv, V_dev, iters=2,
             ff_gram=op.gram_ff_permuted if use_ff else None, agree=agree)
-    lam = lam[:ndim]
-    V_dev = V_dev[:, :ndim]
-    d = lam / div
-    trace = op.trace / div
-    pve = d / trace
+    with span("pca/finish"):
+        lam = lam[:ndim]
+        V_dev = V_dev[:, :ndim]
+        d = lam / div
+        trace = op.trace / div
+        pve = d / trace
 
-    Vs_dev = op.unpermute(V_dev)
-    if device_results:
-        Vs = Vs_dev
-        U = op.prod(Vs_dev) * torch.as_tensor(
-            1.0 / np.sqrt(lam), device=op.device).to(dtype)[None, :]
-        Px = U * torch.as_tensor(np.sqrt(d), device=op.device).to(dtype)
-    else:
-        U = host64(op.prod(Vs_dev)) / np.sqrt(lam)[None, :]
-        Px = U * np.sqrt(d)[None, :]
-        Vs = host64(Vs_dev) if do_loadings else None
+        Vs_dev = op.unpermute(V_dev)
+        if device_results:
+            Vs = Vs_dev
+            U = op.prod(Vs_dev) * torch.as_tensor(
+                1.0 / np.sqrt(lam), device=op.device).to(dtype)[None, :]
+            Px = U * torch.as_tensor(np.sqrt(d), device=op.device).to(dtype)
+        else:
+            U = host64(op.prod(Vs_dev)) / np.sqrt(lam)[None, :]
+            Px = U * np.sqrt(d)[None, :]
+            Vs = host64(Vs_dev) if do_loadings else None
 
     return PCAResult(
         values=d,

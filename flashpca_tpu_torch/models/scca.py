@@ -52,6 +52,7 @@ from ..ops.standardize import standardize
 from ..utils.device import default_dtype, host64, resolve_device
 from ..parallel.dist import agree_fn, barrier, writer
 from ..utils.logging import log
+from ..utils.trace import span, traced
 from ._common import note_unsharded
 
 
@@ -230,39 +231,43 @@ def _scca_dim_device_grid(op, U, V, Yp, j, v0, alive, lam1, lam2, invdiv,
         return act
 
     act = active()
-    while bool(act.any()):
-        u_new = u_step(v)
-        uzi = u_new.abs().amax(dim=0) < tol            # u zeroed THIS iter
-        v_new = v_step(u_new)
-        du_new = (u_new - u).abs().amax(dim=0)
-        dv_new = (v_new - v).abs().amax(dim=0)
-        uz_new = uz | uzi
-        vz_new = vz | (v_new.abs().amax(dim=0) < tol)
-        # frozen (converged/dead) cells keep their state; a dim-0 u-zero
-        # abort also keeps v at its pre-step value (V0): the reference
-        # aborts BEFORE the v step (randompca.cpp:280-287)
-        keep_v = act & ~uzi if j == 0 else act
-        u = torch.where(act, u_new, u)
-        v = torch.where(keep_v, v_new, v)
-        du = torch.where(act, du_new, du)
-        dv = torch.where(keep_v, dv_new, dv)
-        uz = torch.where(act, uz_new, uz)
-        vz = torch.where(keep_v, vz_new, vz)
-        it = it + act.to(torch.int64)
-        act = active()
+    more = bool(act.any())
+    while more:
+        with span("scca/iter"):
+            u_new = u_step(v)
+            uzi = u_new.abs().amax(dim=0) < tol        # u zeroed THIS iter
+            v_new = v_step(u_new)
+            du_new = (u_new - u).abs().amax(dim=0)
+            dv_new = (v_new - v).abs().amax(dim=0)
+            uz_new = uz | uzi
+            vz_new = vz | (v_new.abs().amax(dim=0) < tol)
+            # frozen (converged/dead) cells keep their state; a dim-0
+            # u-zero abort also keeps v at its pre-step value (V0): the
+            # reference aborts BEFORE the v step (randompca.cpp:280-287)
+            keep_v = act & ~uzi if j == 0 else act
+            u = torch.where(act, u_new, u)
+            v = torch.where(keep_v, v_new, v)
+            du = torch.where(act, du_new, du)
+            dv = torch.where(keep_v, dv_new, dv)
+            uz = torch.where(act, uz_new, uz)
+            vz = torch.where(keep_v, vz_new, vz)
+            it = it + act.to(torch.int64)
+            act = active()
+            more = bool(act.any())
 
-    conv = (du < tol) & (dv < tol)
-    # d_c = (X u_c)^T (Y v_c), both sides invdiv-scaled (one panel pass);
-    # both factors are zero on the byte-padding rows
-    xu = op._mv_p(u) * invdiv
-    d = (xu * (Yp @ v)).sum(dim=0)
-    U[:, j, :] = u
-    V[:, j, :] = v
-    scalars = torch.stack([it.to(dtype), conv.to(dtype), uz.to(dtype),
-                           vz.to(dtype), d])
-    packed = host64(torch.cat([u, v, scalars], dim=0))
-    if agree is not None:
-        packed = agree(packed)
+    with span("scca/dim_end"):
+        conv = (du < tol) & (dv < tol)
+        # d_c = (X u_c)^T (Y v_c), both sides invdiv-scaled (one panel
+        # pass); both factors are zero on the byte-padding rows
+        xu = op._mv_p(u) * invdiv
+        d = (xu * (Yp @ v)).sum(dim=0)
+        U[:, j, :] = u
+        V[:, j, :] = v
+        scalars = torch.stack([it.to(dtype), conv.to(dtype), uz.to(dtype),
+                               vz.to(dtype), d])
+        packed = host64(torch.cat([u, v, scalars], dim=0))
+        if agree is not None:
+            packed = agree(packed)
     return U, V, packed
 
 
@@ -297,6 +302,7 @@ class _DeviceGrid:
         self.tol = torch.tensor(tol, **t)
         self.t = t
 
+    @traced("scca/dim")
     def dim(self, j, v0, alive, maxiter):
         """One dimension for every cell; ``v0`` (k, C) and ``alive``
         (C,) on the host.  Returns :func:`_unpack_dim`'s tuple."""
@@ -492,6 +498,7 @@ def _v0_of(V0, k, ndim, seed):
     return V0
 
 
+@traced("scca")
 def scca(
     X,
     Y: np.ndarray,
@@ -551,11 +558,13 @@ def scca(
             streaming=streaming, memory_mb=memory_mb,
         )
         V0 = s0.V
-    Y_std, invdiv = _scaled_y(Y, stand_y, divisor)
-    n, k = Y_std.shape
-    op = _xside_operator(
-        X, n, k, ndim, stand_x, streaming=streaming, memory_mb=memory_mb,
-        block_size=block_size, dtype=dtype, device=device, mesh=mesh)
+    with span("scca/setup"):
+        Y_std, invdiv = _scaled_y(Y, stand_y, divisor)
+        n, k = Y_std.shape
+        op = _xside_operator(
+            X, n, k, ndim, stand_x, streaming=streaming,
+            memory_mb=memory_mb, block_size=block_size, dtype=dtype,
+            device=device, mesh=mesh)
     p = op.n_snps
 
     def xv(u_p):  # v-step product: X u, scaled
@@ -603,8 +612,9 @@ def scca(
             verbose=verbose)
 
     def result(conv):
-        return SCCAResult(U=U, V=V, d=d, Px=xv(U), Py=Y_std @ V,
-                          converged=conv, V0=V0, n_iters=n_iters)
+        with span("scca/result"):
+            return SCCAResult(U=U, V=V, d=d, Px=xv(U), Py=Y_std @ V,
+                              converged=conv, V0=V0, n_iters=n_iters)
 
     def finished(j, it):
         nzu = int(np.count_nonzero(U[:, j]))
@@ -636,8 +646,9 @@ def scca(
     # both engines are their grid engine's one-cell case
     if engine == "device":
         # restored columns (zeros when not resuming) as one-cell histories
-        step = _DeviceGrid(op, Y_std, U[:, :, None], V[:, :, None],
-                           [lambda1], [lambda2], invdiv, tol).dim
+        with span("scca/setup"):
+            step = _DeviceGrid(op, Y_std, U[:, :, None], V[:, :, None],
+                               [lambda1], [lambda2], invdiv, tol).dim
     else:
         lam1_c = np.array([lambda1], dtype=np.float64)
         lam2_c = np.array([lambda2], dtype=np.float64)

@@ -54,6 +54,7 @@ import torch
 
 from ..io.plink import PACK_DENSITY, bytes_per_snp
 from ..utils.device import as_torch_dtype, default_dtype, resolve_device
+from ..utils.trace import span, width
 from .genotypes import (
     decode_standardized,
     permute_samples,
@@ -517,14 +518,18 @@ class _WideProducts:
 
     # -- raw products (permuted space, masked) -------------------------------
     def _gram_p(self, xp):
-        v = self._valid[:, None]
-        return self._gram_raw(xp * v).to(self.dtype) * v
+        with span("op/gram", width(xp)):
+            v = self._valid[:, None]
+            return self._gram_raw(xp * v).to(self.dtype) * v
 
     def _cross_p(self, xp):
-        return self._cross_raw(xp * self._valid[:, None]).to(self.dtype)
+        with span("op/cross", width(xp)):
+            return self._cross_raw(xp * self._valid[:, None]).to(
+                self.dtype)
 
     def _mv_p(self, v2):
-        return self._mv_raw(v2).to(self.dtype) * self._valid[:, None]
+        with span("op/prod", width(v2)):
+            return self._mv_raw(v2).to(self.dtype) * self._valid[:, None]
 
     def gram_permuted(self, xp):
         """yp = X X^T xp in permuted space; (n4,) or (n4, k) -> same.
@@ -565,8 +570,9 @@ class _WideProducts:
         vec = xp.ndim == 1
         xp2 = (xp[:, None] if vec else xp).to(self.dtype)
         v = self._valid[:, None]
-        hi, lo = self._ff_raw(xp2 * v)
-        hi, lo = hi * v, lo * v
+        with span("op/gram_ff", width(xp2)):
+            hi, lo = self._ff_raw(xp2 * v)
+            hi, lo = hi * v, lo * v
         self.nops += 1
         return (hi[:, 0], lo[:, 0]) if vec else (hi, lo)
 
@@ -708,21 +714,23 @@ class _SnpSpace:
         vec = v.ndim == 1
         v2 = v[:, None] if vec else v
         acc = None
-        for blk, valid, _, _ in self._parts():
-            acc = _acc(acc, self._gram(blk, v2, valid).to(self.device))
-        acc = self._reduced(acc, v2.shape)
+        with span("op/gram", width(v2)):
+            for blk, valid, _, _ in self._parts():
+                acc = _acc(acc, self._gram(blk, v2, valid).to(self.device))
+            acc = self._reduced(acc, v2.shape)
         self.nops += 1
         return acc[:, 0] if vec else acc
 
     def prod(self, v):
         """y = X v: (p,) or (p, k) -> (N,) or (N, k), natural order."""
         v2, vec = self._as_2d(v, self.n_snps, "prod")
-        segs = [(PACK_DENSITY * lo, PACK_DENSITY * hi,
-                 unpermute_samples(self._mv(blk, v2, valid),
-                                   PACK_DENSITY * (hi - lo)))
-                for blk, valid, lo, hi in self._parts()]
-        y = self._rows(segs, PACK_DENSITY * self._bytes_total,
-                       v2)[: self.n_samples]
+        with span("op/prod", width(v2)):
+            segs = [(PACK_DENSITY * lo, PACK_DENSITY * hi,
+                     unpermute_samples(self._mv(blk, v2, valid),
+                                       PACK_DENSITY * (hi - lo)))
+                    for blk, valid, lo, hi in self._parts()]
+            y = self._rows(segs, PACK_DENSITY * self._bytes_total,
+                           v2)[: self.n_samples]
         self.nops += 1
         return y[:, 0] if vec else y
 
@@ -734,10 +742,12 @@ class _SnpSpace:
         vec = v.ndim == 1
         v2 = (v[:, None] if vec else v).to(self.dtype)
         pair = None
-        for blk, valid, _, _ in self._parts():
-            t_hi, t_err = self._gram_ff(blk, v2, valid)
-            pair = _fold(pair, (t_hi.to(self.device), t_err.to(self.device)))
-        hi, lo = self._pair_reduced(pair, v2.shape)
+        with span("op/gram_ff", width(v2)):
+            for blk, valid, _, _ in self._parts():
+                t_hi, t_err = self._gram_ff(blk, v2, valid)
+                pair = _fold(pair, (t_hi.to(self.device),
+                                    t_err.to(self.device)))
+            hi, lo = self._pair_reduced(pair, v2.shape)
         self.nops += 1
         return (hi[:, 0], lo[:, 0]) if vec else (hi, lo)
 
@@ -1304,11 +1314,13 @@ class TallStreamingOperator(_SnpSpace, _StagedBlocks, _PackedBase):
         processes."""
         x2, vec = self._as_2d(x, self.n_samples, "crossprod")
         acc = None
-        for blk, valid, lo, hi in self._parts():
-            seg = x2[PACK_DENSITY * lo: PACK_DENSITY * hi].to(blk.device)
-            xp = permute_samples(seg, hi - lo) * valid[:, None]
-            acc = _acc(acc, self._cross(blk, xp).to(self.device))
-        acc = self._reduced(acc, (self.n_snps, x2.shape[1]))
+        with span("op/cross", width(x2)):
+            for blk, valid, lo, hi in self._parts():
+                seg = x2[PACK_DENSITY * lo: PACK_DENSITY * hi].to(
+                    blk.device)
+                xp = permute_samples(seg, hi - lo) * valid[:, None]
+                acc = _acc(acc, self._cross(blk, xp).to(self.device))
+            acc = self._reduced(acc, (self.n_snps, x2.shape[1]))
         self.nops += 1
         return acc[:, 0] if vec else acc
 
@@ -1446,7 +1458,8 @@ class DenseOperator:
         """X X^T xp; (N,) or (N, k) -> same."""
         vec = xp.ndim == 1
         x2 = xp[:, None] if vec else xp
-        y = self.X @ (self.X.T @ x2.to(self.dtype))
+        with span("op/gram", width(x2)):
+            y = self.X @ (self.X.T @ x2.to(self.dtype))
         self.nops += 1
         return y[:, 0] if vec else y
 
@@ -1458,16 +1471,19 @@ class DenseOperator:
 
         vec = xp.ndim == 1
         x2 = (xp[:, None] if vec else xp).to(self.dtype)
-        hi, lo = dense_gram_ff(self.X, x2)
+        with span("op/gram_ff", width(x2)):
+            hi, lo = dense_gram_ff(self.X, x2)
         self.nops += 1
         return (hi[:, 0], lo[:, 0]) if vec else (hi, lo)
 
     # -- products in (identity) permuted space, uncounted ---------------------
     def _cross_p(self, xp):
-        return self.X.T @ xp
+        with span("op/cross", width(xp)):
+            return self.X.T @ xp
 
     def _mv_p(self, v):
-        return self.X @ v
+        with span("op/prod", width(v)):
+            return self.X @ v
 
     # -- public products -----------------------------------------------------
     def perform_op(self, x):

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..utils.device import host64
+from ..utils.trace import span, traced
 from .lanczos import EigshResult, eigsh
 
 
@@ -113,40 +114,44 @@ def _proj_out(B, X):
 
 def _expand_cycle(matvec, V, gen, l, nsteps, b, jitter):
     """Expand panels t = 0..nsteps-1 starting at column l, in place in
-    V.  Returns the float64 host (H (nsteps, ncv+b, b), R (nsteps, b, b))."""
+    V.  Returns the device stacks H (nsteps, ncv+b, b), R (nsteps, b, b)."""
     n = V.shape[0]
     Hs, Rs = [], []
     for t in range(nsteps):
-        cs = l + t * b
-        W = matvec(V[:, cs: cs + b])
-        scale2 = (W * W).sum() / b            # pre-orth mean sq col norm
-        Wo, H = _orth2(V, W)
-        Q1, _, _ = _panel_orth(Wo, jitter, jitter * scale2)
-        # normalizing near-deflated directions amplifies their residual
-        # overlap with V by 1/norm -- clean with another CGS pass
-        Q1 = _proj_out(V, Q1)
-        Qn, _, good = _panel_orth(Q1, jitter)
-        if not bool(good.all()):
-            # deflation: replace zeroed directions with FRESH random
-            # ones orthogonal to everything (zero coupling); if the space
-            # is exhausted the fresh panel cancels below its floor
-            Z = torch.randn((n, b), generator=gen, dtype=V.dtype,
-                            device="cpu").to(V.device)
-            z2 = (Z * Z).sum() / b
-            Z, _ = _orth2(V, Z)
-            Z = _proj_out(Qn, Z)
-            Zq, _, _ = _panel_orth(Z, jitter, jitter * z2)
-            Qn = torch.where(good[None, :] > 0, Qn, Zq)
-        # final cleanup: one more V-projection + panel pass brings both
-        # V-orthogonality and within-panel orthonormality down to ~eps
-        Qn = _proj_out(V, Qn)
-        Qn, _, _ = _panel_orth(Qn, jitter)
-        # exact coupling of A Q_t onto the FINAL panel
-        R = Qn.T @ Wo
-        V[:, cs + b: cs + 2 * b] = Qn
-        Hs.append(H)
-        Rs.append(R)
-    return host64(torch.stack(Hs)), host64(torch.stack(Rs))
+        with span("lanczos/step"):
+            cs = l + t * b
+            W = matvec(V[:, cs: cs + b])
+            scale2 = (W * W).sum() / b        # pre-orth mean sq col norm
+            Wo, H = _orth2(V, W)
+            Q1, _, _ = _panel_orth(Wo, jitter, jitter * scale2)
+            # normalizing near-deflated directions amplifies their
+            # residual overlap with V by 1/norm -- clean with another
+            # CGS pass
+            Q1 = _proj_out(V, Q1)
+            Qn, _, good = _panel_orth(Q1, jitter)
+            if not bool(good.all()):
+                # deflation: replace zeroed directions with FRESH random
+                # ones orthogonal to everything (zero coupling); if the
+                # space is exhausted the fresh panel cancels below its
+                # floor
+                Z = torch.randn((n, b), generator=gen, dtype=V.dtype,
+                                device="cpu").to(V.device)
+                z2 = (Z * Z).sum() / b
+                Z, _ = _orth2(V, Z)
+                Z = _proj_out(Qn, Z)
+                Zq, _, _ = _panel_orth(Z, jitter, jitter * z2)
+                Qn = torch.where(good[None, :] > 0, Qn, Zq)
+            # final cleanup: one more V-projection + panel pass brings
+            # both V-orthogonality and within-panel orthonormality down
+            # to ~eps
+            Qn = _proj_out(V, Qn)
+            Qn, _, _ = _panel_orth(Qn, jitter)
+            # exact coupling of A Q_t onto the FINAL panel
+            R = Qn.T @ Wo
+            V[:, cs + b: cs + 2 * b] = Qn
+            Hs.append(H)
+            Rs.append(R)
+    return torch.stack(Hs), torch.stack(Rs)
 
 
 def _colnorm1(Y):
@@ -175,8 +180,9 @@ def _ff_resid_panel(U, y_hi, y_lo, agree=_same):
     R = _colnorm1(R)
     R = R - U @ (U.T @ R)
     R = _colnorm1(R)
-    G = agree(gram_small_ff(R))                 # float64 host, ff-accurate
-    lam, V = np.linalg.eigh(G)
+    with span("polish/ritz"):
+        G = agree(gram_small_ff(R))             # float64 host, ff-accurate
+        lam, V = np.linalg.eigh(G)
     keep = lam > 1e-4 * max(lam[-1], 1e-30)
     if not keep.any():
         return R[:, :0]
@@ -207,6 +213,7 @@ def _ritz_whitened(H, M):
     return theta, W @ S_w
 
 
+@traced("polish/refine")
 def _ff_krylov_refine(ff_gram, U, k, rounds: int = 1,
                       return_resid: bool = False, agree=_same):
     """Block-Krylov refinement over the COMPENSATED operator.
@@ -228,9 +235,10 @@ def _ff_krylov_refine(ff_gram, U, k, rounds: int = 1,
             B = torch.cat([B, R], dim=1)
             Yh = torch.cat([Yh, rh], dim=1)
             Yl = torch.cat([Yl, rl], dim=1)
-        H = ritz_ff(B, Yh, Yl)
-        H, M = agree(0.5 * (H + H.T), gram_small_ff(B))
-        theta, S = _ritz_generalized(H, M)
+        with span("polish/ritz"):
+            H = ritz_ff(B, Yh, Yl)
+            H, M = agree(0.5 * (H + H.T), gram_small_ff(B))
+            theta, S = _ritz_generalized(H, M)
         order = np.argsort(theta)[::-1][:k]
         theta = theta[order]
         S = torch.as_tensor(np.ascontiguousarray(S[:, order]),
@@ -265,10 +273,11 @@ def polish_subspace(matvec, U, *, iters: int = 2, ff_gram=None,
     agree = agree or _same
 
     def sweep(U):
-        Y = _colnorm1(matvec(U))
-        Q, _, _ = _panel_orth(Y, rank_tol)
-        Q, _, _ = _panel_orth(Q, rank_tol)
-        return Q
+        with span("polish/sweep"):
+            Y = _colnorm1(matvec(U))
+            Q, _, _ = _panel_orth(Y, rank_tol)
+            Q, _, _ = _panel_orth(Q, rank_tol)
+            return Q
 
     for _ in range(iters):
         U = sweep(U)
@@ -277,17 +286,60 @@ def polish_subspace(matvec, U, *, iters: int = 2, ff_gram=None,
         U = sweep(U)
         return _ff_krylov_refine(ff_gram, U, k, rounds=1,
                                  return_resid=return_resid, agree=agree)
-    Y = matvec(U)
-    G = agree(host64(U.T @ Y))
-    G = 0.5 * (G + G.T)
-    theta, S = np.linalg.eigh(G)
-    order = np.argsort(theta)[::-1][:k]
-    theta = theta[order]
-    S = np.ascontiguousarray(S[:, order])
-    U = U @ torch.as_tensor(S, device=U.device).to(U.dtype)
+    with span("polish/ritz"):
+        Y = matvec(U)
+        G = agree(host64(U.T @ Y))
+        G = 0.5 * (G + G.T)
+        theta, S = np.linalg.eigh(G)
+        order = np.argsort(theta)[::-1][:k]
+        theta = theta[order]
+        S = np.ascontiguousarray(S[:, order])
+        U = U @ torch.as_tensor(S, device=U.device).to(U.dtype)
     return theta, U
 
 
+def _cycle_ritz(H, R, theta_kept, l, nsteps, ncv, b):
+    """A cycle's host Rayleigh-Ritz: the symmetric T (ncv x ncv) from the
+    kept Ritz values and the cycle's projected blocks ``H``, its
+    eigenpairs descending, and each pair's residual estimate from the
+    last panel's coupling ``R``."""
+    T = np.zeros((ncv, ncv), dtype=np.float64)
+    if l > 0:
+        T[:l, :l] = np.diag(theta_kept)
+    for t in range(nsteps):
+        cs = l + t * b
+        T[: cs + b, cs: cs + b] = H[t, : cs + b]
+        D = T[cs: cs + b, cs: cs + b]
+        T[cs: cs + b, cs: cs + b] = 0.5 * (D + D.T)
+        T[cs: cs + b, : cs] = T[: cs, cs: cs + b].T
+    theta_all, S = np.linalg.eigh(T)
+    order = np.argsort(theta_all)[::-1]
+    S = S[:, order]
+    res_all = np.linalg.norm(R[nsteps - 1] @ S[ncv - b:, :], axis=0)
+    return theta_all[order], S, res_all
+
+
+def _start_basis(n, cols, b, seed, v0, dtype, device):
+    """The (n, cols) Krylov basis, its first panel the QR of a seeded
+    random (n, b) draw whose leading columns ``v0`` replaces."""
+    rng = np.random.default_rng(seed)
+    Q0 = rng.standard_normal((n, b))
+    if v0 is not None:
+        # warm start: a vector seeds the first column; an (n, j) panel
+        # (e.g. Ritz vectors from a restart checkpoint) up to b columns
+        v0 = np.asarray(v0, dtype=np.float64)
+        if v0.ndim == 1:
+            Q0[:, 0] = v0
+        else:
+            j = min(b, v0.shape[1])
+            Q0[:, :j] = v0[:, :j]
+    Q0, _ = np.linalg.qr(Q0)
+    V = torch.zeros((n, cols), dtype=dtype, device=device)
+    V[:, :b] = torch.as_tensor(Q0, device=device).to(dtype)
+    return V
+
+
+@traced("lanczos/solve")
 def eigsh_block(matvec, n: int, nev: int, *, block: int = 16,
                 ncv: int | None = None, maxiter: int = 500,
                 tol: float = 1e-6, dtype=torch.float32, device=None,
@@ -342,21 +394,8 @@ def eigsh_block(matvec, n: int, nev: int, *, block: int = 16,
     # units, multiplied by each panel's pre-orthogonalization scale)
     jitter = (100 * eps) ** 2
 
-    rng = np.random.default_rng(seed)
-    Q0 = rng.standard_normal((n, b))
-    if v0 is not None:
-        # warm start: a vector seeds the first column; an (n, j) panel
-        # (e.g. Ritz vectors from a restart checkpoint) up to b columns
-        v0 = np.asarray(v0, dtype=np.float64)
-        if v0.ndim == 1:
-            Q0[:, 0] = v0
-        else:
-            j = min(b, v0.shape[1])
-            Q0[:, :j] = v0[:, :j]
-    Q0, _ = np.linalg.qr(Q0)
-
-    V = torch.zeros((n, ncv + b), dtype=dtype, device=device)
-    V[:, :b] = torch.as_tensor(Q0, device=device).to(dtype)
+    with span("lanczos/start"):
+        V = _start_basis(n, ncv + b, b, seed, v0, dtype, device)
     gen = torch.Generator(device="cpu").manual_seed(int(seed))
 
     nops = 0
@@ -372,79 +411,67 @@ def eigsh_block(matvec, n: int, nev: int, *, block: int = 16,
     stall = 0
 
     for restart in range(maxiter):
-        nsteps = (ncv - l) // b
-        H, R = (agree or _same)(
-            *_expand_cycle(matvec, V, gen, l, nsteps, b, jitter))
-        nops += nsteps
+        with span("lanczos/cycle"):
+            nsteps = (ncv - l) // b
+            H, R = _expand_cycle(matvec, V, gen, l, nsteps, b, jitter)
+            nops += nsteps
+            with span("lanczos/ritz"):
+                H, R = (agree or _same)(host64(H), host64(R))
+                theta_all, S, res_all = _cycle_ritz(H, R, theta_kept, l,
+                                                    nsteps, ncv, b)
+                theta = theta_all[:nev]
+                resid = res_all[:nev]
+                # Spectra-style per-pair tolerance with the roundoff
+                # floor scaled by ||A|| ~= theta_max
+                theta_max = max(abs(theta_all[0]), 1e-300)
+                thresh = np.maximum(eps23 * theta_max,
+                                    tol * np.maximum(np.abs(theta), 1e-300))
+                nconv = int(np.sum(resid <= thresh))
+                if verbose:
+                    import sys
+                    print(f"eigsh_block cycle {restart}: nconv={nconv}/"
+                          f"{nev} max_resid={resid.max():.3e} "
+                          f"theta_max={theta_max:.4e}",
+                          file=sys.stderr, flush=True)
+                # stagnation acceptance: residuals stopped improving
+                # below sqrt(eps) * ||A||, the finite-precision floor of
+                # clustered spectra
+                rmax = float(resid.max())
+                if rmax > 0.9 * best_resid:
+                    stall += 1
+                else:
+                    stall = 0
+                best_resid = min(best_resid, rmax)
+                at_floor = rmax <= np.sqrt(eps) * theta_max
+                if (nconv >= nev or restart == maxiter - 1
+                        or (stall >= 5 and at_floor)):
+                    converged = nconv >= nev or (stall >= 5 and at_floor)
+                    conv_mask = resid <= thresh
+                    S_keep = S[:, :nev]
+                    break
 
-        # -- assemble symmetric T on the host -------------------------------
-        T = np.zeros((ncv, ncv), dtype=np.float64)
-        if l > 0:
-            T[:l, :l] = np.diag(theta_kept)
-        for t in range(nsteps):
-            cs = l + t * b
-            T[: cs + b, cs: cs + b] = H[t, : cs + b]
-            D = T[cs: cs + b, cs: cs + b]
-            T[cs: cs + b, cs: cs + b] = 0.5 * (D + D.T)
-            T[cs: cs + b, : cs] = T[: cs, cs: cs + b].T
-        R_last = R[nsteps - 1]
+                # -- thick restart -------------------------------------
+                l = b * min(ncv // b - 1,
+                            max(1, -(-(nev + (ncv - nev) // 2) // b)))
+                theta_kept = theta_all[:l]
+                S_pad = np.zeros((ncv + b, ncv + b), dtype=np.float64)
+                S_pad[:ncv, :l] = S[:, :l]
+                S_pad[ncv:, l: l + b] = np.eye(b)   # residual panel -> l
+                V = V @ torch.as_tensor(S_pad, device=V.device).to(dtype)
 
-        theta_all, S = np.linalg.eigh(T)
-        order = np.argsort(theta_all)[::-1]
-        theta_all = theta_all[order]
-        S = S[:, order]
-        res_all = np.linalg.norm(R_last @ S[ncv - b:, :], axis=0)
+                # after the rotation V[:, :l] ARE the kept Ritz vectors
+                # (theta_kept, descending): a checkpoint costs no device
+                # work
+                if (checkpoint_fn is not None and checkpoint_every > 0
+                        and (restart + 1) % checkpoint_every == 0):
+                    m = min(l, b)   # a v0 warm start seeds one panel
+                    checkpoint_fn(V[:, :m], theta_kept[:m].copy(),
+                                  res_all[:m].copy())
 
-        theta = theta_all[:nev]
-        resid = res_all[:nev]
-        # Spectra-style per-pair tolerance with the roundoff floor scaled
-        # by ||A|| ~= theta_max
-        theta_max = max(abs(theta_all[0]), 1e-300)
-        thresh = np.maximum(eps23 * theta_max,
-                            tol * np.maximum(np.abs(theta), 1e-300))
-        nconv = int(np.sum(resid <= thresh))
-        if verbose:
-            import sys
-            print(f"eigsh_block cycle {restart}: nconv={nconv}/{nev} "
-                  f"max_resid={resid.max():.3e} theta_max={theta_max:.4e}",
-                  file=sys.stderr, flush=True)
-        # stagnation acceptance: residuals stopped improving below
-        # sqrt(eps) * ||A||, the finite-precision floor of clustered
-        # spectra
-        rmax = float(resid.max())
-        if rmax > 0.9 * best_resid:
-            stall += 1
-        else:
-            stall = 0
-        best_resid = min(best_resid, rmax)
-        at_floor = rmax <= np.sqrt(eps) * theta_max
-        if (nconv >= nev or restart == maxiter - 1
-                or (stall >= 5 and at_floor)):
-            converged = nconv >= nev or (stall >= 5 and at_floor)
-            conv_mask = resid <= thresh
-            S_keep = S[:, :nev]
-            break
-
-        # -- thick restart ---------------------------------------------------
-        l = b * min(ncv // b - 1,
-                    max(1, -(-(nev + (ncv - nev) // 2) // b)))
-        theta_kept = theta_all[:l]
-        S_pad = np.zeros((ncv + b, ncv + b), dtype=np.float64)
-        S_pad[:ncv, :l] = S[:, :l]
-        S_pad[ncv:, l: l + b] = np.eye(b)        # residual panel -> col l
-        V = V @ torch.as_tensor(S_pad, device=V.device).to(dtype)
-
-        # after the rotation V[:, :l] ARE the kept Ritz vectors
-        # (theta_kept, descending): a checkpoint costs no device work
-        if (checkpoint_fn is not None and checkpoint_every > 0
-                and (restart + 1) % checkpoint_every == 0):
-            m = min(l, b)   # a v0 warm start seeds at most one panel
-            checkpoint_fn(V[:, :m], theta_kept[:m].copy(),
-                          res_all[:m].copy())
-
-    S_pad = np.zeros((ncv + b, S_keep.shape[1]), dtype=np.float64)
-    S_pad[:ncv] = S_keep
-    U = V @ torch.as_tensor(S_pad, device=V.device).to(dtype)
+    with span("lanczos/ritz"):
+        S_pad = np.zeros((ncv + b, S_keep.shape[1]), dtype=np.float64)
+        S_pad[:ncv] = S_keep
+        U = V @ torch.as_tensor(S_pad, device=V.device).to(dtype)
 
     return EigshResult(
         eigenvalues=theta.copy(),
