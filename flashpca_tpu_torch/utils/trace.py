@@ -21,8 +21,10 @@ span                   covers
 ``pca/start``          the start vector's draw and permutation
 ``lanczos/solve``      one thick-restart block Lanczos solve (the capped
                        one; a fallback's is a second)
-``lanczos/start``      the start panel's draw and QR, the basis'
-                       allocation and upload, up to the first product
+``lanczos/start``      the start panel, up to the first product
+``lanczos/draw``       its seeded host draw and float64 upload
+``lanczos/orth``       its QR on the device, the basis' allocation and
+                       the cast into it
 ``lanczos/cycle``      one thick-restart cycle
 ``lanczos/step``       one panel: product, CGS2, panel orthonormalization
                        and its deflation test's sync

@@ -935,3 +935,41 @@ def test_two_shard_operator_on_card_matches_one_shard(cuda, tmp_path, tall):
             assert not launched          # float64 runs the functional core
         else:
             assert {"crossprod", "matvec"} <= launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [100352, 501760], ids=["tall", "wide"])
+def test_start_basis_on_card_matches_host_qr(cuda, n):
+    """The solver's start panel factored on the card at the benchmark's
+    panel heights: numpy's QR of the same seeded draw to 1e-12 column
+    for column, orthonormal to 1e-13 in float64.  Prints the whole
+    start's time (draw, upload, QR, cast) and the device QR's alone
+    (median of 5, after a warm-up)."""
+    import time
+
+    from flashpca_tpu_torch.solvers import block_lanczos as tbl
+
+    b, seed = 16, 3
+    tbl._start_basis(n, 2 * b, b, seed, None, torch.float32, cuda)
+    torch.cuda.synchronize()
+    whole, qr = [], []
+    for _ in range(5):
+        t = time.perf_counter()
+        V = tbl._start_basis(n, 2 * b, b, seed, None, torch.float64, cuda)
+        torch.cuda.synchronize()
+        whole.append(time.perf_counter() - t)
+        Q0 = torch.as_tensor(
+            np.random.default_rng(seed).standard_normal((n, b)), device=cuda)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        torch.linalg.qr(Q0)
+        torch.cuda.synchronize()
+        qr.append(time.perf_counter() - t)
+    print(f"\nstart basis {n} x {b}: whole {np.median(whole) * 1e3:.3f} ms, "
+          f"device QR {np.median(qr) * 1e3:.3f} ms "
+          f"({torch.cuda.get_device_name()})")
+    want, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((n, b)))
+    got = V[:, :b].cpu().numpy()
+    assert np.abs(got - want).max() <= 1e-12
+    assert np.abs(got.T @ got - np.eye(b)).max() <= 1e-13
+    assert not bool(V[:, b:].any())

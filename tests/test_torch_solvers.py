@@ -6,7 +6,9 @@ on a problem where no panel deflates (no random injection: the JAX
 solver draws those from its own PRNG, the port from a torch.Generator)
 they take the same path: equal ``n_ops`` and ``n_restarts``, and
 eigenvalues to 1e-10 relative at float64.  Vectors are compared up to
-sign.  Restart checkpoints (.npz) are exchanged both ways.
+sign.  Restart checkpoints (.npz) are exchanged both ways.  The start
+panel is numpy's QR of that draw, factored where the basis lives, with
+no host QR on the path.
 """
 
 import numpy as np
@@ -182,3 +184,50 @@ def test_panel_orth_solves_long_panels_in_column_blocks(monkeypatch, dtype):
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     assert bool(good.all())
     assert _vec_err(Q.numpy(), np.asarray(Qj)) < tol
+
+
+@pytest.mark.parametrize("v0", [None, "vector", "panel"])
+def test_start_basis_is_the_host_qr_of_the_same_draw(v0):
+    """The start panel is factored where the basis lives, and is the
+    numpy (LAPACK) QR of the same seeded draw column for column: the
+    same Householder signs, so the solve starts where the JAX one
+    does."""
+    n, b, seed = 1003, 16, 21
+    rng = np.random.default_rng(5)
+    w = {None: None, "vector": rng.standard_normal(n),
+         "panel": rng.standard_normal((n, 5))}[v0]
+    draw = np.random.default_rng(seed).standard_normal((n, b))
+    if v0 == "vector":
+        draw[:, 0] = w
+    elif v0 == "panel":
+        draw[:, :5] = w
+    want, _ = np.linalg.qr(draw)
+    V = tbl._start_basis(n, 3 * b, b, seed, w, torch.float64, "cpu")
+    assert V.shape == (n, 3 * b) and V.dtype == torch.float64
+    got = V[:, :b].numpy()
+    assert np.abs(got - want).max() <= 1e-12
+    assert np.abs(got.T @ got - np.eye(b)).max() <= 1e-13
+    assert not bool(V[:, b:].any())
+    # the basis' own dtype holds the float64 factor rounded once
+    V32 = tbl._start_basis(n, 2 * b, b, seed, w, torch.float32, "cpu")
+    assert V32.dtype == torch.float32
+    np.testing.assert_allclose(V32[:, :b].numpy(), want, rtol=0, atol=1e-7)
+
+
+def test_eigsh_block_start_takes_no_host_qr(monkeypatch):
+    """No host LAPACK QR on the solve's path: with numpy's refused the
+    block solver still converges to the dense spectrum."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("host QR on the block solver's path")
+
+    monkeypatch.setattr(np.linalg, "qr", refuse)
+    n, nev = 300, 6
+    A = _psd(3, n, n + 60)
+    At = torch.as_tensor(A)
+    rt = tbl.eigsh_block(lambda Q: At @ Q, n, nev, block=4, maxiter=200,
+                         tol=1e-10, seed=3, dtype=torch.float64,
+                         device="cpu")
+    assert rt.converged
+    np.testing.assert_allclose(rt.eigenvalues,
+                               np.linalg.eigvalsh(A)[::-1][:nev],
+                               rtol=1e-10)

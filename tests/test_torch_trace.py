@@ -130,9 +130,9 @@ def test_pca_and_check_span_tree(tmp_path, which, wide_op, tall_op):
     (res, chk), spans = _profiled(tmp_path, run)
     names = _names(spans)
     want = {"pca", "pca/start", "lanczos/solve", "lanczos/start",
-            "lanczos/cycle", "lanczos/step", "lanczos/ritz", "polish/sweep",
-            "polish/refine", "polish/ritz", "pca/finish", "op/gram",
-            "op/gram_ff"}
+            "lanczos/draw", "lanczos/orth", "lanczos/cycle", "lanczos/step",
+            "lanczos/ritz", "polish/sweep", "polish/refine", "polish/ritz",
+            "pca/finish", "op/gram", "op/gram_ff"}
     if which == "wide":
         want |= {"check", "check/upload", "check/residual"}
         assert chk.mse < 1e-8
@@ -142,6 +142,9 @@ def test_pca_and_check_span_tree(tmp_path, which, wide_op, tall_op):
     assert "pca/fallback" not in names
     assert names.count("lanczos/step") == res.n_ops
     assert names.count("lanczos/cycle") == res.n_restarts
+    # the start panel: one host draw and one device QR a solve
+    for nm in ("lanczos/start", "lanczos/draw", "lanczos/orth"):
+        assert names.count(nm) == names.count("lanczos/solve"), nm
     for s in spans:
         nm = s[2].split("@", 1)[0]
         if nm == "lanczos/step":
@@ -160,6 +163,8 @@ def test_pca_and_check_span_tree(tmp_path, which, wide_op, tall_op):
                 "polish/ritz", "pca/finish", "check")
         elif nm in ("pca/start", "lanczos/solve", "pca/finish"):
             assert _parent(spans, s) == "pca"
+        elif nm in ("lanczos/draw", "lanczos/orth"):
+            assert _parent(spans, s) == "lanczos/start"
         elif nm in ("check/upload", "check/residual"):
             assert _parent(spans, s) == "check"
         elif nm == "polish/ritz":
