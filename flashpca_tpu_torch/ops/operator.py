@@ -42,7 +42,10 @@ Each shard runs the same kernels on its own device; the partial
 products are summed in shard order on the process's first device, then
 across processes, and sharded outputs (``crossprod``'s SNP rows, the
 tall ``prod``'s samples) are gathered.  Two-float pairs fold with
-TwoSum, shard by shard and process by process.
+TwoSum, shard by shard and process by process.  The resident wide
+operator keeps each shard's decode constants on its device and runs a
+product in three phases -- the panel to every shard, every shard's
+kernels, the partials home -- so that its cards work at the same time.
 """
 
 from __future__ import annotations
@@ -79,6 +82,13 @@ def _fold(pair, t):
 
     hi, e = twosum(pair[0], t[0])
     return hi, pair[1] + e + t[1]
+
+
+def _moved(t, dev):
+    """A tensor, or a pair of them, on ``dev``."""
+    if isinstance(t, tuple):
+        return tuple(x.to(dev) for x in t)
+    return t.to(dev)
 
 
 def window_valid(n_samples: int, lo: int, width: int, dtype,
@@ -363,6 +373,7 @@ class _ResidentPacked(_PackedBase):
                                 plan, i, dev)
             if shard is not None:
                 self._shards.append(shard)
+        self._cards = self._shard_constants()
 
     @classmethod
     def plan_layout(cls, p, nbytes, *, block_size=None, dtype=torch.float64,
@@ -380,6 +391,11 @@ class _ResidentPacked(_PackedBase):
         p_pad, nbytes_pad = cls._padded(int(p), int(nbytes), int(nshards))
         return dict(p_pad=p_pad, nbytes_pad=nbytes_pad,
                     block_size=int(max(1, min(block_size, p))))
+
+    def _shard_constants(self):
+        """Each shard's decode constants on its device (PackedOperator),
+        or None: the shards then read the home device's."""
+        return None
 
     def stats(self) -> dict:
         """Observability counters: operator products dispatched, packed
@@ -421,43 +437,104 @@ class _WideProducts:
     (W^T v) and ``_ff_raw`` (the two-float W^T W xp).  They run over a
     subclass's parts -- (bytes, lo, hi) for SNP rows [lo, hi) from
     ``_row_parts()``: the resident operator's shards, the streaming
-    one's staged blocks -- summing the partials (folding two-float
-    pairs) and gathering ``crossprod``'s rows, across a mesh's processes
-    too.  ``_budget_rows(rows)`` is the SNP count the functional core
-    budgets its decoded blocks by on a part of ``rows`` SNPs."""
+    one's staged blocks -- summing the partials in part order (folding
+    two-float pairs) and gathering ``crossprod``'s rows, across a mesh's
+    processes too.  ``_budget_rows(rows)`` is the SNP count the
+    functional core budgets its decoded blocks by on a part of ``rows``
+    SNPs.
 
-    def _on_rows(self, name, blk, lo, hi, arg):
-        """Product ``name`` on one part, its rows of the decode constants
-        and ``arg`` on the part's device, back on the operator's: the
-        kernel wrapper, or the functional core."""
-        dev = blk.device
+    ``_cards`` holds a sharded resident operator's decode constants on
+    its shards' devices (None elsewhere); its products then run in three
+    phases (:meth:`_partials`) so that the shards' kernels overlap."""
+
+    _cards = None
+    xcard_bytes = xcard_copies = 0
+
+    def _consts(self, which, lo, hi, dev):
+        """Rows [lo, hi) of the decode constants a product reads, on
+        ``dev``: ``"plain"`` (mean, invsd), ``"ff"`` (the two-float code
+        tables) or ``"sumsq"`` (mean, invsd and the valid-sample mask)."""
+        if which == "ff":
+            lut_hi, lut_lo = self._ff_luts()
+            return lut_hi[lo:hi].to(dev), lut_lo[lo:hi].to(dev)
         m, iv = self.mean[lo:hi].to(dev), self.invsd[lo:hi].to(dev)
+        return (m, iv) if which == "plain" else (m, iv, self._valid.to(dev))
+
+    def _partials(self, which, fn, arg, kc):
+        """(lo, hi, partial on this operator's device) for each part, in
+        part order: ``fn(blk, lo, hi, consts, x)`` on the part's device,
+        ``consts`` its rows of the constants ``which`` and ``x`` the
+        part's operand ``arg(lo, hi)`` there (None without ``arg``).
+
+        A sharded resident operator runs three phases: every shard's
+        operand is copied to its device, every shard's kernels are
+        launched, and then the partials come home.  A copy between cards
+        waits for the work queued on both cards' current streams, so a
+        shard's operand copied after the earlier shards' kernels would
+        hold its card back until they end.  Everywhere else each part is
+        one step after another: a streaming operator's staged blocks must
+        be consumed in rotation."""
+        home = self.device
+        if self._cards is None:
+            for blk, lo, hi in self._row_parts():
+                dev = blk.device
+                c = self._consts(which, lo, hi, dev)
+                out = fn(blk, lo, hi, c,
+                         None if arg is None else arg(lo, hi).to(dev))
+                yield lo, hi, _moved(out, home)
+            return
+        parts = self._row_parts()
+        with span("mesh/scatter", kc):
+            xs = [None if arg is None else self._xcard(j, arg(lo, hi),
+                                                       blk.device)
+                  for j, (blk, lo, hi) in enumerate(parts)]
+        outs = [fn(blk, lo, hi, c[which], x) for (blk, lo, hi), c, x
+                in zip(parts, self._cards, xs)]
+        with span("mesh/gather", kc):
+            outs = [self._xcard(j, o, home) for j, o in enumerate(outs)]
+        for (_, lo, hi), out in zip(parts, outs):
+            yield lo, hi, out
+
+    def _xcard(self, j, t, dev):
+        """``t`` (a tensor or a pair) moved to ``dev`` by shard ``j``'s
+        scatter or gather, counted when ``j`` is not this process's first
+        shard (a shard stands for a card of its own, also where the mesh
+        repeats a device)."""
+        if j:
+            for x in (t if isinstance(t, tuple) else (t,)):
+                self.xcard_bytes += x.numel() * x.element_size()
+                self.xcard_copies += 1
+        return _moved(t, dev)
+
+    def _plain(self, name):
+        """``fn`` of :meth:`_partials` for the plain product ``name``:
+        the kernel wrapper, or the functional core."""
         if self.use_kernels:
             from ..kernels import packed_matvec as kpm
 
-            out = getattr(kpm, name)(blk, m, iv, arg.to(dev))
-        else:
-            out = _CORE[name](blk, m, iv, arg.to(dev),
-                              block_size=self.block_size)
-        return out.to(self.device)
+            kernel = getattr(kpm, name)
+            return lambda blk, lo, hi, c, x: kernel(blk, *c, x)
+        core = _CORE[name]
+        return lambda blk, lo, hi, c, x: core(blk, *c, x,
+                                              block_size=self.block_size)
 
     def _gram_raw(self, xp):
         acc = None
-        for blk, lo, hi in self._row_parts():
-            acc = _acc(acc, self._on_rows("gram_matvec_p", blk, lo, hi, xp))
+        for _, _, t in self._partials("plain", self._plain("gram_matvec_p"),
+                                      lambda lo, hi: xp, width(xp)):
+            acc = _acc(acc, t)
         return self._reduced(acc, xp.shape)
 
     def _cross_raw(self, xp):
-        return self._rows([(lo, hi, self._on_rows("crossprod_p", blk, lo,
-                                                  hi, xp))
-                           for blk, lo, hi in self._row_parts()],
-                          self.n_snps, xp)
+        return self._rows(list(self._partials(
+            "plain", self._plain("crossprod_p"), lambda lo, hi: xp,
+            width(xp))), self.n_snps, xp)
 
     def _mv_raw(self, v2):
         acc = None
-        for blk, lo, hi in self._row_parts():
-            acc = _acc(acc, self._on_rows("matvec_p", blk, lo, hi,
-                                          v2[lo:hi]))
+        for _, _, t in self._partials("plain", self._plain("matvec_p"),
+                                      lambda lo, hi: v2[lo:hi], width(v2)):
+            acc = _acc(acc, t)
         return self._reduced(acc, (self.n4, v2.shape[1]))
 
     def _ff_raw(self, xp):
@@ -466,32 +543,28 @@ class _WideProducts:
         fold, flashpca_tpu/ops/operator.py:1568-1571)."""
         from .compensated import default_chunk, gram_ff_p
 
-        lut_hi, lut_lo = self._ff_luts()
-        pair = None
-        for blk, lo, hi in self._row_parts():
-            dev = blk.device
-            lh, ll, x = (lut_hi[lo:hi].to(dev), lut_lo[lo:hi].to(dev),
-                         xp.to(dev))
-            if self.use_kernels:
-                from ..kernels import packed_matvec as kpm
+        if self.use_kernels:
+            from ..kernels import packed_matvec as kpm
 
-                t = kpm.gram_ff_p(blk, lh, ll, x)
-            else:
+            def fn(blk, lo, hi, c, x):
+                return kpm.gram_ff_p(blk, *c, x)
+        else:
+            def fn(blk, lo, hi, c, x):
                 bs = budget_block_size(self._budget_rows(hi - lo), self.n4,
                                        itemsize=8, cap=default_chunk())
-                t = gram_ff_p(blk, lh, ll, x, block_size=bs)
-            pair = _fold(pair, (t[0].to(self.device), t[1].to(self.device)))
+                return gram_ff_p(blk, *c, x, block_size=bs)
+        pair = None
+        for _, _, t in self._partials("ff", fn, lambda lo, hi: xp,
+                                      width(xp)):
+            pair = _fold(pair, t)
         return self._pair_reduced(pair, xp.shape)
 
     def _snp_sumsq_dev(self):
-        parts = []
-        for blk, lo, hi in self._row_parts():
-            dev = blk.device
-            parts.append((lo, hi, snp_sumsq_p(
-                blk, self.mean[lo:hi].to(dev), self.invsd[lo:hi].to(dev),
-                self._valid.to(dev), block_size=budget_block_size(
-                    self._budget_rows(hi - lo), self.n4)).to(self.device)))
-        return self._rows(parts, self.n_snps, self._valid)
+        def fn(blk, lo, hi, c, x):
+            return snp_sumsq_p(blk, *c, block_size=budget_block_size(
+                self._budget_rows(hi - lo), self.n4))
+        return self._rows(list(self._partials("sumsq", fn, None, None)),
+                          self.n_snps, self._valid)
 
     # -- permuted-space interface (used by the eigensolver) ------------------
     @property
@@ -623,6 +696,35 @@ class PackedOperator(_WideProducts, _ResidentPacked):
 
     def _budget_rows(self, rows):
         return rows
+
+    def _shard_constants(self):
+        """Each shard's rows of mean and invsd, of the two-float code
+        tables, and the valid-sample mask, made on its device once, from
+        the host: constants, which no product then copies."""
+        from .compensated import code_value_luts
+
+        mean, invsd = self.mean.cpu(), self.invsd.cpu()
+        lut_hi, lut_lo = (torch.from_numpy(t) for t in
+                          code_value_luts(self.center, self.scale))
+        cards = []
+        for blk, lo, hi in self._shards:
+            dev = blk.device
+            m, iv = mean[lo:hi].to(dev), invsd[lo:hi].to(dev)
+            cards.append({"plain": (m, iv),
+                          "ff": (lut_hi[lo:hi].to(dev),
+                                 lut_lo[lo:hi].to(dev)),
+                          "sumsq": (m, iv, valid_mask_permuted(
+                              self.n_samples, self.nbytes, self.dtype,
+                              dev))})
+        return cards
+
+    def stats(self) -> dict:
+        """:meth:`_ResidentPacked.stats`, and the bytes and copies that
+        the sharded products moved between a shard's card and the home
+        card since the operator was built (``xcard_bytes``,
+        ``xcard_copies``; 0 with one shard)."""
+        return super().stats() | {"xcard_bytes": self.xcard_bytes,
+                                  "xcard_copies": self.xcard_copies}
 
 
 _CORE = {"gram_matvec_p": gram_matvec_p, "crossprod_p": crossprod_p,

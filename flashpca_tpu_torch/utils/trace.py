@@ -52,6 +52,10 @@ span                   covers
 ``scca/result``        the projections Px and Py
 ``op/<product>@<kc>``  one operator product (``gram``, ``gram_ff``,
                        ``cross``, ``prod``) on a kc-column panel
+``mesh/scatter@<kc>``  a sharded resident wide product's operands copied
+                       to its shards' devices (inside ``op/*``)
+``mesh/gather@<kc>``   its shards' partials copied to the home device,
+                       before they are summed (inside ``op/*``)
 =====================  ===================================================
 """
 

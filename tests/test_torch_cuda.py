@@ -973,3 +973,64 @@ def test_start_basis_on_card_matches_host_qr(cuda, n):
     assert np.abs(got - want).max() <= 1e-12
     assert np.abs(got.T @ got - np.eye(b)).max() <= 1e-13
     assert not bool(V[:, b:].any())
+
+
+@pytest.mark.cuda
+def test_sharded_gram_runs_its_cards_at_once(cuda):
+    """A one-process mesh over every card present (2 to 4), 50,176
+    samples x 100,352 SNPs a card: a kc-16 gram's wall time, synchronised,
+    is at most 0.6 x the sum of its shards' grams run alone, each on its
+    card, and its result is the serial shard-order sum's bit for bit.
+    Prints the times (median of 5, after a warm-up)."""
+    import time
+
+    from flashpca_tpu_torch import PackedOperator
+    from flashpca_tpu_torch.parallel import Mesh
+
+    S = min(4, torch.cuda.device_count())
+    if S < 2:
+        pytest.skip("needs two or more CUDA cards")
+    n, rows = 50_176, 100_352
+    devs = [torch.device(f"cuda:{i}") for i in range(S)]
+    rng = np.random.default_rng(23)
+    mean = rng.uniform(0.1, 1.9, S * rows)
+    sd = rng.uniform(0.3, 1.0, S * rows)
+    shards = [torch.randint(0, 256, (rows, n // 4), dtype=torch.uint8,
+                            device=d, generator=torch.Generator(
+                                device=d).manual_seed(s))
+              for s, d in enumerate(devs)]
+    op = PackedOperator(shards, mean, sd, n, mesh=Mesh(devs),
+                        n_snps=S * rows)
+    alone = [PackedOperator(shards[s], mean[s * rows: (s + 1) * rows],
+                            sd[s * rows: (s + 1) * rows], n, device=d)
+             for s, d in enumerate(devs)]
+    xp = torch.randn((op.n4, 16), device=cuda)
+    xs = [xp.to(d) for d in devs]
+
+    def sync():
+        for d in devs:
+            torch.cuda.synchronize(d)
+
+    def timed(fn):
+        fn()
+        sync()
+        out = []
+        for _ in range(5):
+            t = time.perf_counter()
+            fn()
+            sync()
+            out.append(time.perf_counter() - t)
+        return float(np.median(out))
+
+    wall = timed(lambda: op._gram_raw(xp))
+    each = [timed(lambda s=s: alone[s]._gram_raw(xs[s])) for s in range(S)]
+    print(f"\n{S} cards ({torch.cuda.get_device_name()}): sharded gram "
+          f"{wall * 1e3:.3f} ms, shards alone "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in each)} ms")
+    assert wall <= 0.6 * sum(each)
+    want = None
+    for (blk, lo, hi), d in zip(op._shards, devs):
+        t = tpk.gram_matvec_p(blk, op.mean[lo:hi].to(d),
+                              op.invsd[lo:hi].to(d), xp.to(d)).to(cuda)
+        want = t if want is None else want + t
+    assert torch.equal(op._gram_raw(xp), want)

@@ -430,3 +430,205 @@ def test_shard_scaling_tool_on_the_cpu(monkeypatch):
     assert rows[1]["eig_rel_err"] < 1e-10
     assert all(r["check_mse"] < 1e-8 for r in rows)
     assert rows[0]["n_ops"] == rows[1]["n_ops"]
+
+
+# ---------------------------------------------------------------------------
+# The resident operator's three phases: the serial shard loop's results
+# ---------------------------------------------------------------------------
+
+PRODUCTS = ("gram", "cross", "prod", "ff", "sumsq")
+
+
+def _serial(op, parts, product, x):
+    """``product`` as one shard (or staged item) after another, each
+    partial summed into the last in part order (``cross`` and ``sumsq``:
+    the parts' rows laid end to end; ``ff``: the pairs folded by
+    TwoSum), on the home device's constants: the loop the products ran
+    before the resident operator's were split into phases."""
+    from flashpca_tpu_torch.kernels import packed_matvec as kpm
+    from flashpca_tpu_torch.ops import compensated, operator as opm
+
+    def plain(name):
+        if op.use_kernels:
+            return getattr(kpm, name)
+        core = getattr(opm, name)
+        return lambda *a: core(*a, block_size=op.block_size)
+
+    outs = []
+    for blk, lo, hi in parts:
+        m, iv = op.mean[lo:hi], op.invsd[lo:hi]
+        if product == "gram":
+            outs.append(plain("gram_matvec_p")(blk, m, iv, x))
+        elif product == "cross":
+            outs.append(plain("crossprod_p")(blk, m, iv, x))
+        elif product == "prod":
+            outs.append(plain("matvec_p")(blk, m, iv, x[lo:hi]))
+        elif product == "sumsq":
+            outs.append(opm.snp_sumsq_p(
+                blk, m, iv, op._valid, block_size=opm.budget_block_size(
+                    op._budget_rows(hi - lo), op.n4)))
+        else:
+            lh, ll = (t[lo:hi] for t in op._ff_luts())
+            if op.use_kernels:
+                outs.append(kpm.gram_ff_p(blk, lh, ll, x))
+            else:
+                bs = opm.budget_block_size(
+                    op._budget_rows(hi - lo), op.n4, itemsize=8,
+                    cap=compensated.default_chunk())
+                outs.append(compensated.gram_ff_p(blk, lh, ll, x,
+                                                  block_size=bs))
+    if product in ("cross", "sumsq"):
+        return torch.cat(outs)
+    if product == "ff":
+        hi, lo = outs[0]
+        for t_hi, t_lo in outs[1:]:
+            hi, e = compensated.twosum(hi, t_hi)
+            lo = lo + e + t_lo
+        return hi, lo
+    acc = outs[0]
+    for t in outs[1:]:
+        acc = acc + t
+    return acc
+
+
+def _product(op, parts, product, x, v):
+    """(the operator's public product, the serial loop's), with the
+    products' own masks and permutations on both."""
+    valid = op._valid[:, None]
+    if product == "gram":
+        return op.gram_permuted(x), _serial(op, parts, "gram", x * valid) * valid
+    if product == "cross":
+        xp = op.permute(x[: op.n_samples])
+        return (op.crossprod(x[: op.n_samples]),
+                _serial(op, parts, "cross", xp * valid))
+    if product == "prod":
+        want = _serial(op, parts, "prod", v) * valid
+        return op.prod(v), op.unpermute(want)
+    if product == "ff":
+        hi, lo = _serial(op, parts, "ff", x * valid)
+        return (torch.cat(op.gram_ff_permuted(x)),
+                torch.cat((hi * valid, lo * valid)))
+    op._sumsq = None
+    return (torch.from_numpy(op.snp_sumsq),
+            _serial(op, parts, "sumsq", None).to(torch.float64))
+
+
+def _operands(op, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((op.n4, 3), generator=g, dtype=op.dtype),
+            torch.randn((op.n_snps, 2), generator=g, dtype=op.dtype))
+
+
+KINDS = {"kernels": dict(dtype=torch.float32, use_kernels=True),
+         "core": dict(dtype=torch.float64)}
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("nsh", [4, 3])
+@pytest.mark.parametrize("product", PRODUCTS)
+def test_phased_shards_equal_the_serial_loop(oracle, product, nsh, kind):
+    """On a one-process mesh of 4 CPU shards, and of 3 whose last is
+    shorter, every wide product is the serial shard-order loop's bit for
+    bit: the phases reorder the launches, not the sums."""
+    ds = oracle["ds"]
+    op = ft.PackedOperator(ds.read_packed(), oracle["mean"], oracle["sd"],
+                           ds.n_samples, mesh=_cpu(nsh), **KINDS[kind])
+    assert len({hi - lo for _, lo, hi in op._shards}) == 2
+    got, want = _product(op, op._shards, product, *_operands(op))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("product", PRODUCTS)
+def test_streaming_mesh_products_unchanged(oracle, product):
+    """A StreamingPackedOperator on a 4-shard mesh still runs its staged
+    items one after another: each product is that loop's bit for bit."""
+    ds = oracle["ds"]
+    op = ft.StreamingPackedOperator(ds, oracle["mean"], oracle["sd"],
+                                    ds.n_samples, block_snps=16,
+                                    mesh=_cpu(4), **KINDS["kernels"])
+    assert op._cards is None
+    items = [(torch.from_numpy(np.array(
+        op._host_packed[lo:hi])), lo, hi) for lo, hi, _ in op._items]
+    got, want = _product(op, items, product, *_operands(op))
+    assert torch.equal(got, want)
+
+
+def _xcard_count(op, product, x, v):
+    """Bytes and copies of one product between shard 0's device and the
+    others', counted by hand: each further shard's operand out and its
+    partial home (a two-float pair is two)."""
+    item = torch.tensor([], dtype=op.dtype).element_size()
+    k = x.shape[1] if product != "prod" else v.shape[1]
+    nbytes = copies = 0
+    for _, lo, hi in op._shards[1:]:
+        rows = hi - lo
+        into, home, pieces = {"gram": (op.n4, op.n4, 1),
+                              "cross": (op.n4, rows, 1),
+                              "prod": (rows, op.n4, 1),
+                              "ff": (op.n4, op.n4, 2)}[product]
+        nbytes += (into + pieces * home) * k * item
+        copies += 1 + pieces
+    return nbytes, copies
+
+
+@pytest.mark.parametrize("nsh", [1, 3, 4])
+@pytest.mark.parametrize("product", ["gram", "cross", "prod", "ff"])
+def test_xcard_counters_count_one_product(oracle, product, nsh):
+    """``stats()``'s ``xcard_bytes``/``xcard_copies`` after one product
+    are the hand count; 0 with one shard, and on an operator with no
+    mesh."""
+    ds = oracle["ds"]
+    op = ft.PackedOperator(ds.read_packed(), oracle["mean"], oracle["sd"],
+                           ds.n_samples, mesh=_cpu(nsh), **KINDS["kernels"])
+    x, v = _operands(op)
+    _product(op, op._shards, product, x, v)
+    s = op.stats()
+    assert (s["xcard_bytes"], s["xcard_copies"]) == _xcard_count(
+        op, product, x, v)
+    if nsh == 1:
+        assert s["xcard_bytes"] == s["xcard_copies"] == 0
+    plain = ft.PackedOperator(ds.read_packed(), oracle["mean"],
+                              oracle["sd"], ds.n_samples, device="cpu",
+                              **KINDS["kernels"])
+    _product(plain, plain._shards, product, x, v)
+    assert plain.stats()["xcard_bytes"] == plain.stats()["xcard_copies"] == 0
+
+
+def _spans(tmp_path, fn):
+    """The ``flashpca/`` spans of ``fn()`` under the profiler, as (start,
+    end, name) sorted by start."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                   e["name"][len("flashpca/"):]) for e in events
+                  if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                  and e["name"].startswith("flashpca/"))
+
+
+@pytest.mark.parametrize("nsh", [None, 4])
+def test_mesh_spans_nest_in_the_product(oracle, tmp_path, nsh):
+    """A sharded gram's ``mesh/scatter@k`` and ``mesh/gather@k`` lie inside
+    its ``op/gram@k``, scatter first; an operator without a mesh has
+    none."""
+    ds = oracle["ds"]
+    kw = dict(device="cpu") if nsh is None else dict(mesh=_cpu(nsh))
+    op = ft.PackedOperator(ds.read_packed(), oracle["mean"], oracle["sd"],
+                           ds.n_samples, **kw, **KINDS["kernels"])
+    x, _ = _operands(op)
+    spans = _spans(tmp_path, lambda: op.gram_permuted(x))
+    names = [s[2] for s in spans]
+    if nsh is None:
+        assert names == ["op/gram@3"]
+        return
+    assert names == ["op/gram@3", "mesh/scatter@3", "mesh/gather@3"]
+    outer = spans[0]
+    assert all(outer[0] <= a and b <= outer[1] for a, b, _ in spans[1:])
+    assert spans[1][1] <= spans[2][0]
