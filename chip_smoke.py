@@ -313,6 +313,8 @@ TPU_KERNEL = {
     "matvec_ff_v1": "flashpca_tpu/kernels/packed_matvec.py:369",
     "matvec_ff_novl": "flashpca_tpu/kernels/packed_matvec.py:415",
     "matvec_ff_novl_v1": "flashpca_tpu/kernels/packed_matvec.py:415",
+    "crossprod_narrow": "flashpca_tpu/kernels/packed_matvec.py:83",
+    "matvec_narrow": "flashpca_tpu/kernels/packed_matvec.py:122",
     "crossprod_stacked": ".claude/skills/verify/kernel_sweep.py:50",
     "crossprod_stacked_v1": ".claude/skills/verify/kernel_sweep.py:50",
     "crossprod_intsub": ".claude/skills/verify/kernel_sweep.py:128",
@@ -332,6 +334,8 @@ SOURCE = {"crossprod": _CSRC + "crossprod_v2.cu",
           "matvec_ff_v1": _CSRC + "matvec_ff.cu",
           "matvec_ff_novl": _CSRC + "matvec_ff_novl.cu",
           "matvec_ff_novl_v1": _CSRC + "matvec_ff.cu",
+          "crossprod_narrow": _CSRC + "crossprod_narrow.cu",
+          "matvec_narrow": _CSRC + "matvec_narrow.cu",
           "crossprod_stacked": _CSRC + "crossprod_variants_v2.cu",
           "crossprod_stacked_v1": _CSRC + "crossprod_variants.cu",
           "crossprod_intsub": _CSRC + "crossprod_variants_v2.cu",
@@ -346,6 +350,7 @@ DOTS = {"crossprod": 1, "crossprod_v1": 1, "matvec": 1, "matvec_v1": 1,
         "crossprod_ff": 2, "crossprod_ff_v1": 2, "matvec_ff": 3,
         "matvec_ff_v1": 3,
         "matvec_ff_novl": 2, "matvec_ff_novl_v1": 2,
+        "crossprod_narrow": 1, "matvec_narrow": 1,
         "crossprod_stacked": 1, "crossprod_stacked_v1": 1,
         "crossprod_intsub": 1, "crossprod_intsub_v1": 1,
         "crossprod_nocomp": 1, "crossprod_nocomp_v1": 1}
@@ -388,7 +393,14 @@ WIDE_PATH = ("crossprod", "matvec", "crossprod_ff", "matvec_ff")
 TALL_PATH = ("crossprod", "matvec", "crossprod_ff", "matvec_ff_novl")
 PROJECT_PATH = ("matvec",)               # project(): one prod pass, B2
 UCCA_PATH = ("crossprod",)               # ucca(): one crossprod pass, B1
-SCCA_PATH = ("crossprod", "matvec")      # scca(): B1 u-steps, B2 v-steps
+# a solo scca(): B1 u-steps and B2 v-steps on one column, through their
+# one-column kernels; a grid's (scca_grid, cv_scca, split_scca) on its
+# cells' panel
+SCCA_PATH = ("crossprod_narrow", "matvec_narrow")
+SCCA_GRID_PATH = ("crossprod", "matvec")
+# a solo fit of 2-8 dimensions ends on Px = X U: B2 on its ndim columns,
+# at kc 8
+SCCA_PX = ("matvec",)
 # float64 on the card runs the functional core; the mid-size runs are
 # held to dense float64 eigh: a float64 solve stops at residuals of 1e-6
 # of each eigenvalue, so a pair's eigenvalue is off by about that
@@ -1642,15 +1654,15 @@ def mid_scca(dev, workdir, root, ds, seed, n_pheno=5, ndim=2):
                     float(np.abs(a.V - b.V).max())))
 
     out.update(d=r32.d.tolist(), iters=r32.n_iters.tolist(),
-               launches={nm: launches[nm] for nm in SCCA_PATH},
+               launches={nm: launches[nm] for nm in SCCA_PATH + SCCA_PX},
                vs_float64=off(r32, r64), streamed_vs_float64=off(rs, r64),
                float64_launches=launches64)
     say(f"   d {r32.d}, iterations {r32.n_iters.tolist()} (float64: "
-        f"{r64.n_iters.tolist()}); B1/B2 launches {launches['crossprod']}/"
-        f"{launches['matvec']}; vs float64 d rel, U/V abs "
+        f"{r64.n_iters.tolist()}); {scca_launch_text(launches)}; vs "
+        f"float64 d rel, U/V abs "
         f"{out['vs_float64']}, streamed {out['streamed_vs_float64']}")
     if dev.type == "cuda":
-        require_launched(launches, SCCA_PATH, "mid-size scca")
+        require_launched(launches, SCCA_PATH + SCCA_PX, "mid-size scca")
     if launches64:
         raise AssertionError(f"mid-size scca at float64: {launches64} "
                              "kernel launches")
@@ -1876,11 +1888,15 @@ def mid_cv_split(dev, root, ds, seed, ndim=2):
     s64 = run("split_scca float64", split_scca, root, dtype=f64, **sp)
     sh = run("split_scca engine=host", split_scca, root, engine="host",
              **sp)
-    for tag in ("cv_scca", "split_scca", "cv_scca engine=host",
-                "split_scca engine=host", "cv_scca streamed memory_mb=1"):
+    # the grid engines run their cells' panel; the sequential fallback
+    # (engine="host") solo fits, one column each
+    for tag, path in (("cv_scca", SCCA_GRID_PATH),
+                      ("split_scca", SCCA_GRID_PATH),
+                      ("cv_scca engine=host", SCCA_PATH),
+                      ("split_scca engine=host", SCCA_PATH),
+                      ("cv_scca streamed memory_mb=1", SCCA_GRID_PATH)):
         if dev.type == "cuda":
-            require_launched(runs[tag]["launches"], SCCA_PATH,
-                             f"mid-size {tag}")
+            require_launched(runs[tag]["launches"], path, f"mid-size {tag}")
         require_no_first_design(runs[tag]["launches"], f"mid-size {tag}")
     for tag in ("cv_scca float64", "split_scca float64",
                 "cv_scca numeric matrix float32", "cv_scca numeric matrix"):
@@ -2319,6 +2335,15 @@ def require_launched(launches, path, what):
                              f"{missing} (counts {launches})")
 
 
+def scca_launch_text(launches):
+    """An SCCA run's B1/B2 launch counts: on one column (the one-column
+    kernels: a solo fit's steps) and at kc 8-32 (a solo fit's Px = X U
+    on its ndim columns; a grid's panels)."""
+    return (f"B1/B2 launches {launches['crossprod_narrow']}/"
+            f"{launches['matvec_narrow']} on one column, "
+            f"{launches['crossprod']}/{launches['matvec']} at kc 8-32")
+
+
 def require_no_first_design(launches, what):
     """No path takes a kept first design: it is timed, never launched."""
     from flashpca_tpu_torch.kernels import packed_matvec as tpk
@@ -2592,8 +2617,8 @@ def scca_headline(op, seed=SCCA_SEED):
     """SCCA at the wide headline, on its resident float32 operator:
     ``scca(op, Y, SCCA_L1 / sqrt(p), SCCA_L2)`` with SCCA_NDIM
     dimensions (:func:`scca_phenotypes`), counts set to 0 just before
-    and read just after (B1 and B2 must launch, at kc 8: a one-column
-    panel), held to converge with every d > 0 and finite Px / Py, and to
+    and read just after (B1 and B2 must launch on one column, through
+    their one-column kernels, and B2 at kc 8 for Px), held to converge with every d > 0 and finite Px / Py, and to
     its float64 fixed point (:func:`scca_fixed_point`: u and v within
     SCCA_FIXED_BAR, d within SCCA_D_BAR); each dimension's nonzeros and
     overlap with the planted supports printed; the wall, iterations, and
@@ -2637,13 +2662,13 @@ def scca_headline(op, seed=SCCA_SEED):
     say(f"   U nonzeros {nz} of {p}; per dimension, nonzeros on each "
         f"planted {SCCA_PLANT}-SNP support: {overlap}; V nonzeros "
         f"{[int(np.count_nonzero(res.V[:, j])) for j in range(SCCA_NDIM)]}")
-    say(f"   wall {wall:.2f} s; B1/B2 launches {launches['crossprod']}/"
-        f"{launches['matvec']} at kc {kcs}, busy {kern_s:.3f} s of the "
+    say(f"   wall {wall:.2f} s; {scca_launch_text(launches)} (kc "
+        f"{kcs}), busy {kern_s:.3f} s of the "
         f"{span_s:.3f} s from the first launch to the last: per iteration "
         f"(of {its}; d and Px included) kernels {kern_s / its * 1e3:.2f} ms"
         f", the rest {(span_s - kern_s) / its * 1e3:.2f} ms; outside the "
         f"span {wall - span_s:.3f} s")
-    require_launched(launches, SCCA_PATH, "headline scca")
+    require_launched(launches, SCCA_PATH + SCCA_PX, "headline scca")
     require_no_first_design(launches, "headline scca")
     if not (res.converged and np.all(res.d > 0)
             and np.isfinite(res.Px).all() and np.isfinite(res.Py).all()):
@@ -2696,7 +2721,7 @@ def scca_headline(op, seed=SCCA_SEED):
         f"{g.lambda2[c]}) vs the solo run: d rel " + " ".join(
             f"{x:.2e}" for x in d_rel) + f", U/V max abs {uv:.2e}, "
         f"iterations {g.n_iters[:, c].tolist()} vs {iters}")
-    require_launched(glaunches, SCCA_PATH, "headline scca_grid")
+    require_launched(glaunches, SCCA_GRID_PATH, "headline scca_grid")
     require_no_first_design(glaunches, "headline scca_grid")
     if not (g.lambda1[c] == lam1 and g.lambda2[c] == SCCA_L2
             and g.converged[c] and d_rel.max() <= SCCA_GRID_D_BAR
@@ -2871,10 +2896,10 @@ def headline_cv_split(dev, host, center, scale, n, seed=SCCA_SEED):
             f"{want['matvec']}) at {skcs}; best lambda1 "
             f"{sres.best_lambda1:.4g}, lambda2 {sres.best_lambda2:g}, test "
             f"corr {sres.best_corr:.6f}")
-        require_launched(slaunch, SCCA_PATH, "headline split_scca")
+        require_launched(slaunch, SCCA_GRID_PATH, "headline split_scca")
         require_no_first_design(slaunch, "headline split_scca")
         if (dev.type == "cuda"
-                and {nm: slaunch[nm] for nm in SCCA_PATH} != want):
+                and {nm: slaunch[nm] for nm in SCCA_GRID_PATH} != want):
             raise AssertionError(f"headline split_scca: launches {slaunch}, "
                                  f"the grid's {want}")
 
@@ -2956,7 +2981,7 @@ def headline_cv_split(dev, host, center, scale, n, seed=SCCA_SEED):
             f"{claunch['crossprod']}/{claunch['matvec']} at {ckcs}; best "
             f"lambda1 {cres.best_lambda1:.4g}, lambda2 "
             f"{cres.best_lambda2:g}, pooled corr {cres.best_corr:.6f}")
-        require_launched(claunch, SCCA_PATH, "headline cv_scca")
+        require_launched(claunch, SCCA_GRID_PATH, "headline cv_scca")
         require_no_first_design(claunch, "headline cv_scca")
         if (len(cv["grid_s"]) != CV_FOLDS or len(cv["init_s"]) != CV_FOLDS
                 or (dev.type == "cuda"
@@ -3294,10 +3319,11 @@ def streamed_scca(op, tw):
     err = max(float(np.abs(s.U - twin.U).max()),
               float(np.abs(s.V - twin.V).max()))
     out["twin"] = {"s": ph.seconds, "passes": op.nops,
-                   "launches": {nm: launches[nm] for nm in SCCA_PATH},
+                   "launches": {nm: launches[nm]
+                                for nm in SCCA_PATH + SCCA_PX},
                    "uv_abs_vs_resident": err}
-    say(f"   {op.nops} passes, B1/B2 launches {launches['crossprod']}/"
-        f"{launches['matvec']}; U/V vs the resident device engine: max "
+    say(f"   {op.nops} passes, {scca_launch_text(launches)}; U/V "
+        f"vs the resident device engine: max "
         f"abs {err:.2e} (bar {SCCA_STREAM_BAR})")
     require_launched(launches, SCCA_PATH, "streamed scca")
     require_no_first_design(launches, "streamed scca")
@@ -3320,7 +3346,8 @@ def streamed_scca(op, tw):
             r = call()
         st = op.stats()
         runs[what] = (r, st["staged_host_blocks"], st["nops"], ph.seconds,
-                      {nm: tpk.launch_counts[nm] for nm in SCCA_PATH})
+                      {nm: tpk.launch_counts[nm]
+                       for nm in SCCA_PATH + SCCA_GRID_PATH})
     g, s0 = runs["grid"][0], runs["solo"][0]
     gerr = max(float(np.abs(g.U[:, :, c] - s0.U).max()) for c in range(16))
     gerr = max(gerr, max(float(np.abs(g.V[:, :, c] - s0.V).max())
@@ -3578,7 +3605,7 @@ def streamed_headline(dev, host, center, scale, sumsq, resident,
             rows += scca_rows(
                 bop, {nm: sc["twin"]["launches"][nm]
                       + sc["grid"]["solo"]["launches"][nm]
-                      for nm in SCCA_PATH},
+                      for nm in SCCA_PATH + SCCA_PX},
                 sc["grid"]["grid"]["launches"],
                 [r for r in rows if r["path"] == "streaming"], "_streaming",
                 slices=4)
@@ -3902,14 +3929,16 @@ def tall_crossprod(dev, host, center, scale, n, memory_mb, seed=19,
         z64 = f64_product(head, lut6, permute_samples(x.double(), nbytes),
                           transpose=False, rows=128)
         zs[k] = z.reshape(p, k)
-        out[k] = {"wall_s": ph.seconds, "launches": launches["crossprod"],
+        # a vector takes B1's one-column kernel
+        b1 = "crossprod_narrow" if k == 1 else "crossprod"
+        out[k] = {"wall_s": ph.seconds, "launches": launches[b1],
                   "launches_by_kc": by_kc, "launch_ms": launch_ms,
                   "f64_err": column_max_err(zs[k][:f64_rows], z64)}
-        say(f"   k={k}: {launches['crossprod']} B1 launches "
+        say(f"   k={k}: {launches[b1]} B1 launches "
             f"({op.n_blocks} blocks), by kc {json.dumps(by_kc)}; each "
             f"column within {out[k]['f64_err']:.2e} of its largest |z| of "
             f"float64 on the first {f64_rows} SNPs")
-        require_counts(launches, {"crossprod": op.n_blocks},
+        require_counts(launches, {b1: op.n_blocks},
                        f"tall streamed crossprod k={k}")
         if not (z.shape == ((p,) if k == 1 else (p, k))
                 and bool(torch.isfinite(z).all())):
@@ -4096,10 +4125,13 @@ def streamed_tall_headline(dev, host, center, scale, sumsq, resident,
                                   ("matvec", 16), ("crossprod_ff", 32),
                                   ("matvec_ff_novl", 32)],
                             launches, None, slices=8)
-        # crossprod's B1 at the vector's width (kc 8) and the panel's
+        # crossprod's B1 at the vector's width (its one-column kernel)
+        # and the panel's
+        cp_names = {k: "crossprod_narrow" if k == 1 else "crossprod"
+                    for k in TALL_CROSSPROD_KS}
         cp_rows = [row for k in TALL_CROSSPROD_KS for row in time_kernels(
-            bop, [("crossprod", k)],
-            {"crossprod": crossprod[k]["launches"]}, None, slices=8)]
+            bop, [(cp_names[k], k)],
+            {cp_names[k]: crossprod[k]["launches"]}, None, slices=8)]
         del bop
     for row in rows:
         row.update(path="tall_streaming",
@@ -4208,6 +4240,16 @@ def kernel_specs(op, widths):
                 lambda: tpk.matvec_plain(pk, m, iv, v),
                 lambda sl, Wh, Wl: [lambda: Wh.T @ v[sl]], False,
                 p * nb + p * k * 4 + 3 * p * 4 + n4 * k * 4),
+            "crossprod_narrow": lambda x=x: (
+                lambda: tpk.crossprod_p(pk, m, iv, x),
+                lambda: tpk.crossprod_plain(pk, m, iv, x),
+                lambda sl, Wh, Wl: [lambda: Wh @ x], False,
+                p * nb + n4 * k * 4 + 3 * p * 4 + p * k * 4),
+            "matvec_narrow": lambda v=v: (
+                lambda: tpk.matvec_p(pk, m, iv, v),
+                lambda: tpk.matvec_plain(pk, m, iv, v),
+                lambda sl, Wh, Wl: [lambda: Wh.T @ v[sl]], False,
+                p * nb + p * k * 4 + 3 * p * 4 + n4 * k * 4),
             "crossprod_ff": lambda x=x: (
                 lambda: tpk.crossprod_ff_p(pk, lut6, x),
                 lambda: tpk.crossprod_ff_plain(pk, lut6, x),
@@ -4278,19 +4320,22 @@ def time_kernels(op, widths, launches, worst, slices):
     return rows
 
 
-def scca_rows(op, solo, grid, rows, suffix, slices):
+def scca_rows(op, solo, grid, rows, suffix, slices, ndim=SCCA_NDIM):
     """The kernels rows of SCCA on ``op``'s shape: B1 and B2 on the one
-    column of a solo run (the wrappers pad it to kc 8), timed and held
-    to their plain versions on it, with the solo runs' launches
-    ``solo``; and the grid's: the kc 16 B1 and B2 rows among ``rows``
-    (16 cells are the same work as those rows' 16 columns) with the
-    grid's launches ``grid``.  Paths "scca" and "scca_grid", each plus
-    ``suffix``."""
+    column of a solo run (their one-column kernels) and, where the solo
+    runs launched it, B2 at kc 8 on their ``ndim`` columns (Px = X U),
+    timed and held to their plain versions on it, with the solo runs'
+    launches ``solo``; and the grid's: the kc 16 B1 and B2 rows among
+    ``rows`` (16 cells are the same work as those rows' 16 columns) with
+    the grid's launches ``grid``.  Paths "scca" and "scca_grid", each
+    plus ``suffix``."""
+    widths = [("crossprod_narrow", 1), ("matvec_narrow", 1)]
+    if solo.get("matvec"):
+        widths.append(("matvec", ndim))
     out = [dict(row, path="scca" + suffix)
-           for row in time_kernels(op, [("crossprod", 1), ("matvec", 1)],
-                                   solo, None, slices)]
+           for row in time_kernels(op, widths, solo, None, slices)]
     for row in rows:
-        if row["name"] in SCCA_PATH and row["k"] == 16:
+        if row["name"] in SCCA_GRID_PATH and row["k"] == 16:
             row = {k: v for k, v in row.items() if k != "stream_launch_ms"}
             out.append(dict(row, launches=grid[row["name"]],
                             path="scca_grid" + suffix))
@@ -5056,8 +5101,9 @@ def main(argv=None) -> int:
                                     {name: one_pass[what]["launches"]},
                                     None, slices=32):
                 kernels.append(dict(row, path=what))
-    # scca()'s B1 and B2 on its one column; the grid's at kc 16
-    with Phase("kernel times: scca's B1 and B2 on one column"):
+    # scca()'s B1 and B2 on its one column and B2 at kc 8 on its Px; the
+    # grid's at kc 16
+    with Phase("kernel times: scca's B1 and B2 on one column, its Px"):
         kernels += scca_rows(
             op, scca_out["launches"], scca_out["grid"]["launches"],
             [r for r in kernels if r.get("design") != "first"

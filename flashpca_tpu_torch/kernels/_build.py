@@ -3,7 +3,8 @@
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded through ``ctypes``; a source may hold several
 kernels (matvec_ff.cu holds the first designs of B4 and B5), each with
-its own C entry.  Twenty-two entries in fourteen libraries: B1-B5, the
+its own C entry.  Twenty-four entries in sixteen libraries: B1-B5, B1
+and B2 at one column (``crossprod_narrow``, ``matvec_narrow``), the
 sweep's tile entries of B1 and B2 and its variants V1-V4 (V1, V2 and V4
 in crossprod_variants_v2.cu, their first designs ``crossprod_stacked_v1``,
 ``crossprod_intsub_v1`` and ``crossprod_nocomp_v1`` in
@@ -56,6 +57,12 @@ KERNELS = {
                   [_P] * 6 + [_I64, _I64, _I32, _P]),
     "matvec_ff_novl": ("matvec_ff_novl.cu", "fp_matvec_ff_novl",
                        [_P] * 5 + [_I64, _I64, _I32, _P]),
+    # B1 and B2 at one column (kc 1): what the operators launch for a
+    # one-column chunk
+    "crossprod_narrow": ("crossprod_narrow.cu", "fp_crossprod_narrow",
+                         [_P] * 6 + [_I64, _I64, _I32, _P]),
+    "matvec_narrow": ("matvec_narrow.cu", "fp_matvec_narrow",
+                      [_P] * 6 + [_I64, _I64, _I32, _P]),
     # B1's first design: timed beside production B1, launched by no
     # operator
     "crossprod_v1": ("crossprod.cu", "fp_crossprod_v1",

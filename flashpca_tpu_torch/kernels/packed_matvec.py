@@ -2,18 +2,20 @@
 plain PyTorch versions.
 
 The genotype matrix W (p SNPs x n4 permuted samples) lives on the card
-as raw PLINK packed bytes, SNP-major ``(p, nbytes)`` uint8.  The five
+as raw PLINK packed bytes, SNP-major ``(p, nbytes)`` uint8.  The
 hand-written CUDA kernels (kernels/csrc/) decode tiles of it to
 standardized float32 in registers and contract them at once, so the
 decoded matrix never reaches device memory:
 
-====  ==================  ============================================
-B1    crossprod_v2.cu     z = W x        (n4, k) -> (p, k)
-B2    matvec_v2.cu        y = W^T v      (p, k) -> (n4, k)
-B3    crossprod_ff_v2.cu  two-float (z_hi, z_err) of W x
-B4    matvec_ff_v2.cu     two-float (y_hi, y_err) of W^T (v_hi + v_lo)
-B5    matvec_ff_novl.cu   two-float (y_hi, y_err) of W^T v (no v_lo)
-====  ==================  ============================================
+====  ===================  ===========================================
+B1    crossprod_v2.cu      z = W x        (n4, k) -> (p, k)
+B2    matvec_v2.cu         y = W^T v      (p, k) -> (n4, k)
+B3    crossprod_ff_v2.cu   two-float (z_hi, z_err) of W x
+B4    matvec_ff_v2.cu      two-float (y_hi, y_err) of W^T (v_hi + v_lo)
+B5    matvec_ff_novl.cu    two-float (y_hi, y_err) of W^T v (no v_lo)
+B1    crossprod_narrow.cu  B1 at one column: z = W x, (n4,) -> (p,)
+B2    matvec_narrow.cu     B2 at one column: y = W^T v, (p,) -> (n4,)
+====  ===================  ===========================================
 
 B1, B2, B3 and B4 each have one comparison entry that no operator
 launches: their first designs, in crossprod.cu (``crossprod_v1_p``),
@@ -36,7 +38,14 @@ contiguous sample planes, one per 2-bit field of a byte.  The kernels
 need no padding of either axis: they mask the ragged edges themselves.
 A panel of k columns runs at a width KC in {8, 16, 24, 32} (k rounded
 up; zero columns are exact no-ops); wider panels run in 32-column
-chunks, one launch per chunk.
+chunks, one launch per chunk.  B1 and B2 take a one-column chunk (a
+vector, or the last column of a 33-column panel) to their one-column
+kernels on the column as it is, with no padded copy (:func:`_launches`
+decides, :func:`_crossprod_chunk` and :func:`_matvec_chunk` launch, for
+``crossprod_p``, ``matvec_p`` and ``gram_matvec_p``): their sums are
+column 0 of B1's and B2's at kc 8 bit for bit, so a one-column product
+gives the same bits either way.  The tall two-float gram keeps kc 8 for
+one column (:func:`gram_tall_ff_p`).
 
 Dispatch: each wrapper takes its plain version for tensors on the CPU
 (the tests' path) and launches its kernel for CUDA float32 tensors.
@@ -62,10 +71,11 @@ from ..ops.compensated import twosum
 KC_WIDTHS = (8, 16, 24, 32)
 MAX_KC = KC_WIDTHS[-1]
 
-# the kernels the operators launch (B1-B5), and the kernel sweep's
+# the kernels the operators launch (B1-B5, B1 and B2 at one column),
+# and the kernel sweep's
 # entries (kernels/crossprod_variants.py), which no operator launches
 OPERATOR_KERNELS = ("crossprod", "matvec", "crossprod_ff", "matvec_ff",
-                    "matvec_ff_novl")
+                    "matvec_ff_novl", "crossprod_narrow", "matvec_narrow")
 SWEEP_KERNELS = ("crossprod_tiled", "matvec_tiled", "crossprod_stacked",
                  "crossprod_intsub", "crossprod_split3", "crossprod_nocomp")
 # V1's, V2's, V4's and V3's first designs, which the sweep times beside
@@ -323,6 +333,15 @@ def _widths(k: int):
     return out
 
 
+def _launches(k, narrow=True):
+    """(c0, c1, KC) of each B1 or B2 launch over a k-column panel: the
+    chunks of :func:`_widths`, and with ``narrow`` a one-column chunk at
+    KC 1, the one-column kernels' (B1's and B2's first designs, which
+    have none, pass ``narrow=False``)."""
+    return [(c0, c1, 1 if narrow and c1 - c0 == 1 else kc)
+            for c0, c1, kc in _widths(k)]
+
+
 def _padded(x, c0, c1, kc):
     """Columns [c0, c1) of x as a contiguous float32 (rows, kc) panel,
     zero-filled beyond c1 - c0."""
@@ -347,6 +366,44 @@ def _launch_matvec(packed, coeffs, v, kc, name="matvec"):
     y = torch.empty((4 * nb, kc), dtype=torch.float32, device=packed.device)
     _run(name, packed, *coeffs, v, y, p, nb, kc)
     return y
+
+
+def _launch_crossprod_narrow(packed, coeffs, x):
+    """Launch B1's one-column kernel on the contiguous (n4,) column
+    ``x``; returns z (p, 1)."""
+    p, nb = packed.shape
+    z = torch.empty((p, 1), dtype=torch.float32, device=packed.device)
+    _run("crossprod_narrow", packed, *coeffs, x, z, p, nb, 1)
+    return z
+
+
+def _launch_matvec_narrow(packed, coeffs, v):
+    """Launch B2's one-column kernel on the contiguous (p,) column ``v``;
+    returns y (n4, 1)."""
+    p, nb = packed.shape
+    y = torch.empty((4 * nb, 1), dtype=torch.float32, device=packed.device)
+    _run("matvec_narrow", packed, *coeffs, v, y, p, nb, 1)
+    return y
+
+
+def _crossprod_chunk(name, packed, coeffs, xp, c0, c1, kc):
+    """z (p, kc) of columns [c0, c1) of xp, its columns past c1 - c0
+    zero: B1 (or, by ``name``, its first design) at ``kc``, or at KC 1
+    its one-column kernel."""
+    if kc == 1:
+        return _launch_crossprod_narrow(packed, coeffs,
+                                        xp[:, c0].contiguous())
+    return _launch_crossprod(packed, coeffs, _padded(xp, c0, c1, kc), kc,
+                             name)
+
+
+def _matvec_chunk(name, packed, coeffs, v, c0, c1, kc):
+    """y (n4, kc) of columns [c0, c1) of v, its columns past c1 - c0
+    zero: B2 (or, by ``name``, its first design) at ``kc``, or at KC 1
+    its one-column kernel."""
+    if kc == 1:
+        return _launch_matvec_narrow(packed, coeffs, v[:, c0].contiguous())
+    return _launch_matvec(packed, coeffs, _padded(v, c0, c1, kc), kc, name)
 
 
 def _launch_crossprod_ff(packed, lut6, x, kc, name="crossprod_ff"):
@@ -407,9 +464,9 @@ def _crossprod_p(name, packed, mean, invsd, xp):
         return crossprod_plain(packed, mean, invsd, xp)
     coeffs = coeff_rows(mean, invsd)
     _check_cuda(packed, xp, *coeffs)
-    outs = [_launch_crossprod(packed, coeffs, _padded(xp, c0, c1, kc), kc,
-                              name)[:, : c1 - c0]
-            for c0, c1, kc in _widths(xp.shape[1])]
+    outs = [_crossprod_chunk(name, packed, coeffs, xp, c0, c1, kc)
+            [:, : c1 - c0]
+            for c0, c1, kc in _launches(xp.shape[1], name == "crossprod")]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
@@ -430,14 +487,14 @@ def _matvec_p(name, packed, mean, invsd, v):
         return matvec_plain(packed, mean, invsd, v)
     coeffs = coeff_rows(mean, invsd)
     _check_cuda(packed, v, *coeffs)
-    outs = [_launch_matvec(packed, coeffs, _padded(v, c0, c1, kc), kc, name)
-            [:, : c1 - c0] for c0, c1, kc in _widths(v.shape[1])]
+    outs = [_matvec_chunk(name, packed, coeffs, v, c0, c1, kc)[:, : c1 - c0]
+            for c0, c1, kc in _launches(v.shape[1], name == "matvec")]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def gram_matvec_p(packed, mean, invsd, xp):
     """yp = W^T (W xp): (n4, k) -> (n4, k) -- B1 then B2 (two launches
-    per column chunk; the SNP-space intermediate stays zero-padded)."""
+    per column chunk)."""
     _check_shapes(4 * packed.shape[1], xp, "gram_matvec_p")
     if xp.device.type == "cpu":
         return matvec_plain(packed, mean, invsd,
@@ -445,9 +502,12 @@ def gram_matvec_p(packed, mean, invsd, xp):
     coeffs = coeff_rows(mean, invsd)
     _check_cuda(packed, xp, *coeffs)
     outs = []
-    for c0, c1, kc in _widths(xp.shape[1]):
-        z = _launch_crossprod(packed, coeffs, _padded(xp, c0, c1, kc), kc)
-        outs.append(_launch_matvec(packed, coeffs, z, kc)[:, : c1 - c0])
+    for c0, c1, kc in _launches(xp.shape[1]):
+        # the SNP-space intermediate stays (p, kc), zero past c1 - c0:
+        # B2 reads it as it is
+        z = _crossprod_chunk("crossprod", packed, coeffs, xp, c0, c1, kc)
+        outs.append(_matvec_chunk("matvec", packed, coeffs, z, 0, kc, kc)
+                    [:, : c1 - c0])
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
@@ -586,7 +646,9 @@ def gram_tall_ff_p(packed, lut_hi, lut_lo, mean, invsd, v, valid):
     The eps-sized correction W y_lo rides the plain kernel B1 with its
     factored-cubic decode, as in the JAX package: that decode differs
     from the exact hi table by ~eps, which lands at eps^2 of the
-    result."""
+    result.  A one-column chunk stays at kc 8 here, B1 included: B5 and
+    B3 have no one-column design, and B1 adds into the kc-8 z_lo on the
+    kc-8 y_lo that B5 wrote."""
     _check_shapes(packed.shape[0], v, "gram_tall_ff_p")
     if tuple(valid.shape) != (4 * packed.shape[1],):
         raise ValueError(

@@ -273,6 +273,141 @@ def test_b2_is_bit_equal_to_its_first_design(cuda, k, p, n):
                                v.cpu()))
 
 
+# (p, n): wide byte layouts (p of the order of n or above) and tall ones
+# (n >> p); nb = 251, 193 (nb % 16 and nb % 4 != 0: bytes staged one by
+# one), 1,024, 256 (aligned), 2,004 (nb % 16 != 0, nb % 4 == 0: 4-byte
+# copies), 5,001 (ragged) and 4,096; p = 333, 133, 1201, 40 ragged on
+# B1's 128-row blocks and B2's 64-row chunks
+NARROW_SHAPES = [(333, 1001), (133, 771), (333, 4096), (1201, 1024),
+                 (50, 8016), (40, 20004), (64, 16384)]
+
+
+def _narrow_operands(cuda, n, p):
+    """:func:`_operands` with a row of missing calls (0x55) and a row
+    holding every code, missing included, in every byte position."""
+    packed, mean, invsd, nb = _operands(cuda, n, p)
+    packed[0] = 0x55
+    packed[1] = torch.tensor([0xE4, 0x1B, 0x4E, 0xB1], dtype=torch.uint8,
+                             device=cuda).repeat(nb // 4 + 1)[:nb]
+    return packed, mean, invsd, nb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n", NARROW_SHAPES)
+def test_narrow_kernels_are_column_zero_of_kc8(cuda, p, n):
+    """B1 and B2 at one column (crossprod_narrow.cu, matvec_narrow.cu)
+    give column 0 of B1 and B2 at kc 8 on the zero-padded column bit for
+    bit, on wide and tall byte layouts with ragged p and nb and rows of
+    every code; a one-column product launches them alone, with the
+    plain versions' values."""
+    packed, mean, invsd, nb = _narrow_operands(cuda, n, p)
+    coeffs = tpk.coeff_rows(mean, invsd)
+    x = torch.randn((4 * nb, 1), device=cuda)
+    v = torch.randn((p, 1), device=cuda)
+    tpk.reset_launch_counts()
+    z = tpk.crossprod_p(packed, mean, invsd, x)
+    y = tpk.matvec_p(packed, mean, invsd, v)
+    assert tpk.launch_counts["crossprod_narrow"] == 1
+    assert tpk.launch_counts["matvec_narrow"] == 1
+    assert tpk.launch_counts["crossprod"] == tpk.launch_counts["matvec"] == 0
+    z8 = tpk._launch_crossprod(packed, coeffs, tpk._padded(x, 0, 1, 8), 8)
+    y8 = tpk._launch_matvec(packed, coeffs, tpk._padded(v, 0, 1, 8), 8)
+    assert torch.equal(z, z8[:, :1]) and torch.equal(y, y8[:, :1])
+    # the first designs keep kc 8 on one column, the same bits
+    assert torch.equal(z, tpk.crossprod_v1_p(packed, mean, invsd, x))
+    assert torch.equal(y, tpk.matvec_v1_p(packed, mean, invsd, v))
+    cpu = (packed.cpu(), mean.cpu(), invsd.cpu())
+    _close(z, tpk.crossprod_plain(*cpu, x.cpu()))
+    _close(y, tpk.matvec_plain(*cpu, v.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n", [(333, 1001), (1201, 1024)])
+def test_narrow_kernels_take_a_panels_last_column(cuda, p, n):
+    """A 33-column panel runs B1 or B2 at kc 32 and its last column
+    through the one-column kernel, with the first design's bits (which
+    pads that column to kc 8); a strided column is made contiguous, and
+    a one-column gram runs both one-column kernels."""
+    packed, mean, invsd, nb = _narrow_operands(cuda, n, p)
+    x = torch.randn((4 * nb, 33), device=cuda)
+    v = torch.randn((p, 33), device=cuda)
+    tpk.reset_launch_counts()
+    z = tpk.crossprod_p(packed, mean, invsd, x)
+    y = tpk.matvec_p(packed, mean, invsd, v)
+    for name in ("crossprod", "crossprod_narrow", "matvec", "matvec_narrow"):
+        assert tpk.launch_counts[name] == 1
+    assert torch.equal(z, tpk.crossprod_v1_p(packed, mean, invsd, x))
+    assert torch.equal(y, tpk.matvec_v1_p(packed, mean, invsd, v))
+    assert torch.equal(tpk.crossprod_p(packed, mean, invsd, x[:, 5:6]),
+                       z[:, 5:6])
+    tpk.reset_launch_counts()
+    g = tpk.gram_matvec_p(packed, mean, invsd, x[:, :1])
+    assert tpk.launch_counts["crossprod_narrow"] == 1
+    assert tpk.launch_counts["matvec_narrow"] == 1
+    assert torch.equal(g, tpk.matvec_v1_p(packed, mean, invsd,
+                                          tpk.crossprod_v1_p(
+                                              packed, mean, invsd,
+                                              x[:, :1])))
+
+
+def _padded_launches(monkeypatch):
+    """Route one-column chunks to B1 and B2 at kc 8 on the padded column,
+    the path before the one-column kernels."""
+    monkeypatch.setattr(tpk, "_launches",
+                        lambda k, narrow=True: tpk._widths(k))
+
+
+@pytest.mark.cuda
+def test_solo_scca_on_card_bit_equal_to_padded_path(cuda, tmp_path,
+                                                    monkeypatch):
+    """A solo float32 scca() on the card (the device engine: every
+    product a one-column chunk) through the one-column kernels gives the
+    fit that B1 and B2 at kc 8 on the padded columns give: U, V, d and
+    the iterations equal."""
+    from flashpca_tpu_torch import scca
+
+    ds = _card_fileset(tmp_path, 1003, 611, 12)
+    rng = np.random.default_rng(13)
+    Y = rng.standard_normal((1003, 5))
+    kw = dict(ndim=3, maxiter=200, tol=1e-5, V0=rng.normal(size=(5, 3)),
+              device=cuda)
+    tpk.reset_launch_counts()
+    got = scca(ds, Y, 2e-3, 1e-3, **kw)
+    narrow = (tpk.launch_counts["crossprod_narrow"],
+              tpk.launch_counts["matvec_narrow"])
+    assert min(narrow) > 0
+    assert tpk.launch_counts["crossprod"] + tpk.launch_counts["matvec"] <= 2
+    _padded_launches(monkeypatch)
+    tpk.reset_launch_counts()
+    want = scca(ds, Y, 2e-3, 1e-3, **kw)
+    assert tpk.launch_counts["crossprod_narrow"] == 0
+    assert tpk.launch_counts["crossprod"] >= narrow[0]
+    for a, b in ((got.U, want.U), (got.V, want.V), (got.d, want.d),
+                 (got.n_iters, want.n_iters)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["wide", "tall", "sharded"])
+def test_pca_and_check_launch_no_narrow_kernel(cuda, tmp_path, mode):
+    """pca(k=20) + check() run their panels at kc 16-32: neither
+    one-column kernel launches, on the wide, tall and 2-shard operators."""
+    from flashpca_tpu_torch import check, pca
+    from flashpca_tpu_torch.parallel import sharded_operator, snp_mesh
+
+    n, p = (2003, 300) if mode == "tall" else (803, 1450)
+    ds = _card_fileset(tmp_path, n, p, 14)
+    tpk.reset_launch_counts()
+    if mode == "sharded":
+        r = pca(sharded_operator(ds, snp_mesh(["cuda:0"] * 2)), 20)
+    else:
+        r = pca(ds, 20, device=cuda, operator_mode=mode)
+    check(ds, r.vectors, r.values, device=cuda)
+    assert tpk.launch_counts["crossprod"] > 0
+    assert tpk.launch_counts["crossprod_narrow"] == 0
+    assert tpk.launch_counts["matvec_narrow"] == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [3, 16, 24, 28, 32, 40])
 @pytest.mark.parametrize("n", [1001, 771, 4096])
@@ -766,7 +901,7 @@ def test_tall_streamed_crossprod_on_card_matches_cpu(cuda, k):
     1,000 bytes, the last ragged) on the card against the CPU operator
     on the same bytes through the kernels' plain versions, both at
     float32: each column within 1e-5 of its largest |z|; one B1 launch
-    a block."""
+    a block (a vector's through B1's one-column kernel)."""
     from flashpca_tpu_torch import TallStreamingOperator
 
     cs = _chip_smoke()
@@ -782,7 +917,8 @@ def test_tall_streamed_crossprod_on_card_matches_cpu(cuda, k):
     x = x[:, 0] if k == 1 else x
     tpk.reset_launch_counts()
     z = op.crossprod(x.to(cuda))
-    assert tpk.launch_counts["crossprod"] == op.n_blocks
+    b1 = "crossprod_narrow" if k == 1 else "crossprod"
+    assert tpk.launch_counts[b1] == op.n_blocks
     assert sum(tpk.launch_counts.values()) == op.n_blocks
     want = ref.crossprod(x).double().reshape(p, k)
     err = (z.cpu().double().reshape(p, k) - want).abs().amax(0)

@@ -66,6 +66,8 @@ def _chip_smoke():
      "fp_crossprod_intsub_v1"),
     ("crossprod_split3", "crossprod_split3_v2.cu", "fp_crossprod_split3"),
     ("crossprod_split3_v1", "crossprod_split3.cu", "fp_crossprod_split3_v1"),
+    ("crossprod_narrow", "crossprod_narrow.cu", "fp_crossprod_narrow"),
+    ("matvec_narrow", "matvec_narrow.cu", "fp_matvec_narrow"),
 ])
 def test_b5_entries_map_to_their_sources(name, src, entry):
     """B5's and (since their redesigns) B1's, B2's, B3's, B4's and V1's to
@@ -104,7 +106,7 @@ def test_b5_is_built_from_its_new_source():
 
 def test_b1_is_built_from_its_new_source():
     assert {"crossprod_v2.cu", "crossprod.cu"} <= set(_build.sources())
-    assert len(_build.sources()) == 14 and len(_build.KERNELS) == 22
+    assert len(_build.sources()) == 16 and len(_build.KERNELS) == 24
 
 
 def test_b3_is_built_from_its_new_source():
@@ -175,6 +177,26 @@ def test_production_b1_library_holds_only_b1():
     # the note names the TPU kernel it replaces and its bound
     assert "packed_matvec.py::_crossprod_kernel" in prod
     assert "2*KC*p*n4 operations" in prod
+
+
+@pytest.mark.parametrize("name, tpu", [
+    ("crossprod_narrow", "_crossprod_kernel"),
+    ("matvec_narrow", "_matvec_kernel")])
+def test_one_column_libraries_hold_only_their_entry(name, tpu):
+    """B1's and B2's one-column kernels: one C entry a source, launched
+    by the operators (counted, never a comparison entry), B1's and B2's
+    arguments; the note names the TPU kernel it serves, its byte bound,
+    its budget a genotype and the sums it keeps (column 0 of kc 8)."""
+    src, entry, argtypes = _build.KERNELS[name]
+    with open(os.path.join(_build.CSRC, src)) as fh:
+        text = fh.read()
+    assert re.findall(r'extern "C" int (\w+)\(', text) == [entry]
+    assert argtypes == _build.KERNELS[name.split("_")[0]][2]
+    assert name in tpk.OPERATOR_KERNELS and name in tpk.launch_counts
+    assert f"packed_matvec.py::{tpu} at one" in text
+    assert "3.76 ms" in text and "Budget:" in text
+    assert "column 0 of B" in text and "at kc 8" in text
+    assert "--use_fast_math" not in text
 
 
 def test_v1_and_v4_are_built_from_their_new_source():
@@ -436,7 +458,8 @@ def test_b4_wrappers_on_cpu_are_plain(novl_operands, name, k):
     assert all(c == 0 for c in tpk.launch_counts.values())
 
 
-@pytest.mark.parametrize("name", ("crossprod",) + tpk.B1_KERNELS)
+@pytest.mark.parametrize("name", ("crossprod", "crossprod_narrow")
+                         + tpk.B1_KERNELS)
 def test_chip_smoke_has_rows_for_b1_and_its_first_design(name):
     """The rows chip_smoke's timing phase reads for B1 and its first
     design, so the phase cannot KeyError on the card."""
@@ -692,7 +715,8 @@ def test_chip_smoke_has_rows_for_b3_and_its_first_design(name):
     assert cs.DOTS[name] == 2
 
 
-@pytest.mark.parametrize("name", ("matvec",) + tpk.B2_KERNELS)
+@pytest.mark.parametrize("name", ("matvec", "matvec_narrow")
+                         + tpk.B2_KERNELS)
 def test_chip_smoke_has_rows_for_b2_and_its_first_design(name):
     """The rows chip_smoke's timing phase reads for B2 and its first
     design: sources, the TPU kernel replaced and one product a genotype
@@ -1186,6 +1210,92 @@ def test_b4_tile_tool_exits_nonzero_without_gpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert b4_tiles.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_narrow_tile_tool_exits_nonzero_without_gpu(monkeypatch, capsys):
+    from flashpca_tpu_torch.tools import narrow_tiles
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert narrow_tiles.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_narrow_tile_tool_reads_production_tiles():
+    """The one-column tool reads each production tile from its source's
+    default, as the tile tools do, and tries other ones through
+    ``run_tiles``: production the wrapper on the column, the first
+    design kc 8 on the padded column."""
+    from flashpca_tpu_torch.tools import b3_tiles, narrow_tiles
+
+    runs = narrow_tiles.trials()
+    assert [r["name"] for r in runs] == ["crossprod_narrow", "matvec_narrow"]
+    for run in runs:
+        prod = b3_tiles.production_tiles(_build.KERNELS[run["name"]][0],
+                                         run["macro"])
+        assert set(prod) == {1} and len(prod[1]) == 3
+        assert set(run["tiles"]) == {1} and run["tiles"][1]
+        assert prod[1] not in run["tiles"][1]
+        assert (b3_tiles.instantiation(run["kernel"], 1)
+                == f"{run['kernel']}<1>")
+        assert callable(getattr(run["module"], run["name"] + "_p"))
+        assert callable(getattr(run["module"], run["name"] + "_v1_p"))
+        assert all(kc == 1 for *_, kc in run["shapes"])
+
+
+def test_narrow_tile_trials_hold_each_tile_to_kc8(monkeypatch, tmp_path):
+    """The shared loop on the one-column trials on the CPU, the launches
+    and the build stubbed: production (the one-column chunk), the first
+    design (kc 8 on the padded column, its column 0) and a tile with the
+    same sums are bit-equal, one that moves one bit is not."""
+    from flashpca_tpu_torch.tools import b3_tiles as bt
+    from flashpca_tpu_torch.tools import narrow_tiles as nt
+
+    (tmp_path / "crossprod_narrow.log").write_text("")
+    usage = "Used 103 registers, used 1 barriers"
+    good, bad = (2, 4, 768), (3, 4, 512)
+
+    def narrow(packed, coeffs, x):
+        return coeffs[0][:, None] * x.sum() + coeffs[1][:, None]
+
+    def padded(packed, coeffs, x8, kc, name="crossprod"):
+        return torch.cat([narrow(packed, coeffs, x8[:, 0].contiguous()),
+                          torch.zeros((packed.shape[0], kc - 1))], dim=1)
+
+    def off_by_one_bit(*args):
+        z = nt.WRAPPERS.crossprod_narrow_p(*args)
+        return torch.nextafter(z, torch.full_like(z, np.inf))
+
+    monkeypatch.setattr(tpk, "_launch_crossprod_narrow", narrow)
+    monkeypatch.setattr(tpk, "_launch_crossprod", padded)
+    monkeypatch.setattr(_build, "build_all", lambda: str(tmp_path))
+    monkeypatch.setattr(bt, "build_tiles", lambda *a: {
+        (1, good): (nt.WRAPPERS.crossprod_narrow_p, usage),
+        (1, bad): (off_by_one_bit, usage)})
+    monkeypatch.setattr(bt, "event_ms", lambda fn, reps: (fn(), 2.5)[1])
+    run = dict(nt.trials()[0], shapes=(("wide", 133, 70, 1),),
+               tiles={1: [good, bad]},
+               launcher=lambda fn, *args: (lambda: fn(*args[:-1])))
+    rows = bt.run_tiles(torch.device("cpu"), **run)
+    prod = bt.production_tiles("crossprod_narrow.cu",
+                               "CROSSPROD_NARROW_TILE")[1]
+    assert [(r["tile"], r["bit_equal"]) for r in rows] == [
+        ("production " + str(prod), True), ("first design", True),
+        (str(good), True), (str(bad), False)]
+
+
+def test_narrow_tile_occupancy_counts():
+    """The one-column tiles' threads, shared bytes and blocks an SM from
+    the sources' layouts (B1: 2 KB tables a row slot and two stages of
+    48-byte rows and x; B2: two stages of 64 rows' tables and bytes), and
+    their grids at the wide shape."""
+    from flashpca_tpu_torch.tools import narrow_tiles as nt
+
+    assert nt.crossprod_occupancy(1, (2, 4, 512), 103) == (128, 41_984, 4)
+    assert nt.crossprod_occupancy(1, (1, 2, 1024), 64) == (64, 11_264, 16)
+    assert nt.crossprod_grid((2, 4, 512), 100_352, 125_440) == 392
+    assert nt.matvec_occupancy(1, (2, 4, 512), 64) == (128, 40_960, 5)
+    assert nt.matvec_occupancy(1, (4, 2, 384), 64) == (64, 40_960, 5)
+    assert nt.matvec_grid((2, 4, 512), 100_352, 125_440) == 490
 
 
 def test_b2_tile_tool_exits_nonzero_without_gpu(monkeypatch, capsys):

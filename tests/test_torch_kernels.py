@@ -157,3 +157,117 @@ def test_column_chunks_cover_wide_panels():
     assert tpk._widths(16) == [(0, 16, 16)]
     assert tpk._widths(24) == [(0, 24, 24)]
     assert tpk._widths(40) == [(0, 32, 32), (32, 40, 8)]
+
+
+@pytest.mark.parametrize("k, want", [
+    (1, [(0, 1, 1)]),
+    (33, [(0, 32, 32), (32, 33, 1)]),
+    (65, [(0, 32, 32), (32, 64, 32), (64, 65, 1)]),
+    (2, [(0, 2, 8)]),
+    (3, [(0, 3, 8)]),
+    (8, [(0, 8, 8)]),
+    (16, [(0, 16, 16)]),
+    (24, [(0, 24, 24)]),
+    (40, [(0, 32, 32), (32, 40, 8)]),
+])
+def test_one_column_chunks_take_the_narrow_kernels(k, want):
+    """B1's and B2's launches: a one-column chunk at KC 1 (the one-column
+    kernels), every other chunk at _widths' kc 8-32; the first designs
+    (``narrow=False``) keep _widths' chunks, kc 8 for one column."""
+    assert tpk._launches(k) == want
+    assert tpk._launches(k, narrow=False) == tpk._widths(k)
+
+
+def _launch_spies(monkeypatch):
+    """Stand-ins for the kernel launches and the padded copy, recording
+    what each chunk of a product launched: ("narrow", column length,
+    contiguous) or ("kc", kc), and ("padded", kc)."""
+    calls = []
+
+    def narrow(rows):
+        def launch(packed, coeffs, col):
+            calls.append(("narrow", tuple(col.shape), col.is_contiguous()))
+            return torch.zeros((rows, 1))
+        return launch
+
+    def panel(rows):
+        def launch(packed, coeffs, x, kc, name=None):
+            calls.append(("kc", kc))
+            return torch.zeros((rows, kc))
+        return launch
+
+    padded = tpk._padded
+
+    def spy(x, c0, c1, kc):
+        calls.append(("padded", kc))
+        return padded(x, c0, c1, kc)
+
+    monkeypatch.setattr(tpk, "_launch_crossprod_narrow", narrow(5))
+    monkeypatch.setattr(tpk, "_launch_matvec_narrow", narrow(12))
+    monkeypatch.setattr(tpk, "_launch_crossprod", panel(5))
+    monkeypatch.setattr(tpk, "_launch_matvec", panel(12))
+    monkeypatch.setattr(tpk, "_padded", spy)
+    return calls
+
+
+@pytest.mark.parametrize("k", [1, 33])
+@pytest.mark.parametrize("kind", ["crossprod", "matvec"])
+def test_one_column_chunk_launches_without_a_padded_copy(monkeypatch, kind,
+                                                         k):
+    """A one-column chunk (k = 1, or the last column of 33) launches the
+    one-column kernel on the column itself, made contiguous, with no
+    padded copy; the 32-column chunk keeps its kc 32 launch.  Each
+    chunk's output is KC columns wide (the wrappers keep c1 - c0 of
+    them; the gram hands B1's to B2 as it is)."""
+    calls = _launch_spies(monkeypatch)
+    rows = 12 if kind == "crossprod" else 5
+    x = torch.randn((rows, k))
+    chunk = tpk._crossprod_chunk if kind == "crossprod" else tpk._matvec_chunk
+    out = [chunk(kind, None, None, x, c0, c1, kc)
+           for c0, c1, kc in tpk._launches(k)]
+    want = [("narrow", (rows,), True)]
+    if k == 33:
+        want = [("padded", 32), ("kc", 32)] + want
+    assert calls == want
+    assert [o.shape[1] for o in out] == [kc for _, _, kc in
+                                         tpk._launches(k)]
+
+
+def _decoded64(packed, mean, invsd):
+    """W (p, n4) in float64 from the float32 factored-cubic coefficients,
+    permuted sample order: column s * nb + b is 2-bit field s of byte b."""
+    b0, b1, b2 = (c.double()[:, None] for c in tpk.coeff_rows(mean, invsd))
+    planes = []
+    for s in range(4):
+        t = ((packed >> (2 * s)) & 3).double()
+        planes.append((t - 1.0) * (b0 + t * (b1 + t * b2)))
+    return torch.cat(planes, dim=1)
+
+
+@pytest.mark.parametrize("p, n", [(133, 1001), (333, 771), (40, 20004)])
+def test_one_column_plain_products_match_float64(p, n):
+    """One-column crossprod_p and matvec_p on the CPU (their plain
+    versions, the oracle of the one-column kernels) against float64 on
+    ragged p and nb, with a row of missing calls (exactly 0) and a row
+    holding every code: within 1e-5 of the sum of |terms|."""
+    rng = np.random.default_rng(p + n)
+    nb = (n + 3) // 4
+    packed = rng.integers(0, 256, (p, nb), dtype=np.uint8)
+    packed[0] = 0x55
+    packed[1] = np.resize(np.array([0xE4, 0x1B, 0x4E, 0xB1], np.uint8), nb)
+    packed = _t(packed)
+    mean = _t(rng.uniform(0.1, 1.9, p).astype(np.float32))
+    invsd = _t(rng.uniform(0.5, 2.0, p).astype(np.float32))
+    invsd[-3:] = 0.0
+    x = _t(rng.standard_normal((4 * nb, 1)).astype(np.float32))
+    v = _t(rng.standard_normal((p, 1)).astype(np.float32))
+    W = _decoded64(packed, mean, invsd)
+    z = tpk.crossprod_p(packed, mean, invsd, x)
+    y = tpk.matvec_p(packed, mean, invsd, v)
+    assert z.shape == (p, 1) and y.shape == (4 * nb, 1)
+    assert float(z[0, 0]) == 0.0
+    for got, want, scale in ((z, W @ x.double(), W.abs() @ x.double().abs()),
+                             (y, W.T @ v.double(),
+                              W.T.abs() @ v.double().abs())):
+        assert bool(((got.double() - want).abs() <= 1e-5 * scale
+                     + 1e-30).all())

@@ -210,7 +210,9 @@ def test_build_packed_operator_resident_only(data):
     assert stats["packed_bytes"] == data["packed"].size
     assert set(stats["kernel_launches"]) == {"crossprod", "matvec",
                                              "crossprod_ff", "matvec_ff",
-                                             "matvec_ff_novl"}
+                                             "matvec_ff_novl",
+                                             "crossprod_narrow",
+                                             "matvec_narrow"}
 
 
 @pytest.mark.parametrize("device_type, dtype, use_kernels, want", [

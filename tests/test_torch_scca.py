@@ -659,10 +659,12 @@ def test_smoke_scca_phases_on_the_cpu(monkeypatch):
 
 
 def test_smoke_scca_rows(monkeypatch):
-    """chip_smoke.scca_rows: B1 and B2 timed on one column with the solo
-    runs' launches, and the grid's rows copied from the kc 16 ones (the
-    current designs) with the grid's launches, the streamed launch
-    medians of the copied rows dropped."""
+    """chip_smoke.scca_rows: B1 and B2 timed on one column (their
+    one-column kernels) and, where the solo runs launched it, B2 at kc 8
+    on their ndim columns (Px = X U), with the solo runs' launches; and
+    the grid's rows copied from the kc 16 ones (the current designs) with
+    the grid's launches, the streamed launch medians of the copied rows
+    dropped."""
     cs = _chip_smoke()
     widths = []
 
@@ -676,14 +678,24 @@ def test_smoke_scca_rows(monkeypatch):
              "stream_launch_ms": 2.0}
             for nm in ("crossprod", "matvec", "crossprod_ff")
             for k in (16, 24)]
-    rows = cs.scca_rows(None, {"crossprod": 24, "matvec": 28},
+    rows = cs.scca_rows(None, {"crossprod_narrow": 24, "matvec_narrow": 28,
+                               "matvec": 0},
                         {"crossprod": 41, "matvec": 44}, base,
                         "_streaming", slices=4)
-    assert widths == [[("crossprod", 1), ("matvec", 1)]]
+    assert widths == [[("crossprod_narrow", 1), ("matvec_narrow", 1)]]
     assert [(r["name"], r["k"], r["path"], r["launches"]) for r in rows] == [
-        ("crossprod", 1, "scca_streaming", 24),
-        ("matvec", 1, "scca_streaming", 28),
+        ("crossprod_narrow", 1, "scca_streaming", 24),
+        ("matvec_narrow", 1, "scca_streaming", 28),
         ("crossprod", 16, "scca_grid_streaming", 41),
         ("matvec", 16, "scca_grid_streaming", 44)]
     assert all("stream_launch_ms" not in r for r in rows)
     assert rows[2]["ms"] == 1.0 and base[0]["path"] == "streaming"
+    # a solo fit of 3 dimensions: its Px on B2 at kc 8
+    widths.clear()
+    rows = cs.scca_rows(None, {"crossprod_narrow": 30, "matvec_narrow": 33,
+                               "matvec": 1}, {}, [], "", slices=32, ndim=3)
+    assert widths == [[("crossprod_narrow", 1), ("matvec_narrow", 1),
+                       ("matvec", 3)]]
+    assert [(r["name"], r["k"], r["path"], r["launches"]) for r in rows] == [
+        ("crossprod_narrow", 1, "scca", 30), ("matvec_narrow", 1, "scca", 33),
+        ("matvec", 3, "scca", 1)]
